@@ -144,3 +144,45 @@ def test_step_loop_matches_teacher_forced_labels(engines):
     assert int(ps.bank.count) == int(js.bank.count)
     np.testing.assert_array_equal(ps.bank.order.numpy(),
                                   np.asarray(js.bank.order))
+
+
+@pytest.mark.parametrize("do_write", [True, False])
+def test_eviction_tie_takes_the_lowest_slot(do_write):
+    """A full bank whose candidates score exactly alike (zero attention
+    mass, equal survival counts): the victim is the lowest eligible slot on
+    both sides, and a frame that writes nothing leaves order and count."""
+    from rmem_tpu.memory import init_bank as jinit_bank
+    from rmem_tpu.memory.eviction import update_bank_inplace as jupdate
+    from rmem_tpu_torch.memory import init_bank, update_bank_inplace
+
+    L, S, B, hw, c = 1, 5, 1, 4, 2
+    jb = jinit_bank(L, S, B, hw, c, c)
+    jb = jb.replace(count=jnp.int32(4), times=jnp.asarray([3, 2, 2, 2, 0],
+                                                          jnp.int32),
+                    scored=jnp.asarray([True] * 4 + [False]),
+                    order=jnp.asarray([0, 3, 1, 2, 4], jnp.int32))
+    pb = init_bank(L, S, B, hw, c, c)
+    pb.count = torch.tensor(4, dtype=torch.int32)
+    pb.times = torch.tensor([3, 2, 2, 2, 0], dtype=torch.int32)
+    pb.scored = torch.tensor([True] * 4 + [False])
+    pb.order = torch.tensor([0, 3, 1, 2, 4], dtype=torch.int32)
+    rng = np.random.RandomState(3)
+    new_k = rng.randn(L, B, hw, c).astype(np.float32)
+    mass = np.zeros((B, hw, S), np.float32)
+    fg = np.ones((B, hw), np.float32)
+    jb = jupdate(jb, jnp.asarray(new_k), jnp.asarray(new_k),
+                 jnp.asarray(do_write), 1, 3, jnp.asarray(mass),
+                 jnp.asarray(fg))
+    pb = update_bank_inplace(pb, torch.from_numpy(new_k),
+                             torch.from_numpy(new_k), torch.tensor(do_write),
+                             1, 3, torch.from_numpy(mass),
+                             torch.from_numpy(fg))
+    np.testing.assert_array_equal(pb.order.numpy(), np.asarray(jb.order))
+    np.testing.assert_array_equal(pb.times.numpy(), np.asarray(jb.times))
+    np.testing.assert_array_equal(pb.k.numpy(), np.asarray(jb.k))
+    assert int(pb.count) == int(jb.count) == 4
+    if do_write:
+        # slots 1-3 tie; the lowest, physical slot 1, is overwritten and
+        # keeps the newest rank
+        assert pb.order.tolist() == [0, 3, 1, 2, 4]
+        np.testing.assert_array_equal(pb.k.numpy()[:, 1], new_k)
