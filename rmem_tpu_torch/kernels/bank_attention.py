@@ -53,7 +53,7 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, Lq, h*dh]; bank_k [S, B, Lk, h*dh]; bank_v [S, B, Lk, h*dv];
     count: int32 scalar tensor of valid slots, read on the device; qbias
-    [B, h, Lq, S] f32 or None. On the card: bf16 q/k/v, dh = 128,
+    [B, h, Lq, S] f32 or None. On the card: bf16 q/k/v, one head of 128,
     dv a multiple of 256, all contiguous."""
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
@@ -70,7 +70,9 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
         _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     _check(q.shape == (b, lq, num_heads * dh), f"q shape {tuple(q.shape)}")
     _check(bank_v.shape[:3] == (s, b, lk), f"bank_v shape {tuple(bank_v.shape)}")
-    _check(dh == 128, f"head width {dh} (kernel takes 128)")
+    _check(num_heads == 1 and dh == 128,
+           f"{num_heads} heads of width {dh} (the kernel is held to its "
+           "plain version for one head of 128, r50_deaotl's)")
     _check(dv % 256 == 0, f"value width {dv} (multiple of 256)")
     _check(0 < true_lk <= lk, f"true_lk {true_lk} for {lk} keys")
     _check(s <= 16, f"{s} slots (kernel takes up to 16)")

@@ -41,8 +41,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int, max_dis: int,
                     scale: float) -> torch.Tensor:
     """q, k [B, HW, h*dh]; v [B, HW, h*dv]; rel_emb [B, HW, h*(2m+1)^2] made
-    from the unscaled q. Returns [B, HW, h*dv]. On the card: bf16, dh in
-    {64, 128}, dv a multiple of 128, all contiguous."""
+    from the unscaled q. Returns [B, HW, h*dv]. On the card: bf16, one head
+    of 128, dv a multiple of 128, all contiguous."""
     if not q.is_cuda:
         return local_attention_plain(q, k, v, rel_emb, size_2d, num_heads,
                                      max_dis, scale)
@@ -61,7 +61,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(v.shape[:2] == (b, hw), f"v shape {tuple(v.shape)}")
     _check(rel_emb.shape == (b, hw, num_heads * win2),
            f"rel_emb shape {tuple(rel_emb.shape)}")
-    _check(dh == 128, f"head width {dh} (kernel takes 128)")
+    _check(num_heads == 1 and dh == 128,
+           f"{num_heads} heads of width {dh} (the kernel is held to its "
+           "plain version for one head of 128, r50_deaotl's)")
     _check(dv % 128 == 0, f"value width {dv} (multiple of 128)")
     fn = build.load("local_attention").rmem_local_attention
     fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P]

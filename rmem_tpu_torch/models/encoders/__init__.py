@@ -19,13 +19,10 @@ def build_encoder(name: str):
                               "tiny)")
 
 
-# FoldedBN name -> the conv siblings it may follow, first match wins (the
-# pairing table of the JAX package's fold_bn_params)
-_BN_CONV = {
-    "bn": ("conv",), "bn0": ("conv",), "bn1": ("conv1", "fc1", "stem2"),
-    "bn2": ("conv2",), "bn3": ("conv3",),
-    "downsample_bn": ("downsample_conv",),
-}
+# FoldedBN name -> the conv it follows: the ResNet rows of the JAX package's
+# fold_bn_params pairing table (the tiny encoder has no BN)
+_BN_CONV = {"bn1": "conv1", "bn2": "conv2", "bn3": "conv3",
+            "downsample_bn": "downsample_conv"}
 
 
 def fold_bn_params(state_dict: Dict[str, torch.Tensor]
@@ -38,12 +35,10 @@ def fold_bn_params(state_dict: Dict[str, torch.Tensor]
         if not (key.startswith("encoder.") and key.endswith(".scale")):
             continue
         parent, bn = key[:-len(".scale")].rsplit(".", 1)
-        for cand in _BN_CONV.get(bn, ()):
-            wkey = f"{parent}.{cand}.weight"
-            w = state_dict.get(wkey)
-            if w is not None and w.dim() == 4 and w.shape[0] == scale.shape[0]:
-                out[wkey] = (w.float() * scale.float()[:, None, None, None]
-                             ).to(w.dtype)
-                out[key] = torch.ones_like(scale)
-                break
+        wkey = f"{parent}.{_BN_CONV.get(bn)}.weight"
+        w = state_dict.get(wkey)
+        if w is not None and w.dim() == 4 and w.shape[0] == scale.shape[0]:
+            out[wkey] = (w.float() * scale.float()[:, None, None, None]
+                         ).to(w.dtype)
+            out[key] = torch.ones_like(scale)
     return out

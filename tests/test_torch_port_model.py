@@ -15,11 +15,13 @@ from rmem_tpu.config import get_config as jget_config
 from rmem_tpu.models import build_vos_model as jbuild
 from rmem_tpu.models import init_forward
 from rmem_tpu.models.decoders.fpn import FPNSegmentationHead as JFPN
+from rmem_tpu.models.encoders import fold_bn_params as jfold_bn_params
 from rmem_tpu.models.encoders.resnet import ResNet50 as JResNet50
 from rmem_tpu.models.gpm import GPMBlock as JGPMBlock
 from rmem_tpu_torch.config import get_config
 from rmem_tpu_torch.models import build_vos_model, init_params
 from rmem_tpu_torch.models.decoders.fpn import FPNSegmentationHead
+from rmem_tpu_torch.models.encoders import fold_bn_params
 from rmem_tpu_torch.models.encoders.resnet import ResNet50
 from rmem_tpu_torch.models.gpm import GPMBlock
 from rmem_tpu_torch.utils import params_from_jax
@@ -77,6 +79,28 @@ def test_params_from_jax_sets_every_parameter(model):
     port.load_state_dict(sd, strict=True)      # no key missing or unused
     for name, p in port.state_dict().items():
         assert p.shape == sd[name].shape, name
+
+
+def test_fold_bn_params_matches_jax():
+    """The bf16 engine's BN fold gives the JAX fold's weights for every
+    ResNet-50 leaf: each scale folded into its conv, then reset to 1."""
+    shapes = jax.eval_shape(
+        lambda r: JResNet50(dtype=jnp.float32).init(
+            r, jnp.zeros((1, 65, 65, 3), jnp.float32)),
+        jax.random.PRNGKey(0))["params"]
+    rng = np.random.RandomState(5)
+    tree = {"encoder": jax.tree_util.tree_map(
+        lambda s: rng.randn(*s.shape).astype(np.float32), shapes)}
+    ref = params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                 jfold_bn_params(tree)))
+    out = fold_bn_params(params_from_jax(tree))
+    assert out.keys() == ref.keys()
+    # the stem's BN, three in each of the 3 + 4 + 6 bottlenecks, and the
+    # three projection shortcuts' BNs
+    scales = [k for k in ref if k.endswith(".scale")]
+    assert len(scales) == 43 and all(torch.all(ref[k] == 1) for k in scales)
+    for k in ref:
+        torch.testing.assert_close(out[k], ref[k], rtol=0, atol=0)
 
 
 def test_resnet50_and_fpn_at_65():
