@@ -7,7 +7,8 @@
 //
 // What bounds it on an H100: bytes. At the main path's shapes (31 x 54
 // grid, dh = 128, dv = 1024, bf16) a layer needs ~0.9 GFLOP but moves
-// ~8 MB (q, k, v, the 225-wide bias and the output), ~2.5 us at 3.35 TB/s
+// ~8.5 MB (q, k, v and the 225-wide bias read once, the output written
+// once), ~2.5 us at 3.35 TB/s
 // against ~1 us of tensor-core time. Design: a block owns an 8 x 8 tile of
 // queries and a 128-wide slice of dv. Its keys are the tile's halo, the
 // (8 + 2m)^2 = 484 grid cells around it, taken in 64-key chunks, so each

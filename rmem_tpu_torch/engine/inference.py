@@ -69,8 +69,7 @@ class InferenceEngine:
     casts every weight to bf16 (as the JAX engine does with its params)."""
 
     def __init__(self, model: nn.Module, cfg: Config,
-                 device: Union[None, str, torch.device] = None,
-                 need_record: bool = True):
+                 device: Union[None, str, torch.device] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         if cfg.compute_dtype == "bfloat16":
@@ -81,7 +80,6 @@ class InferenceEngine:
         else:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
-        self.need_record = need_record and not cfg.no_long_memory
 
     # -- helpers -------------------------------------------------------
     def _to_dev(self, x, dtype=None) -> torch.Tensor:
@@ -142,7 +140,7 @@ class InferenceEngine:
         logits = self._decode(intermediates, xs, obj_nums)
         record0 = (torch.zeros((b, hw, cfg.max_mem_slots),
                                dtype=torch.float32, device=self.device)
-                   if self.need_record else None)
+                   if not cfg.no_long_memory else None)
         step = self._to_dev(frame_step, torch.int32)
         state = EngineState(
             bank=bank, short_k=sk, short_v=sv, mems=mems, record=record0,
@@ -168,7 +166,7 @@ class InferenceEngine:
         logits = self._decode(intermediates, xs, state.obj_nums)
         state.frame_step = state.frame_step + 1
         state.mems = mems
-        state.record = record if self.need_record else None
+        state.record = record
         state.logits4x = logits
         return state, logits
 
@@ -182,17 +180,12 @@ class InferenceEngine:
         if cfg.no_long_memory:
             return state
         do_long = state.frame_step - state.last_mem_step >= state.gap
-        record = fg = None
-        if self.need_record and state.record is not None:
-            b, hw = lk.shape[1], lk.shape[2]
-            up = resize_bilinear(state.logits4x, self._enc_hw(state),
-                                 cfg.model_align_corners)
-            prob = torch.softmax(up.float(), dim=-1)
-            record = state.record
-            fg = (1.0 - prob[..., 0]).reshape(b, hw)
+        b, hw = lk.shape[1], lk.shape[2]
+        up = resize_bilinear(state.logits4x, self._enc_hw(state),
+                             cfg.model_align_corners)
+        fg = 1.0 - torch.softmax(up.float(), dim=-1)[..., 0].reshape(b, hw)
         update_bank_inplace(state.bank, lk, lv, do_long, cfg.former_mem_len,
-                            cfg.latter_mem_len, record, fg,
-                            use_attn_weight=record is not None)
+                            cfg.latter_mem_len, state.record, fg)
         state.last_mem_step = torch.where(do_long, state.frame_step,
                                           state.last_mem_step)
         return state

@@ -12,8 +12,6 @@ waits for the host. Ties resolve to the lowest slot, as jnp.argmin does.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from rmem_tpu_torch.memory.bank import MemoryBank, write_slot
@@ -27,17 +25,15 @@ IGNORE_FORMER = 1
 def update_bank_inplace(bank: MemoryBank, new_k: torch.Tensor,
                         new_v: torch.Tensor, do_write: torch.Tensor,
                         former_len: int, latter_len: int,
-                        record_mass: Optional[torch.Tensor] = None,
-                        fg_prob: Optional[torch.Tensor] = None,
-                        use_attn_weight: bool = True) -> MemoryBank:
+                        record_mass: torch.Tensor,
+                        fg_prob: torch.Tensor) -> MemoryBank:
     """Append + evict as ONE single-slot write, in place.
 
     Slots never move: when the bank is full the new entry overwrites the
     victim and `order` tracks temporal rank. Frames with do_write False
     write into the spare slot S-1, which is never valid, instead of
     branching on the host. new_k/new_v [L, B, HW, *]; record_mass
-    [B, HWq, S]; fg_prob [B, HWq]. With use_attn_weight False the victim is
-    the slot of temporal rank `former_len` (FIFO)."""
+    [B, HWq, S]; fg_prob [B, HWq]."""
     capacity = bank.capacity
     if capacity <= former_len + latter_len:
         raise ValueError("the bank needs a spare slot beyond former+latter")
@@ -47,32 +43,24 @@ def update_bank_inplace(bank: MemoryBank, new_k: torch.Tensor,
     is_full = n_old >= (former_len + latter_len)
     valid = slot_ids < n_old
 
-    if use_attn_weight:
-        if record_mass is None or fg_prob is None:
-            raise ValueError("scored eviction needs record_mass and fg_prob")
-        w = torch.einsum("bqs,bq->s", record_mass.float(),
-                         fg_prob.float()) / record_mass.shape[0]
-        w = torch.where(valid, w, 0.0)
-        w = w / torch.clamp(w.sum(), min=1e-12)
-        new_score = torch.where(
-            bank.scored, (1.0 - MOVING_MEAN_FACTOR) * bank.score
-            + MOVING_MEAN_FACTOR * w, w)
-        new_score = torch.where(valid, new_score, bank.score)
-        new_scored = bank.scored | valid
-        new_times = torch.where(valid, bank.times + 1, bank.times)
-        counts = torch.where(valid, new_times.float(), 0.0)
-        # the reference slot is pinned and never a candidate
-        counts = torch.cat([n_old.float().reshape(1), counts[1:]])
-        bonus = UCB_MUL * torch.sqrt(torch.log(counts.sum())
-                                     / (counts + UCB_ADD))
-        candidates = (bank.order >= IGNORE_FORMER) & valid
-        score_total = torch.where(candidates, new_score + bonus,
-                                  torch.full_like(new_score, float("inf")))
-        victim = torch.argmin(score_total).to(torch.int32)
-    else:
-        victim = torch.argmax((bank.order == former_len).to(torch.int32)
-                              ).to(torch.int32)
-        new_score, new_scored, new_times = bank.score, bank.scored, bank.times
+    w = torch.einsum("bqs,bq->s", record_mass.float(),
+                     fg_prob.float()) / record_mass.shape[0]
+    w = torch.where(valid, w, 0.0)
+    w = w / torch.clamp(w.sum(), min=1e-12)
+    new_score = torch.where(
+        bank.scored, (1.0 - MOVING_MEAN_FACTOR) * bank.score
+        + MOVING_MEAN_FACTOR * w, w)
+    new_score = torch.where(valid, new_score, bank.score)
+    new_scored = bank.scored | valid
+    new_times = torch.where(valid, bank.times + 1, bank.times)
+    counts = torch.where(valid, new_times.float(), 0.0)
+    # the reference slot is pinned and never a candidate
+    counts = torch.cat([n_old.float().reshape(1), counts[1:]])
+    bonus = UCB_MUL * torch.sqrt(torch.log(counts.sum()) / (counts + UCB_ADD))
+    candidates = (bank.order >= IGNORE_FORMER) & valid
+    score_total = torch.where(candidates, new_score + bonus,
+                              torch.full_like(new_score, float("inf")))
+    victim = torch.argmin(score_total).to(torch.int32)
 
     target = torch.where(is_full, victim, n_old)
     write_idx = torch.where(do_write, target,

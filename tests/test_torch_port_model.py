@@ -2,6 +2,7 @@
 (moved over by params_from_jax) on the same inputs, in f32."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -30,11 +31,27 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def _perturb(tree, rng, amount=0.1):
-    """Random offsets on every leaf, so unit BN scales and zero biases take
-    part in the comparison."""
-    return jax.tree_util.tree_map(
-        lambda a: a + amount * rng.randn(*a.shape).astype(np.float32), tree)
+def _init(module, rng, *args, amount=0.1, **kwargs):
+    """Variables of a flax module as its initialisers make them (kernels
+    lecun-normal, scales 1, every other leaf 0), drawn with numpy from `rng`
+    on the shapes of `jax.eval_shape` (flax's own init runs the model on the
+    CPU, op by op, at several times the cost), then offset by `amount` x
+    N(0, 1) on every leaf, so unit scales and zero biases take part in the
+    comparison."""
+    shapes = jax.eval_shape(lambda r: module.init(r, *args, **kwargs),
+                            jax.random.PRNGKey(0))
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            base = rng.randn(*s.shape) / math.sqrt(math.prod(s.shape[:-1]))
+        elif name == "scale":
+            base = np.ones(s.shape)
+        else:
+            base = np.zeros(s.shape)
+        return (base + amount * rng.randn(*s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def _close(out, ref, rel):
@@ -107,8 +124,8 @@ def test_resnet50_and_fpn_at_65():
     rng = np.random.RandomState(0)
     x = rng.rand(1, 65, 65, 3).astype(np.float32)
     jenc = JResNet50(dtype=jnp.float32)
-    evar = _perturb(jenc.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
-    jxs = jenc.apply(evar, jnp.asarray(x))
+    evar = _init(jenc, rng, jnp.asarray(x))
+    jxs = jax.jit(jenc.apply)(evar, jnp.asarray(x))
     enc = ResNet50()
     enc.load_state_dict(params_from_jax(evar["params"]), strict=True)
     with torch.no_grad():
@@ -121,8 +138,8 @@ def test_resnet50_and_fpn_at_65():
     jdec = JFPN(in_dim=512, out_dim=11, decode_intermediate_input=False,
                 hidden_dim=256, shortcut_dims=dims)
     inputs = [jxs[-1], jnp.asarray(feat)]
-    dvar = _perturb(jdec.init(jax.random.PRNGKey(1), inputs, jxs), rng)
-    jlog = jdec.apply(dvar, inputs, jxs)
+    dvar = _init(jdec, rng, inputs, jxs)
+    jlog = jax.jit(jdec.apply)(dvar, inputs, jxs)
     dec = FPNSegmentationHead(512, 11, False, 256, dims)
     dec.load_state_dict(params_from_jax(dvar["params"]), strict=True)
     with torch.no_grad():
@@ -154,10 +171,10 @@ def test_gpm_block_r50_widths_on_5x5(layer_idx):
             cur_pe, slot_pe if layer_idx else slot_pe[:1], size)
     # init through the id_emb path too, so every parameter exists
     init_args = args[:7] + (r(1, hw, d), cur_pe, slot_pe[:1], size)
-    var = _perturb(jb.init(jax.random.PRNGKey(0), *init_args,
-                           need_record=True), rng, 0.02)
-    jt, jtid, jmems, jrec = jb.apply(var, *args, need_record=True,
-                                     true_lk=hw if layer_idx else None)
+    var = _init(jb, rng, *init_args, amount=0.02, need_record=True)
+    jt, jtid, jmems, jrec = jax.jit(lambda v, a: jb.apply(
+        v, *a, size, need_record=True, true_lk=hw if layer_idx else None))(
+        var, args[:-1])
 
     tb = GPMBlock(d, 1, 1, layer_idx=layer_idx)
     tb.load_state_dict(params_from_jax(var["params"]), strict=True)
