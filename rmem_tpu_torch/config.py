@@ -1,5 +1,5 @@
 """Config for the PyTorch port: the model and stage presets of R50-DeAOTL +
-RMem inference, as one dataclass.
+RMem inference and training, as one dataclass.
 
 A copy of the fields of `rmem_tpu/config.py` that the port reads, with the
 same names and defaults, so that one preset name gives the same model on
@@ -38,10 +38,52 @@ class Config:
     no_long_memory: bool = False
 
     # ---- memory cadence: frames between long-term writes ----
+    train_long_term_mem_gap: int = 9999
     test_long_term_mem_gap: int = 9999
 
+    # ---- data ----
+    data_randomcrop: Tuple[int, int] = (465, 465)
+    data_seq_len: int = 5
+
+    # ---- train ----
+    train_total_steps: int = 100_000
+    train_start_step: int = 0
+    train_weight_decay: float = 0.07
+    train_weight_decay_exemption: Tuple[str, ...] = (
+        "absolute_pos_embed", "relative_position_bias_table",
+        "relative_emb_v", "conv_out",
+    )
+    train_lr: float = 2e-4
+    train_lr_min: float = 1e-5
+    train_lr_power: float = 0.9
+    train_lr_encoder_ratio: float = 0.1
+    train_lr_warm_up_ratio: float = 0.05
+    train_lr_cosine_decay: bool = False
+    train_lr_restart: int = 1
+    train_aux_loss_weight: float = 1.0
+    train_aux_loss_ratio: float = 1.0
+    train_batch_size: int = 16
+    train_log_step: int = 20
+    train_top_k_percent_pixels: float = 0.15
+    train_seq_training_start_ratio: float = 0.5
+    train_hard_mining_ratio: float = 0.5
+    train_ema_ratio: float = 0.1
+    train_clip_grad_norm: float = 5.0
+    train_encoder_freeze_at: int = 2
+    # per-frame recompute in the backward: "full" or "dots" checkpoints each
+    # frame of the clip (the port has no policy that keeps matmul outputs,
+    # so "dots" is "full" here); "none" keeps every activation
+    train_remat: str = "dots"
+    # branches of the JAX training step the port does not take: each must
+    # stay off (the trainer raises NotImplementedError otherwise)
+    reverse_infer: bool = False
+    gru_memory: bool = False
+    var_loss_weight: float = 0.0
+
     # ---- numerics ----
-    compute_dtype: str = "bfloat16"   # activations and weights in the engine
+    # activations on the card (autocast in training, where the parameters
+    # stay f32); "float32" everywhere on the CPU tests
+    compute_dtype: str = "bfloat16"
 
     @property
     def max_mem_slots(self) -> int:
@@ -64,18 +106,24 @@ MODEL_PRESETS: Dict[str, Dict[str, Any]] = {
                         model_encoder_embedding_dim=64,
                         model_self_heads=1, model_att_heads=1,
                         model_decoder_intermediate_lstt=False,
-                        model_lstt_num=2, test_long_term_mem_gap=2),
+                        model_lstt_num=2, train_long_term_mem_gap=2,
+                        test_long_term_mem_gap=2),
     "r50_deaotl": dict(model_vos="deaot", model_encoder="resnet50",
                        model_encoder_dim=(256, 512, 1024, 1024),
                        model_self_heads=1, model_att_heads=1,
                        model_decoder_intermediate_lstt=False,
-                       model_lstt_num=3, test_long_term_mem_gap=5),
+                       model_lstt_num=3, train_long_term_mem_gap=2,
+                       test_long_term_mem_gap=5),
 }
 
-# the stage presets' fields that inference reads
+# the stage presets' fields that the port reads
 STAGE_PRESETS: Dict[str, Dict[str, Any]] = {
     "default": {},
-    "pre_vost": dict(model_ignore_token=True),
+    "pre_vost": dict(train_total_steps=20_000, data_seq_len=15,
+                     train_long_term_mem_gap=4, model_ignore_token=True),
+    # synthetic smoke stage: small crops, short clips
+    "test": dict(train_total_steps=100, data_seq_len=3, train_batch_size=2,
+                 data_randomcrop=(129, 129)),
 }
 
 

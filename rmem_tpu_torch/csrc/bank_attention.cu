@@ -4,7 +4,15 @@
 //
 // Replaces rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer
 // (the Pallas _forward/_kernel pair) and, with S = 1 and no bias, the
-// reference frame's self-memory call of pallas_bank_attention.
+// reference frame's self-memory call of pallas_bank_attention. With an lse
+// pointer it is also the forward of pallas_bank_attention's VJP (_forward
+// with want_lse): the per-row log-sum-exp of the scaled logits is written
+// for the backward (csrc/bank_attention_bwd.cu), and the output is written
+// in f32 (out32) instead of bf16, because the backward's row term
+// delta = rowsum(dout * out) must not carry the output's bf16 rounding: dq
+// is a small difference of large terms, and delta from the bf16 output
+// missed it by 7.5e-2 of its largest value on a training call. The serving
+// path passes null for both and writes the bf16 output.
 //
 // What bounds it on an H100: operations. At the main path's shapes
 // (Lq = Lk = 1674, up to 9 valid slots, dh = 128, dv = 1024) the work is
@@ -98,7 +106,8 @@ __global__ void __launch_bounds__(kThreads)
 bank_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const float* __restrict__ qbias,
             const int* __restrict__ count_ptr, bf16* __restrict__ out,
-            float* __restrict__ rec, int B, int H, int Lq, int S, int Lk,
+            float* __restrict__ rec, float* __restrict__ lse,
+            float* __restrict__ out32, int B, int H, int Lq, int S, int Lk,
             int true_lk, int dv, float scale) {
   using L = Smem<D, DVB>;
   extern __shared__ __align__(128) char smem[];
@@ -300,14 +309,23 @@ bank_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int col = c0 + kh * (DVB / 2) + nt * 8 + 2 * t;
-    if (qa < Lq)
-      *reinterpret_cast<unsigned*>(out + ((size_t)b * Lq + qa) * HDV + h * dv +
-                                   col) = pack_bf16(o[nt][0] * il0,
-                                                    o[nt][1] * il0);
-    if (qb < Lq)
-      *reinterpret_cast<unsigned*>(out + ((size_t)b * Lq + qb) * HDV + h * dv +
-                                   col) = pack_bf16(o[nt][2] * il1,
-                                                    o[nt][3] * il1);
+    const size_t oa = ((size_t)b * Lq + qa) * HDV + h * dv + col;
+    const size_t ob = ((size_t)b * Lq + qb) * HDV + h * dv + col;
+    if (out32 != nullptr) {
+      if (qa < Lq)
+        *reinterpret_cast<float2*>(out32 + oa) =
+            make_float2(o[nt][0] * il0, o[nt][1] * il0);
+      if (qb < Lq)
+        *reinterpret_cast<float2*>(out32 + ob) =
+            make_float2(o[nt][2] * il1, o[nt][3] * il1);
+    } else {
+      if (qa < Lq)
+        *reinterpret_cast<unsigned*>(out + oa) =
+            pack_bf16(o[nt][0] * il0, o[nt][1] * il0);
+      if (qb < Lq)
+        *reinterpret_cast<unsigned*>(out + ob) =
+            pack_bf16(o[nt][2] * il1, o[nt][3] * il1);
+    }
   }
   if (write_rec) {
     const size_t base = ((size_t)b * H + h) * Lq;
@@ -315,14 +333,20 @@ bank_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (qa < Lq) rec[(base + qa) * S + j] = sMass[r0 * SMAX + j] * il0;
       if (qb < Lq) rec[(base + qb) * S + j] = sMass[r1 * SMAX + j] * il1;
     }
+    // one dv slice writes the row's log-sum-exp; every slice computed the
+    // same m and l from the same logits
+    if (lse != nullptr) {
+      if (qa < Lq) lse[base + qa] = l0 > 0.f ? m0 + logf(l0) : -INFINITY;
+      if (qb < Lq) lse[base + qb] = l1 > 0.f ? m1 + logf(l1) : -INFINITY;
+    }
   }
 }
 
 template <int D, int DVB>
 static int launch(const void* q, const void* k, const void* v,
                   const void* qbias, const void* count, void* out, void* rec,
-                  int B, int H, int Lq, int S, int Lk, int true_lk, int dv,
-                  float scale, cudaStream_t stream) {
+                  void* lse, void* out32, int B, int H, int Lq, int S, int Lk,
+                  int true_lk, int dv, float scale, cudaStream_t stream) {
   constexpr int smem = Smem<D, DVB>::bytes;
   auto kern = bank_kernel<D, DVB>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -331,23 +355,25 @@ static int launch(const void* q, const void* k, const void* v,
   dim3 grid((Lq + BQ - 1) / BQ, dv / DVB, B * H);
   kern<<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)qbias,
-      (const int*)count, (bf16*)out, (float*)rec, B, H, Lq, S, Lk, true_lk,
-      dv, scale);
+      (const int*)count, (bf16*)out, (float*)rec, (float*)lse, (float*)out32,
+      B, H, Lq, S, Lk, true_lk, dv, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rmem
 
 // Returns the cudaError_t of the launch (0 on success); -1 for a head width
-// other than 128, the only one instantiated.
+// other than 128, the only one instantiated. lse [B*H, Lq] f32 or null;
+// out32 [B, Lq, H*dv] f32 or null (then out, bf16, is written instead).
 extern "C" int rmem_bank_attention(const void* q, const void* k,
                                    const void* v, const void* qbias,
                                    const void* count, void* out, void* rec,
-                                   int B, int H, int Lq, int S, int Lk,
+                                   void* lse, void* out32, int B, int H,
+                                   int Lq, int S, int Lk,
                                    int true_lk, int dh, int dv, float scale,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dh != 128) return -1;
-  return rmem::launch<128, 256>(q, k, v, qbias, count, out, rec, B, H, Lq,
-                                S, Lk, true_lk, dv, scale, st);
+  return rmem::launch<128, 256>(q, k, v, qbias, count, out, rec, lse, out32,
+                                B, H, Lq, S, Lk, true_lk, dv, scale, st);
 }

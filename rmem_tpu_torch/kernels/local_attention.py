@@ -4,6 +4,11 @@ window of short-term keys around it, plus a learned relative bias.
 `local_attention` launches the CUDA kernel `csrc/local_attention.cu` for
 tensors on the card and runs `local_attention_plain` for tensors on the
 CPU. It replaces rmem_tpu/kernels/local_attention.py:pallas_local_attention.
+
+`local_attention_trainable` (K5) is its differentiable form, the
+counterpart of pallas_local_attention_trainable: on the card the forward is
+the kernel and the backward is autograd of the plain version at the saved
+inputs; on the CPU it is autograd through the plain version.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.kernels import build, plain_vjp
 from rmem_tpu_torch.ops.attention import dense_local_attention
 
 _P = ctypes.c_void_p
@@ -78,3 +83,34 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 local_attention.launches = 0
+
+
+class _LocalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rel_emb, size_2d, num_heads, max_dis, scale):
+        ctx.save_for_backward(q, k, v, rel_emb)
+        ctx.args = (size_2d, num_heads, max_dis, scale)
+        return local_attention(q, k, v, rel_emb, size_2d, num_heads, max_dis,
+                               scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = plain_vjp(
+            lambda *x: local_attention_plain(*x, *ctx.args),
+            ctx.saved_tensors, ctx.needs_input_grad[:4], g)
+        return (*grads, None, None, None, None)
+
+
+def local_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, rel_emb: torch.Tensor,
+                              size_2d: Tuple[int, int], num_heads: int,
+                              max_dis: int, scale: float) -> torch.Tensor:
+    """Differentiable `local_attention`. On the card the inputs are taken in
+    bf16, the kernel's type."""
+    if not q.is_cuda:
+        return local_attention_plain(q, k, v, rel_emb, size_2d, num_heads,
+                                     max_dis, scale)
+    bf = torch.bfloat16
+    return _LocalAttention.apply(
+        q.to(bf).contiguous(), k.to(bf).contiguous(), v.to(bf).contiguous(),
+        rel_emb.to(bf).contiguous(), size_2d, num_heads, max_dis, scale)

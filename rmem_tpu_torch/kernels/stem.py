@@ -4,6 +4,11 @@ scale + bias)) for 3-channel images, NHWC in and out.
 `stem` launches the CUDA kernel `csrc/stem.cu` for tensors on the card and
 runs `stem_plain` for tensors on the CPU. It replaces
 rmem_tpu/kernels/stem.py:pallas_stem (the forward of pallas_stem_trainable).
+
+`stem_trainable` (K7) is its differentiable form, the counterpart of
+pallas_stem_trainable: on the card the forward is the kernel and the
+backward is autograd of `stem_plain` in bf16 at the saved inputs (JAX's
+VJP of xla_stem_chain); on the CPU it is autograd through the plain version.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.kernels import build, plain_vjp
 from rmem_tpu_torch.ops.layers import max_pool_3x3_s2
 
 _P = ctypes.c_void_p
@@ -75,3 +80,27 @@ def stem(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
 
 
 stem.launches = 0
+
+
+class _Stem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, scale, bias):
+        ctx.save_for_backward(x, weight, scale, bias)
+        return stem(x, weight, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(stem_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                         g.to(torch.bfloat16))
+
+
+def stem_trainable(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Differentiable `stem`. On the card the weight, scale and bias are
+    taken in bf16, the kernel's type (their gradients flow back to the f32
+    parameters through the cast)."""
+    if not x.is_cuda:
+        return stem_plain(x, weight, scale, bias)
+    bf = torch.bfloat16
+    return _Stem.apply(x.float().contiguous(), weight.to(bf).contiguous(),
+                       scale.to(bf).contiguous(), bias.to(bf).contiguous())

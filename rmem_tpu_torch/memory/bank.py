@@ -3,13 +3,14 @@
 Counterpart of `rmem_tpu/memory/bank.py`: S = former + latter + 1 slots are
 allocated once, [L, S, B, HW, C] per plane, with a validity `count` held as
 a device tensor, so no frame waits for the host to learn how full the bank
-is. The JAX bank is immutable; this one is written in place (one slot per
-write), which is what the JAX package gets from buffer donation.
+is. The JAX bank is immutable; the inference engine's is written in place
+(one slot per write), which is what the JAX package gets from buffer
+donation, and training's is rebuilt out of place (see below).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -72,3 +73,36 @@ def bank_append(bank: MemoryBank, new_k: torch.Tensor,
     write_slot(bank, bank.count, new_k, new_v)
     bank.count = bank.count + 1
     return bank
+
+
+# ---- out of place, for training ------------------------------------------
+# Autograd and the per-frame checkpoint recompute must see every bank they
+# saved unchanged, so training builds each new bank as a new tensor; the
+# count stays on the device.
+
+def bank_appended(bank: MemoryBank, new_k: torch.Tensor,
+                  new_v: torch.Tensor) -> MemoryBank:
+    """A new bank with [L, B, HW, *] written at slot `count` (physical
+    order == temporal order)."""
+    i = bank.count.reshape(1).long()
+    return replace(bank,
+                   k=bank.k.index_copy(1, i, new_k[:, None].to(bank.k.dtype)),
+                   v=bank.v.index_copy(1, i, new_v[:, None].to(bank.v.dtype)),
+                   count=bank.count + 1)
+
+
+def bank_compact(bank: MemoryBank, drop_idx: torch.Tensor) -> MemoryBank:
+    """A new bank without slot `drop_idx` (a device scalar): later slots
+    shift down, temporal order kept, the statistics move with the data and
+    those of vacated slots reset."""
+    s = bank.capacity
+    i = torch.arange(s, device=bank.count.device)
+    src = torch.where(i < drop_idx, i, torch.clamp(i + 1, max=s - 1))
+    new_count = bank.count - 1
+    fresh = i < new_count
+    return replace(
+        bank, k=bank.k.index_select(1, src), v=bank.v.index_select(1, src),
+        count=new_count,
+        score=torch.where(fresh, bank.score[src], 0.0),
+        scored=fresh & bank.scored[src],
+        times=torch.where(fresh, bank.times[src], 0).to(torch.int32))

@@ -8,13 +8,18 @@ it enters a moving mean (factor 0.8); a UCB bonus 1.5*sqrt(log(sum n) /
 over slots of temporal rank >= 1 (never the reference frame). The write
 flag, the victim, the write index and `order` all stay tensors, so no frame
 waits for the host. Ties resolve to the lowest slot, as jnp.argmin does.
+
+Training evicts FIFO instead (`evict_if_full`, the JAX function with
+use_attn_weight=False), out of place.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rmem_tpu_torch.memory.bank import MemoryBank, write_slot
+from dataclasses import fields
+
+from rmem_tpu_torch.memory.bank import MemoryBank, bank_compact, write_slot
 
 MOVING_MEAN_FACTOR = 0.8
 UCB_ADD = 8.0
@@ -88,3 +93,16 @@ def update_bank_inplace(bank: MemoryBank, new_k: torch.Tensor,
     write_slot(bank, write_idx, new_k, new_v)
     bank.count = torch.where(do_write & ~is_full, n_old + 1, n_old)
     return bank
+
+
+def evict_if_full(bank: MemoryBank, former_len: int,
+                  latter_len: int) -> MemoryBank:
+    """Training's rule, out of place: when count > former + latter, drop
+    the slot at `former_len` (FIFO after the former slots). The decision
+    stays on the device: both banks are built and one is selected."""
+    should = bank.count > (former_len + latter_len)
+    evicted = bank_compact(bank, torch.full_like(bank.count, former_len))
+    return MemoryBank(**{
+        f.name: torch.where(should, getattr(evicted, f.name),
+                            getattr(bank, f.name))
+        for f in fields(MemoryBank)})

@@ -2,7 +2,8 @@
 stages 1-3 (stage 4 is not run; the 16x feature is emitted twice).
 
 Counterpart of `rmem_tpu/models/encoders/resnet.py`. The stem (conv7x7/s2,
-BN, relu, maxpool) is one call of the stem kernel (kernels/stem.py).
+BN, relu, maxpool) is one call of the stem kernel (kernels/stem.py), through
+its differentiable wrapper (K7) when the module trains.
 Feature maps are NCHW; on the card they are channels-last in memory, as the
 stem kernel writes NHWC.
 """
@@ -67,8 +68,10 @@ class ResNet(nn.Module):
             self.stages.append(names)
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
-        x = stem_kernel.stem(x, self.conv1.weight, self.bn1.scale,
-                             self.bn1.bias).permute(0, 3, 1, 2)
+        stem = (stem_kernel.stem_trainable if self.training
+                else stem_kernel.stem)
+        x = stem(x, self.conv1.weight, self.bn1.scale,
+                 self.bn1.bias).permute(0, 3, 1, 2)
         xs = []
         for names in self.stages:
             for name in names:

@@ -7,6 +7,12 @@ short-term attention (kernel K4) read the concatenated values jointly and
 the output splits back into the two streams. Each attention is gated
 (output * silu(U)), then a depthwise conv and a projection. The gated
 self-attention is plain PyTorch: it has no kernel.
+
+In training mode (`module.train()`) both attentions go through the
+differentiable wrappers instead: bank attention through K1 with lse and K2,
+local attention through K5, and the slot temporal PE is added to the bank's
+keys (the slab add of the JAX package's VJP path) rather than passed as the
+inference kernel's logit bias.
 """
 
 from __future__ import annotations
@@ -134,17 +140,25 @@ class GPMBlock(nn.Module):
             true_lk = None
 
         q_t = curr_q + cur_pe if cur_pe is not None else curr_q
-        bias = (None if slot_pe is None
-                else slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
-        agg, record = bank_kernel.bank_attention_infer(
-            q_t, bank_k, bank_v, count, self.att_heads, scale,
-            true_lk=true_lk, qbias=bias)
-        cat_tgt2 = self.long_tail(agg, cat_u, size_2d)
-
         rel = self.relative_emb_k(curr_q)  # from the unscaled q
-        agg3 = local_kernel.local_attention(
-            curr_q, short_k, short_v, rel, size_2d, self.att_heads,
-            MAX_LOCAL_DIS, scale)
+        if self.training:
+            if slot_pe is not None:
+                bank_k = bank_k + slot_pe.to(bank_k.dtype)[:, None, None, :]
+            agg, record = bank_kernel.bank_attention_train(
+                q_t, bank_k, bank_v, count, scale)
+            agg3 = local_kernel.local_attention_trainable(
+                curr_q, short_k, short_v, rel, size_2d, self.att_heads,
+                MAX_LOCAL_DIS, scale)
+        else:
+            bias = (None if slot_pe is None
+                    else slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
+            agg, record = bank_kernel.bank_attention_infer(
+                q_t, bank_k, bank_v, count, self.att_heads, scale,
+                true_lk=true_lk, qbias=bias)
+            agg3 = local_kernel.local_attention(
+                curr_q, short_k, short_v, rel, size_2d, self.att_heads,
+                MAX_LOCAL_DIS, scale)
+        cat_tgt2 = self.long_tail(agg, cat_u, size_2d)
         cat_tgt3 = self.short_tail(agg3, cat_u, size_2d)
 
         tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)

@@ -39,6 +39,17 @@ LOGIT_TOL = 1e-4
 TIE_EPS = 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """ATen on one thread here: the test workers share few cores, and
+    PyTorch's default of one thread per visible CPU makes each of them
+    wait on the others many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _video():
     rng = np.random.RandomState(0)
     imgs = rng.rand(FRAMES + 1, 1, *HW, 3).astype(np.float32)

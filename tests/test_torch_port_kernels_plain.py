@@ -31,6 +31,17 @@ REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """ATen on one thread here: the test workers share few cores, and
+    PyTorch's default of one thread per visible CPU makes each of them
+    wait on the others many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _rand(rng, *shape):
     return rng.randn(*shape).astype(np.float32)
 
@@ -93,7 +104,7 @@ def test_local_attention_plain_matches_pallas(size):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("hw,with_pallas", [((33, 47), True),
+@pytest.mark.parametrize("hw,with_pallas", [((17, 23), True),
                                              ((29, 30), False)])
 def test_stem_plain_matches_jax_chain(hw, with_pallas):
     """bf16 on both sides, as the JAX chain is bf16: the conv sums in f32 in

@@ -31,6 +31,17 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """ATen on one thread here: the test workers share few cores, and
+    PyTorch's default of one thread per visible CPU makes each of them
+    wait on the others many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _init(module, rng, *args, amount=0.1, **kwargs):
     """Variables of a flax module as its initialisers make them (kernels
     lecun-normal, scales 1, every other leaf 0), drawn with numpy from `rng`

@@ -29,6 +29,17 @@ torch.backends.cudnn.allow_tf32 = False
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """ATen on one thread here: the test workers share few cores, and
+    PyTorch's default of one thread per visible CPU makes each of them
+    wait on the others many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _rand(rng, *shape):
     return rng.randn(*shape).astype(np.float32)
 

@@ -1,5 +1,6 @@
-"""Rules of the port: it imports neither JAX nor the JAX package, and its
-entry points never fall back to the CPU unasked."""
+"""Rules of the port: it imports neither JAX nor the JAX package, its
+entry points never fall back to the CPU unasked, and neither a served frame
+nor a training step reads a device value back to the host."""
 
 import re
 import subprocess
@@ -12,11 +13,26 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from rmem_tpu_torch.config import get_config
+from rmem_tpu_torch.data.synthetic import gen_blob_batch
 from rmem_tpu_torch.engine import InferenceEngine
+from rmem_tpu_torch.engine.train_state import TrainState
+from rmem_tpu_torch.managers.trainer import train_step
 from rmem_tpu_torch.models import build_vos_model, init_params
+from rmem_tpu_torch.ops.masks import host_id_shuffle_matrix
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "rmem_tpu_torch"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """ATen on one thread here: the test workers share few cores, and
+    PyTorch's default of one thread per visible CPU makes each of them
+    wait on the others many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _modules():
@@ -86,7 +102,30 @@ def test_engine_step_reads_nothing_back_to_the_host():
     state, _ = eng.scan_steps(state, frames[:4], (60, 70))   # fill, evict
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.step(state, frames[4], (60, 70))
-    reads = [e.key for e in prof.key_averages()
-             if e.key in ("aten::item", "aten::_local_scalar_dense",
-                          "aten::is_nonzero", "aten::nonzero")]
-    assert reads == []
+    assert _host_reads(prof) == []
+
+
+def _host_reads(prof):
+    return [e.key for e in prof.key_averages()
+            if e.key in ("aten::item", "aten::_local_scalar_dense",
+                         "aten::is_nonzero", "aten::nonzero")]
+
+
+@pytest.mark.parametrize("step", [0, 60], ids=["gt_labels", "curriculum"])
+def test_train_step_reads_nothing_back_to_the_host(step):
+    """A training step (3 frames, each checkpointed, a long-term write
+    every frame into 1 + 1 slots, so the bank fills and evicts) reads no
+    device value on the host, forward, recompute and backward, with the
+    ground-truth labels and under the use_prev_pred curriculum: the frame
+    loop branches on host integers only."""
+    cfg = get_config("test", model="tiny_deaotl", compute_dtype="float32",
+                     data_seq_len=3, train_batch_size=1, latter_mem_len=1,
+                     train_long_term_mem_gap=1)
+    state = TrainState.create(init_params(build_vos_model("deaot", cfg)))
+    state.step = step
+    batch = gen_blob_batch(torch.Generator().manual_seed(0), 1, 3, (33, 33))
+    shuffle = torch.from_numpy(host_id_shuffle_matrix(
+        np.random.RandomState(0), 11, 1))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_step(state, batch, shuffle, cfg)
+    assert _host_reads(prof) == []
