@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (rmem_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--frames N] [--train-steps N] [--profile]
+    python3 chip_smoke.py [--frames N] [--profile]
     python3 chip_smoke.py --mutants
 
 Run from the root of a checkout. Phases, any failure ending the run with a
@@ -31,7 +31,7 @@ non-zero exit code:
    teacher-forced with the former's labels so both banks take the same
    writes up to the full bank; hold the logits and labels of every frame
    of the two engines against each other;
-5. drive the training path: N steps (default 6) of R50-DeAOTL pre_vost at
+5. drive the training path: 6 steps of R50-DeAOTL pre_vost at
    465x465, 15 frames, 4 clips of seeded synthetic blobs, with the
    use_prev_pred curriculum starting inside the run. Launch counts are
    zeroed just before and read just after (per step too); every training
@@ -115,6 +115,7 @@ TRAIN_HW = (465, 465)
 TRAIN_GRID = (30, 30)
 TRAIN_T = 15
 TRAIN_B = 4
+TRAIN_STEPS = 6
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
@@ -416,9 +417,15 @@ def check_train_kernels(dev):
     qb, kb_, vb = b * hw * dh * 2, kv * b * dh * 2, kv * b * dv * 2
     ob, sb = b * hw * dv * 2, b * hw * 4
     pb = b * count * hw * lkp * 2
-    # the library's attention over all S slots, the invalid ones masked
-    k_lib = bk.permute(1, 0, 2, 3).reshape(b, 1, S * hw, dh).contiguous()
-    v_lib = bvv.permute(1, 0, 2, 3).reshape(b, 1, S * hw, dv).contiguous()
+    # the library's attention, no slot mass: over the valid slots only (the
+    # kernels' work), and over all S slots with the invalid ones masked by
+    # an additive mask (2.5x the keys at 4 of 10)
+    def lib_kv(slots):
+        return [t[:slots].permute(1, 0, 2, 3).reshape(b, 1, slots * hw, -1)
+                .contiguous() for t in (bk, bvv)]
+
+    lib_valid = lib_kv(count)
+    lib_all = lib_kv(S)
     mask = torch.zeros((b, 1, hw, S * hw), dtype=bf, device=dev)
     mask[..., kv:] = float("-inf")
     rows = {
@@ -431,7 +438,7 @@ def check_train_kernels(dev):
             nbytes=qb + kb_ + vb + 2 * ob + b * hw * S * 4 + sb,   # f32 out
             err=max(errs["out"], errs["lse"]),
             library=lambda: F.scaled_dot_product_attention(
-                q[:, None], k_lib, v_lib, attn_mask=mask, scale=scale)),
+                q[:, None], *lib_valid, scale=scale)),
         "bank_attention_bwd_ds": dict(
             replaces="rmem_tpu/kernels/bank_attention.py:581",
             source="rmem_tpu_torch/csrc/bank_attention_bwd.cu",
@@ -475,34 +482,48 @@ def check_train_kernels(dev):
             library_ms=(None if r["library"] is None
                         else cuda_ms(r["library"], 10)))
 
+    entries["bank_attention_lse"]["library_masked_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q[:, None], *lib_all,
+                                               attn_mask=mask, scale=scale),
+        10)
+
     # the whole K2 backward against autograd of the plain forward and the
-    # library's attention backward (slot mask additive, no slot mass)
+    # library's attention backward (no slot mass), its forward + backward
+    # less its forward
     k2 = lambda: kb.bank_attention_bwd(q, bk, bvv, cnt, out, rec, lse, dout,
                                        drec, scale)
-    lib_ins = [t.detach().requires_grad_() for t in (q[:, None], k_lib,
-                                                     v_lib)]
 
-    def sdpa(backward: bool):
-        o = F.scaled_dot_product_attention(*lib_ins, attn_mask=mask,
-                                           scale=scale)
-        if backward:
-            torch.autograd.grad(o, lib_ins, dout[:, None])
+    def sdpa_bwd_ms(kv_lib, attn_mask):
+        ins = [t.detach().requires_grad_() for t in (q[:, None], *kv_lib)]
 
-    fwd_ms = cuda_ms(lambda: sdpa(False), 10)
+        def run(backward: bool):
+            o = F.scaled_dot_product_attention(*ins, attn_mask=attn_mask,
+                                               scale=scale)
+            if backward:
+                torch.autograd.grad(o, ins, dout[:, None])
+
+        return cuda_ms(lambda: run(True), 10) - cuda_ms(lambda: run(False),
+                                                        10)
+
     whole = dict(
         ms=cuda_ms(k2, 10),
         plain_ms=cuda_ms(lambda: kb.bank_attention_bwd_plain(
             q, bk, bvv, cnt, dout, drec, scale), 3),
-        library_bwd_ms=cuda_ms(lambda: sdpa(True), 10) - fwd_ms,
-        # reads q, k, v, dout, out (f32), lse, drec, rec; writes dq, dk, dv
-        bound_ms=bound(2.0 * b * hw * kv * (4 * dh + 3 * dv),
+        library_bwd_ms=sdpa_bwd_ms(lib_valid, None),
+        library_bwd_masked_ms=sdpa_bwd_ms(lib_all, mask),
+        # S.T recomputed (dh) and g = dout.v^T (dv) once each, then dq and
+        # dk (dh each) and dv (dv): 3 dh + 2 dv per query, valid key and
+        # batch element; reads q, k, v, dout, out (f32), lse, drec, rec;
+        # writes dq, dk, dv
+        bound_ms=bound(2.0 * b * hw * kv * (3 * dh + 2 * dv),
                        2 * qb + kb_ + vb + 3 * ob + sb + 2 * b * hw * S * 4
                        + S * b * hw * (dh + dv) * 2)[0],
         held=errs)
     print(f"K2 whole backward: {whole['ms']:.3f} ms (plain autograd "
-          f"{whole['plain_ms']:.3f} ms, library attention backward "
-          f"{whole['library_bwd_ms']:.3f} ms, bound {whole['bound_ms']:.3f} "
-          "ms)")
+          f"{whole['plain_ms']:.3f} ms, library attention backward over the "
+          f"{count} valid slots {whole['library_bwd_ms']:.3f} ms, over all "
+          f"{S} with a mask {whole['library_bwd_masked_ms']:.3f} ms, bound "
+          f"{whole['bound_ms']:.3f} ms)")
 
     # ---- K5: local attention forward kernel + plain backward ----
     lq_ = randn(b, hw, dh, scale=2.0)
@@ -569,7 +590,8 @@ def check_train_kernels(dev):
     print(f"K7 stem_trainable (fwd + bwd) over {x.shape[0]} frames: max rel "
           f"err of the gradients {serr:.3e}")
     ho, wo = (TRAIN_HW[0] - 1) // 2 + 1, (TRAIN_HW[1] - 1) // 2 + 1
-    s_flops = 3 * 2.0 * 147 * 64 * ho * wo * x.shape[0]
+    # the forward conv and dW; the image takes no gradient, so no dx
+    s_flops = 2 * 2.0 * 147 * 64 * ho * wo * x.shape[0]
     s_bytes = x.numel() * 4 + 2 * sout.numel() * 2 + wt.numel() * 2 * 2
     b_ms, b_by = bound(s_flops, s_bytes)
     entries["stem_trainable"] = dict(
@@ -797,17 +819,18 @@ TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
                  ("stem", "stem"))
 
 
-def train_config(steps: int):
+def train_config():
     """pre_vost R50-DeAOTL at the card's batch, with train_total_steps set
     so that the use_prev_pred curriculum (from half the total) starts inside
-    a run of `steps` steps."""
+    a run of TRAIN_STEPS steps."""
     from rmem_tpu_torch.config import get_config
     return get_config("pre_vost", model="r50_deaotl",
-                      train_batch_size=TRAIN_B, train_total_steps=steps + 2)
+                      train_batch_size=TRAIN_B,
+                      train_total_steps=TRAIN_STEPS + 2)
 
 
-def train_phase(dev, steps: int, card: str, profile: bool):
-    """Phase 5: `steps` training steps of R50-DeAOTL on synthetic clips
+def train_phase(dev, card: str, profile: bool):
+    """Phase 5: TRAIN_STEPS training steps of R50-DeAOTL on synthetic clips
     (465 x 465, 15 frames, 4 clips), random weights from a seed. Launch
     counts are zeroed just before and read just after. With `profile`, one
     more step runs under torch.profiler. Returns (launch counts by
@@ -818,7 +841,8 @@ def train_phase(dev, steps: int, card: str, profile: bool):
 
     from rmem_tpu_torch.managers.trainer import Trainer, train_step
 
-    cfg = train_config(steps)
+    steps = TRAIN_STEPS
+    cfg = train_config()
     check(cfg.data_seq_len == TRAIN_T
           and tuple(cfg.data_randomcrop) == TRAIN_HW, "pre_vost's shapes")
     torch.cuda.synchronize()
@@ -888,7 +912,7 @@ def held_train_step(dev):
     from rmem_tpu_torch.kernels import stem as ks
     from rmem_tpu_torch.managers.trainer import Trainer, train_step
 
-    cfg = train_config(6)
+    cfg = train_config()
     bf = torch.bfloat16
     calls = []
     kernel_bwd = kb.bank_attention_bwd
@@ -1007,14 +1031,9 @@ def main() -> int:
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2 "
                          "check; prints no result line")
-    ap.add_argument("--train-steps", type=int, default=6,
-                    help="training steps of phase 5 (at least 3)")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")
-    if args.train_steps < 3:
-        ap.error("--train-steps must be at least 3 (the curriculum starts "
-                 "at half of steps + 2)")
 
     import torch
     if not torch.cuda.is_available():
@@ -1052,8 +1071,7 @@ def main() -> int:
                          ("stem", "stem")):
         entries[key]["launches"] = counts[fn_name]
     on_path, logit_errs, agree = plain_agreement(dev)
-    train_counts, step_times, peak = train_phase(dev, args.train_steps, card,
-                                                 args.profile)
+    train_counts, step_times, peak = train_phase(dev, card, args.profile)
     # the trainable wrappers launch K4 and K6 forwards
     for key in train_entries:
         fn_name = {"local_attention_trainable": "local_attention",

@@ -18,7 +18,8 @@ Each frame's propagate and decode run under torch.utils.checkpoint (the
 JAX package's remat of its scan body), so the backward recomputes them
 instead of keeping T sets of activations. The bank is rebuilt out of place
 at each write. Everything the loop branches on (the frame index, the write
-schedule, the curriculum flag, the step) is a host integer, and the bank's
+schedule and so the bank's fill and its evictions, the curriculum flag, the
+step) is a host integer, and the bank's
 count stays on the device, so the loop never reads back from the card.
 """
 
@@ -114,6 +115,7 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
                      lk.shape[-1], lv.shape[-1], dtype=lk.dtype,
                      device=lk.device)
     bank = bank_appended(bank, lk, lv)
+    slots = 1                       # bank.count, as the host knows it
     aux_loss = frame_losses(decode4(inter0, xs0), labels[:, 0])
 
     def propagate(feat, bank_k, bank_v, count, short_k, short_v, *xs):
@@ -139,8 +141,11 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
             mems, id_embed(pred if use_prev_pred else labels[:, i]))
         if not cfg.no_long_memory and \
                 i - last_mem >= cfg.train_long_term_mem_gap:
+            slots += 1
             bank = evict_if_full(bank_appended(bank, lk, lv),
-                                 cfg.former_mem_len, cfg.latter_mem_len)
+                                 cfg.former_mem_len, cfg.latter_mem_len,
+                                 slots)
+            slots = min(slots, cfg.former_mem_len + cfg.latter_mem_len)
             last_mem = i
         logits_seq.append(logits4)
         preds.append(pred)

@@ -91,10 +91,10 @@ def bank_appended(bank: MemoryBank, new_k: torch.Tensor,
                    count=bank.count + 1)
 
 
-def bank_compact(bank: MemoryBank, drop_idx: torch.Tensor) -> MemoryBank:
-    """A new bank without slot `drop_idx` (a device scalar): later slots
-    shift down, temporal order kept, the statistics move with the data and
-    those of vacated slots reset."""
+def bank_compact(bank: MemoryBank, drop_idx) -> MemoryBank:
+    """A new bank without slot `drop_idx` (an int or a device scalar): later
+    slots shift down, temporal order kept, the statistics move with the
+    data and those of vacated slots reset."""
     s = bank.capacity
     i = torch.arange(s, device=bank.count.device)
     src = torch.where(i < drop_idx, i, torch.clamp(i + 1, max=s - 1))

@@ -17,8 +17,6 @@ from __future__ import annotations
 
 import torch
 
-from dataclasses import fields
-
 from rmem_tpu_torch.memory.bank import MemoryBank, bank_compact, write_slot
 
 MOVING_MEAN_FACTOR = 0.8
@@ -95,14 +93,12 @@ def update_bank_inplace(bank: MemoryBank, new_k: torch.Tensor,
     return bank
 
 
-def evict_if_full(bank: MemoryBank, former_len: int,
-                  latter_len: int) -> MemoryBank:
+def evict_if_full(bank: MemoryBank, former_len: int, latter_len: int,
+                  count: int) -> MemoryBank:
     """Training's rule, out of place: when count > former + latter, drop
-    the slot at `former_len` (FIFO after the former slots). The decision
-    stays on the device: both banks are built and one is selected."""
-    should = bank.count > (former_len + latter_len)
-    evicted = bank_compact(bank, torch.full_like(bank.count, former_len))
-    return MemoryBank(**{
-        f.name: torch.where(should, getattr(evicted, f.name),
-                            getattr(bank, f.name))
-        for f in fields(MemoryBank)})
+    the slot at `former_len` (FIFO after the former slots). `count` is the
+    bank's count as the host knows it from the write schedule, so the
+    decision reads nothing back from the device."""
+    if count <= former_len + latter_len:
+        return bank
+    return bank_compact(bank, former_len)

@@ -241,7 +241,7 @@ def test_bank_append_evict_and_compact_match_jax():
         new = memory.bank_appended(pb, torch.tensor(k, dtype=torch.float32),
                                    torch.tensor(v, dtype=torch.float32))
         assert torch.equal(pb.k, kept)
-        pb = memory.evict_if_full(new, 1, 2)
+        pb = memory.evict_if_full(new, 1, 2, int(new.count))
         jb = jb.replace(score=jnp.arange(S, dtype=jnp.float32) + i,
                         scored=jnp.arange(S) % 2 == 0,
                         times=jnp.arange(S, dtype=jnp.int32) * (i + 1))
