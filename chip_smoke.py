@@ -13,7 +13,9 @@ non-zero exit code:
 2. hold each kernel against its plain PyTorch version at its path's
    shapes, in bf16, and time both (CUDA events), plus one PyTorch library
    call for the same function where one exists: the serving kernels (K1,
-   K4, K6) at 481x849, and the training kernels (K1 with its lse output,
+   K4, K6) and the opt-in inference kernels (K3, at 1, 2, 3 and 9 slots
+   per block and beside K1 on the same inputs; K8, timed through a CUDA
+   graph) at 481x849, and the training kernels (K1 with its lse output,
    K2's three backward kernels with a nonzero drec, K5 and K7 forward and
    backward) at the training shapes;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
@@ -41,7 +43,20 @@ non-zero exit code:
 6. one step of the kernel model, every K2 call of which is held against
    its plain version on the same inputs, and one step of a model whose
    kernels are all plain, on the same batch, weights and shuffle: hold the
-   loss and the global gradient norm against each other.
+   loss and the global gradient norm against each other;
+7. drive the opt-in inference path, with RMEM_BANK_QMINOR set for this
+   phase only: R50-DeAOTL with use_pallas_dwconv (K8 in every gated tail,
+   K3 for every bank-attention call), 12 objects as two id groups, four
+   augs (scales 1.0 and 1.3, each plain and flipped) from seeded raw uint8
+   480x854 frames resized and normalised on the card, 70 frames in chunks
+   of 5 through scan_steps_multi_raw, so the bank fills at frame 40 and
+   evicts. Launch counts are zeroed just before and read just after (K3
+   and K8 once per call, K1 never); labels in [0, 12], finite logits,
+   evictions counted on the device; frames/s over three 10-frame windows
+   after the bank fills (`--profile`: one more chunk under torch.profiler).
+   Then the first 12 frames again, every K3 and K8 call held against its
+   plain version, and through an all-plain engine teacher-forced with the
+   kernel engine's labels: logits and labels agree per frame.
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
@@ -116,6 +131,17 @@ TRAIN_GRID = (30, 30)
 TRAIN_T = 15
 TRAIN_B = 4
 TRAIN_STEPS = 6
+# phase 7, the opt-in inference path: raw 480 x 854 frames, 12 objects (two
+# id groups of up to 10), scales 1.0 and 1.3 each plain and flipped, 5
+# frames per chunk (one long-term write each); the bank fills at frame 40,
+# then three timed windows of 10 frames
+RAW_HW = (480, 854)
+OPTIN_OBJECTS = 12
+OPTIN_SCALES = (1.0, 1.3)
+OPTIN_CHUNK = 5
+OPTIN_WINDOW = 10
+OPTIN_FRAMES = BANK_FULL + 3 * OPTIN_WINDOW
+OPTIN_AGREE_FRAMES = 12     # held per call and against the plain engine
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
@@ -159,19 +185,56 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of fn: CUDA events around the replay of a
+    CUDA graph of `reps` calls. For a kernel shorter than the host's cost
+    of an eager call, where cuda_ms measures the host's issue rate."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def bf16_ulp(x):
+    """The spacing of bf16 values at each |x| (8 significant bits), 0 at
+    0."""
+    import torch
+    a = x.float().abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
+                       torch.zeros_like(a))
+
+
 def held(name: str, got, ref):
     """Hold one kernel call's result against its plain version's on the
-    same inputs. Returns (max |out - plain|, max |plain|, and for K1 max
-    |slot mass - plain|, else None)."""
+    same inputs. Returns (max |out - plain|, max |plain|, and for K1 and
+    K3 max |slot mass - plain|, else None)."""
     import torch
     mass_err = None
-    if name == "bank_attention":
+    if name in ("bank_attention", "bank_attention_qminor"):
         (got, mass), (ref, mass_ref) = got, ref
         mass_err = (mass - mass_ref).abs().max().item()
         check(mass_err <= MASS_TOL, f"{name} slot mass {mass_err}")
@@ -183,6 +246,10 @@ def held(name: str, got, ref):
         # conv near zero, of the conv's scale (bounded by the output's top)
         ok = bool(torch.all(diff <= 2 ** -7 * ref.float().abs()
                             + 2 ** -8 * top))
+    elif name == "gated_dwconv":
+        # the same roundings in the same order: within one bf16 ulp of each
+        # value (0 where the value is 0)
+        ok = bool(torch.all(diff <= bf16_ulp(ref)))
     else:
         ok = err <= OUT_TOL * top
     check(ok, f"{name} max|out-plain| {err} of max|plain| {top}")
@@ -299,6 +366,113 @@ def check_kernels(dev):
         ms=cuda_ms(lambda: ks.stem(*sargs), 50),
         plain_ms=cuda_ms(lambda: ks.stem_plain(*sargs), 20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    for e in entries.values():
+        e["kernel_ms"] = e["ms"]
+    return entries
+
+
+def check_optin_kernels(dev):
+    """Phase 2, the opt-in inference kernels at the main path's shapes in
+    bf16: K3 (the slot-split bank attention; Lq = Lk = 1674, 9 valid slots
+    of 10, dh 128, dv 1024) against its plain version, timed beside K1 on
+    the same inputs with no bias and at 1, 2, 3 and 9 slots per block, and
+    K8 (the gated depthwise conv, [1, 1674, 1024] on the 31 x 54 grid).
+    Returns {name: entry} without launch counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import dwconv as kd
+    from rmem_tpu_torch.ops.layers import seq_to_map
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    entries = {}
+    h, w = (IN_HW[0] - 1) // 16 + 1, (IN_HW[1] - 1) // 16 + 1     # 31 x 54
+    hw, dh, dv, S, count = h * w, 128, 1024, 10, 9
+    scale = dh ** -0.5
+
+    # ---- K3: 9 of 10 slots valid, the slot PE already in the keys ----
+    q = randn(1, hw, dh, scale=2.0)
+    bk, bvv = randn(S, 1, hw, dh), randn(S, 1, hw, dv)
+    cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+    args = (q, bk, bvv, cnt, 1, scale)
+    ref = kb.bank_attention_qminor_plain(*args)
+    per_block = {}
+    errs = []
+    for spb in (1, 2, 3, 9):
+        out, rec = kb.bank_attention_qminor(*args, slots_per_block=spb)
+        errs.append(held("bank_attention_qminor", (out, rec), ref))
+        check(bool(torch.all(rec[..., count:] == 0)),
+              f"K3 mass of empty slots ({spb} per block)")
+        per_block[spb] = cuda_ms(
+            lambda: kb.bank_attention_qminor(*args, slots_per_block=spb), 20)
+    # the reference frame's call: one slot
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    o1, r1 = kb.bank_attention_qminor(q, bk[:1], bvv[:1], one, 1, scale)
+    errs.append(held("bank_attention_qminor", (o1, r1),
+                     kb.bank_attention_qminor_plain(q, bk[:1], bvv[:1], one,
+                                                    1, scale)))
+    check(torch.allclose(r1, torch.ones_like(r1), atol=1e-4), "K3 S=1 mass")
+    err = max(e for e, _, _ in errs)
+    rerr = max(m for _, _, m in errs)
+    k1_ms = cuda_ms(lambda: kb.bank_attention_infer(*args), 20)
+    print(f"K3 bank_attention_qminor: max|out-plain| {err:.3e} (max|plain| "
+          f"{errs[0][1]:.3e}), max|rec-plain| {rerr:.3e}; ms by slots per "
+          f"block {per_block}; K1 on the same inputs, no bias, "
+          f"{k1_ms:.3f} ms; partial scratch at {kb.SLOTS_PER_BLOCK} per "
+          f"block {-(-S // kb.SLOTS_PER_BLOCK) * hw * dv * 4 / 1e6:.1f} MB")
+    kv = count * hw
+    k_lib = bk[:count].reshape(1, 1, kv, dh)
+    v_lib = bvv[:count].reshape(1, 1, kv, dv)
+    b_ms, b_by = bound(2.0 * hw * kv * (dh + dv),
+                       (q.numel() + kv * (dh + dv) + hw * dv) * 2
+                       + hw * S * 4)
+    entries["bank_attention_qminor"] = dict(
+        name="bank_attention_qminor", route="cuda",
+        source="rmem_tpu_torch/csrc/bank_attention_qminor.cu",
+        replaces="rmem_tpu/kernels/bank_attention.py:540",
+        max_abs_err=err, max_abs_err_rec=rerr,
+        ms=per_block[kb.SLOTS_PER_BLOCK],
+        plain_ms=cuda_ms(lambda: kb.bank_attention_qminor_plain(*args), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k_lib, v_lib, scale=scale), 20),
+        ms_by_slots_per_block=per_block, k1_same_inputs_ms=k1_ms)
+
+    # ---- K8: the gated tail's product and 5 x 5 depthwise conv ----
+    c = 1024
+    x, gate = randn(1, hw, c), randn(1, hw, c)
+    wt = randn(c, 1, 5, 5, scale=0.2)
+    dargs = (x, gate, wt, (h, w))
+    out = kd.gated_dwconv(*dargs)
+    ref = kd.gated_dwconv_plain(*dargs)
+    err, top, _ = held("gated_dwconv", out, ref)
+    print(f"K8 gated_dwconv: max|out-plain| {err:.3e} (max|plain| "
+          f"{top:.3e}), {int((out != ref).sum())} of {out.numel()} values "
+          "differ")
+    # the default tail's conv on the pre-gated map (the multiply not
+    # counted), channels last as the tail holds it
+    xg_map = seq_to_map(x * gate, (h, w))
+    # K8 takes less device time than an eager call takes the host, so its
+    # times are those of a CUDA graph of 50 calls (the eager ones beside)
+    b_ms, b_by = bound(2.0 * 25 * hw * c, 3 * hw * c * 2 + wt.numel() * 2)
+    entries["gated_dwconv"] = dict(
+        name="gated_dwconv", route="cuda",
+        source="rmem_tpu_torch/csrc/gated_dwconv.cu",
+        replaces="rmem_tpu/kernels/dwconv.py:51", max_abs_err=err,
+        ms=graph_ms(lambda: kd.gated_dwconv(*dargs), 50),
+        plain_ms=graph_ms(lambda: kd.gated_dwconv_plain(*dargs), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=graph_ms(lambda: F.conv2d(xg_map, wt, padding=2,
+                                             groups=c), 50),
+        eager_ms=cuda_ms(lambda: kd.gated_dwconv(*dargs), 50),
+        library_eager_ms=cuda_ms(lambda: F.conv2d(xg_map, wt, padding=2,
+                                                  groups=c), 50))
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
     return entries
@@ -811,6 +985,267 @@ def plain_agreement(dev):
     return worst, errs, agree
 
 
+def optin_config():
+    """R50-DeAOTL pre_vost with the gated tails through K8 and phase 7's
+    augs; K3 is chosen by RMEM_BANK_QMINOR, set around phase 7 only."""
+    from rmem_tpu_torch.config import get_config
+    return get_config("pre_vost", model="r50_deaotl", use_pallas_dwconv=True,
+                      test_multiscale=OPTIN_SCALES, test_flip=True)
+
+
+def optin_inputs():
+    """Seeded raw uint8 RGB frames at RAW_HW on the host (the reference
+    frame first) and a first-frame mask of OPTIN_OBJECTS vertical stripes."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    raw = rng.randint(0, 256, (OPTIN_FRAMES + 1, *RAW_HW, 3), dtype=np.uint8)
+    mask = np.zeros(RAW_HW, np.int32)
+    for i in range(OPTIN_OBJECTS):
+        mask[40:440, 10 + 70 * i:60 + 70 * i] = i + 1
+    return raw, mask
+
+
+def optin_engine(dev, cfg):
+    """The engine of phase 7 and its augs, as the evaluator builds them
+    from the config: (scale, flip) for each scale and, with test_flip,
+    both flips; each aug's input size by restrict_size."""
+    from rmem_tpu_torch.data.transforms import restrict_size
+    from rmem_tpu_torch.engine import InferenceEngine
+    from rmem_tpu_torch.models import build_vos_model, init_params
+    model = init_params(build_vos_model(cfg.model_vos, cfg), seed=0)
+    engine = InferenceEngine(model, cfg, device=dev)
+    augs = [(sc, flip) for sc in cfg.test_multiscale
+            for flip in ((False, True) if cfg.test_flip else (False,))]
+    in_hws = [restrict_size(*RAW_HW, cfg.test_max_size, cfg.test_min_size,
+                            sc, cfg.model_align_corners) for sc, _ in augs]
+    return engine, augs, in_hws
+
+
+def optin_reference(engine, cfg, raw0, mask, augs, in_hws):
+    """Each aug's state after the first frame: the frame prepared on the
+    device, the mask flipped at full size, nearest-resized and split into
+    the id groups, each group told its true object count."""
+    import torch
+
+    from rmem_tpu_torch.engine.inference import separate_mask
+    from rmem_tpu_torch.ops.resize import resize_nearest
+    m = cfg.model_max_obj_num
+    groups = -(-OPTIN_OBJECTS // m)
+    obj_nums = [min(m, OPTIN_OBJECTS - g * m) for g in range(groups)]
+    full = torch.from_numpy(mask).to(engine.device)
+    states = []
+    for (_, flip), in_hw in zip(augs, in_hws):
+        lab = resize_nearest((full.flip(1) if flip else full)[None, ..., None],
+                             in_hw)[..., 0]
+        st, _ = engine.add_reference(
+            engine.prep(raw0[None], in_hw, flip)[0],
+            separate_mask(lab, groups, m), obj_nums,
+            gap=cfg.test_long_term_mem_gap)
+        states.append(st)
+    return states
+
+
+def optin_path(dev, card: str, profile: bool):
+    """Phase 7: the opt-in inference path at full width. R50-DeAOTL with
+    K8 in every gated tail and K3 for every bank-attention call, 12 objects
+    as two id groups, four augs (scales 1.0 and 1.3, each plain and
+    flipped) from raw uint8 480x854 frames resized and normalised on the
+    card, OPTIN_CHUNK frames per scan_steps_multi_raw call (one long-term
+    write each), so the bank fills at frame 40 and then evicts. Launch
+    counts are zeroed just before the reference frame and read just after
+    the last chunk. With `profile`, one more chunk runs under
+    torch.profiler. Returns (launch counts, per-window frames/s)."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import dwconv as kd
+    from rmem_tpu_torch.kernels import local_attention as kl
+    from rmem_tpu_torch.kernels import stem as ks
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = optin_config()
+    raw, mask = optin_inputs()
+    engine, augs, in_hws = optin_engine(dev, cfg)
+    check(engine.route == dict(qminor=True, fused_dw=True),
+          f"phase 7 routes {engine.route}")
+    flips = [f for _, f in augs]
+    wrappers = (kb.bank_attention_qminor, kd.gated_dwconv, kl.local_attention,
+                ks.stem, kb.bank_attention_infer)
+    for fn in wrappers:
+        fn.launches = 0
+    states = optin_reference(engine, cfg, raw[0], mask, augs, in_hws)
+    slots = cfg.former_mem_len + cfg.latter_mem_len
+    evictions = torch.zeros((), dtype=torch.int32, device=dev)
+    host = host_line()
+    chunks = OPTIN_FRAMES // OPTIN_CHUNK
+    first = BANK_FULL // OPTIN_CHUNK            # the first chunk after
+    per_window = OPTIN_WINDOW // OPTIN_CHUNK
+    marks, labels = [], []
+    for c in range(chunks):
+        if c >= first and (c - first) % per_window == 0:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        was_full = states[0].bank.count >= slots
+        last = states[0].last_mem_step.clone()
+        t0 = 1 + c * OPTIN_CHUNK
+        states, lab = engine.scan_steps_multi_raw(
+            states, raw[t0:t0 + OPTIN_CHUNK], in_hws, RAW_HW, flips)
+        # a long-term write into a full bank evicts
+        evictions += was_full & (states[0].last_mem_step != last)
+        labels.append(lab)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    window_fps = [OPTIN_WINDOW / (b - a) for a, b in zip(marks, marks[1:])]
+    labels = torch.cat(labels)
+    evictions = int(evictions)
+    steps = len(augs) * (1 + OPTIN_FRAMES)          # reference included
+    layers = cfg.model_lstt_num
+    scheduled = OPTIN_FRAMES // cfg.test_long_term_mem_gap - (slots - 1)
+    hist = torch.bincount(labels[-1].flatten().long(),
+                          minlength=OPTIN_OBJECTS + 1).tolist()
+    print(f"phase 7: {OPTIN_FRAMES} frames x {len(augs)} augs {augs} at "
+          f"inputs {in_hws}, {OPTIN_OBJECTS} objects in "
+          f"{states[0].short_k.shape[1]} id groups; launches {counts}; bank "
+          f"count {int(states[0].bank.count)}, {evictions} evictions counted "
+          f"on the device ({scheduled} scheduled); labels in "
+          f"[{int(labels.min())}, {int(labels.max())}]; label histogram of "
+          f"the last frame {hist}")
+    check(counts["bank_attention_qminor"] == layers * steps,
+          f"K3 launches {counts['bank_attention_qminor']}, "
+          f"{layers * steps} bank-attention calls")
+    check(counts["gated_dwconv"] == 3 * layers * steps,
+          f"K8 launches {counts['gated_dwconv']}, {3 * layers * steps} "
+          "gated tails")
+    check(counts["local_attention"] > 0 and counts["stem"] > 0,
+          f"K4 or K6 never ran: {counts}")
+    check(counts["bank_attention_infer"] == 0, "K1 ran on the K3 path")
+    check(all(int(st.bank.count) == slots for st in states), "bank not full")
+    check(evictions >= 1 and evictions == scheduled,
+          f"{evictions} evictions, {scheduled} scheduled")
+    check(labels.shape == (OPTIN_FRAMES, *RAW_HW),
+          f"labels {tuple(labels.shape)}")
+    check(int(labels.max()) <= OPTIN_OBJECTS, "labels out of [0, 12]")
+    check(all(bool(torch.isfinite(st.logits4x).all()) for st in states),
+          "non-finite logits")
+    print(f"phase 7: {statistics.median(window_fps):.3f} frames/s of the "
+          f"{len(augs)}-aug step, median of {len(window_fps)} windows of "
+          f"{OPTIN_WINDOW} frames after the bank fills ("
+          + ", ".join(f"{x:.3f}" for x in window_fps)
+          + f"), raw uint8 {RAW_HW[0]}x{RAW_HW[1]} in and out, on {card}; "
+          f"host {host}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        def one_chunk():
+            engine.scan_steps_multi_raw(states, raw[1:1 + OPTIN_CHUNK],
+                                        in_hws, RAW_HW, flips)
+        device_busy_table(one_chunk, OPTIN_CHUNK,
+                          1e3 / statistics.median(window_fps), "per frame")
+    return counts, window_fps
+
+
+def optin_agreement(dev):
+    """Phase 7, held: the first OPTIN_AGREE_FRAMES frames of phase 7's
+    video through the kernel engine, each of whose K3 and K8 calls is held
+    against its plain version on the same inputs, and through an engine
+    whose kernels are all their plain versions, teacher-forced with the
+    kernel engine's labels: hold each frame's logits (every aug, over the
+    id channels the object counts leave unmasked) and labels of the two
+    engines against each other. Returns (per-kernel worst call, per-frame
+    relative logit error, per-frame label agreement)."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import dwconv as kd
+    from rmem_tpu_torch.kernels import local_attention as kl
+    from rmem_tpu_torch.kernels import stem as ks
+
+    held_kernels = (
+        ("bank_attention_qminor", kb, kb.bank_attention_qminor_plain),
+        ("gated_dwconv", kd, kd.gated_dwconv_plain))
+    plain_only = ((kl, "local_attention", kl.local_attention_plain),
+                  (ks, "stem", ks.stem_plain))
+    calls = {name: [] for name, *_ in held_kernels}
+
+    def on_path(name, kernel, plain_fn):
+        def call(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            calls[name].append(held(name, got, plain_fn(*args, **kwargs)))
+            return got
+        call.launches = 0
+        return call
+
+    cfg = optin_config()
+    raw, mask = optin_inputs()
+    runs = []
+    for plain in (False, True):
+        with ExitStack() as stack:
+            for name, mod, plain_fn in held_kernels:
+                fn = (plain_fn if plain
+                      else on_path(name, getattr(mod, name), plain_fn))
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            if plain:
+                for mod, attr, plain_fn in plain_only:
+                    stack.enter_context(mock.patch.object(mod, attr,
+                                                          plain_fn))
+            engine, augs, in_hws = optin_engine(dev, cfg)
+            flips = [f for _, f in augs]
+            states = optin_reference(engine, cfg, raw[0], mask, augs, in_hws)
+            labels, logits = [], []
+            for t in range(1, 1 + OPTIN_AGREE_FRAMES):
+                if not plain:
+                    states, lab = engine.scan_steps_multi_raw(
+                        states, raw[t:t + 1], in_hws, RAW_HW, flips)
+                    labels.append(lab[0].to(torch.int32))
+                    logits.append([st.logits4x.float() for st in states])
+                    continue
+                with torch.inference_mode():
+                    logits4s = [engine.propagate(st, engine.prep(
+                        raw[t:t + 1], in_hw, flip)[0])[1]
+                        for st, in_hw, flip in zip(states, in_hws, flips)]
+                    labels.append(engine.aug_label(logits4s, RAW_HW, flips))
+                    logits.append([x.float() for x in logits4s])
+                    forced = runs[0][0][t - 1]
+                    states = [engine.write_label(st, forced, in_hw, flip)
+                              for st, in_hw, flip in zip(states, in_hws,
+                                                         flips)]
+            runs.append((labels, logits))
+            del engine, states
+            torch.cuda.empty_cache()
+    worst = {}
+    for name, errs in calls.items():
+        worst[name] = dict(calls=len(errs),
+                           rel_err=max(e / top for e, top, _ in errs))
+        if name == "bank_attention_qminor":
+            worst[name]["slot_mass_err"] = max(m for *_, m in errs)
+    agree = [(a == b).float().mean().item()
+             for a, b in zip(runs[0][0], runs[1][0])]
+    logit_errs = []
+    for got_augs, ref_augs in zip(runs[0][1], runs[1][1]):
+        err = top = 0.0
+        for got, ref in zip(got_augs, ref_augs):
+            # the masked id channels hold the same -1e10 on both sides
+            live = ref > -1e9
+            err = max(err, (got - ref).abs()[live].max().item())
+            top = max(top, ref.abs()[live].max().item())
+        logit_errs.append(err / top)
+    print(f"phase 7, every K3 and K8 call of the first "
+          f"{OPTIN_AGREE_FRAMES} frames against its plain version: {worst}")
+    print("phase 7, kernel vs plain engine, max|logits diff| / max|plain "
+          "logits| per frame (unmasked channels, all augs): "
+          + ", ".join(f"{e:.3e}" for e in logit_errs))
+    print("phase 7, kernel vs plain engine, label agreement per frame: "
+          + ", ".join(f"{a:.5f}" for a in agree))
+    layers = cfg.model_lstt_num
+    steps = len(augs) * (1 + OPTIN_AGREE_FRAMES)
+    check(worst["bank_attention_qminor"]["calls"] == layers * steps
+          and worst["gated_dwconv"]["calls"] == 3 * layers * steps,
+          f"calls {worst}")
+    check(max(logit_errs) <= LOGIT_TOL, f"phase 7 logits {max(logit_errs)}")
+    check(min(agree) >= AGREE_FLOOR, f"phase 7 label agreement {min(agree)}")
+    return worst, logit_errs, agree
+
+
 TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
                  ("bank_attention", "bank_attention_bwd_ds"),
                  ("bank_attention", "bank_attention_bwd_dq"),
@@ -1027,7 +1462,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=BANK_FULL + 3 * WINDOW)
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 steady frames "
-                         "and of one training step")
+                         "of phases 3 and 7 and of one training step")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2 "
                          "check; prints no result line")
@@ -1064,6 +1499,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     entries = check_kernels(dev)
+    entries.update(check_optin_kernels(dev))
     train_entries, k2_whole = check_train_kernels(dev)
     counts, window_fps = main_path(dev, args.frames, card, args.profile)
     for key, fn_name in (("bank_attention", "bank_attention_infer"),
@@ -1079,6 +1515,13 @@ def main() -> int:
         train_entries[key]["launches"] = train_counts[fn_name]
     held_step = held_train_step(dev)
     entries.update(train_entries)
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"RMEM_BANK_QMINOR": "1"}):
+        optin_counts, optin_fps = optin_path(dev, card, args.profile)
+        optin_worst, optin_logit_errs, optin_agree = optin_agreement(dev)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    for key in ("bank_attention_qminor", "gated_dwconv"):
+        entries[key]["launches"] = optin_counts[key]
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -1089,6 +1532,12 @@ def main() -> int:
                           step_times[1:]),
                       "train_peak_gib": peak, "train_launches": train_counts,
                       "k2_whole": k2_whole, "held_step": held_step,
+                      "optin_fps_windows": optin_fps,
+                      "optin_fps_median": statistics.median(optin_fps),
+                      "optin_launches": optin_counts,
+                      "optin_on_path": optin_worst,
+                      "optin_logit_rel_err": optin_logit_errs,
+                      "optin_label_agreement": optin_agree,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

@@ -3,16 +3,27 @@ RMem inference and training, as one dataclass.
 
 A copy of the fields of `rmem_tpu/config.py` that the port reads, with the
 same names and defaults, so that one preset name gives the same model on
-both sides. The TPU-only kernel switches (`use_pallas_*`) are gone: the port
-has one path per device, the CUDA kernels on the card and their plain
-versions on the CPU.
+both sides. The port has one path per device, the CUDA kernels on the card
+and their plain versions on the CPU, so of the JAX package's kernel
+switches two opt-ins remain, both for inference and both off by default, as
+there:
+
+- `use_pallas_dwconv` routes every gated tail whose width is a multiple of
+  128 through the fused gate-multiply + depthwise 5x5 kernel (K8,
+  kernels/dwconv.py) instead of the multiply and the grouped conv;
+- the environment variable `RMEM_BANK_QMINOR`, when set to a non-empty
+  value, routes every inference bank-attention call through the slot-split
+  kernel (K3, kernels/bank_attention.py:bank_attention_qminor), with the
+  slot temporal PE added to the bank's keys instead of the logit bias.
+
+The inference engine reads both once, when it is built.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass
@@ -79,6 +90,17 @@ class Config:
     reverse_infer: bool = False
     gru_memory: bool = False
     var_loss_weight: float = 0.0
+
+    # ---- evaluation: augmentations and frame prep ----
+    test_flip: bool = False
+    test_multiscale: Tuple[float, ...] = (1.0,)
+    test_min_size: Optional[int] = None
+    test_max_size: float = 800 * 1.3
+    # raw uint8 frames go to the card and are resized (cv2 INTER_CUBIC
+    # semantics) and normalised there (engine scan_steps_raw)
+    eval_device_prep: bool = True
+    # the gated tails through the fused kernel K8 (inference only)
+    use_pallas_dwconv: bool = False
 
     # ---- numerics ----
     # activations on the card (autocast in training, where the parameters

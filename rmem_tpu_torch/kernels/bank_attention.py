@@ -8,6 +8,13 @@ rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer and the
 forward of pallas_bank_attention (the reference frame's S = 1 self-memory
 call).
 
+Inference with the slots split among blocks (kernel K3, opt-in):
+`bank_attention_qminor` launches `csrc/bank_attention_qminor.cu` for
+tensors on the card and runs `bank_attention_qminor_plain` for tensors on
+the CPU. K1's function with neither key padding nor a logit bias (the
+slot PE arrives added to the keys); it replaces
+rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor.
+
 Training: `bank_attention_train` is differentiable. On the card it is an
 autograd Function whose forward is K1 with the per-row log-sum-exp output
 (`bank_attention_lse`) and whose backward is kernel K2
@@ -30,6 +37,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
+# K3: slots walked by one block. 2 gives 27 x 4 x 5 = 540 blocks and 34.3 MB
+# of partial scratch at the main path; it timed fastest of 1, 2, 3 and 9 on
+# the H100 (PERF.md)
+SLOTS_PER_BLOCK = 2
 
 
 def bank_attention_plain(q: torch.Tensor, bank_k: torch.Tensor,
@@ -135,6 +146,68 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
 
 
 bank_attention_infer.launches = 0
+
+
+def bank_attention_qminor_plain(q: torch.Tensor, bank_k: torch.Tensor,
+                                bank_v: torch.Tensor, count: torch.Tensor,
+                                num_heads: int, scale: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's function in plain PyTorch: `bank_attention_plain` with every
+    key valid and no bias."""
+    return bank_attention_plain(q, bank_k, bank_v, count, num_heads, scale)
+
+
+def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
+                          bank_v: torch.Tensor, count: torch.Tensor,
+                          num_heads: int, scale: float,
+                          slots_per_block: int = SLOTS_PER_BLOCK
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [B, Lq, h*dh]; bank_k [S, B, Lk, h*dh]; bank_v [S, B, Lk, h*dv];
+    count: int32 scalar tensor of valid slots, read on the device. Returns
+    (out [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32). On the card: bf16
+    q/k/v, one head of 128, dv a multiple of 256, all contiguous; each block
+    walks `slots_per_block` slots (1..16)."""
+    if not q.is_cuda:
+        return bank_attention_qminor_plain(q, bank_k, bank_v, count,
+                                           num_heads, scale)
+    s, b, lk, ck = bank_k.shape
+    lq = q.shape[1]
+    dh = ck // num_heads
+    dv = bank_v.shape[-1] // num_heads
+    _check_bf16(q, q=q, bank_k=bank_k, bank_v=bank_v)
+    _check(q.shape == (b, lq, num_heads * dh), f"q shape {tuple(q.shape)}")
+    _check(bank_v.shape[:3] == (s, b, lk),
+           f"bank_v shape {tuple(bank_v.shape)}")
+    _check(num_heads == 1 and dh == 128,
+           f"{num_heads} heads of width {dh} (the kernel is held to its "
+           "plain version for one head of 128, r50_deaotl's)")
+    _check(dv % 256 == 0, f"value width {dv} (multiple of 256)")
+    _check(1 <= slots_per_block <= 16, f"{slots_per_block} slots per block")
+    _check_count(count, q)
+    groups = -(-s // slots_per_block)
+    bh = b * num_heads
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_m = torch.empty((groups, bh, lq), **f32)
+    part_l = torch.empty((s, bh, lq), **f32)
+    part_acc = torch.empty((groups, b, lq, num_heads * dv), **f32)
+    out = torch.empty((b, lq, num_heads * dv), dtype=q.dtype,
+                      device=q.device)
+    rec = torch.empty((bh, lq, s), **f32)
+    fn = build.load("bank_attention_qminor").rmem_bank_attention_qminor
+    fn.argtypes = [_P] * 9 + [_I] * 8 + [_F, _P]
+    fn.restype = _I
+    err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
+             count.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+             part_acc.data_ptr(), out.data_ptr(), rec.data_ptr(), b,
+             num_heads, lq, s, lk, dh, dv, slots_per_block, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "bank_attention_qminor")
+    bank_attention_qminor.launches += 1
+    rec = rec.view(b, num_heads, lq, s)
+    return out, (rec[:, 0] if num_heads == 1 else rec.mean(dim=1))
+
+
+bank_attention_qminor.launches = 0
 
 
 def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,

@@ -20,8 +20,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-KERNELS = ("bank_attention", "bank_attention_bwd", "local_attention",
-           "stem")
+KERNELS = ("bank_attention", "bank_attention_bwd", "bank_attention_qminor",
+           "gated_dwconv", "local_attention", "stem")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -91,9 +91,10 @@ class AOT(nn.Module):
         return self.cur_pos_emb, self.mem_pos_emb
 
     def lstt_forward(self, feat, bank, count, short, id_emb, cur_pe, slot_pe,
-                     size_2d: Tuple[int, int]):
+                     size_2d: Tuple[int, int], qminor: bool = False,
+                     fused_dw: bool = False):
         return self.lstt(feat, bank, count, short, id_emb, cur_pe, slot_pe,
-                         size_2d)
+                         size_2d, qminor=qminor, fused_dw=fused_dw)
 
     def write_memories(self, mems: Dict[str, torch.Tensor], id_emb):
         raise NotImplementedError("the AOT/LSTT family is not ported yet")

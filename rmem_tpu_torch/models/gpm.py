@@ -13,6 +13,13 @@ differentiable wrappers instead: bank attention through K1 with lse and K2,
 local attention through K5, and the slot temporal PE is added to the bank's
 keys (the slab add of the JAX package's VJP path) rather than passed as the
 inference kernel's logit bias.
+
+Two opt-in inference routes, chosen by the engine and passed down as
+arguments (`qminor`, `fused_dw`), as the JAX package's dispatch modes pass
+them: bank attention through K3 (`bank_attention_qminor`) with the slot PE
+added to the bank's keys as a slab, and every gated tail whose width is a
+multiple of 128 through the fused gate-multiply + depthwise conv K8
+(`gated_dwconv`).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from rmem_tpu_torch.kernels import bank_attention as bank_kernel
+from rmem_tpu_torch.kernels import dwconv as dw_kernel
 from rmem_tpu_torch.kernels import local_attention as local_kernel
 from rmem_tpu_torch.ops.attention import (interleave_heads,
                                           multihead_attention, slot_pe_bias)
@@ -39,8 +47,17 @@ class GatedTail(nn.Module):
         self.dw_conv = DWConv2d(expand_dim)
         self.projection = nn.Linear(expand_dim, out_dim)
 
-    def forward(self, agg, gate, size_2d):
-        return self.projection(self.dw_conv(agg * gate, size_2d))
+    def forward(self, agg, gate, size_2d, fused: bool = False):
+        """With `fused`, a tail whose width is a multiple of 128 (as
+        rmem_tpu/ops/layers.py:_DWKernel5x5 decides) runs the gate multiply
+        and the depthwise conv as one kernel."""
+        weight = self.dw_conv.conv.weight
+        if fused and weight.shape[0] % 128 == 0:
+            out = dw_kernel.gated_dwconv(agg.contiguous(), gate.contiguous(),
+                                         weight, size_2d)
+        else:
+            out = self.dw_conv(agg * gate, size_2d)
+        return self.projection(out)
 
 
 class GatedSelfAttention(nn.Module):
@@ -58,7 +75,7 @@ class GatedSelfAttention(nn.Module):
         self.linear_U2 = nn.Linear(din, d_vu)
         self.tail = GatedTail(2 * d_vu, d_vu)
 
-    def forward(self, x, size_2d):
+    def forward(self, x, size_2d, fused_dw: bool = False):
         qk = self.linear_QK(x)
         v1, v2 = x.chunk(2, dim=-1)
         v = silu(interleave_heads(self.linear_V1(v1), self.linear_V2(v2),
@@ -67,7 +84,7 @@ class GatedSelfAttention(nn.Module):
                                   self.num_heads))
         agg = multihead_attention(qk, qk, v, self.num_heads,
                                   scale=self.d_att ** -0.5)
-        return self.tail(agg, u, size_2d)
+        return self.tail(agg, u, size_2d, fused=fused_dw)
 
 
 class GPMBlock(nn.Module):
@@ -109,12 +126,14 @@ class GPMBlock(nn.Module):
         return silu(self.linear_ID_V(torch.cat([curr_id_v, id_emb], dim=-1)))
 
     def forward(self, tgt, tgt_id, bank_k, bank_v, count, short_k, short_v,
-                id_emb, cur_pe, slot_pe, size_2d, true_lk=None):
+                id_emb, cur_pe, slot_pe, size_2d, true_lk=None,
+                qminor: bool = False, fused_dw: bool = False):
         """bank_k [S, B, HW, Ck] and bank_v [S, B, HW, Cv] (Cv = V ++ ID_V)
         with `count` valid slots (int32 tensor); short_k/short_v
         [B, HW, *]. With `id_emb` (the reference frame) the block attends to
         its own frame instead: one slot, and the short-term memory is the
-        frame itself. Returns (tgt, tgt_id, mems, record)."""
+        frame itself. `qminor` and `fused_dw` select the opt-in inference
+        kernels K3 and K8. Returns (tgt, tgt_id, mems, record)."""
         dk = self.d_att * self.att_heads
         scale = self.d_att ** -0.5
         _tgt = self.norm1(tgt)
@@ -150,16 +169,23 @@ class GPMBlock(nn.Module):
                 curr_q, short_k, short_v, rel, size_2d, self.att_heads,
                 MAX_LOCAL_DIS, scale)
         else:
-            bias = (None if slot_pe is None
-                    else slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
-            agg, record = bank_kernel.bank_attention_infer(
-                q_t, bank_k, bank_v, count, self.att_heads, scale,
-                true_lk=true_lk, qbias=bias)
+            if qminor:
+                if slot_pe is not None:
+                    bank_k = (bank_k
+                              + slot_pe.to(bank_k.dtype)[:, None, None, :])
+                agg, record = bank_kernel.bank_attention_qminor(
+                    q_t, bank_k, bank_v, count, self.att_heads, scale)
+            else:
+                bias = (None if slot_pe is None else
+                        slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
+                agg, record = bank_kernel.bank_attention_infer(
+                    q_t, bank_k, bank_v, count, self.att_heads, scale,
+                    true_lk=true_lk, qbias=bias)
             agg3 = local_kernel.local_attention(
                 curr_q, short_k, short_v, rel, size_2d, self.att_heads,
                 MAX_LOCAL_DIS, scale)
-        cat_tgt2 = self.long_tail(agg, cat_u, size_2d)
-        cat_tgt3 = self.short_tail(agg3, cat_u, size_2d)
+        cat_tgt2 = self.long_tail(agg, cat_u, size_2d, fused=fused_dw)
+        cat_tgt3 = self.short_tail(agg3, cat_u, size_2d, fused=fused_dw)
 
         tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)
         tgt3, tgt_id3 = cat_tgt3.chunk(2, dim=-1)
@@ -168,7 +194,8 @@ class GPMBlock(nn.Module):
                   else tgt_id + tgt_id2 + tgt_id3)
 
         cat_in = torch.cat([self.norm2(tgt), self.id_norm2(tgt_id)], dim=-1)
-        tgt2, tgt_id2 = self.self_attn(cat_in, size_2d).chunk(2, dim=-1)
+        tgt2, tgt_id2 = self.self_attn(cat_in, size_2d,
+                                       fused_dw=fused_dw).chunk(2, dim=-1)
         tgt = tgt + tgt2
         tgt_id = tgt_id + tgt_id2
 
@@ -201,10 +228,12 @@ class GPM(nn.Module):
 
     def forward(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 count, short, id_emb, cur_pe, slot_pe,
-                size_2d: Tuple[int, int]):
+                size_2d: Tuple[int, int], qminor: bool = False,
+                fused_dw: bool = False):
         """bank: (k [L,S,B,HW,Ck], v [L,S,B,HW,Cv]) or None for the
-        reference frame; short: (k [L,B,HW,Ck], v [L,B,HW,Cv]) or None.
-        Returns (intermediates [L x (B,HW,2C)], mems, layer-0 record)."""
+        reference frame; short: (k [L,B,HW,Ck], v [L,B,HW,Cv]) or None;
+        `qminor` and `fused_dw` go to every block. Returns (intermediates
+        [L x (B,HW,2C)], mems, layer-0 record)."""
         out, out_id = tgt, None
         intermediates: List[torch.Tensor] = []
         mems_list: List[Dict[str, torch.Tensor]] = []
@@ -218,7 +247,8 @@ class GPM(nn.Module):
                 short[0][i] if short is not None else None,
                 short[1][i] if short is not None else None,
                 id_emb, cur_pe, slot_pe, size_2d,
-                true_lk=true_lk if bank is not None else None)
+                true_lk=true_lk if bank is not None else None,
+                qminor=qminor, fused_dw=fused_dw)
             if i == 0:
                 record0 = rec
             intermediates.append(torch.cat([out, out_id], dim=-1))

@@ -109,7 +109,10 @@ def _local_offset_map(h: int, w: int, max_dis: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _local_offset_map_on(h: int, w: int, max_dis: int,
                          device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_local_offset_map(h, w, max_dis)).to(device)
+    # a normal tensor, also when first asked for under inference mode, so
+    # that autograd may save it later
+    with torch.inference_mode(False):
+        return torch.from_numpy(_local_offset_map(h, w, max_dis)).to(device)
 
 
 def dense_local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,6 +5,10 @@ and a lerp a*wa + b*wb, with the weights rounded exactly as the JAX package
 rounds them on each of its branches (integral align-corners upsampling uses
 python-double `1 - s/r` and `s/r`; integral downsampling is a strided pick),
 so that labels taken by argmax agree with the JAX package's.
+
+`resize_cubic` is cv2.resize(..., INTER_CUBIC) for float images (the
+engine's on-card frame prep): separable, rows then columns, 4 taps with
+A = -0.75 and a replicated border.
 """
 
 from __future__ import annotations
@@ -58,10 +62,13 @@ def _exact_lerp_coords_np(n_out: int, n_in: int, align_corners: bool):
 @functools.lru_cache(maxsize=256)
 def _lerp_coords_on(n_out: int, n_in: int, align_corners: bool,
                     device: torch.device):
-    """The coordinates as tensors on `device`, copied there once."""
+    """The coordinates as tensors on `device`, copied there once (as normal
+    tensors, also when first asked for under inference mode, so that
+    autograd may save them later)."""
     lo, hi, wa, wb = _exact_lerp_coords_np(n_out, n_in, align_corners)
-    return (*(torch.from_numpy(a).to(device) for a in (lo, hi, wa, wb)),
-            not wb.any())
+    with torch.inference_mode(False):
+        return (*(torch.from_numpy(a).to(device) for a in (lo, hi, wa, wb)),
+                not wb.any())
 
 
 def _lerp_axis(x: torch.Tensor, n_out: int, axis: int,
@@ -136,8 +143,9 @@ def _nearest_idx_np(n_out: int, n_in: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _nearest_idx_on(H: int, h: int, W: int, w: int, device: torch.device):
-    return (torch.from_numpy(_nearest_idx_np(H, h)).to(device),
-            torch.from_numpy(_nearest_idx_np(W, w)).to(device))
+    with torch.inference_mode(False):     # normal tensors, as above
+        return (torch.from_numpy(_nearest_idx_np(H, h)).to(device),
+                torch.from_numpy(_nearest_idx_np(W, w)).to(device))
 
 
 def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -150,3 +158,56 @@ def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int],
         return x
     iy, ix = _nearest_idx_on(H, h, W, w, x.device)
     return x.index_select(ax[0], iy).index_select(ax[1], ix)
+
+
+@functools.lru_cache(maxsize=256)
+def _cubic_idx_np(n_out: int, n_in: int):
+    """cv2 INTER_CUBIC's sampling grid: src = (i + 0.5) * in / out - 0.5,
+    4 taps at floor(src) - 1 .. + 2 clamped to the image, weights of cv2's
+    interpolateCubic with A = -0.75."""
+    pos = (np.arange(n_out, dtype=np.float64) + 0.5) * n_in / n_out - 0.5
+    i0 = np.floor(pos).astype(np.int64)
+    t = (pos - i0).astype(np.float32)
+    A = -0.75
+    w0 = ((A * (t + 1) - 5 * A) * (t + 1) + 8 * A) * (t + 1) - 4 * A
+    w1 = ((A + 2) * t - (A + 3)) * t * t + 1
+    w2 = ((A + 2) * (1 - t) - (A + 3)) * (1 - t) * (1 - t) + 1
+    w3 = 1.0 - w0 - w1 - w2
+    idx = np.stack([np.clip(i0 + k, 0, n_in - 1) for k in (-1, 0, 1, 2)])
+    wts = np.stack([w0, w1, w2, w3]).astype(np.float32)
+    return idx, wts
+
+
+@functools.lru_cache(maxsize=64)
+def _cubic_idx_on(n_out: int, n_in: int, device: torch.device):
+    """The tap indices [4, n_out] and weights [4, n_out], copied to
+    `device` once."""
+    idx, wts = _cubic_idx_np(n_out, n_in)
+    with torch.inference_mode(False):     # normal tensors, as above
+        return (torch.from_numpy(idx).to(device),
+                torch.from_numpy(wts).to(device))
+
+
+def _cubic_axis(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
+    n_in = x.shape[axis]
+    if n_in == n_out:
+        return x
+    idx, wts = _cubic_idx_on(n_out, n_in, x.device)
+    shape = [1] * x.dim()
+    shape[axis] = n_out
+    out = x.index_select(axis, idx[0]) * wts[0].view(shape)
+    for k in range(1, 4):
+        out = out + x.index_select(axis, idx[k]) * wts[k].view(shape)
+    return out
+
+
+def resize_cubic(x: torch.Tensor, out_hw: Tuple[int, int],
+                 channel_last: bool = True) -> torch.Tensor:
+    """cv2 INTER_CUBIC resize of [..., H, W, C] (or [..., C, H, W]) in f32:
+    rows first, then columns."""
+    H, W = out_hw
+    axes = (x.dim() - 3, x.dim() - 2) if channel_last else (x.dim() - 2,
+                                                             x.dim() - 1)
+    y = x.to(torch.float32)
+    y = _cubic_axis(y, H, axes[0])
+    return _cubic_axis(y, W, axes[1])

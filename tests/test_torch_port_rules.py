@@ -1,6 +1,7 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its
 entry points never fall back to the CPU unasked, and neither a served frame
-nor a training step reads a device value back to the host."""
+(one aug, or raw frames through several augs with two id groups) nor a
+training step reads a device value back to the host."""
 
 import re
 import subprocess
@@ -15,10 +16,12 @@ from torch.profiler import ProfilerActivity, profile
 from rmem_tpu_torch.config import get_config
 from rmem_tpu_torch.data.synthetic import gen_blob_batch
 from rmem_tpu_torch.engine import InferenceEngine
+from rmem_tpu_torch.engine.inference import separate_mask
 from rmem_tpu_torch.engine.train_state import TrainState
 from rmem_tpu_torch.managers.trainer import train_step
 from rmem_tpu_torch.models import build_vos_model, init_params
 from rmem_tpu_torch.ops.masks import host_id_shuffle_matrix
+from rmem_tpu_torch.ops.resize import resize_nearest
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "rmem_tpu_torch"
@@ -102,6 +105,36 @@ def test_engine_step_reads_nothing_back_to_the_host():
     state, _ = eng.scan_steps(state, frames[:4], (60, 70))   # fill, evict
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.step(state, frames[4], (60, 70))
+    assert _host_reads(prof) == []
+
+
+def test_raw_multi_aug_step_reads_nothing_back_to_the_host():
+    """One frame of raw uint8 input through two augs (one flipped, one at
+    another scale) with 12 objects as two id groups, the bank full and
+    evicting: prep, propagate, group merge, aug average and the memory
+    writes make no host read of a device value."""
+    cfg = get_config("pre_vost", model="tiny_deaotl", latter_mem_len=1,
+                     compute_dtype="float32")
+    eng = InferenceEngine(init_params(build_vos_model("deaot", cfg)), cfg,
+                          device="cpu")
+    rng = np.random.RandomState(0)
+    raw = (rng.rand(4, 40, 50, 3) * 255).astype(np.uint8)
+    mask = np.zeros((1, 40, 50), np.int32)
+    for i in range(12):
+        mask[:, 5:35, 4 * i:4 * i + 3] = i + 1
+    in_hws, flips = [(49, 65), (33, 49)], [True, False]
+    states = []
+    for in_hw, flip in zip(in_hws, flips):
+        lab = separate_mask(resize_nearest(
+            torch.from_numpy(mask).flip(2)[..., None] if flip
+            else torch.from_numpy(mask)[..., None], in_hw)[..., 0], 2, 10)
+        st, _ = eng.add_reference(eng.prep(raw[:1], in_hw, flip)[0], lab,
+                                  [10, 2], gap=1)
+        states.append(st)
+    states, _ = eng.scan_steps_multi_raw(states, raw[1:3], in_hws, (40, 50),
+                                         flips)             # fill, evict
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.scan_steps_multi_raw(states, raw[3:], in_hws, (40, 50), flips)
     assert _host_reads(prof) == []
 
 
