@@ -13,9 +13,9 @@ non-zero exit code:
 2. hold each kernel against its plain PyTorch version at its path's
    shapes, in bf16, and time both (CUDA events), plus one PyTorch library
    call for the same function where one exists: the serving kernels (K1,
-   K4, K6) and the opt-in inference kernels (K3, at 1, 2, 3 and 9 slots
-   per block and beside K1 on the same inputs; K8, timed through a CUDA
-   graph) at 481x849, and the training kernels (K1 with its lse output,
+   K4, K6) and the opt-in inference kernels (K3, beside K1 on the same
+   inputs; K8, timed through a CUDA graph over input sets larger than the
+   L2) at 481x849, and the training kernels (K1 with its lse output,
    K2's three backward kernels with a nonzero drec, K5 and K7 forward and
    backward) at the training shapes;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
@@ -56,7 +56,13 @@ non-zero exit code:
    after the bank fills (`--profile`: one more chunk under torch.profiler).
    Then the first 12 frames again, every K3 and K8 call held against its
    plain version, and through an all-plain engine teacher-forced with the
-   kernel engine's labels: logits and labels agree per frame.
+   kernel engine's labels: logits and labels agree per frame;
+8. the two serving routes on the same traffic: phase 7's engine built
+   twice from one seed, with both opt-ins on (K3, K8) and with both off
+   (K1, the gate multiply and PyTorch's depthwise conv); each fills its
+   bank on phase 7's video, then three 10-frame windows of each, the
+   routes alternating, and one chunk of each under torch.profiler:
+   frames/s and the device's busy time per frame of each route.
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
@@ -74,6 +80,7 @@ the checkout itself is never changed.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -142,6 +149,8 @@ OPTIN_CHUNK = 5
 OPTIN_WINDOW = 10
 OPTIN_FRAMES = BANK_FULL + 3 * OPTIN_WINDOW
 OPTIN_AGREE_FRAMES = 12     # held per call and against the plain engine
+# phase 8: timed windows of each serving route, alternated
+ROUTE_TURNS = 3
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
@@ -375,8 +384,8 @@ def check_optin_kernels(dev):
     """Phase 2, the opt-in inference kernels at the main path's shapes in
     bf16: K3 (the slot-split bank attention; Lq = Lk = 1674, 9 valid slots
     of 10, dh 128, dv 1024) against its plain version, timed beside K1 on
-    the same inputs with no bias and at 1, 2, 3 and 9 slots per block, and
-    K8 (the gated depthwise conv, [1, 1674, 1024] on the 31 x 54 grid).
+    the same inputs with no bias, and K8 (the gated depthwise conv,
+    [1, 1674, 1024] on the 31 x 54 grid).
     Returns {name: entry} without launch counts."""
     import torch
     import torch.nn.functional as F
@@ -402,15 +411,10 @@ def check_optin_kernels(dev):
     cnt = torch.tensor(count, dtype=torch.int32, device=dev)
     args = (q, bk, bvv, cnt, 1, scale)
     ref = kb.bank_attention_qminor_plain(*args)
-    per_block = {}
-    errs = []
-    for spb in (1, 2, 3, 9):
-        out, rec = kb.bank_attention_qminor(*args, slots_per_block=spb)
-        errs.append(held("bank_attention_qminor", (out, rec), ref))
-        check(bool(torch.all(rec[..., count:] == 0)),
-              f"K3 mass of empty slots ({spb} per block)")
-        per_block[spb] = cuda_ms(
-            lambda: kb.bank_attention_qminor(*args, slots_per_block=spb), 20)
+    out, rec = kb.bank_attention_qminor(*args)
+    errs = [held("bank_attention_qminor", (out, rec), ref)]
+    check(bool(torch.all(rec[..., count:] == 0)), "K3 mass of empty slots")
+    k3_ms = cuda_ms(lambda: kb.bank_attention_qminor(*args), 20)
     # the reference frame's call: one slot
     one = torch.ones((), dtype=torch.int32, device=dev)
     o1, r1 = kb.bank_attention_qminor(q, bk[:1], bvv[:1], one, 1, scale)
@@ -422,10 +426,10 @@ def check_optin_kernels(dev):
     rerr = max(m for _, _, m in errs)
     k1_ms = cuda_ms(lambda: kb.bank_attention_infer(*args), 20)
     print(f"K3 bank_attention_qminor: max|out-plain| {err:.3e} (max|plain| "
-          f"{errs[0][1]:.3e}), max|rec-plain| {rerr:.3e}; ms by slots per "
-          f"block {per_block}; K1 on the same inputs, no bias, "
-          f"{k1_ms:.3f} ms; partial scratch at {kb.SLOTS_PER_BLOCK} per "
-          f"block {-(-S // kb.SLOTS_PER_BLOCK) * hw * dv * 4 / 1e6:.1f} MB")
+          f"{errs[0][1]:.3e}), max|rec-plain| {rerr:.3e}; {k3_ms:.3f} ms "
+          f"at {kb.SLOTS_PER_BLOCK} slots per block; K1 on the same inputs, "
+          f"no bias, {k1_ms:.3f} ms; partial scratch "
+          f"{-(-S // kb.SLOTS_PER_BLOCK) * hw * dv * 4 / 1e6:.1f} MB")
     kv = count * hw
     k_lib = bk[:count].reshape(1, 1, kv, dh)
     v_lib = bvv[:count].reshape(1, 1, kv, dv)
@@ -437,12 +441,12 @@ def check_optin_kernels(dev):
         source="rmem_tpu_torch/csrc/bank_attention_qminor.cu",
         replaces="rmem_tpu/kernels/bank_attention.py:540",
         max_abs_err=err, max_abs_err_rec=rerr,
-        ms=per_block[kb.SLOTS_PER_BLOCK],
+        ms=k3_ms,
         plain_ms=cuda_ms(lambda: kb.bank_attention_qminor_plain(*args), 5),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q[None], k_lib, v_lib, scale=scale), 20),
-        ms_by_slots_per_block=per_block, k1_same_inputs_ms=k1_ms)
+        k1_same_inputs_ms=k1_ms)
 
     # ---- K8: the gated tail's product and 5 x 5 depthwise conv ----
     c = 1024
@@ -459,17 +463,32 @@ def check_optin_kernels(dev):
     # counted), channels last as the tail holds it
     xg_map = seq_to_map(x * gate, (h, w))
     # K8 takes less device time than an eager call takes the host, so its
-    # times are those of a CUDA graph of 50 calls (the eager ones beside)
+    # times are those of a CUDA graph of 48 calls (the eager ones beside).
+    # The graph cycles through 12 input sets, 83 MB of x and gate, more
+    # than the 50 MB L2, so each call reads its inputs from HBM as the
+    # bound counts them
+    sets = [(randn(1, hw, c), randn(1, hw, c)) for _ in range(12)]
+    maps = [seq_to_map(a * b, (h, w)) for a, b in sets]
+    turn = itertools.count()
+
+    def k8_call():
+        a, b = sets[next(turn) % len(sets)]
+        return kd.gated_dwconv(a, b, wt, (h, w))
+
+    def conv_call():
+        return F.conv2d(maps[next(turn) % len(maps)], wt, padding=2,
+                        groups=c)
+
     b_ms, b_by = bound(2.0 * 25 * hw * c, 3 * hw * c * 2 + wt.numel() * 2)
     entries["gated_dwconv"] = dict(
         name="gated_dwconv", route="cuda",
         source="rmem_tpu_torch/csrc/gated_dwconv.cu",
         replaces="rmem_tpu/kernels/dwconv.py:51", max_abs_err=err,
-        ms=graph_ms(lambda: kd.gated_dwconv(*dargs), 50),
+        ms=graph_ms(k8_call, 48),
         plain_ms=graph_ms(lambda: kd.gated_dwconv_plain(*dargs), 10),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=graph_ms(lambda: F.conv2d(xg_map, wt, padding=2,
-                                             groups=c), 50),
+        library_ms=graph_ms(conv_call, 48),
+        l2_resident_ms=graph_ms(lambda: kd.gated_dwconv(*dargs), 48),
         eager_ms=cuda_ms(lambda: kd.gated_dwconv(*dargs), 50),
         library_eager_ms=cuda_ms(lambda: F.conv2d(xg_map, wt, padding=2,
                                                   groups=c), 50))
@@ -800,10 +819,10 @@ def build_engine(dev):
     return InferenceEngine(model, cfg, device=dev), cfg
 
 
-def device_busy_table(fn, n: int, wall_ms: float, per: str) -> None:
-    """Run fn (n units of work) under torch.profiler; print the kernel
-    table and the device's busy time per unit against the unprofiled
-    wall time per unit, whose difference is the device's idle share."""
+def device_busy_ms(fn, n: int, table: bool = False) -> float:
+    """Run fn (n units of work) under torch.profiler; return the device's
+    busy time per unit in ms, the sum of its kernels' times. With `table`,
+    print the kernel table."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
@@ -812,11 +831,19 @@ def device_busy_table(fn, n: int, wall_ms: float, per: str) -> None:
         fn()
         torch.cuda.synchronize()
     events = p.key_averages()
-    print(events.table(sort_by="cuda_time_total", row_limit=25,
-                       max_name_column_width=60))
+    if table:
+        print(events.table(sort_by="cuda_time_total", row_limit=25,
+                           max_name_column_width=60))
     # kernels only: an operator's row repeats its kernels' device time
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA) / (1e3 * n)
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / (1e3 * n)
+
+
+def device_busy_table(fn, n: int, wall_ms: float, per: str) -> None:
+    """Print fn's kernel table under torch.profiler and the device's busy
+    time per unit against the unprofiled wall time per unit, whose
+    difference is the device's idle share."""
+    busy_ms = device_busy_ms(fn, n, table=True)
     print(f"profile: device busy {busy_ms:.3f} ms {per}; against the "
           f"unprofiled {wall_ms:.3f} ms {per} the device idles "
           f"{100 * (1 - busy_ms / wall_ms):.1f} %")
@@ -985,11 +1012,13 @@ def plain_agreement(dev):
     return worst, errs, agree
 
 
-def optin_config():
-    """R50-DeAOTL pre_vost with the gated tails through K8 and phase 7's
-    augs; K3 is chosen by RMEM_BANK_QMINOR, set around phase 7 only."""
+def optin_config(fused_dw: bool = True):
+    """R50-DeAOTL pre_vost with the gated tails through K8 (unless
+    `fused_dw` is off) and phase 7's augs; K3 is chosen by
+    RMEM_BANK_QMINOR, set around phases 7 and 8 only."""
     from rmem_tpu_torch.config import get_config
-    return get_config("pre_vost", model="r50_deaotl", use_pallas_dwconv=True,
+    return get_config("pre_vost", model="r50_deaotl",
+                      use_pallas_dwconv=fused_dw,
                       test_multiscale=OPTIN_SCALES, test_flip=True)
 
 
@@ -1252,6 +1281,90 @@ TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
                  ("bank_attention", "bank_attention_bwd_dkv"),
                  ("local_attention", "local_attention"),
                  ("stem", "stem"))
+
+
+def route_turns(dev, card: str):
+    """Phase 8: the two serving routes on the same traffic. Phase 7's
+    engine is built twice from the same seed, once with both opt-ins on
+    (K3 for bank attention, K8 in the gated tails) and once with both off
+    (K1 with the factored slot-PE bias, the gate multiply and PyTorch's
+    depthwise conv), and each takes phase 7's video: the reference frame,
+    then BANK_FULL frames to fill its bank. Then ROUTE_TURNS windows of
+    OPTIN_WINDOW frames each alternate between the routes (on, off, off,
+    on, ...), each route taking the same frames, and one more chunk of
+    each runs under torch.profiler for the device's busy time. Returns
+    {route: {"fps": per-window frames/s, "busy_ms": per frame}}."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import dwconv as kd
+
+    raw, mask = optin_inputs()
+    wrappers = (kb.bank_attention_qminor, kd.gated_dwconv,
+                kb.bank_attention_infer)
+    # route: (environment, fused_dw, kernels that must run, must not run)
+    spec = {"on": ({"RMEM_BANK_QMINOR": "1"}, True,
+                   ("bank_attention_qminor", "gated_dwconv"),
+                   ("bank_attention_infer",)),
+            "off": ({}, False, ("bank_attention_infer",),
+                    ("bank_attention_qminor", "gated_dwconv"))}
+    routes = {}
+    for name, (env, fused_dw, _, _) in spec.items():
+        cfg = optin_config(fused_dw)
+        with mock.patch.dict(os.environ, env):
+            if not env:
+                os.environ.pop("RMEM_BANK_QMINOR", None)
+            engine, augs, in_hws = optin_engine(dev, cfg)
+        check(engine.route == dict(qminor=fused_dw, fused_dw=fused_dw),
+              f"phase 8 {name} routes {engine.route}")
+        states = optin_reference(engine, cfg, raw[0], mask, augs, in_hws)
+        flips = [f for _, f in augs]
+        for t0 in range(1, 1 + BANK_FULL, OPTIN_CHUNK):
+            states, _ = engine.scan_steps_multi_raw(
+                states, raw[t0:t0 + OPTIN_CHUNK], in_hws, RAW_HW, flips)
+        routes[name] = dict(engine=engine, states=states, in_hws=in_hws,
+                            flips=flips, fps=[], labels=[])
+    for i in range(ROUTE_TURNS):
+        t_first = 1 + BANK_FULL + i * OPTIN_WINDOW
+        for name in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            r = routes[name]
+            before = {fn.__name__: fn.launches for fn in wrappers}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(t_first, t_first + OPTIN_WINDOW, OPTIN_CHUNK):
+                r["states"], lab = r["engine"].scan_steps_multi_raw(
+                    r["states"], raw[t:t + OPTIN_CHUNK], r["in_hws"], RAW_HW,
+                    r["flips"])
+                r["labels"].append(lab)
+            torch.cuda.synchronize()
+            r["fps"].append(OPTIN_WINDOW / (time.perf_counter() - t0))
+            ran = {fn.__name__: fn.launches - before[fn.__name__]
+                   for fn in wrappers}
+            _, _, must, must_not = spec[name]
+            check(all(ran[k] > 0 for k in must)
+                  and all(ran[k] == 0 for k in must_not),
+                  f"phase 8 {name} window launches {ran}")
+    for r in routes.values():
+        r["busy_ms"] = device_busy_ms(
+            lambda: r["engine"].scan_steps_multi_raw(
+                r["states"], raw[1:1 + OPTIN_CHUNK], r["in_hws"], RAW_HW,
+                r["flips"]), OPTIN_CHUNK)
+    for name, r in routes.items():
+        fps = statistics.median(r["fps"])
+        print(f"phase 8: route {name}: {fps:.3f} frames/s median ("
+              + ", ".join(f"{x:.3f}" for x in r["fps"])
+              + f"), device busy {r['busy_ms']:.3f} ms per frame, so "
+              f"{100 * (1 - r['busy_ms'] * fps / 1e3):.1f} % idle; on {card}")
+    on, off = routes["on"], routes["off"]
+    agree = (torch.cat(on["labels"])
+             == torch.cat(off["labels"])).float().mean().item()
+    print(f"phase 8: on/off frames/s "
+          f"{statistics.median(on['fps']) / statistics.median(off['fps']):.3f}"
+          f", device busy {on['busy_ms'] / off['busy_ms']:.3f}; labels of "
+          f"the timed frames agree on {agree:.5f} of pixels (each route "
+          "feeds its own labels back)")
+    return {name: dict(fps=r["fps"], busy_ms=r["busy_ms"])
+            for name, r in routes.items()}
 
 
 def train_config():
@@ -1520,6 +1633,9 @@ def main() -> int:
         optin_counts, optin_fps = optin_path(dev, card, args.profile)
         optin_worst, optin_logit_errs, optin_agree = optin_agreement(dev)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    turns = route_turns(dev, card)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
     for key in ("bank_attention_qminor", "gated_dwconv"):
         entries[key]["launches"] = optin_counts[key]
 
@@ -1538,6 +1654,7 @@ def main() -> int:
                       "optin_on_path": optin_worst,
                       "optin_logit_rel_err": optin_logit_errs,
                       "optin_label_agreement": optin_agree,
+                      "route_turns": turns,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

@@ -96,9 +96,6 @@ class Config:
     test_multiscale: Tuple[float, ...] = (1.0,)
     test_min_size: Optional[int] = None
     test_max_size: float = 800 * 1.3
-    # raw uint8 frames go to the card and are resized (cv2 INTER_CUBIC
-    # semantics) and normalised there (engine scan_steps_raw)
-    eval_device_prep: bool = True
     # the gated tails through the fused kernel K8 (inference only)
     use_pallas_dwconv: bool = False
 

@@ -21,15 +21,15 @@
 // Design. K1 gives a block 64 queries and a 256-wide slice of dv and walks
 // all valid slots; its grid at the main path is 27 x 4 = 108 blocks on 132
 // SMs. Here the grid is (query tile, dv slice, batch x head x slot group):
-// a block walks only the G slots of its group (G = slots_per_block), and
-// blocks whose group starts at or beyond the slot count, read on the
-// device, return at once, so a frame never waits for the host. On the
-// engine's path G = 2: with 9 valid slots that is 27 x 4 x 5 = 540 working
-// blocks, ~4.1 waves of one block per SM (176 registers a thread, 134 KB of
-// shared memory a block). G = 2 timed fastest of 1, 2, 3 and 9 in
-// chip_smoke.py's phase 2 on an H100 80GB HBM3 at 700 W (0.595 ms against
-// 0.620, 0.653 and 0.723; K1 0.755 on the same inputs). The block's inner
-// loop is K1's:
+// a block walks only the G = 2 slots of its group, and blocks whose group
+// starts at or beyond the slot count, read on the device, return at once,
+// so a frame never waits for the host. With 9 valid slots that is
+// 27 x 4 x 5 = 540 working blocks, ~4.1 waves of one block per SM (176
+// registers a thread, 131 KB of shared memory a block). G = 2 timed
+// fastest of 1, 2, 3 and 9 slots a block in chip_smoke.py's phase 2 on an
+// H100 80GB HBM3 at 700 W (0.595 ms against 0.620, 0.653 and 0.723; K1
+// 0.755 on the same inputs), so G is fixed at compile time. The block's
+// inner loop is K1's:
 // 8 warps, keys in chunks of 64 by cp.async into two buffers, mma.sync
 // m16n8k16 with ldmatrix, one online-softmax pass. Each block writes its
 // partial state in f32: the row maximum m over its group, the per-slot row
@@ -56,7 +56,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int GMAX = 16;   // slots a block may own
+constexpr int G = 2;      // slots a block walks
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -109,8 +109,8 @@ struct Smem {
   static constexpr int v_off = k_off + 2 * BK * LQ * 2;        // 2 buffers
   static constexpr int p_off = v_off + 2 * BK * LV * 2;
   static constexpr int red_off = p_off + BQ * LP * 2;          // [2][2][BQ]
-  static constexpr int mass_off = red_off + 4 * BQ * 4;        // [BQ][GMAX]
-  static constexpr int bytes = mass_off + BQ * GMAX * 4;
+  static constexpr int mass_off = red_off + 4 * BQ * 4;        // [BQ][G]
+  static constexpr int bytes = mass_off + BQ * G * 4;
 };
 
 // One (query tile, dv slice, bh, slot group): part_m [NG, B*H, Lq],
@@ -121,7 +121,7 @@ partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const int* __restrict__ count_ptr,
                float* __restrict__ part_m, float* __restrict__ part_l,
                float* __restrict__ part_acc, int B, int H, int Lq, int S,
-               int Lk, int dv, int G, float scale) {
+               int Lk, int dv, float scale) {
   using L = Smem<D, DVB>;
   extern __shared__ __align__(128) char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -183,9 +183,9 @@ partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_commit();
 
   if (write_ml)
-    for (int j = 0; j < GMAX; ++j) {
-      sMass[r0 * GMAX + j] = 0.f;
-      sMass[r1 * GMAX + j] = 0.f;
+    for (int j = 0; j < G; ++j) {
+      sMass[r0 * G + j] = 0.f;
+      sMass[r1 * G + j] = 0.f;
     }
 
   constexpr int NT = DVB / 16;      // n8 tiles of this warp's column half
@@ -283,11 +283,11 @@ partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float cs0 = red[2 * BQ + r0] + red[3 * BQ + r0];
       const float cs1 = red[2 * BQ + r1] + red[3 * BQ + r1];
       for (int j = 0; j < ns; ++j) {
-        sMass[r0 * GMAX + j] *= a0;
-        sMass[r1 * GMAX + j] *= a1;
+        sMass[r0 * G + j] *= a0;
+        sMass[r1 * G + j] *= a1;
       }
-      sMass[r0 * GMAX + js] += cs0;
-      sMass[r1 * GMAX + js] += cs1;
+      sMass[r0 * G + js] += cs0;
+      sMass[r1 * G + js] += cs1;
     }
 
     // ---- O = O * alpha + P V for rows rt, columns kh*DVB/2 .. ----
@@ -332,8 +332,8 @@ partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t BH = (size_t)B * H;
     for (int j = 0; j < ns; ++j) {
       const size_t base = ((s0 + j) * BH + bh) * Lq;
-      if (qa < Lq) part_l[base + qa] = sMass[r0 * GMAX + j];
-      if (qb < Lq) part_l[base + qb] = sMass[r1 * GMAX + j];
+      if (qa < Lq) part_l[base + qa] = sMass[r0 * G + j];
+      if (qb < Lq) part_l[base + qb] = sMass[r1 * G + j];
     }
     const size_t base = (grp * BH + bh) * Lq;
     if (qa < Lq) part_m[base + qa] = m0;
@@ -348,8 +348,8 @@ combine_kernel(const float* __restrict__ part_m,
                const float* __restrict__ part_l,
                const float* __restrict__ part_acc,
                const int* __restrict__ count_ptr, bf16* __restrict__ out,
-               float* __restrict__ rec, int B, int H, int Lq, int S, int dv,
-               int G) {
+               float* __restrict__ rec, int B, int H, int Lq, int S,
+               int dv) {
   const int HDV = H * dv;
   const int col = (blockIdx.y * kThreads + threadIdx.x) * 4;
   if (col >= HDV) return;
@@ -398,7 +398,7 @@ template <int D, int DVB>
 static int launch(const void* q, const void* k, const void* v,
                   const void* count, void* part_m, void* part_l,
                   void* part_acc, void* out, void* rec, int B, int H, int Lq,
-                  int S, int Lk, int dv, int G, float scale,
+                  int S, int Lk, int dv, float scale,
                   cudaStream_t stream) {
   constexpr int smem = Smem<D, DVB>::bytes;
   auto kern = partial_kernel<D, DVB>;
@@ -414,30 +414,30 @@ static int launch(const void* q, const void* k, const void* v,
   kern<<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)count,
       (float*)part_m, (float*)part_l, (float*)part_acc, B, H, Lq, S, Lk, dv,
-      G, scale);
+      scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid2(B * Lq, (H * dv / 4 + kThreads - 1) / kThreads);
   combine_kernel<<<grid2, kThreads, 0, stream>>>(
       (const float*)part_m, (const float*)part_l, (const float*)part_acc,
-      (const int*)count, (bf16*)out, (float*)rec, B, H, Lq, S, dv, G);
+      (const int*)count, (bf16*)out, (float*)rec, B, H, Lq, S, dv);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rmem_qminor
 
 // Returns the cudaError_t of the launches (0 on success); -1 for a head
-// width other than 128 (the only one instantiated), dv not a multiple of
-// 256, or G outside 1..16. part_m [ceil(S/G), B*H, Lq], part_l [S, B*H, Lq]
-// and part_acc [ceil(S/G), B, Lq, H*dv] are f32 scratch.
+// width other than 128 (the only one instantiated) or dv not a multiple of
+// 256. With G = 2, part_m [ceil(S/2), B*H, Lq], part_l [S, B*H, Lq] and
+// part_acc [ceil(S/2), B, Lq, H*dv] are f32 scratch.
 extern "C" int rmem_bank_attention_qminor(
     const void* q, const void* k, const void* v, const void* count,
     void* part_m, void* part_l, void* part_acc, void* out, void* rec, int B,
-    int H, int Lq, int S, int Lk, int dh, int dv, int G, float scale,
+    int H, int Lq, int S, int Lk, int dh, int dv, float scale,
     void* stream) {
-  if (dh != 128 || dv % 256 != 0 || G < 1 || G > rmem_qminor::GMAX)
+  if (dh != 128 || dv % 256 != 0)
     return -1;
   return rmem_qminor::launch<128, 256>(
       q, k, v, count, part_m, part_l, part_acc, out, rec, B, H, Lq, S, Lk,
-      dv, G, scale, (cudaStream_t)stream);
+      dv, scale, (cudaStream_t)stream);
 }

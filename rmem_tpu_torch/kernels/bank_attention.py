@@ -37,9 +37,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
-# K3: slots walked by one block. 2 gives 27 x 4 x 5 = 540 blocks and 34.3 MB
-# of partial scratch at the main path; it timed fastest of 1, 2, 3 and 9 on
-# the H100 (PERF.md)
+# K3: slots walked by one block, fixed in csrc/bank_attention_qminor.cu. 2
+# gives 27 x 4 x 5 = 540 blocks and 34.3 MB of partial scratch at the main
+# path; it timed fastest of 1, 2, 3 and 9 on the H100 (PERF.md)
 SLOTS_PER_BLOCK = 2
 
 
@@ -159,14 +159,13 @@ def bank_attention_qminor_plain(q: torch.Tensor, bank_k: torch.Tensor,
 
 def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
                           bank_v: torch.Tensor, count: torch.Tensor,
-                          num_heads: int, scale: float,
-                          slots_per_block: int = SLOTS_PER_BLOCK
+                          num_heads: int, scale: float
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, Lq, h*dh]; bank_k [S, B, Lk, h*dh]; bank_v [S, B, Lk, h*dv];
     count: int32 scalar tensor of valid slots, read on the device. Returns
     (out [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32). On the card: bf16
     q/k/v, one head of 128, dv a multiple of 256, all contiguous; each block
-    walks `slots_per_block` slots (1..16)."""
+    walks SLOTS_PER_BLOCK slots."""
     if not q.is_cuda:
         return bank_attention_qminor_plain(q, bank_k, bank_v, count,
                                            num_heads, scale)
@@ -182,9 +181,8 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
            f"{num_heads} heads of width {dh} (the kernel is held to its "
            "plain version for one head of 128, r50_deaotl's)")
     _check(dv % 256 == 0, f"value width {dv} (multiple of 256)")
-    _check(1 <= slots_per_block <= 16, f"{slots_per_block} slots per block")
     _check_count(count, q)
-    groups = -(-s // slots_per_block)
+    groups = -(-s // SLOTS_PER_BLOCK)
     bh = b * num_heads
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((groups, bh, lq), **f32)
@@ -194,12 +192,12 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
                       device=q.device)
     rec = torch.empty((bh, lq, s), **f32)
     fn = build.load("bank_attention_qminor").rmem_bank_attention_qminor
-    fn.argtypes = [_P] * 9 + [_I] * 8 + [_F, _P]
+    fn.argtypes = [_P] * 9 + [_I] * 7 + [_F, _P]
     fn.restype = _I
     err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
              count.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
              part_acc.data_ptr(), out.data_ptr(), rec.data_ptr(), b,
-             num_heads, lq, s, lk, dh, dv, slots_per_block, float(scale),
+             num_heads, lq, s, lk, dh, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_qminor")
     bank_attention_qminor.launches += 1
