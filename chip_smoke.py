@@ -13,11 +13,14 @@ non-zero exit code:
 2. hold each kernel against its plain PyTorch version at its path's
    shapes, in bf16, and time both (CUDA events), plus one PyTorch library
    call for the same function where one exists: the serving kernels (K1,
-   K4, K6) and the opt-in inference kernels (K3, beside K1 on the same
-   inputs; K8, timed through a CUDA graph over input sets larger than the
-   L2) at 481x849, and the training kernels (K1 with its lse output,
-   K2's three backward kernels with a nonzero drec, K5 and K7 forward and
-   backward) at the training shapes;
+   K4, K6) and the opt-in inference kernels (K3 at the main path's call and
+   at phase 7's two batch-2 grids, from HBM and L2-resident, beside K1 on
+   the same inputs; K8, timed through a CUDA graph over input sets larger
+   than the L2) at 481x849, and the
+   training kernels (K1 with its lse output, K2's three backward kernels
+   with a nonzero drec, K5's forward and backward kernels, each backward
+   output against its plain version and autograd of the plain forward,
+   K7 forward and backward) at the training shapes;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
    objects, random weights from a seed, the reference frame with a
    long-term write every 5 frames, then N frames (default 130) at the
@@ -37,7 +40,8 @@ non-zero exit code:
    465x465, 15 frames, 4 clips of seeded synthetic blobs, with the
    use_prev_pred curriculum starting inside the run. Launch counts are
    zeroed just before and read just after (per step too); every training
-   kernel must launch in every step; losses finite, parameters changed;
+   kernel must launch in every step, K5's backward once per layer and
+   frame (45); losses finite, parameters changed;
    seconds per step (median and each) and peak memory beside the card and
    the host;
 6. one step of the kernel model, every K2 call of which is held against
@@ -68,13 +72,15 @@ Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
 no CUDA device is available or the package is not beside this script.
 
-`--mutants` runs only a mutation check of the per-call K2 check (held_k2):
-for each mutant, the package is copied into a temporary directory, one
-line of csrc/bank_attention_bwd.cu is changed there (no_drec: ds drops the
-slot-mass term; dq_scale: dq is not multiplied by the logit scale), the
-copy's kernels are built, and held_k2 runs on phase 2's inputs (a nonzero
-drec). Each mutant must fail the check and the unmutated copy pass it;
-the checkout itself is never changed.
+`--mutants` runs only a mutation check of the per-call checks of K2
+(held_k2), K5's backward (held_k5) and K3 (held_k3): for each mutant
+(MUTANTS), the package is copied into a temporary directory, one line of
+the kernel's source is changed there (K2: ds drops the slot-mass term, or
+dq the logit scale; K5: dq drops the scale, the key side reads p and ds
+unmirrored, or ds drops delta; K3: the keys past Lk go unmasked, or a
+quarter of the accumulator unrescaled), the copy's kernels are built, and
+the check runs on phase 2's inputs. Each mutant must fail its check and
+each unmutated copy pass it; the checkout itself is never changed.
 """
 
 from __future__ import annotations
@@ -122,8 +128,9 @@ LSE_TOL = 1e-3          # K1 with lse: max |lse - plain|
 # K2's kernels round p and their outputs to bf16 and sum in f32: a few bf16
 # roundings of the output's scale (each kernel 1.4e-3 to 3.8e-3, the whole
 # backward against autograd up to 1.1e-2 over a training step's 45 calls,
-# measured on an H100); K5 and K7 differ from their plain versions only in
-# the forward (4.1e-3 and 1.1e-3 measured)
+# measured on an H100); K5's backward rounds its bf16 outputs and p, and
+# carries ds as a bf16 hi/lo pair; K7 differs from its plain version only
+# in the forward (1.1e-3 measured)
 GRAD_TOL = 2e-2         # max |kernel - plain| / max |plain|
 # one training step of the kernel model against one of the plain model:
 # the two differ by the kernels' bf16 roundings, carried through the clip
@@ -151,6 +158,12 @@ OPTIN_FRAMES = BANK_FULL + 3 * OPTIN_WINDOW
 OPTIN_AGREE_FRAMES = 12     # held per call and against the plain engine
 # phase 8: timed windows of each serving route, alternated
 ROUTE_TURNS = 3
+# K3 in phase 2: the main path's call (batch 1, 31 x 54) and phase 7's
+# (batch 2 on the grids of scales 1.0 and 1.3), timed over input sets of at
+# least K3_COLD_BYTES together, twice the L2
+K3_SHAPES = {"b1_31x54": (1, 31, 54), "b2_31x54": (2, 31, 54),
+             "b2_40x70": (2, 40, 70)}
+K3_COLD_BYTES = 100_000_000
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
@@ -192,6 +205,22 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_split_ms(fn, reps: int = 10) -> dict:
+    """Device time per call of each kernel that fn launches, by kernel
+    name, from torch.profiler over `reps` calls after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / (1e3 * reps)
+            for e in p.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -381,12 +410,12 @@ def check_kernels(dev):
 
 
 def check_optin_kernels(dev):
-    """Phase 2, the opt-in inference kernels at the main path's shapes in
-    bf16: K3 (the slot-split bank attention; Lq = Lk = 1674, 9 valid slots
-    of 10, dh 128, dv 1024) against its plain version, timed beside K1 on
-    the same inputs with no bias, and K8 (the gated depthwise conv,
-    [1, 1674, 1024] on the 31 x 54 grid).
-    Returns {name: entry} without launch counts."""
+    """Phase 2, the opt-in inference kernels in bf16: K3 (the slot-split
+    bank attention; 9 valid slots of 10, dh 128, dv 1024) against its plain
+    version at the main path's call (batch 1, Lq = Lk = 1674) and at phase
+    7's (batch 2 on 31 x 54 and 40 x 70), each timed from HBM and
+    L2-resident beside K1 on the same inputs; and K8 (the gated depthwise conv, [1, 1674, 1024] on the
+    31 x 54 grid). Returns {name: entry} without launch counts."""
     import torch
     import torch.nn.functional as F
 
@@ -405,16 +434,12 @@ def check_optin_kernels(dev):
     hw, dh, dv, S, count = h * w, 128, 1024, 10, 9
     scale = dh ** -0.5
 
-    # ---- K3: 9 of 10 slots valid, the slot PE already in the keys ----
-    q = randn(1, hw, dh, scale=2.0)
-    bk, bvv = randn(S, 1, hw, dh), randn(S, 1, hw, dv)
-    cnt = torch.tensor(count, dtype=torch.int32, device=dev)
-    args = (q, bk, bvv, cnt, 1, scale)
-    ref = kb.bank_attention_qminor_plain(*args)
-    out, rec = kb.bank_attention_qminor(*args)
-    errs = [held("bank_attention_qminor", (out, rec), ref)]
-    check(bool(torch.all(rec[..., count:] == 0)), "K3 mass of empty slots")
-    k3_ms = cuda_ms(lambda: kb.bank_attention_qminor(*args), 20)
+    # ---- K3: 9 of 10 slots valid, the slot PE already in the keys, at
+    # the main path's grid (batch 1) and at phase 7's calls (batch 2, the
+    # two scales' grids) ----
+    q, bk, bvv, cnt, scale = k3_inputs(dev)
+    count = int(cnt)
+    errs = [held_k3(q, bk, bvv, cnt, scale)]
     # the reference frame's call: one slot
     one = torch.ones((), dtype=torch.int32, device=dev)
     o1, r1 = kb.bank_attention_qminor(q, bk[:1], bvv[:1], one, 1, scale)
@@ -422,31 +447,43 @@ def check_optin_kernels(dev):
                      kb.bank_attention_qminor_plain(q, bk[:1], bvv[:1], one,
                                                     1, scale)))
     check(torch.allclose(r1, torch.ones_like(r1), atol=1e-4), "K3 S=1 mass")
+    shapes = {}
+    for key, (nb, gh, gw) in K3_SHAPES.items():
+        shapes[key] = k3_shape(dev, nb, gh, gw, errs)
+    main = shapes["b1_31x54"]
+    main["split_ms"] = kernel_split_ms(
+        lambda: kb.bank_attention_qminor(q, bk, bvv, cnt, 1, scale))
+    print("K3 by kernel at b1_31x54 (profiler, ms a call): " + ", ".join(
+        f"{k[:40]} {v:.4f}" for k, v in main["split_ms"].items()))
     err = max(e for e, _, _ in errs)
     rerr = max(m for _, _, m in errs)
-    k1_ms = cuda_ms(lambda: kb.bank_attention_infer(*args), 20)
-    print(f"K3 bank_attention_qminor: max|out-plain| {err:.3e} (max|plain| "
-          f"{errs[0][1]:.3e}), max|rec-plain| {rerr:.3e}; {k3_ms:.3f} ms "
-          f"at {kb.SLOTS_PER_BLOCK} slots per block; K1 on the same inputs, "
-          f"no bias, {k1_ms:.3f} ms; partial scratch "
-          f"{-(-S // kb.SLOTS_PER_BLOCK) * hw * dv * 4 / 1e6:.1f} MB")
+    for key, r in shapes.items():
+        print(f"K3 bank_attention_qminor {key}: {r['ms']:.4f} ms from HBM "
+              f"({r['sets']} input sets, {r['set_mb']:.1f} MB each), "
+              f"{r['l2_resident_ms']:.4f} ms on one set; K1 on the same "
+              f"inputs {r['k1_ms']:.4f} / {r['k1_l2_resident_ms']:.4f} ms, "
+              f"so K3/K1 {r['k1_ratio']:.3f}; bound {r['bound_ms']:.4f} ms")
+    print(f"K3: max|out-plain| {err:.3e} (max|plain| {errs[0][1]:.3e}), "
+          f"max|rec-plain| {rerr:.3e} over {len(errs)} calls; "
+          f"{kb.SLOTS_PER_BLOCK} slots a block; partial scratch "
+          f"{-(-S // kb.SLOTS_PER_BLOCK) * hw * dv * 2 / 1e6:.1f} MB (bf16)")
     kv = count * hw
     k_lib = bk[:count].reshape(1, 1, kv, dh)
     v_lib = bvv[:count].reshape(1, 1, kv, dv)
-    b_ms, b_by = bound(2.0 * hw * kv * (dh + dv),
-                       (q.numel() + kv * (dh + dv) + hw * dv) * 2
-                       + hw * S * 4)
     entries["bank_attention_qminor"] = dict(
         name="bank_attention_qminor", route="cuda",
         source="rmem_tpu_torch/csrc/bank_attention_qminor.cu",
         replaces="rmem_tpu/kernels/bank_attention.py:540",
         max_abs_err=err, max_abs_err_rec=rerr,
-        ms=k3_ms,
-        plain_ms=cuda_ms(lambda: kb.bank_attention_qminor_plain(*args), 5),
-        bound_ms=b_ms, bound_by=b_by,
+        ms=main["ms"],
+        plain_ms=cuda_ms(lambda: kb.bank_attention_qminor_plain(
+            q, bk, bvv, cnt, 1, scale), 5),
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q[None], k_lib, v_lib, scale=scale), 20),
-        k1_same_inputs_ms=k1_ms)
+        l2_resident_ms=main["l2_resident_ms"],
+        k1_same_inputs_ms=main["k1_ms"], k1_ratio=main["k1_ratio"],
+        shapes=shapes)
 
     # ---- K8: the gated tail's product and 5 x 5 depthwise conv ----
     c = 1024
@@ -495,6 +532,83 @@ def check_optin_kernels(dev):
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
     return entries
+
+
+def k3_inputs(dev, batch: int = 1, grid=None, seed: int = 3):
+    """K3's inputs at a bank-attention call of the serving path (bf16, 10
+    slots, 9 valid, dh 128, dv 1024, Lq = Lk = the grid's cells; by default
+    batch 1 on the 31 x 54 grid of 481 x 849): (q, bank_k, bank_v, count,
+    scale)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gh, gw = grid or ((IN_HW[0] - 1) // 16 + 1, (IN_HW[1] - 1) // 16 + 1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    hw, S = gh * gw, 10
+    return (randn(batch, hw, 128, scale=2.0), randn(S, batch, hw, 128),
+            randn(S, batch, hw, 1024),
+            torch.tensor(9, dtype=torch.int32, device=dev), 128 ** -0.5)
+
+
+def held_k3(q, bank_k, bank_v, count, scale):
+    """One K3 call against its plain version (output and slot mass, see
+    held); the empty slots' mass must be 0. Returns held's tuple."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    out, rec = kb.bank_attention_qminor(q, bank_k, bank_v, count, 1, scale)
+    errs = held("bank_attention_qminor", (out, rec),
+                kb.bank_attention_qminor_plain(q, bank_k, bank_v, count, 1,
+                                               scale))
+    check(bool(torch.all(rec[..., int(count):] == 0)),
+          "K3 mass of empty slots")
+    return errs
+
+
+def k3_shape(dev, batch: int, gh: int, gw: int, errs: list) -> dict:
+    """K3 at one call shape: held against its plain version on each input
+    set (appended to errs), timed over input sets that together exceed the
+    50 MB L2 (so the bank comes from HBM, as the bound counts it) and on
+    one L2-resident set, beside K1 on the same inputs. Returns the shape's
+    timings."""
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    one = k3_inputs(dev, batch, (gh, gw))
+    q, bk, bvv, cnt, _ = one
+    set_bytes = sum(t.numel() * t.element_size() for t in (q, bk, bvv))
+    n_sets = max(1, -(-K3_COLD_BYTES // set_bytes))
+    sets = [one] + [k3_inputs(dev, batch, (gh, gw), seed=100 + i)
+                    for i in range(1, n_sets)]
+    for a in sets:
+        errs.append(held_k3(*a))
+    turn = itertools.count()
+
+    def cycling(fn):
+        def call():
+            a = sets[next(turn) % len(sets)]
+            return fn(*a)
+        return call
+
+    k3 = lambda q_, k_, v_, c_, s_: kb.bank_attention_qminor(q_, k_, v_, c_,
+                                                             1, s_)
+    k1 = lambda q_, k_, v_, c_, s_: kb.bank_attention_infer(q_, k_, v_, c_,
+                                                            1, s_)
+    hw, count = gh * gw, int(cnt)
+    kv = count * hw
+    dh, dv = bk.shape[-1], bvv.shape[-1]
+    b_ms, b_by = bound(2.0 * batch * hw * kv * (dh + dv),
+                       batch * (hw * dh + kv * (dh + dv) + hw * dv) * 2
+                       + batch * hw * bk.shape[0] * 4)
+    r = dict(batch=batch, grid=[gh, gw], sets=n_sets,
+             set_mb=set_bytes / 1e6, ms=cuda_ms(cycling(k3), 20),
+             l2_resident_ms=cuda_ms(lambda: k3(*one), 20),
+             k1_ms=cuda_ms(cycling(k1), 20),
+             k1_l2_resident_ms=cuda_ms(lambda: k1(*one), 20),
+             bound_ms=b_ms, bound_by=b_by)
+    r["k1_ratio"] = r["ms"] / r["k1_ms"]
+    return r
 
 
 def rel_err(got, ref) -> float:
@@ -573,11 +687,55 @@ def k2_inputs(dev):
     return g, (q, bk, bvv, cnt, dout, drec, dh ** -0.5)
 
 
+def k5_inputs(dev):
+    """K5's phase-2 inputs at the training shapes (B 4, a 30 x 30 grid,
+    dh 128, dv 1024, bf16): (q, k, v, rel, g, size_2d, heads, max_dis,
+    scale), g the output's cotangent."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    b, hw, dh, dv = TRAIN_B, TRAIN_GRID[0] * TRAIN_GRID[1], 128, 1024
+    return (randn(b, hw, dh, scale=2.0), randn(b, hw, dh), randn(b, hw, dv),
+            randn(b, hw, 225), randn(b, hw, dv, scale=0.1), TRAIN_GRID, 1, 7,
+            dh ** -0.5)
+
+
+def held_k5(q, k, v, rel, g, size_2d, num_heads, max_dis, scale):
+    """K5's backward kernels on one call's inputs against their plain
+    version (`local_attention_bwd_plain`) and against autograd of the plain
+    forward, on each of dq, dk, dv and drel. Returns {check: max |kernel -
+    reference| / max |reference|}, failing the run past GRAD_TOL."""
+    import torch
+
+    from rmem_tpu_torch.kernels import local_attention as kl
+    args = (size_2d, num_heads, max_dis, scale)
+    got = kl.local_attention_bwd(q, k, v, rel, g, *args)
+    plain = kl.local_attention_bwd_plain(q, k, v, rel, g, *args)
+    ins = [t.detach().float().requires_grad_() for t in (q, k, v, rel)]
+    auto = torch.autograd.grad(kl.local_attention_plain(*ins, *args), ins,
+                               g.float())
+    errs = {}
+    for name, a, p, r in zip(("dq", "dk", "dv", "drel"), got, plain, auto):
+        errs[f"{name}_plain"] = rel_err(a, p)
+        errs[f"{name}_autograd"] = rel_err(a, r)
+    for key, err in errs.items():
+        check(err <= GRAD_TOL, f"K5 backward {key}: {err} (tolerance "
+              f"{GRAD_TOL})")
+    return errs
+
+
 def check_train_kernels(dev):
     """Phase 2, training rows: K1 with lse and the three K2 kernels at the
-    training shapes (B 4, a 30 x 30 grid, 4 valid slots of 10), K5 and K7
-    (kernel forward, plain backward) against plain forward and backward.
-    Returns ({name: entry} without launch counts, whole-K2 timings)."""
+    training shapes (B 4, a 30 x 30 grid, 4 valid slots of 10), K5's
+    forward (K4) and backward kernels (each backward output against its
+    plain version and autograd of the plain forward), and K7 (kernel
+    forward, plain backward) against plain forward and backward. Returns
+    ({name: entry} without launch counts, whole-K2 timings, whole-K5
+    timings)."""
     import torch
     import torch.nn.functional as F
 
@@ -718,13 +876,13 @@ def check_train_kernels(dev):
           f"{S} with a mask {whole['library_bwd_masked_ms']:.3f} ms, bound "
           f"{whole['bound_ms']:.3f} ms)")
 
-    # ---- K5: local attention forward kernel + plain backward ----
-    lq_ = randn(b, hw, dh, scale=2.0)
-    lk_ = randn(b, hw, dh)
-    lv = randn(b, hw, dv)
-    rel = randn(b, hw, 225)
-    gl = randn(b, hw, dv, scale=0.1)
-    largs = ((h, w), 1, 7, scale)
+    # ---- K5: the local attention's forward (K4) and backward kernels ----
+    k5_args = k5_inputs(dev)
+    (lq_, lk_, lv, rel, gl), largs = k5_args[:5], k5_args[5:]
+    k5_errs = held_k5(*k5_args)
+    print("K5 local_attention_bwd at the training shapes, max|kernel - "
+          "plain| / max|plain|: " + ", ".join(f"{k} {v:.3e}"
+                                               for k, v in k5_errs.items()))
 
     def fwd_bwd(fn):
         ins = [t.detach().requires_grad_() for t in (lq_, lk_, lv, rel)]
@@ -737,29 +895,69 @@ def check_train_kernels(dev):
     check(lerr <= GRAD_TOL, f"K5 output and gradients {lerr}")
     print(f"K5 local_attention_trainable (fwd + bwd): max rel err {lerr:.3e}")
     omap = _local_offset_map_on(h, w, 7, dev)
-    keys = (omap < 225).sum().item()
+    pairs = b * (omap < 225).sum().item()      # in-image (query, key) pairs
     relp = torch.cat([rel, torch.full((b, hw, 1), NEG_INF, dtype=bf,
                                       device=dev)], dim=2)
     dense_bias = torch.gather(relp, 2, omap.expand(b, hw, hw))[:, None]
     lib_ins = [t.detach().requires_grad_() for t in (lq_, lk_, lv)]
 
-    def lib_local():
+    def lib_local(backward: bool):
         o = F.scaled_dot_product_attention(
             lib_ins[0][:, None], lib_ins[1][:, None], lib_ins[2][:, None],
             attn_mask=dense_bias, scale=scale)
-        torch.autograd.grad(o, lib_ins, gl[:, None])
+        if backward:
+            torch.autograd.grad(o, lib_ins, gl[:, None])
 
-    # forward: q, k, v, rel read, out written; backward: the same plus the
-    # cotangent read and four gradients written
-    l_bytes = 2 * (2 * b * hw * dh + 2 * b * hw * dv + b * hw * 225) * 2
-    b_ms, b_by = bound(3 * 2.0 * b * keys * (dh + dv), l_bytes)
-    entries["local_attention_trainable"] = dict(
-        name="local_attention_trainable", route="cuda",
-        source="rmem_tpu_torch/csrc/local_attention.cu",
-        replaces="rmem_tpu/kernels/local_attention.py:237", max_abs_err=lerr,
-        ms=cuda_ms(lambda: fwd_bwd(kl.local_attention_trainable), 5),
+    lib_fwd_ms = cuda_ms(lambda: lib_local(False), 20)
+    lib_fwd_bwd_ms = cuda_ms(lambda: lib_local(True), 20)
+    # q, k, v and rel read once; the forward writes the output once, the
+    # backward also reads g once and writes dq, dk, dv (bf16) and drel (f32)
+    # once
+    reads = (2 * dh + dv + 225) * b * hw * 2
+    k5_rows = {
+        "local_attention_fwd_train": dict(
+            replaces="rmem_tpu/kernels/local_attention.py:237",
+            fn=lambda: kl.local_attention(lq_, lk_, lv, rel, *largs),
+            plain=lambda: kl.local_attention_plain(lq_, lk_, lv, rel,
+                                                   *largs),
+            flops=2.0 * pairs * (dh + dv),
+            nbytes=reads + b * hw * dv * 2, err=rel_err(got[0], ref[0]),
+            library_ms=lib_fwd_ms),
+        "local_attention_bwd": dict(
+            replaces="rmem_tpu/kernels/local_attention.py:266",
+            fn=lambda: kl.local_attention_bwd(lq_, lk_, lv, rel, gl, *largs),
+            plain=lambda: kl.local_attention_bwd_plain(lq_, lk_, lv, rel, gl,
+                                                       *largs),
+            flops=2.0 * pairs * (3 * dh + 2 * dv),
+            nbytes=(reads + b * hw * dv * 2 + (2 * dh + dv) * b * hw * 2
+                    + b * hw * 225 * 4),
+            err=max(k5_errs.values()),
+            # the library's backward: forward + backward less forward
+            library_ms=lib_fwd_bwd_ms - lib_fwd_ms),
+    }
+    for name, r in k5_rows.items():
+        b_ms, b_by = bound(r["flops"], r["nbytes"])
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="rmem_tpu_torch/csrc/local_attention.cu",
+            replaces=r["replaces"], max_abs_err=r["err"],
+            ms=cuda_ms(r["fn"], 20), plain_ms=cuda_ms(r["plain"], 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"])
+    k5_whole = dict(
+        ms=cuda_ms(lambda: fwd_bwd(kl.local_attention_trainable), 20),
         plain_ms=cuda_ms(lambda: fwd_bwd(kl.local_attention_plain), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_local, 5))
+        library_ms=lib_fwd_bwd_ms, held=k5_errs)
+    k5_whole["library_ratio"] = k5_whole["ms"] / lib_fwd_bwd_ms
+    k5_whole["backward_split_ms"] = kernel_split_ms(
+        lambda: kl.local_attention_bwd(lq_, lk_, lv, rel, gl, *largs))
+    print("K5 backward by kernel (profiler, ms a call): " + ", ".join(
+        f"{k[:40]} {v:.4f}" for k, v in k5_whole["backward_split_ms"].items()))
+    print(f"K5 forward + backward through autograd: {k5_whole['ms']:.3f} ms "
+          f"(forward {entries['local_attention_fwd_train']['ms']:.3f}, "
+          f"backward {entries['local_attention_bwd']['ms']:.3f}); SDPA "
+          f"forward + backward with the dense bias {lib_fwd_bwd_ms:.3f} ms "
+          f"(forward {lib_fwd_ms:.3f}), so {k5_whole['library_ratio']:.3f}x;"
+          f" plain {k5_whole['plain_ms']:.3f} ms")
 
     # ---- K7: stem forward kernel + plain backward over B*T frames ----
     x = torch.rand((TRAIN_B * TRAIN_T, *TRAIN_HW, 3), generator=g,
@@ -796,7 +994,7 @@ def check_train_kernels(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
-    return entries, whole
+    return entries, whole, k5_whole
 
 
 def reference_inputs(dev):
@@ -1280,6 +1478,7 @@ TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
                  ("bank_attention", "bank_attention_bwd_dq"),
                  ("bank_attention", "bank_attention_bwd_dkv"),
                  ("local_attention", "local_attention"),
+                 ("local_attention", "local_attention_bwd"),
                  ("stem", "stem"))
 
 
@@ -1427,6 +1626,12 @@ def train_phase(dev, card: str, profile: bool):
     check(all(n > 0 for n in counts.values()), f"a kernel never ran: {counts}")
     check(all(all(n > 0 for n in s) for s in per_step),
           f"a kernel missed a step: {per_step}")
+    # K5's backward once per layer and frame, as K2's
+    k5_bwd = [s[[fn for _, fn in TRAIN_KERNELS].index("local_attention_bwd")]
+              for s in per_step]
+    check(all(n == cfg.model_lstt_num * TRAIN_T for n in k5_bwd),
+          f"K5 backward launches per step {k5_bwd}, expected "
+          f"{cfg.model_lstt_num * TRAIN_T}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(moved > 0, "the parameters did not change")
     check(seq_start < steps, "the curriculum did not start")
@@ -1512,61 +1717,98 @@ def held_train_step(dev):
                 k2_calls=len(calls), k2_worst=worst)
 
 
+# --mutants: for each kernel source, the per-call check that must catch
+# its one-line mutants, and the mutants (a list of (line, replacement))
 MUTANTS = {
-    "original": [],
-    "no_drec": [("d[e] = p[e] * (gg[nt][e] + ra - da);",
-                 "d[e] = p[e] * (gg[nt][e] - da);"),
-                ("d[e + 2] = p[e + 2] * (gg[nt][e + 2] + rc - dc);",
-                 "d[e + 2] = p[e + 2] * (gg[nt][e + 2] - dc);")],
-    "dq_scale": [("pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);",
-                  "pack_bf16(acc[nt][0], acc[nt][1]);"),
-                 ("pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);",
-                  "pack_bf16(acc[nt][2], acc[nt][3]);")],
+    "bank_attention_bwd": ("k2", {
+        # ds drops the slot-mass term
+        "no_drec": [("d[e] = p[e] * (gg[nt][e] + ra - da);",
+                     "d[e] = p[e] * (gg[nt][e] - da);"),
+                    ("d[e + 2] = p[e + 2] * (gg[nt][e + 2] + rc - dc);",
+                     "d[e + 2] = p[e + 2] * (gg[nt][e + 2] - dc);")],
+        # dq is not multiplied by the logit scale
+        "dq_scale": [("pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);",
+                      "pack_bf16(acc[nt][0], acc[nt][1]);"),
+                     ("pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);",
+                      "pack_bf16(acc[nt][2], acc[nt][3]);")]}),
+    "local_attention": ("k5", {
+        # dq is not multiplied by the logit scale
+        "dq_scale": [("store_rows<D, NF>(smem, dacc, rt, cb, scale,",
+                      "store_rows<D, NF>(smem, dacc, rt, cb, 1.f,")],
+        # the key side reads p and ds at the key's offset from the query,
+        # not at the mirrored one
+        "unflipped": [("* win2 + (win2 - 1 - wk)];", "* win2 + wk];")],
+        # ds = p dp, without the row term delta
+        "no_delta": [("prow[w[j]] * (drow[w[j]] - delta);",
+                      "prow[w[j]] * drow[w[j]];")]}),
+    "bank_attention_qminor": ("k3", {
+        # the zero keys that TMA fills past Lk are not masked
+        "no_key_mask": [("const bool ok = key0 + i * 8 + 2 * t4 + e < Lk;",
+                         "const bool ok = true;")],
+        # one quarter of the accumulator is not rescaled as the max grows
+        "no_rescale": [("        o[4 * i] *= a0;\n", "")]}),
+}
+MUTANT_CHECKS = {
+    "k2": lambda dev: held_k2(*k2_inputs(dev)[1]),
+    "k5": lambda dev: held_k5(*k5_inputs(dev)),
+    "k3": lambda dev: held_k3(*k3_inputs(dev)),
 }
 # runs in a copy: the copy's chip_smoke and package come first on the path
 MUTANT_RUN = """
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-_, args = chip_smoke.k2_inputs(torch.device("cuda", 0))
 try:
-    print(json.dumps({"caught": None, "errs": chip_smoke.held_k2(*args)}))
+    errs = chip_smoke.MUTANT_CHECKS[sys.argv[2]](torch.device("cuda", 0))
+    print(json.dumps({"caught": None, "errs": errs}))
 except RuntimeError as e:
     print(json.dumps({"caught": str(e)}))
 """
 
 
-def mutation_check() -> int:
-    """`--mutants`: 0 when every mutant fails held_k2 and the original
-    passes it."""
+def mutation_check(sources=tuple(MUTANTS)) -> int:
+    """`--mutants`: for each kernel source in `sources`, copies the package
+    into a temporary directory once unchanged and once per mutant, changes
+    the mutant's lines there, and runs the source's per-call check (on its
+    phase-2 inputs) in each copy, all copies at once. 0 when every mutant
+    fails its check and every unchanged copy passes."""
     import shutil
     import tempfile
-    source = "rmem_tpu_torch/csrc/bank_attention_bwd.cu"
-    wrong = []
+    runs = []
     with tempfile.TemporaryDirectory() as tmp:
-        for name, edits in MUTANTS.items():
-            copy = Path(tmp, name)
-            shutil.copytree(ROOT / "rmem_tpu_torch", copy / "rmem_tpu_torch",
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            shutil.copy(ROOT / "chip_smoke.py", copy)
-            text = (copy / source).read_text()
-            for old, new in edits:
-                check(text.count(old) == 1, f"{name}: {old!r} not one line")
-                text = text.replace(old, new)
-            (copy / source).write_text(text)
-            r = subprocess.run([sys.executable, "-c", MUTANT_RUN, str(copy)],
-                               capture_output=True, text=True, timeout=600)
-            check(r.returncode == 0, f"{name}: the check did not run\n"
-                  f"{r.stdout}\n{r.stderr}")
-            result = json.loads(r.stdout.strip().splitlines()[-1])
-            print(f"mutant {name}: {json.dumps(result)}")
+        for source in sources:
+            check_name, mutants = MUTANTS[source]
+            path = f"rmem_tpu_torch/csrc/{source}.cu"
+            for name, edits in {"original": [], **mutants}.items():
+                copy = Path(tmp, f"{source}-{name}")
+                shutil.copytree(ROOT / "rmem_tpu_torch",
+                                copy / "rmem_tpu_torch",
+                                ignore=shutil.ignore_patterns("__pycache__"))
+                shutil.copy(ROOT / "chip_smoke.py", copy)
+                text = (copy / path).read_text()
+                for old, new in edits:
+                    check(text.count(old) == 1, f"{source} {name}: {old!r} "
+                          "not one line")
+                    text = text.replace(old, new)
+                (copy / path).write_text(text)
+                proc = subprocess.Popen(
+                    [sys.executable, "-c", MUTANT_RUN, str(copy), check_name],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                runs.append((source, name, proc))
+        wrong = []
+        for source, name, proc in runs:
+            out, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"{source} {name}: the check did "
+                  f"not run\n{out}\n{err}")
+            result = json.loads(out.strip().splitlines()[-1])
+            print(f"mutant {source} {name}: {json.dumps(result)}")
             if (result["caught"] is None) == (name != "original"):
-                wrong.append(name)
+                wrong.append(f"{source} {name}")
     if wrong:
         print(f"mutants: wrong outcome for {wrong}")
         return 1
-    print("mutants: every mutant failed the per-call K2 check, the "
-          "original passed")
+    print("mutants: every mutant failed its per-call check, every original "
+          "passed")
     return 0
 
 
@@ -1577,8 +1819,8 @@ def main() -> int:
                     help="print a torch.profiler table of 5 steady frames "
                          "of phases 3 and 7 and of one training step")
     ap.add_argument("--mutants", action="store_true",
-                    help="only the mutation check of the per-call K2 "
-                         "check; prints no result line")
+                    help="only the mutation check of the per-call K2, K5 "
+                         "and K3 checks; prints no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")
@@ -1613,7 +1855,7 @@ def main() -> int:
 
     entries = check_kernels(dev)
     entries.update(check_optin_kernels(dev))
-    train_entries, k2_whole = check_train_kernels(dev)
+    train_entries, k2_whole, k5_whole = check_train_kernels(dev)
     counts, window_fps = main_path(dev, args.frames, card, args.profile)
     for key, fn_name in (("bank_attention", "bank_attention_infer"),
                          ("local_attention", "local_attention"),
@@ -1623,7 +1865,7 @@ def main() -> int:
     train_counts, step_times, peak = train_phase(dev, card, args.profile)
     # the trainable wrappers launch K4 and K6 forwards
     for key in train_entries:
-        fn_name = {"local_attention_trainable": "local_attention",
+        fn_name = {"local_attention_fwd_train": "local_attention",
                    "stem_trainable": "stem"}.get(key, key)
         train_entries[key]["launches"] = train_counts[fn_name]
     held_step = held_train_step(dev)
@@ -1647,7 +1889,8 @@ def main() -> int:
                       "train_step_s_median": statistics.median(
                           step_times[1:]),
                       "train_peak_gib": peak, "train_launches": train_counts,
-                      "k2_whole": k2_whole, "held_step": held_step,
+                      "k2_whole": k2_whole, "k5_whole": k5_whole,
+                      "held_step": held_step,
                       "optin_fps_windows": optin_fps,
                       "optin_fps_median": statistics.median(optin_fps),
                       "optin_launches": optin_counts,

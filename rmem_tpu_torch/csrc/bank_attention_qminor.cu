@@ -9,42 +9,50 @@
 // slots x chunks, query tiles) so that each K/V chunk is fetched once and
 // every query tile streams past it, with the online-softmax state and an
 // [Lq, dv] f32 accumulator for all queries kept in VMEM. At the main path
-// that accumulator is 1674 x 1024 x 4 B = 6.9 MB, 30x an SM's shared memory
-// and more than a cluster's, so the order cannot keep its state on chip
-// here. What this kernel takes from it is the other axis of the work: the
-// slots.
+// that accumulator is 1674 x 1024 x 4 B = 6.9 MB, 30x an SM's shared memory,
+// so the order cannot keep its state on chip here. What this kernel takes
+// from it is the other axis of the work: the slots.
 //
-// What bounds it on an H100: operations, as K1. At the main path (Lq = Lk =
-// 1674, 9 valid slots, dh 128, dv 1024) the work is 2*Lq*(S*Lk)*(dh + dv)
-// ~ 5.8e10 FLOP against ~40 MB of bank read: ~59 us at 989 TFLOP/s.
+// What bounds it on an H100: operations. At the main path (Lq = Lk = 1674,
+// 9 valid slots, dh 128, dv 1024) the work is 2 Lq (S Lk) (dh + dv) ~ 5.8e10
+// FLOP against ~40 MB of bank read: ~59 us at 989 TFLOP/s. The full
+// tensor-core rate needs wgmma fed by TMA, so the kernel is built on them.
 //
-// Design. K1 gives a block 64 queries and a 256-wide slice of dv and walks
-// all valid slots; its grid at the main path is 27 x 4 = 108 blocks on 132
-// SMs. Here the grid is (query tile, dv slice, batch x head x slot group):
-// a block walks only the G = 2 slots of its group, and blocks whose group
-// starts at or beyond the slot count, read on the device, return at once,
-// so a frame never waits for the host. With 9 valid slots that is
-// 27 x 4 x 5 = 540 working blocks, ~4.1 waves of one block per SM (176
-// registers a thread, 131 KB of shared memory a block). G = 2 timed
-// fastest of 1, 2, 3 and 9 slots a block in chip_smoke.py's phase 2 on an
-// H100 80GB HBM3 at 700 W (0.595 ms against 0.620, 0.653 and 0.723; K1
-// 0.755 on the same inputs), so G is fixed at compile time. The block's
-// inner loop is K1's:
-// 8 warps, keys in chunks of 64 by cp.async into two buffers, mma.sync
-// m16n8k16 with ldmatrix, one online-softmax pass. Each block writes its
-// partial state in f32: the row maximum m over its group, the per-slot row
-// sums l_s (relative to m, rescaled as m grows, as K1 rescales its slot
-// mass) and the unnormalised accumulator acc. The scratch is
-// ceil(S / G) x B x Lq x dv x 4 bytes for acc (34.3 MB at the main path
-// with G = 2 over the bank's 10 slots; only the valid groups are written)
-// plus 2 x S x B x Lq x 4 for m and l. A second kernel reads the count and
-// merges the groups of each row: with M = max_g m_g and
-// L = sum_g e^(m_g - M) sum_{s in g} l_s,
-//   out   = sum_g e^(m_g - M) acc_g / L          (rounded to bf16)
-//   rec_s = e^(m_g(s) - M) l_s / L               (0 for slots >= count).
-// The slot mass falls out of the per-slot l with no extra pass. The
-// scratch is written once and read once by the merge (~69 MB at the main
-// path, ~20 us at 3.35 TB/s), the price of the split.
+// Design. A block owns 128 queries (two consumer warpgroups of 64 rows), a
+// 256-wide slice of dv and a group of G slots; the grid is (query tile, dv
+// slice, batch x slot group), and blocks whose group starts at or beyond the
+// slot count, read on the device, return before any barrier or copy, so a
+// frame never waits for the host.
+//   - A producer warpgroup (one thread, its registers given back with
+//     setmaxnreg) loads the two Q tiles once and then keeps the block's K
+//     and V chunks (64 keys: K [64 x 128], V [64 x 256]) in flight by TMA
+//     into a ring of 3 stages, each with a full and an empty mbarrier. The
+//     tensor maps are 3-D, [slot x batch, key, column], so a chunk never
+//     runs across two slots, and the keys past Lk arrive as zeros.
+//   - Each consumer warpgroup runs, per chunk, S = Q K^T as wgmma m64n64k16
+//     from shared memory (K-major, 128-byte swizzle, as TMA wrote it), the
+//     key mask (a zero key past Lk would give logit 0, not -inf), the online
+//     softmax in registers (exp2, four threads a row), and O += P V as
+//     wgmma m64n256k16 with P in registers (the accumulator's layout is
+//     the A operand's, so P needs no shuffle) and V from shared memory
+//     (MN-major). O is 64 x 256 f32: 128 registers a thread.
+//   - The two warpgroups share every K/V chunk, so the bank is read from L2
+//     once per 128 queries and 256 columns. Q K^T is recomputed for each
+//     of the four dv slices: 1.33x the minimal work, in exchange for no
+//     exchange of P between blocks.
+// Each block writes its partial state: the row maximum m over its group
+// (log2 units), the per-slot row sums l_s (relative to m) and its output
+// normalised by its own sum, in bf16 (ceil(S / G) x B x Lq x dv x 2 bytes,
+// 17.1 MB at the main path with G = 2 over the bank's 10 slots: half of
+// the f32 accumulator it replaces). A second kernel reads the count and
+// merges the groups of each row: with w_g = 2^(m_g - M) sum_{s in g} l_s,
+//   out   = sum_g w_g o_g / sum_g w_g            (rounded to bf16)
+//   rec_s = 2^(m_g(s) - M) l_s / sum_g w_g       (0 for slots >= count).
+// G = 2 is fixed at compile time. Of 1, 2, 3 and 9 slots a block on this
+// design (PERF.md), it is fastest at batch 1 on the 31 x 54 grid, and on
+// phase 7's calls of chip_smoke.py (batch 2, half on 31 x 54, half on
+// 40 x 70) it ties with 3 within 2 %.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,391 +61,547 @@
 namespace rmem_qminor {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 256;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int G = 2;      // slots a block walks
+constexpr int D = 128;        // head width: two 64-wide K-major atoms
+constexpr int BQ = 64;        // query rows of one consumer warpgroup
+constexpr int NCONS = 2;      // consumer warpgroups: 128 queries a block
+constexpr int BK = 64;        // keys a chunk
+constexpr int DVB = 256;      // value columns a block
+constexpr int STAGES = 3;     // K/V chunks in flight
+constexpr int kThreads = 128 * (1 + NCONS);
+constexpr int G = 2;          // slots a block walks
+constexpr int ATOM = 64 * 128;              // one [64 x 64] bf16 TMA box
+constexpr int Q_BYTES = NCONS * 2 * ATOM;
+constexpr int K_BYTES = 2 * ATOM;
+constexpr int V_BYTES = (DVB / 64) * ATOM;
+constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+// + 1024: the dynamic shared memory is aligned up to 1024 bytes by hand,
+// the period of the 128-byte swizzle that TMA and wgmma must agree on
+constexpr int SMEM_BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+constexpr int kMergeThreads = 128;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+// One [64 x 64] box of a 3-D tensor map into shared memory, completing on
+// `bar`'s transaction count.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product's issue and wait.
 template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+// A wgmma shared-memory descriptor for a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1 =
+// SWIZZLE_128B. K-major tiles (Q, K): 8-row groups 1024 bytes apart, the
+// leading offset unused. MN-major V: 8-key groups 1024 bytes apart, 64-column
+// blocks (one TMA box each) 8 KB apart.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = smem_u32(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D, int DVB>
-struct Smem {
-  static constexpr int LQ = D + 8;
-  static constexpr int LV = DVB + 8;
-  static constexpr int LP = BK + 8;
-  static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + BQ * LQ * 2;            // 2 buffers
-  static constexpr int v_off = k_off + 2 * BK * LQ * 2;        // 2 buffers
-  static constexpr int p_off = v_off + 2 * BK * LV * 2;
-  static constexpr int red_off = p_off + BQ * LP * 2;          // [2][2][BQ]
-  static constexpr int mass_off = red_off + 4 * BQ * 4;        // [BQ][G]
-  static constexpr int bytes = mass_off + BQ * G * 4;
-};
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory
+// (K-major, 128-byte swizzle); accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-// One (query tile, dv slice, bh, slot group): part_m [NG, B*H, Lq],
-// part_l [S, B*H, Lq], part_acc [NG, B, Lq, H*dv], all f32.
-template <int D, int DVB>
-__global__ void __launch_bounds__(kThreads)
-partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const int* __restrict__ count_ptr,
-               float* __restrict__ part_m, float* __restrict__ part_l,
-               float* __restrict__ part_acc, int B, int H, int Lq, int S,
-               int Lk, int dv, float scale) {
-  using L = Smem<D, DVB>;
-  extern __shared__ __align__(128) char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p_off);
-  float* red = reinterpret_cast<float*>(smem + L::red_off);
-  float* sMass = reinterpret_cast<float*>(smem + L::mass_off);
+// D[64 x 256] += A[64 x 16] B[16 x 256], A from registers (the layout of
+// an m16n8k16 A fragment per warp), B from shared memory (MN-major, 128-byte
+// swizzle).
+__device__ __forceinline__ void wgmma_rs_m64n256(float* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// One (128-query tile, 256-wide dv slice, batch x slot group): part_m
+// [NG, B, Lq] and part_l [S, B, Lq] f32, part_o [NG, B, Lq, DV] bf16.
+__global__ void __launch_bounds__(kThreads, 1)
+partial_kernel(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const int* __restrict__ count_ptr, float* __restrict__ part_m,
+               float* __restrict__ part_l, bf16* __restrict__ part_o, int B,
+               int Lq, int S, int Lk, int DV, float scale_log2) {
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
 
   const int ngroups = (S + G - 1) / G;
-  const int grp = blockIdx.z % ngroups, bh = blockIdx.z / ngroups;
-  const int b = bh / H, h = bh % H;
+  const int grp = blockIdx.z % ngroups, b = blockIdx.z / ngroups;
   int count = *count_ptr;
   count = count < 0 ? 0 : (count > S ? S : count);
   const int s0 = grp * G;
-  if (s0 >= count) return;            // the whole block: no slot to walk
+  if (s0 >= count) return;  // the whole block, before any barrier or copy
   const int ns = count - s0 < G ? count - s0 : G;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int rt = warp & 3;   // 16-row tile
-  const int kh = warp >> 2;  // key half (S phase) and column half (P V phase)
-  const int q0 = blockIdx.x * BQ, c0 = blockIdx.y * DVB;
-  const int HD = H * D, HDV = H * dv;
   const int cps = (Lk + BK - 1) / BK;
   const int nch = ns * cps;
-  const int r0 = rt * 16 + g, r1 = r0 + 8;      // this thread's two rows
-  const bool write_ml = blockIdx.y == 0 && kh == 0 && t == 0;
+  const int q0 = blockIdx.x * (BQ * NCONS), c0 = blockIdx.y * DVB;
 
-  // ---- Q tile (group 0), chunk 0 (group 1) ----
-  for (int i = tid; i < BQ * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), s8 = i % (D / 8);
-    const int qi = q0 + r;
-    const bf16* src = q + ((size_t)b * Lq + (qi < Lq ? qi : 0)) * HD + h * D +
-                      s8 * 8;
-    cp_async16(sQ + r * L::LQ + s8 * 8, src, qi < Lq);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NCONS);   // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_commit();
-  auto load_chunk = [&](int ch, int buf) {
-    const int s = s0 + ch / cps, key0 = (ch % cps) * BK;
-    bf16* dK = sK + buf * BK * L::LQ;
-    bf16* dV = sV + buf * BK * L::LV;
-    for (int i = tid; i < BK * (D / 8); i += kThreads) {
-      const int j = i / (D / 8), s8 = i % (D / 8);
-      const int key = key0 + j;
-      const bf16* src = k + (((size_t)s * B + b) * Lk + (key < Lk ? key : 0)) *
-                                HD + h * D + s8 * 8;
-      cp_async16(dK + j * L::LQ + s8 * 8, src, key < Lk);
-    }
-    for (int i = tid; i < BK * (DVB / 8); i += kThreads) {
-      const int j = i / (DVB / 8), s8 = i % (DVB / 8);
-      const int key = key0 + j;
-      const bf16* src = v + (((size_t)s * B + b) * Lk + (key < Lk ? key : 0)) *
-                                HDV + h * dv + c0 + s8 * 8;
-      cp_async16(dV + j * L::LV + s8 * 8, src, key < Lk);
-    }
-  };
-  load_chunk(0, 0);
-  cp_commit();
+  __syncthreads();
 
-  if (write_ml)
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, Q_BYTES);
+      for (int c = 0; c < NCONS; ++c)
+        for (int a = 0; a < 2; ++a)
+          tma_load(smem + (c * 2 + a) * ATOM, &tm_q, qbar, a * 64,
+                   q0 + c * BQ, b);
+      for (int ch = 0; ch < nch; ++ch) {
+        const int st = ch % STAGES, use = ch / STAGES;
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        char* sk = smem + Q_BYTES + st * STAGE_BYTES;
+        char* sv = sk + K_BYTES;
+        const int z = (s0 + ch / cps) * B + b, key0 = (ch % cps) * BK;
+        mbar_expect_tx(&full[st], STAGE_BYTES);
+        for (int a = 0; a < 2; ++a)
+          tma_load(sk + a * ATOM, &tm_k, &full[st], a * 64, key0, z);
+        for (int a = 0; a < DVB / 64; ++a)
+          tma_load(sv + a * ATOM, &tm_v, &full[st], c0 + a * 64, key0, z);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int t4 = lane & 3;
+    const char* sq = smem + cw * 2 * ATOM;
+    float o[DVB / 2];
+#pragma unroll
+    for (int i = 0; i < DVB / 2; ++i) o[i] = 0.f;
+    // this thread's two rows (g and g + 8 of its warp's 16): running max
+    // (log2 units) and per-slot sums of its own four columns of each chunk
+    float m0 = -INFINITY, m1 = -INFINITY;
+    float la[G], lb[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) la[j] = lb[j] = 0.f;
+    mbar_wait(qbar, 0);
+
+    for (int ch = 0; ch < nch; ++ch) {
+      const int st = ch % STAGES;
+      mbar_wait(&full[st], (ch / STAGES) & 1);
+      const char* sk = smem + Q_BYTES + st * STAGE_BYTES;
+      const char* sv = sk + K_BYTES;
+
+      // ---- S = Q K^T, [64 x 64] f32 ----
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk >> 2) * ATOM + (kk & 3) * 32;
+        wgmma_ss_m64n64(sc, desc_sw128(sq + off, 16, 1024),
+                        desc_sw128(sk + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<32>(sc);
+
+      // ---- mask, online softmax (log2 units) ----
+      const int key0 = (ch % cps) * BK, js = ch / cps;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = key0 + i * 8 + 2 * t4 + e < Lk;
+          sc[4 * i + e] = ok ? sc[4 * i + e] * scale_log2 : -INFINITY;
+          sc[4 * i + 2 + e] = ok ? sc[4 * i + 2 + e] * scale_log2 : -INFINITY;
+          mx0 = fmaxf(mx0, sc[4 * i + e]);
+          mx1 = fmaxf(mx1, sc[4 * i + 2 + e]);
+        }
+      }
+      // every chunk holds a key below Lk, so the new maxima are finite
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[4 * i + e] = exp2f(sc[4 * i + e] - mn0);
+          sc[4 * i + 2 + e] = exp2f(sc[4 * i + 2 + e] - mn1);
+          ps0 += sc[4 * i + e];
+          ps1 += sc[4 * i + 2 + e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        la[j] = la[j] * a0 + (j == js ? ps0 : 0.f);
+        lb[j] = lb[j] * a1 + (j == js ? ps1 : 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < DVB / 8; ++i) {
+        o[4 * i] *= a0;
+        o[4 * i + 1] *= a0;
+        o[4 * i + 2] *= a1;
+        o[4 * i + 3] *= a1;
+      }
+
+      // ---- O += P V: P from the S accumulator's registers ----
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_m64n256(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<DVB / 2>(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);   // this warp is done with it
+    }
+
+    // ---- the partial state ----
+    float La = 0.f, Lb = 0.f;
+#pragma unroll
     for (int j = 0; j < G; ++j) {
-      sMass[r0 * G + j] = 0.f;
-      sMass[r1 * G + j] = 0.f;
+      la[j] = quad_sum(la[j]);
+      lb[j] = quad_sum(lb[j]);
+      La += la[j];
+      Lb += lb[j];
     }
-
-  constexpr int NT = DVB / 16;      // n8 tiles of this warp's column half
-  float o[NT][4];
+    const int qa = q0 + cw * BQ + warp * 16 + (lane >> 2), qb = qa + 8;
+    const float ia = La > 0.f ? 1.f / La : 0.f;
+    const float ib = Lb > 0.f ? 1.f / Lb : 0.f;
+    bf16* po = part_o + ((size_t)grp * B + b) * Lq * DV;
 #pragma unroll
-  for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  unsigned qf[D / 16][4];
-  float m0 = -INFINITY, m1 = -INFINITY;
-
-  for (int ch = 0; ch < nch; ++ch) {
-    const int buf = ch & 1;
-    if (ch + 1 < nch) load_chunk(ch + 1, buf ^ 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();  // (A) chunk ch and Q are in shared memory
-    if (ch == 0) {
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        ldsm_x4(qf[ks], sQ + (rt * 16 + (lane & 15)) * L::LQ + ks * 16 +
-                            (lane >> 4) * 8);
+    for (int i = 0; i < DVB / 8; ++i) {
+      const int col = c0 + 8 * i + 2 * t4;
+      if (qa < Lq)
+        *reinterpret_cast<uint32_t*>(po + (size_t)qa * DV + col) =
+            pack_bf16(o[4 * i] * ia, o[4 * i + 1] * ia);
+      if (qb < Lq)
+        *reinterpret_cast<uint32_t*>(po + (size_t)qb * DV + col) =
+            pack_bf16(o[4 * i + 2] * ib, o[4 * i + 3] * ib);
     }
-    const int js = ch / cps, key0 = (ch % cps) * BK;   // slot in the group
-    const bf16* cK = sK + buf * BK * L::LQ;
-    const bf16* cV = sV + buf * BK * L::LV;
-
-    // ---- S = Q K^T for rows rt, keys kh*32 .. +32 ----
-    float sc[4][4];
+    // one dv slice writes m and the per-slot l; every slice computed the
+    // same values from the same logits
+    if (blockIdx.y == 0 && t4 == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        unsigned kb[4];
-        ldsm_x4(kb, cK + (kh * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
-                             L::LQ + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(sc[2 * np], qf[ks], kb[0], kb[1]);
-        mma16816(sc[2 * np + 1], qf[ks], kb[2], kb[3]);
+      for (int j = 0; j < G; ++j) {
+        if (j >= ns) break;
+        const size_t base = ((size_t)(s0 + j) * B + b) * Lq;
+        if (qa < Lq) part_l[base + qa] = la[j];
+        if (qb < Lq) part_l[base + qb] = lb[j];
       }
+      const size_t base = ((size_t)grp * B + b) * Lq;
+      if (qa < Lq) part_m[base + qa] = m0;
+      if (qb < Lq) part_m[base + qb] = m1;
     }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = key0 + kh * 32 + nt * 8 + 2 * t + e;
-        const bool ok = key < Lk;
-        sc[nt][e] = ok ? sc[nt][e] * scale : -INFINITY;
-        sc[nt][e + 2] = ok ? sc[nt][e + 2] * scale : -INFINITY;
-        mx0 = fmaxf(mx0, sc[nt][e]);
-        mx1 = fmaxf(mx1, sc[nt][e + 2]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    if (t == 0) {
-      red[kh * BQ + r0] = mx0;
-      red[kh * BQ + r1] = mx1;
-    }
-    __syncthreads();  // (B)
-    const float mn0 = fmaxf(m0, fmaxf(red[r0], red[BQ + r0]));
-    const float mn1 = fmaxf(m1, fmaxf(red[r1], red[BQ + r1]));
-    const float a0 = (m0 == -INFINITY) ? 0.f : __expf(m0 - mn0);
-    const float a1 = (m1 == -INFINITY) ? 0.f : __expf(m1 - mn1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        p[e] = sc[nt][e] == -INFINITY ? 0.f : __expf(sc[nt][e] - mn0);
-        p[e + 2] =
-            sc[nt][e + 2] == -INFINITY ? 0.f : __expf(sc[nt][e + 2] - mn1);
-      }
-      ps0 += p[0] + p[1];
-      ps1 += p[2] + p[3];
-      const int col = kh * 32 + nt * 8 + 2 * t;
-      *reinterpret_cast<unsigned*>(sP + r0 * L::LP + col) = pack_bf16(p[0], p[1]);
-      *reinterpret_cast<unsigned*>(sP + r1 * L::LP + col) = pack_bf16(p[2], p[3]);
-    }
-    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
-    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
-    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
-    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
-    if (t == 0) {
-      red[2 * BQ + kh * BQ + r0] = ps0;
-      red[2 * BQ + kh * BQ + r1] = ps1;
-    }
-    __syncthreads();  // (C) P and the row sums are in shared memory
-    m0 = mn0;
-    m1 = mn1;
-    if (write_ml) {
-      const float cs0 = red[2 * BQ + r0] + red[3 * BQ + r0];
-      const float cs1 = red[2 * BQ + r1] + red[3 * BQ + r1];
-      for (int j = 0; j < ns; ++j) {
-        sMass[r0 * G + j] *= a0;
-        sMass[r1 * G + j] *= a1;
-      }
-      sMass[r0 * G + js] += cs0;
-      sMass[r1 * G + js] += cs1;
-    }
-
-    // ---- O = O * alpha + P V for rows rt, columns kh*DVB/2 .. ----
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      o[i][0] *= a0; o[i][1] *= a0; o[i][2] *= a1; o[i][3] *= a1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned pa[4];
-      ldsm_x4(pa, sP + (rt * 16 + (lane & 15)) * L::LP + kk * 16 +
-                      (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned vb[4];
-        ldsm_x4_t(vb, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                               L::LV + kh * (DVB / 2) + np * 16 +
-                           (lane >> 4) * 8);
-        mma16816(o[2 * np], pa, vb[0], vb[1]);
-        mma16816(o[2 * np + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // (D) buffers, P and red free for the next chunk
-  }
-
-  // ---- the partial state, unnormalised ----
-  const int qa = q0 + r0, qb = q0 + r1;
-  float* acc = part_acc + (size_t)grp * B * Lq * HDV;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = c0 + kh * (DVB / 2) + nt * 8 + 2 * t;
-    const size_t oa = ((size_t)b * Lq + qa) * HDV + h * dv + col;
-    const size_t ob = ((size_t)b * Lq + qb) * HDV + h * dv + col;
-    if (qa < Lq)
-      *reinterpret_cast<float2*>(acc + oa) = make_float2(o[nt][0], o[nt][1]);
-    if (qb < Lq)
-      *reinterpret_cast<float2*>(acc + ob) = make_float2(o[nt][2], o[nt][3]);
-  }
-  // one dv slice writes m and the per-slot l; every slice computed the same
-  // m from the same logits
-  if (write_ml) {
-    const size_t BH = (size_t)B * H;
-    for (int j = 0; j < ns; ++j) {
-      const size_t base = ((s0 + j) * BH + bh) * Lq;
-      if (qa < Lq) part_l[base + qa] = sMass[r0 * G + j];
-      if (qb < Lq) part_l[base + qb] = sMass[r1 * G + j];
-    }
-    const size_t base = (grp * BH + bh) * Lq;
-    if (qa < Lq) part_m[base + qa] = m0;
-    if (qb < Lq) part_m[base + qb] = m1;
   }
 }
 
-// One (row, 4 columns) per thread: merges the slot groups of the row.
-// out [B, Lq, H*dv] bf16; rec [B*H, Lq, S] f32.
-__global__ void __launch_bounds__(kThreads)
-combine_kernel(const float* __restrict__ part_m,
-               const float* __restrict__ part_l,
-               const float* __restrict__ part_acc,
-               const int* __restrict__ count_ptr, bf16* __restrict__ out,
-               float* __restrict__ rec, int B, int H, int Lq, int S,
-               int dv) {
-  const int HDV = H * dv;
-  const int col = (blockIdx.y * kThreads + threadIdx.x) * 4;
-  if (col >= HDV) return;
+// One row and 8 columns a thread: merges the slot groups of the row.
+// out [B, Lq, DV] bf16; rec [B, Lq, S] f32.
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const float* __restrict__ part_m,
+             const float* __restrict__ part_l,
+             const bf16* __restrict__ part_o,
+             const int* __restrict__ count_ptr, bf16* __restrict__ out,
+             float* __restrict__ rec, int B, int Lq, int S, int DV) {
   const int row = blockIdx.x;                    // b * Lq + qi
   const int b = row / Lq, qi = row % Lq;
-  const int h = col / dv;
-  const size_t BH = (size_t)B * H, bh = (size_t)b * H + h;
+  const int col = (blockIdx.y * kMergeThreads + threadIdx.x) * 8;
   int count = *count_ptr;
   count = count < 0 ? 0 : (count > S ? S : count);
   const int ng = (count + G - 1) / G;
   float M = -INFINITY;
-  for (int gi = 0; gi < ng; ++gi)
-    M = fmaxf(M, part_m[(gi * BH + bh) * Lq + qi]);
-  float Lsum = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int gi = 0; gi < ng; ++gi) {
-    const float wg = __expf(part_m[(gi * BH + bh) * Lq + qi] - M);
-    const int s1 = (gi + 1) * G < count ? (gi + 1) * G : count;
+  for (int g = 0; g < ng; ++g)
+    M = fmaxf(M, part_m[((size_t)g * B + b) * Lq + qi]);
+  float Lsum = 0.f, acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int g = 0; g < ng; ++g) {
+    const int s1 = (g + 1) * G < count ? (g + 1) * G : count;
     float lg = 0.f;
-    for (int s = gi * G; s < s1; ++s) lg += part_l[(s * BH + bh) * Lq + qi];
-    Lsum += wg * lg;
-    const float4 a = *reinterpret_cast<const float4*>(
-        part_acc + (((size_t)gi * B + b) * Lq + qi) * HDV + col);
-    acc.x += wg * a.x;
-    acc.y += wg * a.y;
-    acc.z += wg * a.z;
-    acc.w += wg * a.w;
+    for (int s = g * G; s < s1; ++s)
+      lg += part_l[((size_t)s * B + b) * Lq + qi];
+    const float wg = exp2f(part_m[((size_t)g * B + b) * Lq + qi] - M) * lg;
+    Lsum += wg;
+    if (col < DV) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          part_o + (((size_t)g * B + b) * Lq + qi) * DV + col);
+      const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] += wg * __bfloat162float(v[j]);
+    }
   }
   const float il = Lsum > 0.f ? 1.f / Lsum : 0.f;
-  uint2 packed;
-  packed.x = pack_bf16(acc.x * il, acc.y * il);
-  packed.y = pack_bf16(acc.z * il, acc.w * il);
-  *reinterpret_cast<uint2*>(out + (size_t)row * HDV + col) = packed;
-  if (col % dv == 0) {              // one thread per head writes the mass
-    for (int s = 0; s < S; ++s) {
-      float r = 0.f;
-      if (s < count)
-        r = __expf(part_m[((s / G) * BH + bh) * Lq + qi] - M) *
-            part_l[(s * BH + bh) * Lq + qi] * il;
-      rec[(bh * Lq + qi) * S + s] = r;
-    }
+  if (col < DV) {
+    uint4 packed;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = pack_bf16(acc[2 * j] * il, acc[2 * j + 1] * il);
+    *reinterpret_cast<uint4*>(out + (size_t)row * DV + col) = packed;
+  }
+  if (blockIdx.y == 0 && (int)threadIdx.x < S) {
+    const int s = threadIdx.x;
+    float r = 0.f;
+    if (s < count)
+      r = exp2f(part_m[((size_t)(s / G) * B + b) * Lq + qi] - M) *
+          part_l[((size_t)s * B + b) * Lq + qi] * il;
+    rec[(size_t)row * S + s] = r;
   }
 }
 
-template <int D, int DVB>
+// cuTensorMapEncodeTiled, looked up at run time by cudaGetDriverEntryPoint
+// so that the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D bf16 tensor map [outer, rows, cols] read in [64 x 64] boxes with
+// the 128-byte swizzle; rows past `rows` read as zeros. 0, or -2 when the
+// encoder cannot be found, -3 if it refuses the map.
+static int map3d(CUtensorMap* map, const void* base, uint64_t cols,
+                 uint64_t rows, uint64_t outer) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return -2;
+  const cuuint64_t dims[3] = {cols, rows, outer};
+  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+          dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
 static int launch(const void* q, const void* k, const void* v,
                   const void* count, void* part_m, void* part_l,
-                  void* part_acc, void* out, void* rec, int B, int H, int Lq,
-                  int S, int Lk, int dv, float scale,
-                  cudaStream_t stream) {
-  constexpr int smem = Smem<D, DVB>::bytes;
-  auto kern = partial_kernel<D, DVB>;
+                  void* part_o, void* out, void* rec, int B, int Lq, int S,
+                  int Lk, int DV, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int e = map3d(&tq, q, D, Lq, B);
+  if (e == 0) e = map3d(&tk, k, D, Lk, (uint64_t)S * B);
+  if (e == 0) e = map3d(&tv, v, DV, Lk, (uint64_t)S * B);
+  if (e != 0) return e;
+  auto kern = partial_kernel;
   static bool configured = false;     // once per process
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const int ngroups = (S + G - 1) / G;
-  dim3 grid((Lq + BQ - 1) / BQ, dv / DVB, B * H * ngroups);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)count,
-      (float*)part_m, (float*)part_l, (float*)part_acc, B, H, Lq, S, Lk, dv,
-      scale);
+  dim3 grid((Lq + BQ * NCONS - 1) / (BQ * NCONS), DV / DVB, B * ngroups);
+  kern<<<grid, kThreads, SMEM_BYTES, stream>>>(
+      tq, tk, tv, (const int*)count, (float*)part_m, (float*)part_l,
+      (bf16*)part_o, B, Lq, S, Lk, DV, scale * LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid2(B * Lq, (H * dv / 4 + kThreads - 1) / kThreads);
-  combine_kernel<<<grid2, kThreads, 0, stream>>>(
-      (const float*)part_m, (const float*)part_l, (const float*)part_acc,
-      (const int*)count, (bf16*)out, (float*)rec, B, H, Lq, S, dv);
+  dim3 grid2(B * Lq, (DV / 8 + kMergeThreads - 1) / kMergeThreads);
+  merge_kernel<<<grid2, kMergeThreads, 0, stream>>>(
+      (const float*)part_m, (const float*)part_l, (const bf16*)part_o,
+      (const int*)count, (bf16*)out, (float*)rec, B, Lq, S, DV);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rmem_qminor
 
-// Returns the cudaError_t of the launches (0 on success); -1 for a head
-// width other than 128 (the only one instantiated) or dv not a multiple of
-// 256. With G = 2, part_m [ceil(S/2), B*H, Lq], part_l [S, B*H, Lq] and
-// part_acc [ceil(S/2), B, Lq, H*dv] are f32 scratch.
+// Returns the cudaError_t of the launches (0 on success); -1 for anything
+// but one head of 128 with dv a multiple of 256, -2 or -3 if a tensor map
+// cannot be made. Scratch, with G = rmem_bank_attention_qminor_slots():
+// part_m [ceil(S/G), B, Lq] and part_l [S, B, Lq] f32, part_o
+// [ceil(S/G), B, Lq, dv] bf16. q, k, v 16-byte aligned.
 extern "C" int rmem_bank_attention_qminor(
     const void* q, const void* k, const void* v, const void* count,
-    void* part_m, void* part_l, void* part_acc, void* out, void* rec, int B,
+    void* part_m, void* part_l, void* part_o, void* out, void* rec, int B,
     int H, int Lq, int S, int Lk, int dh, int dv, float scale,
     void* stream) {
-  if (dh != 128 || dv % 256 != 0)
-    return -1;
-  return rmem_qminor::launch<128, 256>(
-      q, k, v, count, part_m, part_l, part_acc, out, rec, B, H, Lq, S, Lk,
-      dv, scale, (cudaStream_t)stream);
+  if (H != 1 || dh != 128 || dv % 256 != 0) return -1;
+  return rmem_qminor::launch(
+      q, k, v, count, part_m, part_l, part_o, out, rec, B, Lq, S, Lk, dv,
+      scale, (cudaStream_t)stream);
 }
+
+// The slots a block walks in rmem_bank_attention_qminor.
+extern "C" int rmem_bank_attention_qminor_slots() { return rmem_qminor::G; }

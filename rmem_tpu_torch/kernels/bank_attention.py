@@ -37,9 +37,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
-# K3: slots walked by one block, fixed in csrc/bank_attention_qminor.cu. 2
-# gives 27 x 4 x 5 = 540 blocks and 34.3 MB of partial scratch at the main
-# path; it timed fastest of 1, 2, 3 and 9 on the H100 (PERF.md)
+# K3: slots walked by one block, fixed in csrc/bank_attention_qminor.cu (G,
+# checked against the library when it loads; PERF.md has the sweep of 1, 2,
+# 3 and 9 that chose it)
 SLOTS_PER_BLOCK = 2
 
 
@@ -182,21 +182,28 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
            "plain version for one head of 128, r50_deaotl's)")
     _check(dv % 256 == 0, f"value width {dv} (multiple of 256)")
     _check_count(count, q)
-    groups = -(-s // SLOTS_PER_BLOCK)
+    lib = build.load("bank_attention_qminor")
+    lib.rmem_bank_attention_qminor_slots.argtypes = []
+    lib.rmem_bank_attention_qminor_slots.restype = _I
+    groups_of = lib.rmem_bank_attention_qminor_slots()
+    _check(groups_of == SLOTS_PER_BLOCK, f"the library walks {groups_of} "
+           f"slots a block, the wrapper expects {SLOTS_PER_BLOCK}")
+    fn = lib.rmem_bank_attention_qminor
+    groups = -(-s // groups_of)
     bh = b * num_heads
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((groups, bh, lq), **f32)
     part_l = torch.empty((s, bh, lq), **f32)
-    part_acc = torch.empty((groups, b, lq, num_heads * dv), **f32)
+    part_o = torch.empty((groups, b, lq, num_heads * dv),
+                         dtype=torch.bfloat16, device=q.device)
     out = torch.empty((b, lq, num_heads * dv), dtype=q.dtype,
                       device=q.device)
     rec = torch.empty((bh, lq, s), **f32)
-    fn = build.load("bank_attention_qminor").rmem_bank_attention_qminor
     fn.argtypes = [_P] * 9 + [_I] * 7 + [_F, _P]
     fn.restype = _I
     err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
              count.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), rec.data_ptr(), b,
+             part_o.data_ptr(), out.data_ptr(), rec.data_ptr(), b,
              num_heads, lq, s, lk, dh, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_qminor")

@@ -7,18 +7,21 @@ CPU. It replaces rmem_tpu/kernels/local_attention.py:pallas_local_attention.
 
 `local_attention_trainable` (K5) is its differentiable form, the
 counterpart of pallas_local_attention_trainable: on the card the forward is
-the kernel and the backward is autograd of the plain version at the saved
-inputs; on the CPU it is autograd through the plain version.
+the kernel and the backward is `local_attention_bwd`, two more kernels of
+the same source (`local_attention_bwd_plain` is their plain version); on
+the CPU it is autograd through the plain forward.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from rmem_tpu_torch.kernels import build, plain_vjp
+from rmem_tpu_torch.kernels import build
 from rmem_tpu_torch.ops.attention import dense_local_attention
 
 _P = ctypes.c_void_p
@@ -85,7 +88,123 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 local_attention.launches = 0
 
 
+@functools.lru_cache(maxsize=16)
+def _window_keys(h: int, w: int, max_dis: int) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+    """Window layout of an h x w grid: ([HW, win^2] int64 key index of each
+    query's window offset, 0 where the key lies outside the image;
+    [HW, win^2] bool, whether it lies inside)."""
+    win = 2 * max_dis + 1
+    qy, qx = np.divmod(np.arange(h * w), w)
+    dy, dx = np.divmod(np.arange(win * win), win)
+    ky = qy[:, None] + dy[None, :] - max_dis
+    kx = qx[:, None] + dx[None, :] - max_dis
+    ok = (ky >= 0) & (ky < h) & (kx >= 0) & (kx < w)
+    return np.where(ok, ky * w + kx, 0).astype(np.int64), ok
+
+
+def local_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, rel_emb: torch.Tensor,
+                              g: torch.Tensor, size_2d: Tuple[int, int],
+                              num_heads: int, max_dis: int, scale: float
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' function in plain PyTorch, step by step in
+    window layout, in f32: for the cotangent g of the output, returns
+    (dq, dk, dv, drel) of local_attention_plain's inputs, f32. drel holds
+    ds = p (dp - delta) at each window offset, 0 where the window leaves
+    the image."""
+    h2d, w2d = size_2d
+    b, hw, chd = q.shape
+    nh = num_heads
+    dh, dv = chd // nh, v.shape[-1] // nh
+    win2 = (2 * max_dis + 1) ** 2
+    idx_np, ok_np = _window_keys(h2d, w2d, max_dis)
+    idx = torch.from_numpy(idx_np).to(q.device).expand(b, nh, hw, win2)
+    ok = torch.from_numpy(ok_np).to(q.device)
+
+    def heads(x, d):                                   # [b, nh, hw, d]
+        return x.float().reshape(b, hw, nh, d).transpose(1, 2)
+
+    qh, kh, vh, gh = heads(q, dh), heads(k, dh), heads(v, dv), heads(g, dv)
+    rel = heads(rel_emb, win2)
+    # the logits and dp = g.v of each query's window keys
+    s = torch.gather(qh @ kh.transpose(-1, -2), -1, idx) * scale + rel
+    s = torch.where(ok, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    dp = torch.where(ok, torch.gather(gh @ vh.transpose(-1, -2), -1, idx),
+                     0.0)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)                              # 0 outside the image
+    # back to [query, key] to sum over the window's keys and queries
+    zeros = torch.zeros((b, nh, hw, hw), device=q.device)
+    ds_d = zeros.scatter_add(-1, idx, ds)
+    p_d = zeros.scatter_add(-1, idx, p)
+    dq = (ds_d @ kh) * scale
+    dk = (ds_d.transpose(-1, -2) @ qh) * scale
+    dvv = p_d.transpose(-1, -2) @ gh
+
+    def tokens(x):                                     # [b, hw, nh * d]
+        return x.transpose(1, 2).reshape(b, hw, -1)
+
+    return tokens(dq), tokens(dk), tokens(dvv), tokens(ds)
+
+
+def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        rel_emb: torch.Tensor, g: torch.Tensor,
+                        size_2d: Tuple[int, int], num_heads: int,
+                        max_dis: int, scale: float
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Gradients (dq, dk, dv, drel) of `local_attention` for the cotangent
+    g [B, HW, h*dv]. On the card: the two backward kernels of
+    csrc/local_attention.cu, bf16 inputs as the forward takes them, g bf16;
+    dq, dk, dv come back bf16 and drel f32. On the CPU: the plain version."""
+    if not q.is_cuda:
+        return local_attention_bwd_plain(q, k, v, rel_emb, g, size_2d,
+                                         num_heads, max_dis, scale)
+    h2d, w2d = size_2d
+    b, hw, chd = q.shape
+    dh, dv = chd // num_heads, v.shape[-1] // num_heads
+    win2 = (2 * max_dis + 1) ** 2
+    for name, t in (("q", q), ("k", k), ("v", v), ("rel_emb", rel_emb),
+                    ("g", g)):
+        _check(t.is_cuda and t.device == q.device, f"{name} not on {q.device}")
+        _check(t.dtype == torch.bfloat16, f"{name} must be bf16")
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+        _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    _check(hw == h2d * w2d, f"{hw} tokens for a {h2d}x{w2d} grid")
+    _check(k.shape == q.shape, f"k shape {tuple(k.shape)}")
+    _check(v.shape[:2] == (b, hw) and g.shape == v.shape,
+           f"v shape {tuple(v.shape)}, g shape {tuple(g.shape)}")
+    _check(rel_emb.shape == (b, hw, num_heads * win2),
+           f"rel_emb shape {tuple(rel_emb.shape)}")
+    _check(num_heads == 1 and dh == 128,
+           f"{num_heads} heads of width {dh} (the kernels are held to their "
+           "plain version for one head of 128, r50_deaotl's)")
+    _check(dv % 128 == 0, f"value width {dv} (multiple of 128)")
+    fn = build.load("local_attention").rmem_local_attention_bwd
+    fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+    fn.restype = _I
+    dq, dk = torch.empty_like(q), torch.empty_like(k)
+    dvv = torch.empty_like(v)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    drel = torch.empty((b, hw, win2), **f32)
+    p_scratch = torch.empty((b, hw, win2), **f32)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
+             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+             drel.data_ptr(), p_scratch.data_ptr(), b, h2d, w2d, num_heads,
+             dh, dv, max_dis, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "local_attention_bwd")
+    local_attention_bwd.launches += 1
+    return dq, dk, dvv, drel
+
+
+local_attention_bwd.launches = 0
+
+
 class _LocalAttention(torch.autograd.Function):
+    """K4 forward, the backward kernels (bf16 tensors on the card)."""
+
     @staticmethod
     def forward(ctx, q, k, v, rel_emb, size_2d, num_heads, max_dis, scale):
         ctx.save_for_backward(q, k, v, rel_emb)
@@ -95,10 +214,13 @@ class _LocalAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = plain_vjp(
-            lambda *x: local_attention_plain(*x, *ctx.args),
-            ctx.saved_tensors, ctx.needs_input_grad[:4], g)
-        return (*grads, None, None, None, None)
+        # read once: under torch.utils.checkpoint a second read fails
+        saved = ctx.saved_tensors
+        # every gradient is computed; those not asked for are dropped
+        grads = local_attention_bwd(*saved, g.to(torch.bfloat16).contiguous(),
+                                    *ctx.args)
+        return (*(gr.to(t.dtype) if need else None for gr, t, need in zip(
+            grads, saved, ctx.needs_input_grad)), None, None, None, None)
 
 
 def local_attention_trainable(q: torch.Tensor, k: torch.Tensor,
