@@ -12,15 +12,18 @@ non-zero exit code:
    at once;
 2. hold each kernel against its plain PyTorch version at its path's
    shapes, in bf16, and time both (CUDA events), plus one PyTorch library
-   call for the same function where one exists: the serving kernels (K1,
-   K4, K6) and the opt-in inference kernels (K3 at the main path's call and
-   at phase 7's two batch-2 grids, from HBM and L2-resident, beside K1 on
-   the same inputs; K8, timed through a CUDA graph over input sets larger
-   than the L2) at 481x849, and the
-   training kernels (K1 with its lse output, K2's three backward kernels
+   call for the same function where one exists: the serving kernels (K1 at
+   the main path's call beside K3 on the same inputs, and at one slot, all
+   ten, the reference frame's call, two id groups and keys padded past
+   true_lk; K4 at the main path's call and phase 7's two batch-2 grids,
+   each beside SDPA with the dense bias, and on a ragged grid; K6) and the
+   opt-in inference kernels (K3 at the main path's call and at phase 7's
+   two batch-2 grids, from HBM and L2-resident; K8) at 481x849, and the
+   training kernels (K1' with its lse output, K2's three backward kernels
    with a nonzero drec, K5's forward and backward kernels, each backward
-   output against its plain version and autograd of the plain forward,
-   K7 forward and backward) at the training shapes;
+   output against its plain version and autograd of the plain forward, K7
+   forward and backward) at the training shapes. K4 and K8 take less device time than an eager call
+   takes the host, so their times are those of CUDA graphs;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
    objects, random weights from a seed, the reference frame with a
    long-term write every 5 frames, then N frames (default 130) at the
@@ -44,8 +47,9 @@ non-zero exit code:
    frame (45); losses finite, parameters changed;
    seconds per step (median and each) and peak memory beside the card and
    the host;
-6. one step of the kernel model, every K2 call of which is held against
-   its plain version on the same inputs, and one step of a model whose
+6. one step of the kernel model, every K2 call and K5 forward call of
+   which is held against its plain version on the same inputs, and one
+   step of a model whose
    kernels are all plain, on the same batch, weights and shuffle: hold the
    loss and the global gradient norm against each other;
 7. drive the opt-in inference path, with RMEM_BANK_QMINOR set for this
@@ -58,8 +62,8 @@ non-zero exit code:
    and K8 once per call, K1 never); labels in [0, 12], finite logits,
    evictions counted on the device; frames/s over three 10-frame windows
    after the bank fills (`--profile`: one more chunk under torch.profiler).
-   Then the first 12 frames again, every K3 and K8 call held against its
-   plain version, and through an all-plain engine teacher-forced with the
+   Then the first 12 frames again, every K3, K8 and K4 call held against
+   its plain version, and through an all-plain engine teacher-forced with the
    kernel engine's labels: logits and labels agree per frame;
 8. the two serving routes on the same traffic: phase 7's engine built
    twice from one seed, with both opt-ins on (K3, K8) and with both off
@@ -72,15 +76,20 @@ Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
 no CUDA device is available or the package is not beside this script.
 
-`--mutants` runs only a mutation check of the per-call checks of K2
-(held_k2), K5's backward (held_k5) and K3 (held_k3): for each mutant
-(MUTANTS), the package is copied into a temporary directory, one line of
-the kernel's source is changed there (K2: ds drops the slot-mass term, or
-dq the logit scale; K5: dq drops the scale, the key side reads p and ds
-unmirrored, or ds drops delta; K3: the keys past Lk go unmasked, or a
-quarter of the accumulator unrescaled), the copy's kernels are built, and
-the check runs on phase 2's inputs. Each mutant must fail its check and
-each unmutated copy pass it; the checkout itself is never changed.
+`--mutants` runs only a mutation check of phase 2's per-call checks of K2
+(held_k2), K4 and K5's backward (held_k4, held_k5) and K1 and K3
+(held_k1, held_k3): for each mutant (MUTANTS), the package is copied into
+a temporary directory, one line of the kernel's source is changed there
+(K2: ds drops the slot-mass term, or dq the logit scale; K4: the
+accumulator is not rescaled when a row's maximum grows, or the bias is
+read at the transposed offset; K5: dq drops the scale, the key side reads
+p and ds unmirrored, or ds drops delta; K1: the bias is dropped, or the
+keys are masked at Lk instead of true_lk; K1 and K3's template: the keys
+past Lk go unmasked, or a quarter of the accumulator unrescaled), the
+copy's kernels
+are built, and the source's checks run on phase 2's inputs. Each mutant
+must fail a check and each unmutated copy pass them all; the checkout
+itself is never changed.
 """
 
 from __future__ import annotations
@@ -303,7 +312,6 @@ def check_kernels(dev):
     from rmem_tpu_torch.kernels import bank_attention as kb
     from rmem_tpu_torch.kernels import local_attention as kl
     from rmem_tpu_torch.kernels import stem as ks
-    from rmem_tpu_torch.ops.attention import NEG_INF, _local_offset_map_on
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -316,24 +324,28 @@ def check_kernels(dev):
     hw, dh, dv, S, count = h * w, 128, 1024, 10, 9
     scale = dh ** -0.5
 
-    # ---- K1 bank attention: 9 of 10 slots valid, slot-PE bias ----
-    q = randn(1, hw, dh, scale=2.0)
-    bk, bvv = randn(S, 1, hw, dh), randn(S, 1, hw, dv)
-    qbias = randn(1, 1, hw, S, dtype=torch.float32, scale=0.5)
-    cnt = torch.tensor(count, dtype=torch.int32, device=dev)
-    args = (q, bk, bvv, cnt, 1, scale, hw, qbias)
-    out, rec = kb.bank_attention_infer(*args)
-    err, top, rerr = held("bank_attention", (out, rec),
-                          kb.bank_attention_plain(*args))
-    print(f"K1 bank_attention: max|out-plain| {err:.3e} (max|plain| "
-          f"{top:.3e}), max|rec-plain| {rerr:.3e}")
-    check(bool(torch.all(rec[..., count:] == 0)), "K1 mass of empty slots")
-    # the reference frame's call: one slot, no bias
-    one = torch.ones((), dtype=torch.int32, device=dev)
-    o1, r1 = kb.bank_attention_infer(q, bk[:1], bvv[:1], one, 1, scale)
-    err1, _, _ = held("bank_attention", (o1, r1), kb.bank_attention_plain(
-        q, bk[:1], bvv[:1], one, 1, scale))
-    check(torch.allclose(r1, torch.ones_like(r1), atol=1e-4), "K1 S=1 mass")
+    # ---- K1 bank attention: 9 of 10 slots valid, slot-PE bias, beside
+    # K3 on the same q, keys and values; then the other calls it takes ----
+    cases = {}
+    for key, kw in K1_CASES.items():
+        args = k1_inputs(dev, **kw)
+        cases[key] = dict(err=held_k1(*args),
+                          ms=cuda_ms(lambda: kb.bank_attention_infer(*args),
+                                     20))
+    args = k1_inputs(dev)
+    q, bk, bvv, cnt, _, scale, _, qbias = args
+    k3_ms = cuda_ms(lambda: kb.bank_attention_qminor(q, bk, bvv, cnt, 1,
+                                                     scale), 20)
+    main = cases["main"]
+    err = max(c["err"][0] for c in cases.values())
+    rerr = max(c["err"][2] for c in cases.values())
+    for key, c in cases.items():
+        print(f"K1 bank_attention {key} {K1_CASES[key]}: {c['ms']:.4f} ms, "
+              f"max|out-plain| {c['err'][0]:.3e} (max|plain| "
+              f"{c['err'][1]:.3e}), max|rec-plain| {c['err'][2]:.3e}")
+    print(f"K1 at the main path {main['ms']:.4f} ms, K3 on the same q, keys "
+          f"and values (no bias) {k3_ms:.4f} ms: K1/K3 "
+          f"{main['ms'] / k3_ms:.3f}")
     kv = count * hw
     k_lib = bk[:count].reshape(1, 1, kv, dh)
     v_lib = bvv[:count].reshape(1, 1, kv, dv)
@@ -343,43 +355,37 @@ def check_kernels(dev):
     b_ms, b_by = bound(flops, nbytes)
     entries["bank_attention"] = dict(
         name="bank_attention", route="cuda",
-        source="rmem_tpu_torch/csrc/bank_attention.cu",
+        source="rmem_tpu_torch/csrc/bank_attention_infer.cu",
         replaces="rmem_tpu/kernels/bank_attention.py:505",
-        max_abs_err=max(err, err1), max_abs_err_rec=rerr,
-        ms=cuda_ms(lambda: kb.bank_attention_infer(*args), 20),
+        max_abs_err=err, max_abs_err_rec=rerr, ms=main["ms"],
         plain_ms=cuda_ms(lambda: kb.bank_attention_plain(*args), 5),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k_lib, v_lib, attn_mask=mask, scale=scale), 20))
+            q[None], k_lib, v_lib, attn_mask=mask, scale=scale), 20),
+        k3_same_inputs_ms=k3_ms,
+        cases={key: dict(ms=c["ms"], rel_err=c["err"][0] / c["err"][1],
+                         mass_err=c["err"][2]) for key, c in cases.items()})
 
-    # ---- K4 local attention on the 31 x 54 grid ----
-    k = randn(1, hw, dh)
-    v = randn(1, hw, dv)
-    rel = randn(1, hw, 225)
-    largs = (q, k, v, rel, (h, w), 1, 7, scale)
-    err, top, _ = held("local_attention", kl.local_attention(*largs),
-                       kl.local_attention_plain(*largs))
-    print(f"K4 local_attention: max|out-plain| {err:.3e} (max|plain| "
-          f"{top:.3e})")
-    omap = _local_offset_map_on(h, w, 7, dev)
-    keys = (omap < 225).sum().item()             # in-image window keys
-    relp = torch.cat([rel[0], torch.full((hw, 1), NEG_INF, dtype=bf,
-                                         device=dev)], dim=1)
-    dense_bias = torch.gather(relp, 1, omap)[None, None]
-    # q and k, v and rel read once, the output written once
-    b_ms, b_by = bound(2.0 * keys * (dh + dv),
-                       (2 * hw * dh + 2 * hw * dv + hw * 225) * 2)
+    # ---- K4 local attention: the main path's call (31 x 54), phase 7's
+    # (batch 2 on 31 x 54 and 40 x 70) and a ragged grid held ----
+    shapes = {key: k4_shape(dev, *shape) for key, shape in K4_SHAPES.items()}
+    for key, r in shapes.items():
+        print(f"K4 local_attention {key}: {r['ms']:.4f} ms, SDPA with the "
+              f"dense bias {r['library_ms']:.4f} ms ({r['library_ratio']:.3f}"
+              f"x), bound {r['bound_ms']:.5f} ms, max|out-plain| / max|plain| "
+              f"{r['rel_err']:.3e}")
+    held_k4(*k4_inputs(dev, 2, 13, 21))
+    main = shapes["b1_31x54"]
+    largs = k4_inputs(dev, 1, h, w)
     entries["local_attention"] = dict(
         name="local_attention", route="cuda",
         source="rmem_tpu_torch/csrc/local_attention.cu",
         replaces="rmem_tpu/kernels/local_attention.py:133",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: kl.local_attention(*largs), 50),
+        max_abs_err=max(r["err"] for r in shapes.values()),
+        ms=main["ms"],
         plain_ms=cuda_ms(lambda: kl.local_attention_plain(*largs), 5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], attn_mask=dense_bias, scale=scale),
-            20))
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], shapes=shapes)
 
     # ---- K6 stem on the 481 x 849 image ----
     x = torch.rand((1, *IN_HW, 3), generator=g, device=dev)
@@ -409,12 +415,131 @@ def check_kernels(dev):
     return entries
 
 
+# K1 in phase 2: the main path's call (batch 1 on 31 x 54, 9 valid slots of
+# 10, the slot-PE bias) and the other calls K1 takes: one slot or all ten,
+# the reference frame's (one slot, no bias), two id groups, and keys padded
+# 70 past true_lk (true_lk not a multiple of 64, so a mask at Lk shows)
+K1_CASES = {"main": {}, "count_1": dict(count=1), "count_10": dict(count=10),
+            "reference": dict(slots=1, count=1, bias=False),
+            "batch_2": dict(batch=2), "padded": dict(pad=70)}
+
+
+def k1_inputs(dev, batch: int = 1, slots: int = 10, count: int = 9,
+              bias: bool = True, pad: int = 0):
+    """K1's inputs at a serving call on the 31 x 54 grid (bf16, dh 128,
+    dv 1024, Lq = true_lk = 1674 and Lk = true_lk + pad): (q, bank_k,
+    bank_v, count, heads, scale, true_lk, qbias or None)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    hw = ((IN_HW[0] - 1) // 16 + 1) * ((IN_HW[1] - 1) // 16 + 1)
+    q = randn(batch, hw, 128, scale=2.0)
+    bk, bv = randn(slots, batch, hw + pad, 128), randn(slots, batch, hw + pad,
+                                                       1024)
+    qbias = (randn(batch, 1, hw, slots, dtype=torch.float32, scale=0.5)
+             if bias else None)
+    return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev), 1,
+            128 ** -0.5, hw, qbias)
+
+
+def held_k1(*args):
+    """One K1 call against its plain version (output and slot mass, see
+    held); the empty slots' mass must be 0, and with one slot every row's
+    mass 1. Returns held's tuple."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    out, rec = kb.bank_attention_infer(*args)
+    errs = held("bank_attention", (out, rec), kb.bank_attention_plain(*args))
+    count = int(args[3])
+    check(bool(torch.all(rec[..., count:] == 0)), "K1 mass of empty slots")
+    if count == 1:
+        check(torch.allclose(rec[..., 0], torch.ones_like(rec[..., 0]),
+                             atol=1e-4), "K1 one-slot mass")
+    return errs
+
+
+# K4 in phase 2: the main path's call and phase 7's two (batch 2, the grids
+# of scales 1.0 and 1.3); K5's forward at the training shape is a training
+# row
+K4_SHAPES = {"b1_31x54": (1, 31, 54), "b2_31x54": (2, 31, 54),
+             "b2_40x70": (2, 40, 70)}
+
+
+def k4_inputs(dev, batch: int, gh: int, gw: int):
+    """K4's inputs at a call of the serving path (bf16, dh 128, dv 1024):
+    (q, k, v, rel, size_2d, heads, max_dis, scale)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    hw = gh * gw
+    return (randn(batch, hw, 128, scale=2.0), randn(batch, hw, 128),
+            randn(batch, hw, 1024), randn(batch, hw, 225), (gh, gw), 1, 7,
+            128 ** -0.5)
+
+
+def held_k4(*args):
+    """One K4 call against its plain version (see held). Returns held's
+    tuple."""
+    from rmem_tpu_torch.kernels import local_attention as kl
+    return held("local_attention", kl.local_attention(*args),
+                kl.local_attention_plain(*args))
+
+
+def sdpa_local(q, k, v, rel, size_2d, scale):
+    """The library's call for K4's function: SDPA with the window, image
+    mask and relative bias as a dense additive [B, 1, HW, HW] mask. Returns
+    (a function computing it, the in-image (query, key) pairs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rmem_tpu_torch.ops.attention import NEG_INF, _local_offset_map_on
+    b, hw = q.shape[:2]
+    omap = _local_offset_map_on(*size_2d, 7, q.device)
+    relp = torch.cat([rel, torch.full((b, hw, 1), NEG_INF, dtype=rel.dtype,
+                                      device=q.device)], dim=2)
+    dense = torch.gather(relp, 2, omap.expand(b, hw, hw))[:, None]
+    pairs = b * (omap < 225).sum().item()
+    return (lambda: F.scaled_dot_product_attention(
+        q[:, None], k[:, None], v[:, None], attn_mask=dense, scale=scale),
+        pairs)
+
+
+def k4_shape(dev, batch: int, gh: int, gw: int) -> dict:
+    """K4 at one call shape: held against its plain version and timed
+    beside SDPA with the dense bias on the same inputs."""
+    from rmem_tpu_torch.kernels import local_attention as kl
+    args = k4_inputs(dev, batch, gh, gw)
+    q, k, v, rel, size_2d, _, _, scale = args
+    err, top, _ = held_k4(*args)
+    lib, pairs = sdpa_local(q, k, v, rel, size_2d, scale)
+    dh, dv, hw = q.shape[-1], v.shape[-1], gh * gw
+    # q, k, v and rel read once, the output written once
+    b_ms, b_by = bound(2.0 * pairs * (dh + dv),
+                       batch * hw * (2 * dh + 2 * dv + 225) * 2)
+    # the kernel takes less device time than an eager call takes the host,
+    # so its time is that of a CUDA graph of 20 calls (the eager one beside)
+    r = dict(batch=batch, grid=[gh, gw], err=err, rel_err=err / top,
+             ms=graph_ms(lambda: kl.local_attention(*args), 20),
+             eager_ms=cuda_ms(lambda: kl.local_attention(*args), 50),
+             library_ms=cuda_ms(lib, 20), bound_ms=b_ms, bound_by=b_by)
+    r["library_ratio"] = r["ms"] / r["library_ms"]
+    return r
+
+
 def check_optin_kernels(dev):
     """Phase 2, the opt-in inference kernels in bf16: K3 (the slot-split
     bank attention; 9 valid slots of 10, dh 128, dv 1024) against its plain
     version at the main path's call (batch 1, Lq = Lk = 1674) and at phase
     7's (batch 2 on 31 x 54 and 40 x 70), each timed from HBM and
-    L2-resident beside K1 on the same inputs; and K8 (the gated depthwise conv, [1, 1674, 1024] on the
+    L2-resident; and K8 (the gated depthwise conv, [1, 1674, 1024] on the
     31 x 54 grid). Returns {name: entry} without launch counts."""
     import torch
     import torch.nn.functional as F
@@ -460,9 +585,8 @@ def check_optin_kernels(dev):
     for key, r in shapes.items():
         print(f"K3 bank_attention_qminor {key}: {r['ms']:.4f} ms from HBM "
               f"({r['sets']} input sets, {r['set_mb']:.1f} MB each), "
-              f"{r['l2_resident_ms']:.4f} ms on one set; K1 on the same "
-              f"inputs {r['k1_ms']:.4f} / {r['k1_l2_resident_ms']:.4f} ms, "
-              f"so K3/K1 {r['k1_ratio']:.3f}; bound {r['bound_ms']:.4f} ms")
+              f"{r['l2_resident_ms']:.4f} ms on one set; bound "
+              f"{r['bound_ms']:.4f} ms")
     print(f"K3: max|out-plain| {err:.3e} (max|plain| {errs[0][1]:.3e}), "
           f"max|rec-plain| {rerr:.3e} over {len(errs)} calls; "
           f"{kb.SLOTS_PER_BLOCK} slots a block; partial scratch "
@@ -472,7 +596,7 @@ def check_optin_kernels(dev):
     v_lib = bvv[:count].reshape(1, 1, kv, dv)
     entries["bank_attention_qminor"] = dict(
         name="bank_attention_qminor", route="cuda",
-        source="rmem_tpu_torch/csrc/bank_attention_qminor.cu",
+        source="rmem_tpu_torch/csrc/bank_attention_infer.cu",
         replaces="rmem_tpu/kernels/bank_attention.py:540",
         max_abs_err=err, max_abs_err_rec=rerr,
         ms=main["ms"],
@@ -481,9 +605,7 @@ def check_optin_kernels(dev):
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q[None], k_lib, v_lib, scale=scale), 20),
-        l2_resident_ms=main["l2_resident_ms"],
-        k1_same_inputs_ms=main["k1_ms"], k1_ratio=main["k1_ratio"],
-        shapes=shapes)
+        l2_resident_ms=main["l2_resident_ms"], shapes=shapes)
 
     # ---- K8: the gated tail's product and 5 x 5 depthwise conv ----
     c = 1024
@@ -572,8 +694,8 @@ def k3_shape(dev, batch: int, gh: int, gw: int, errs: list) -> dict:
     """K3 at one call shape: held against its plain version on each input
     set (appended to errs), timed over input sets that together exceed the
     50 MB L2 (so the bank comes from HBM, as the bound counts it) and on
-    one L2-resident set, beside K1 on the same inputs. Returns the shape's
-    timings."""
+    one L2-resident set. Returns the shape's timings. (K1 is the same
+    kernel with the bias; phase 2 times it beside K3 on its own inputs.)"""
     from rmem_tpu_torch.kernels import bank_attention as kb
     one = k3_inputs(dev, batch, (gh, gw))
     q, bk, bvv, cnt, _ = one
@@ -593,8 +715,6 @@ def k3_shape(dev, batch: int, gh: int, gw: int, errs: list) -> dict:
 
     k3 = lambda q_, k_, v_, c_, s_: kb.bank_attention_qminor(q_, k_, v_, c_,
                                                              1, s_)
-    k1 = lambda q_, k_, v_, c_, s_: kb.bank_attention_infer(q_, k_, v_, c_,
-                                                            1, s_)
     hw, count = gh * gw, int(cnt)
     kv = count * hw
     dh, dv = bk.shape[-1], bvv.shape[-1]
@@ -604,10 +724,7 @@ def k3_shape(dev, batch: int, gh: int, gw: int, errs: list) -> dict:
     r = dict(batch=batch, grid=[gh, gw], sets=n_sets,
              set_mb=set_bytes / 1e6, ms=cuda_ms(cycling(k3), 20),
              l2_resident_ms=cuda_ms(lambda: k3(*one), 20),
-             k1_ms=cuda_ms(cycling(k1), 20),
-             k1_l2_resident_ms=cuda_ms(lambda: k1(*one), 20),
              bound_ms=b_ms, bound_by=b_by)
-    r["k1_ratio"] = r["ms"] / r["k1_ms"]
     return r
 
 
@@ -922,7 +1039,7 @@ def check_train_kernels(dev):
                                                    *largs),
             flops=2.0 * pairs * (dh + dv),
             nbytes=reads + b * hw * dv * 2, err=rel_err(got[0], ref[0]),
-            library_ms=lib_fwd_ms),
+            library_ms=lib_fwd_ms, graph=True),
         "local_attention_bwd": dict(
             replaces="rmem_tpu/kernels/local_attention.py:266",
             fn=lambda: kl.local_attention_bwd(lq_, lk_, lv, rel, gl, *largs),
@@ -941,8 +1058,12 @@ def check_train_kernels(dev):
             name=name, route="cuda",
             source="rmem_tpu_torch/csrc/local_attention.cu",
             replaces=r["replaces"], max_abs_err=r["err"],
-            ms=cuda_ms(r["fn"], 20), plain_ms=cuda_ms(r["plain"], 5),
+            ms=(graph_ms(r["fn"], 20) if r.get("graph")
+                else cuda_ms(r["fn"], 20)),
+            plain_ms=cuda_ms(r["plain"], 5),
             bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"])
+        if r.get("graph"):     # a CUDA graph's time, as K4's
+            entries[name]["eager_ms"] = cuda_ms(r["fn"], 20)
     k5_whole = dict(
         ms=cuda_ms(lambda: fwd_bwd(kl.local_attention_trainable), 20),
         plain_ms=cuda_ms(lambda: fwd_bwd(kl.local_attention_plain), 5),
@@ -1032,6 +1153,14 @@ def device_busy_ms(fn, n: int, table: bool = False) -> float:
     if table:
         print(events.table(sort_by="cuda_time_total", row_limit=25,
                            max_name_column_width=60))
+        # the port's own kernels, whether or not they made the table
+        print("profile: the port's kernels, device ms and calls per unit: "
+              + ", ".join(f"{e.key.split('(')[0]} "
+                          f"{e.self_device_time_total / (1e3 * n):.4f} "
+                          f"({e.count / n:g})"
+                          for e in events
+                          if e.device_type == DeviceType.CUDA
+                          and "rmem" in e.key))
     # kernels only: an operator's row repeats its kernels' device time
     return sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA) / (1e3 * n)
@@ -1373,7 +1502,8 @@ def optin_path(dev, card: str, profile: bool):
 
 def optin_agreement(dev):
     """Phase 7, held: the first OPTIN_AGREE_FRAMES frames of phase 7's
-    video through the kernel engine, each of whose K3 and K8 calls is held
+    video through the kernel engine, each of whose K3, K8 and K4 calls is
+    held
     against its plain version on the same inputs, and through an engine
     whose kernels are all their plain versions, teacher-forced with the
     kernel engine's labels: hold each frame's logits (every aug, over the
@@ -1389,9 +1519,9 @@ def optin_agreement(dev):
 
     held_kernels = (
         ("bank_attention_qminor", kb, kb.bank_attention_qminor_plain),
-        ("gated_dwconv", kd, kd.gated_dwconv_plain))
-    plain_only = ((kl, "local_attention", kl.local_attention_plain),
-                  (ks, "stem", ks.stem_plain))
+        ("gated_dwconv", kd, kd.gated_dwconv_plain),
+        ("local_attention", kl, kl.local_attention_plain))
+    plain_only = ((ks, "stem", ks.stem_plain),)
     calls = {name: [] for name, *_ in held_kernels}
 
     def on_path(name, kernel, plain_fn):
@@ -1456,7 +1586,7 @@ def optin_agreement(dev):
             err = max(err, (got - ref).abs()[live].max().item())
             top = max(top, ref.abs()[live].max().item())
         logit_errs.append(err / top)
-    print(f"phase 7, every K3 and K8 call of the first "
+    print(f"phase 7, every K3, K8 and K4 call of the first "
           f"{OPTIN_AGREE_FRAMES} frames against its plain version: {worst}")
     print("phase 7, kernel vs plain engine, max|logits diff| / max|plain "
           "logits| per frame (unmasked channels, all augs): "
@@ -1466,6 +1596,7 @@ def optin_agreement(dev):
     layers = cfg.model_lstt_num
     steps = len(augs) * (1 + OPTIN_AGREE_FRAMES)
     check(worst["bank_attention_qminor"]["calls"] == layers * steps
+          and worst["local_attention"]["calls"] == layers * steps
           and worst["gated_dwconv"]["calls"] == 3 * layers * steps,
           f"calls {worst}")
     check(max(logit_errs) <= LOGIT_TOL, f"phase 7 logits {max(logit_errs)}")
@@ -1653,8 +1784,9 @@ def train_phase(dev, card: str, profile: bool):
 
 
 def held_train_step(dev):
-    """Phase 6: one step of the kernel model, every K2 call of which is
-    held against its plain version on the same inputs, and one step of a
+    """Phase 6: one step of the kernel model, every K2 call and every K5
+    forward (K4) call of which is held against its plain version on the
+    same inputs, and one step of a
     model whose kernels are all their plain versions (computed in f32 from
     the same bf16 inputs), on the same batch, weights and shuffle. Holds
     the loss and the global gradient norm of the two. Returns a summary."""
@@ -1667,13 +1799,23 @@ def held_train_step(dev):
 
     cfg = train_config()
     bf = torch.bfloat16
-    calls = []
+    calls, fwd_calls = [], []
     kernel_bwd = kb.bank_attention_bwd
+    kernel_fwd = kl.local_attention
 
     def held_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec, scale):
         calls.append(held_k2(q, bank_k, bank_v, count, dout, drec, scale))
         return kernel_bwd(q, bank_k, bank_v, count, out, rec, lse, dout,
                           drec, scale)
+
+    def held_fwd(*args):
+        got = kernel_fwd(*args)
+        fwd_calls.append(held("local_attention", got,
+                              kl.local_attention_plain(*args)))
+        return got
+    # the wrapper counts its launches on the name it has in its module,
+    # which is now this function's
+    held_fwd.launches = 0
 
     # the plain versions take the inputs in bf16, as the kernels do
     plain = {
@@ -1690,7 +1832,8 @@ def held_train_step(dev):
     for use_plain in (False, True):
         with ExitStack() as stack:
             patches = (plain.items() if use_plain
-                       else [((kb, "bank_attention_bwd"), held_bwd)])
+                       else [((kb, "bank_attention_bwd"), held_bwd),
+                             ((kl, "local_attention"), held_fwd)])
             for (mod, attr), fn in patches:
                 stack.enter_context(mock.patch.object(mod, attr, fn))
             trainer = Trainer(cfg, device=dev, seed=1)
@@ -1702,23 +1845,30 @@ def held_train_step(dev):
             del trainer
     (loss_k, gn_k), (loss_p, gn_p) = runs
     worst = {key: max(c[key] for c in calls) for key in calls[0]}
+    fwd_worst = max(e / top for e, top, _ in fwd_calls)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     gn_err = abs(gn_k - gn_p) / gn_p
     print(f"phase 6: kernel step loss {loss_k:.6f}, grad norm {gn_k:.6f}; "
           f"plain step loss {loss_p:.6f}, grad norm {gn_p:.6f}; relative "
           f"differences {loss_err:.3e} and {gn_err:.3e}; {len(calls)} K2 "
           f"calls held, worst of each check: "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; {len(fwd_calls)} K5 forward calls held, worst "
+          f"{fwd_worst:.3e} of max|plain|")
     check(len(calls) == cfg.model_lstt_num * TRAIN_T,
           f"{len(calls)} K2 calls on the path")
+    check(len(fwd_calls) >= cfg.model_lstt_num * TRAIN_T,
+          f"{len(fwd_calls)} K5 forward calls on the path")
     check(loss_err <= STEP_LOSS_TOL, f"step loss {loss_err}")
     check(gn_err <= STEP_GNORM_TOL, f"step grad norm {gn_err}")
     return dict(loss=[loss_k, loss_p], grad_norm=[gn_k, gn_p],
-                k2_calls=len(calls), k2_worst=worst)
+                k2_calls=len(calls), k2_worst=worst,
+                k5_forward_calls=len(fwd_calls), k5_forward_worst=fwd_worst)
 
 
-# --mutants: for each kernel source, the per-call check that must catch
-# its one-line mutants, and the mutants (a list of (line, replacement))
+# --mutants: for each kernel source, the per-call checks of phase 2 that
+# must catch its one-line mutants, and the mutants (a list of (line,
+# replacement))
 MUTANTS = {
     "bank_attention_bwd": ("k2", {
         # ds drops the slot-mass term
@@ -1731,27 +1881,62 @@ MUTANTS = {
                       "pack_bf16(acc[nt][0], acc[nt][1]);"),
                      ("pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);",
                       "pack_bf16(acc[nt][2], acc[nt][3]);")]}),
-    "local_attention": ("k5", {
-        # dq is not multiplied by the logit scale
+    "local_attention": ("k4_k5", {
+        # K4: the accumulator is not rescaled when a row's maximum grows
+        "k4_no_rescale": [
+            ("        o[i][0] *= a0; o[i][1] *= a0; o[i][2] *= a1; "
+             "o[i][3] *= a1;\n", "")],
+        # K4: the bias is read at the transposed offset (dx, dy)
+        "k4_bias_transposed": [
+            ("return __bfloat162float(row[wy * WIN + wx])",
+             "return __bfloat162float(row[wx * WIN + wy])")],
+        # K5: dq is not multiplied by the logit scale
         "dq_scale": [("store_rows<D, NF>(smem, dacc, rt, cb, scale,",
                       "store_rows<D, NF>(smem, dacc, rt, cb, 1.f,")],
-        # the key side reads p and ds at the key's offset from the query,
-        # not at the mirrored one
+        # K5: the key side reads p and ds at the key's offset from the
+        # query, not at the mirrored one
         "unflipped": [("* win2 + (win2 - 1 - wk)];", "* win2 + wk];")],
-        # ds = p dp, without the row term delta
+        # K5: ds = p dp, without the row term delta
         "no_delta": [("prow[w[j]] * (drow[w[j]] - delta);",
                       "prow[w[j]] * drow[w[j]];")]}),
-    "bank_attention_qminor": ("k3", {
-        # the zero keys that TMA fills past Lk are not masked
-        "no_key_mask": [("const bool ok = key0 + i * 8 + 2 * t4 + e < Lk;",
-                         "const bool ok = true;")],
-        # one quarter of the accumulator is not rescaled as the max grows
+    "bank_attention_infer": ("k1_k3", {
+        # K1: the slot-PE bias is dropped
+        "k1_no_bias": [("if (kBias && qbias != nullptr) {", "if (false) {")],
+        # K1: the keys are masked at Lk, not at true_lk
+        "k1_mask_at_lk": [("(bf16*)part_o, B, Lq, S, true_lk, DV,",
+                           "(bf16*)part_o, B, Lq, S, Lk, DV,")],
+        # K1 and K3: the zero keys that TMA fills past Lk are not masked
+        "no_key_mask": [
+            ("const bool ok = key0 + i * 8 + 2 * t4 + e < true_lk;",
+             "const bool ok = true;")],
+        # K1 and K3: one quarter of the accumulator is not rescaled as the
+        # max grows
         "no_rescale": [("        o[4 * i] *= a0;\n", "")]}),
 }
+
+
+def k1_k3_check(dev):
+    """K1's phase-2 calls with the bias and with padded keys, then K3's."""
+    errs = {key: held_k1(*k1_inputs(dev, **K1_CASES[key]))
+            for key in ("main", "padded")}
+    errs["k3"] = held_k3(*k3_inputs(dev))
+    return errs
+
+
+def k4_k5_check(dev):
+    """K4 at the main path's call and on a ragged grid, then K5's
+    backward."""
+    errs = {key: held_k4(*k4_inputs(dev, *shape))
+            for key, shape in (("b1_31x54", (1, 31, 54)),
+                               ("b2_13x21", (2, 13, 21)))}
+    errs["k5"] = held_k5(*k5_inputs(dev))
+    return errs
+
+
 MUTANT_CHECKS = {
     "k2": lambda dev: held_k2(*k2_inputs(dev)[1]),
-    "k5": lambda dev: held_k5(*k5_inputs(dev)),
-    "k3": lambda dev: held_k3(*k3_inputs(dev)),
+    "k4_k5": k4_k5_check,
+    "k1_k3": k1_k3_check,
 }
 # runs in a copy: the copy's chip_smoke and package come first on the path
 MUTANT_RUN = """
@@ -1764,8 +1949,6 @@ try:
 except RuntimeError as e:
     print(json.dumps({"caught": str(e)}))
 """
-
-
 def mutation_check(sources=tuple(MUTANTS)) -> int:
     """`--mutants`: for each kernel source in `sources`, copies the package
     into a temporary directory once unchanged and once per mutant, changes
@@ -1819,8 +2002,8 @@ def main() -> int:
                     help="print a torch.profiler table of 5 steady frames "
                          "of phases 3 and 7 and of one training step")
     ap.add_argument("--mutants", action="store_true",
-                    help="only the mutation check of the per-call K2, K5 "
-                         "and K3 checks; prints no result line")
+                    help="only the mutation check of the per-call K2, K4, "
+                         "K5, K1 and K3 checks; prints no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")

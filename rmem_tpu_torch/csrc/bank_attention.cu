@@ -1,42 +1,41 @@
-// Bank attention for inference: the current frame's queries attend into the
-// valid slots of the long-term memory bank, and each slot's share of the
-// softmax mass is returned beside the output (RMem's eviction signal).
+// Bank attention for training's forward: the clip's queries attend into
+// the valid slots of the long-term memory bank, each slot's share of the
+// softmax mass is returned beside the output, and the per-row log-sum-exp
+// of the scaled logits is written for the backward
+// (csrc/bank_attention_bwd.cu).
 //
-// Replaces rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer
-// (the Pallas _forward/_kernel pair) and, with S = 1 and no bias, the
-// reference frame's self-memory call of pallas_bank_attention. With an lse
-// pointer it is also the forward of pallas_bank_attention's VJP (_forward
-// with want_lse): the per-row log-sum-exp of the scaled logits is written
-// for the backward (csrc/bank_attention_bwd.cu), and the output is written
-// in f32 (out32) instead of bf16, because the backward's row term
-// delta = rowsum(dout * out) must not carry the output's bf16 rounding: dq
-// is a small difference of large terms, and delta from the bf16 output
-// missed it by 7.5e-2 of its largest value on a training call. The serving
-// path passes null for both and writes the bf16 output.
+// Replaces the forward of rmem_tpu/kernels/bank_attention.py:
+// pallas_bank_attention's VJP (_forward with want_lse). The output is
+// written in f32, because the backward's row term delta = rowsum(dout *
+// out) must not carry the output's bf16 rounding: dq is a small difference
+// of large terms, and delta from the bf16 output missed it by 7.5e-2 of its
+// largest value on a training call. Serving's bank attention, with the
+// slot-PE bias and key padding, is csrc/bank_attention_infer.cu.
 //
-// What bounds it on an H100: operations. At the main path's shapes
-// (Lq = Lk = 1674, up to 9 valid slots, dh = 128, dv = 1024) the work is
-// 2*Lq*(S*Lk)*(dh + dv) ~ 5.8e10 FLOP against ~40 MB of bank read, so the
-// tensor cores set the bound (~59 us at 989 TFLOP/s), not the 3.35 TB/s.
+// What bounds it on an H100: operations. At the training shapes (B 4,
+// Lq = Lk = 900, up to 4 valid slots, dh = 128, dv = 1024) the work is
+// 2*B*Lq*(S*Lk)*(dh + dv) ~ 3.0e10 FLOP against ~34 MB read, so the tensor
+// cores set the bound (~30 us at 989 TFLOP/s), not the 3.35 TB/s.
 //
 // Design. The TPU kernel keeps a [256, 1024] f32 accumulator in VMEM, which
 // no SM can hold. Here a block of 8 warps owns 64 query rows and a 256-wide
-// slice of dv (grid 27 x 4 at the main path), so its accumulators fit in
-// registers; each slice recomputes the 128-wide logits, a quarter of the
-// P V work. The keys stream in chunks of 64: each chunk's K and V arrive by
-// cp.async into one of two shared-memory buffers while the block computes
-// on the other. Products are mma.sync m16n8k16 (bf16 in, f32 sums) with
-// ldmatrix operands. One online-softmax pass: warps 0-3 and 4-7 each take
-// half a chunk's keys for the S = Q K^T tile of their 16 rows, exchange row
-// maxima and sums through shared memory, write P in bf16, and then each
-// warp rescales and accumulates O for its 16 rows and half of the slice.
-// The slot mass is rescaled with the row sum l, as in the TPU kernel, and
-// divided by l at the end. The slot count stays on the device: the kernel
-// reads it, so a frame never waits for the host.
+// slice of dv, so its accumulators fit in registers; each slice recomputes
+// the 128-wide logits, a quarter of the P V work. The keys stream in chunks
+// of 64: each chunk's K and V arrive by cp.async into one of two
+// shared-memory buffers while the block computes on the other. Products are
+// mma.sync m16n8k16 (bf16 in, f32 sums) with ldmatrix operands. One
+// online-softmax pass: warps 0-3 and 4-7 each take half a chunk's keys for
+// the S = Q K^T tile of their 16 rows, exchange row maxima and sums through
+// shared memory, write P in bf16, and then each warp rescales and
+// accumulates O for its 16 rows and half of the slice. The slot mass is
+// rescaled with the row sum l, as in the TPU kernel, and divided by l at
+// the end. The slot count stays on the device: the kernel reads it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace rmem {
 
@@ -46,46 +45,7 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int SMAX = 16;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
+using namespace rmem_mma;
 
 template <int D, int DVB>
 struct Smem {
@@ -104,11 +64,10 @@ struct Smem {
 template <int D, int DVB>
 __global__ void __launch_bounds__(kThreads)
 bank_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const float* __restrict__ qbias,
-            const int* __restrict__ count_ptr, bf16* __restrict__ out,
+            const bf16* __restrict__ v, const int* __restrict__ count_ptr,
             float* __restrict__ rec, float* __restrict__ lse,
             float* __restrict__ out32, int B, int H, int Lq, int S, int Lk,
-            int true_lk, int dv, float scale) {
+            int dv, float scale) {
   using L = Smem<D, DVB>;
   extern __shared__ __align__(128) char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -207,21 +166,15 @@ bank_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(sc[2 * np + 1], qf[ks], kb[2], kb[3]);
       }
     }
-    float bias0 = 0.f, bias1 = 0.f;
-    if (qbias != nullptr) {
-      const size_t base = ((size_t)b * H + h) * Lq;
-      if (q0 + r0 < Lq) bias0 = qbias[(base + q0 + r0) * S + slot];
-      if (q0 + r1 < Lq) bias1 = qbias[(base + q0 + r1) * S + slot];
-    }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = key0 + kh * 32 + nt * 8 + 2 * t + e;
-        const bool ok = key < true_lk;
-        sc[nt][e] = ok ? sc[nt][e] * scale + bias0 : -INFINITY;
-        sc[nt][e + 2] = ok ? sc[nt][e + 2] * scale + bias1 : -INFINITY;
+        const bool ok = key < Lk;
+        sc[nt][e] = ok ? sc[nt][e] * scale : -INFINITY;
+        sc[nt][e + 2] = ok ? sc[nt][e + 2] * scale : -INFINITY;
         mx0 = fmaxf(mx0, sc[nt][e]);
         mx1 = fmaxf(mx1, sc[nt][e + 2]);
       }
@@ -311,21 +264,12 @@ bank_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int col = c0 + kh * (DVB / 2) + nt * 8 + 2 * t;
     const size_t oa = ((size_t)b * Lq + qa) * HDV + h * dv + col;
     const size_t ob = ((size_t)b * Lq + qb) * HDV + h * dv + col;
-    if (out32 != nullptr) {
-      if (qa < Lq)
-        *reinterpret_cast<float2*>(out32 + oa) =
-            make_float2(o[nt][0] * il0, o[nt][1] * il0);
-      if (qb < Lq)
-        *reinterpret_cast<float2*>(out32 + ob) =
-            make_float2(o[nt][2] * il1, o[nt][3] * il1);
-    } else {
-      if (qa < Lq)
-        *reinterpret_cast<unsigned*>(out + oa) =
-            pack_bf16(o[nt][0] * il0, o[nt][1] * il0);
-      if (qb < Lq)
-        *reinterpret_cast<unsigned*>(out + ob) =
-            pack_bf16(o[nt][2] * il1, o[nt][3] * il1);
-    }
+    if (qa < Lq)
+      *reinterpret_cast<float2*>(out32 + oa) =
+          make_float2(o[nt][0] * il0, o[nt][1] * il0);
+    if (qb < Lq)
+      *reinterpret_cast<float2*>(out32 + ob) =
+          make_float2(o[nt][2] * il1, o[nt][3] * il1);
   }
   if (write_rec) {
     const size_t base = ((size_t)b * H + h) * Lq;
@@ -335,18 +279,16 @@ bank_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // one dv slice writes the row's log-sum-exp; every slice computed the
     // same m and l from the same logits
-    if (lse != nullptr) {
-      if (qa < Lq) lse[base + qa] = l0 > 0.f ? m0 + logf(l0) : -INFINITY;
-      if (qb < Lq) lse[base + qb] = l1 > 0.f ? m1 + logf(l1) : -INFINITY;
-    }
+    if (qa < Lq) lse[base + qa] = l0 > 0.f ? m0 + logf(l0) : -INFINITY;
+    if (qb < Lq) lse[base + qb] = l1 > 0.f ? m1 + logf(l1) : -INFINITY;
   }
 }
 
 template <int D, int DVB>
 static int launch(const void* q, const void* k, const void* v,
-                  const void* qbias, const void* count, void* out, void* rec,
-                  void* lse, void* out32, int B, int H, int Lq, int S, int Lk,
-                  int true_lk, int dv, float scale, cudaStream_t stream) {
+                  const void* count, void* rec, void* lse, void* out32, int B,
+                  int H, int Lq, int S, int Lk, int dv, float scale,
+                  cudaStream_t stream) {
   constexpr int smem = Smem<D, DVB>::bytes;
   auto kern = bank_kernel<D, DVB>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -354,26 +296,23 @@ static int launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + BQ - 1) / BQ, dv / DVB, B * H);
   kern<<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)qbias,
-      (const int*)count, (bf16*)out, (float*)rec, (float*)lse, (float*)out32,
-      B, H, Lq, S, Lk, true_lk, dv, scale);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)count,
+      (float*)rec, (float*)lse, (float*)out32, B, H, Lq, S, Lk, dv, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rmem
 
 // Returns the cudaError_t of the launch (0 on success); -1 for a head width
-// other than 128, the only one instantiated. lse [B*H, Lq] f32 or null;
-// out32 [B, Lq, H*dv] f32 or null (then out, bf16, is written instead).
-extern "C" int rmem_bank_attention(const void* q, const void* k,
-                                   const void* v, const void* qbias,
-                                   const void* count, void* out, void* rec,
-                                   void* lse, void* out32, int B, int H,
-                                   int Lq, int S, int Lk,
-                                   int true_lk, int dh, int dv, float scale,
-                                   void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// other than 128, the only one instantiated. out32 [B, Lq, H*dv] f32, rec
+// [B*H, Lq, S] f32, lse [B*H, Lq] f32.
+extern "C" int rmem_bank_attention_lse(const void* q, const void* k,
+                                       const void* v, const void* count,
+                                       void* out32, void* rec, void* lse,
+                                       int B, int H, int Lq, int S, int Lk,
+                                       int dh, int dv, float scale,
+                                       void* stream) {
   if (dh != 128) return -1;
-  return rmem::launch<128, 256>(q, k, v, qbias, count, out, rec, lse, out32,
-                                B, H, Lq, S, Lk, true_lk, dv, scale, st);
+  return rmem::launch<128, 256>(q, k, v, count, rec, lse, out32, B, H, Lq, S,
+                                Lk, dv, scale, (cudaStream_t)stream);
 }

@@ -1,17 +1,21 @@
 // Bank attention for inference with the slots split among blocks: the
 // current frame's queries attend into the valid slots of the long-term
 // memory bank, and each slot's share of the softmax mass is returned beside
-// the output. The function of csrc/bank_attention.cu (K1) without its logit
-// bias and key padding: the slot temporal PE arrives added to the keys.
-//
-// Replaces rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor
-// (_kernel_qminor, _forward_qminor). That kernel runs the grid (bh,
-// slots x chunks, query tiles) so that each K/V chunk is fetched once and
-// every query tile streams past it, with the online-softmax state and an
-// [Lq, dv] f32 accumulator for all queries kept in VMEM. At the main path
-// that accumulator is 1674 x 1024 x 4 B = 6.9 MB, 30x an SM's shared memory,
-// so the order cannot keep its state on chip here. What this kernel takes
-// from it is the other axis of the work: the slots.
+// the output (RMem's eviction signal). One kernel template, instantiated
+// twice:
+//   - K1: with a per-(query, slot) logit bias (the factored slot temporal
+//     PE) and the keys masked past true_lk. Replaces
+//     rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer
+//     (_forward, _kernel) and, with one slot and no bias, the reference
+//     frame's self-memory call of pallas_bank_attention;
+//   - K3: neither; the slot PE arrives added to the keys. Replaces
+//     pallas_bank_attention_qminor (_kernel_qminor, _forward_qminor). That kernel runs the grid (bh, slots x chunks, query
+//     tiles) so that each K/V chunk is fetched once and every query tile
+//     streams past it, with the online-softmax state and an [Lq, dv] f32
+//     accumulator for all queries kept in VMEM. At the main path that
+//     accumulator is 1674 x 1024 x 4 B = 6.9 MB, 30x an SM's shared memory,
+//     so the order cannot keep its state on chip here. What this kernel
+//     takes from it is the other axis of the work: the slots.
 //
 // What bounds it on an H100: operations. At the main path (Lq = Lk = 1674,
 // 9 valid slots, dh 128, dv 1024) the work is 2 Lq (S Lk) (dh + dv) ~ 5.8e10
@@ -28,11 +32,15 @@
 //     and V chunks (64 keys: K [64 x 128], V [64 x 256]) in flight by TMA
 //     into a ring of 3 stages, each with a full and an empty mbarrier. The
 //     tensor maps are 3-D, [slot x batch, key, column], so a chunk never
-//     runs across two slots, and the keys past Lk arrive as zeros.
+//     runs across two slots, and the keys past Lk arrive as zeros. A slot
+//     takes ceil(true_lk / 64) chunks, so every chunk holds a key below
+//     true_lk.
 //   - Each consumer warpgroup runs, per chunk, S = Q K^T as wgmma m64n64k16
 //     from shared memory (K-major, 128-byte swizzle, as TMA wrote it), the
-//     key mask (a zero key past Lk would give logit 0, not -inf), the online
-//     softmax in registers (exp2, four threads a row), and O += P V as
+//     key mask at true_lk (a zero key past Lk would give logit 0, not -inf,
+//     and a key in [true_lk, Lk) is padding), the bias of the chunk's slot
+//     (K1: each row loads its G values once a block, in log2 units), the
+//     online softmax in registers (exp2, four threads a row), and O += P V as
 //     wgmma m64n256k16 with P in registers (the accumulator's layout is
 //     the A operand's, so P needs no shuffle) and V from shared memory
 //     (MN-major). O is 64 x 256 f32: 128 registers a thread.
@@ -258,14 +266,19 @@ __device__ __forceinline__ void wgmma_rs_m64n256(float* d, const uint32_t* a,
 
 
 // One (128-query tile, 256-wide dv slice, batch x slot group): part_m
-// [NG, B, Lq] and part_l [S, B, Lq] f32, part_o [NG, B, Lq, DV] bf16.
+// [NG, B, Lq] and part_l [S, B, Lq] f32, part_o [NG, B, Lq, DV] bf16. With
+// kBias, qbias [B, Lq, S] f32 (natural units, or null for none) is added
+// to the scaled logits and keys >= true_lk are masked; without, true_lk =
+// Lk.
+template <bool kBias>
 __global__ void __launch_bounds__(kThreads, 1)
 partial_kernel(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
-               const int* __restrict__ count_ptr, float* __restrict__ part_m,
+               const int* __restrict__ count_ptr,
+               const float* __restrict__ qbias, float* __restrict__ part_m,
                float* __restrict__ part_l, bf16* __restrict__ part_o, int B,
-               int Lq, int S, int Lk, int DV, float scale_log2) {
+               int Lq, int S, int true_lk, int DV, float scale_log2) {
   extern __shared__ __align__(1024) char smem_raw[];
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -280,7 +293,7 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int s0 = grp * G;
   if (s0 >= count) return;  // the whole block, before any barrier or copy
   const int ns = count - s0 < G ? count - s0 : G;
-  const int cps = (Lk + BK - 1) / BK;
+  const int cps = (true_lk + BK - 1) / BK;
   const int nch = ns * cps;
   const int q0 = blockIdx.x * (BQ * NCONS), c0 = blockIdx.y * DVB;
 
@@ -332,6 +345,19 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
     float la[G], lb[G];
 #pragma unroll
     for (int j = 0; j < G; ++j) la[j] = lb[j] = 0.f;
+    const int qa = q0 + cw * BQ + warp * 16 + (lane >> 2), qb = qa + 8;
+    // the bias of this thread's two rows for the group's slots (log2 units)
+    float ba[G], bb[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) ba[j] = bb[j] = 0.f;
+    if (kBias && qbias != nullptr) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (j >= ns) break;
+        if (qa < Lq) ba[j] = qbias[((size_t)b * Lq + qa) * S + s0 + j] * LOG2E;
+        if (qb < Lq) bb[j] = qbias[((size_t)b * Lq + qb) * S + s0 + j] * LOG2E;
+      }
+    }
     mbar_wait(qbar, 0);
 
     for (int ch = 0; ch < nch; ++ch) {
@@ -355,21 +381,35 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait_all();
       fence_regs<32>(sc);
 
-      // ---- mask, online softmax (log2 units) ----
+      // ---- mask, bias, online softmax (log2 units) ----
       const int key0 = (ch % cps) * BK, js = ch / cps;
+      float bias0 = 0.f, bias1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (j == js) {
+          bias0 = ba[j];
+          bias1 = bb[j];
+        }
+      }
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool ok = key0 + i * 8 + 2 * t4 + e < Lk;
-          sc[4 * i + e] = ok ? sc[4 * i + e] * scale_log2 : -INFINITY;
-          sc[4 * i + 2 + e] = ok ? sc[4 * i + 2 + e] * scale_log2 : -INFINITY;
+          const bool ok = key0 + i * 8 + 2 * t4 + e < true_lk;
+          float x0 = sc[4 * i + e] * scale_log2;
+          float x1 = sc[4 * i + 2 + e] * scale_log2;
+          if (kBias) {
+            x0 += bias0;
+            x1 += bias1;
+          }
+          sc[4 * i + e] = ok ? x0 : -INFINITY;
+          sc[4 * i + 2 + e] = ok ? x1 : -INFINITY;
           mx0 = fmaxf(mx0, sc[4 * i + e]);
           mx1 = fmaxf(mx1, sc[4 * i + 2 + e]);
         }
       }
-      // every chunk holds a key below Lk, so the new maxima are finite
+      // every chunk holds a key below true_lk, so the new maxima are finite
       const float mn0 = fmaxf(m0, quad_max(mx0));
       const float mn1 = fmaxf(m1, quad_max(mx1));
       const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
@@ -428,7 +468,6 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
       La += la[j];
       Lb += lb[j];
     }
-    const int qa = q0 + cw * BQ + warp * 16 + (lane >> 2), qb = qa + 8;
     const float ia = La > 0.f ? 1.f / La : 0.f;
     const float ib = Lb > 0.f ? 1.f / Lb : 0.f;
     bf16* po = part_o + ((size_t)grp * B + b) * Lq * DV;
@@ -554,17 +593,19 @@ static int map3d(CUtensorMap* map, const void* base, uint64_t cols,
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
+template <bool kBias>
 static int launch(const void* q, const void* k, const void* v,
-                  const void* count, void* part_m, void* part_l,
-                  void* part_o, void* out, void* rec, int B, int Lq, int S,
-                  int Lk, int DV, float scale, cudaStream_t stream) {
+                  const void* qbias, const void* count, void* part_m,
+                  void* part_l, void* part_o, void* out, void* rec, int B,
+                  int Lq, int S, int Lk, int true_lk, int DV, float scale,
+                  cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int e = map3d(&tq, q, D, Lq, B);
   if (e == 0) e = map3d(&tk, k, D, Lk, (uint64_t)S * B);
   if (e == 0) e = map3d(&tv, v, DV, Lk, (uint64_t)S * B);
   if (e != 0) return e;
-  auto kern = partial_kernel;
-  static bool configured = false;     // once per process
+  auto kern = partial_kernel<kBias>;
+  static bool configured = false;     // once per process and instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -574,8 +615,8 @@ static int launch(const void* q, const void* k, const void* v,
   const int ngroups = (S + G - 1) / G;
   dim3 grid((Lq + BQ * NCONS - 1) / (BQ * NCONS), DV / DVB, B * ngroups);
   kern<<<grid, kThreads, SMEM_BYTES, stream>>>(
-      tq, tk, tv, (const int*)count, (float*)part_m, (float*)part_l,
-      (bf16*)part_o, B, Lq, S, Lk, DV, scale * LOG2E);
+      tq, tk, tv, (const int*)count, (const float*)qbias, (float*)part_m,
+      (float*)part_l, (bf16*)part_o, B, Lq, S, true_lk, DV, scale * LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid2(B * Lq, (DV / 8 + kMergeThreads - 1) / kMergeThreads);
@@ -588,20 +629,30 @@ static int launch(const void* q, const void* k, const void* v,
 }  // namespace rmem_qminor
 
 // Returns the cudaError_t of the launches (0 on success); -1 for anything
-// but one head of 128 with dv a multiple of 256, -2 or -3 if a tensor map
-// cannot be made. Scratch, with G = rmem_bank_attention_qminor_slots():
-// part_m [ceil(S/G), B, Lq] and part_l [S, B, Lq] f32, part_o
-// [ceil(S/G), B, Lq, dv] bf16. q, k, v 16-byte aligned.
-extern "C" int rmem_bank_attention_qminor(
-    const void* q, const void* k, const void* v, const void* count,
-    void* part_m, void* part_l, void* part_o, void* out, void* rec, int B,
-    int H, int Lq, int S, int Lk, int dh, int dv, float scale,
-    void* stream) {
-  if (H != 1 || dh != 128 || dv % 256 != 0) return -1;
-  return rmem_qminor::launch(
-      q, k, v, count, part_m, part_l, part_o, out, rec, B, Lq, S, Lk, dv,
-      scale, (cudaStream_t)stream);
+// but one head of 128 with dv a multiple of 256 and true_lk in 1..Lk, -2 or
+// -3 if a tensor map cannot be made. qbias [B, Lq, S] f32 (scaled logit
+// units) or null; keys >= true_lk masked. With a bias or padded keys (K1)
+// the kernel's kBias instantiation runs, with neither (K3, and K1's
+// reference-frame call) the other. Scratch, with G =
+// rmem_bank_attention_infer_slots(): part_m [ceil(S/G), B, Lq] and part_l
+// [S, B, Lq] f32, part_o [ceil(S/G), B, Lq, dv] bf16. q, k, v 16-byte
+// aligned; out [B, Lq, dv] bf16, rec [B, Lq, S] f32.
+extern "C" int rmem_bank_attention_infer(
+    const void* q, const void* k, const void* v, const void* qbias,
+    const void* count, void* part_m, void* part_l, void* part_o, void* out,
+    void* rec, int B, int H, int Lq, int S, int Lk, int true_lk, int dh,
+    int dv, float scale, void* stream) {
+  if (H != 1 || dh != 128 || dv % 256 != 0 || true_lk < 1 || true_lk > Lk)
+    return -1;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (qbias == nullptr && true_lk == Lk)
+    return rmem_qminor::launch<false>(q, k, v, nullptr, count, part_m, part_l,
+                                      part_o, out, rec, B, Lq, S, Lk, Lk, dv,
+                                      scale, st);
+  return rmem_qminor::launch<true>(q, k, v, qbias, count, part_m, part_l,
+                                   part_o, out, rec, B, Lq, S, Lk, true_lk,
+                                   dv, scale, st);
 }
 
-// The slots a block walks in rmem_bank_attention_qminor.
-extern "C" int rmem_bank_attention_qminor_slots() { return rmem_qminor::G; }
+// The slots a block walks.
+extern "C" int rmem_bank_attention_infer_slots() { return rmem_qminor::G; }

@@ -2,30 +2,31 @@
 long-term bank, with each slot's softmax mass.
 
 Inference (kernel K1): `bank_attention_infer` launches the CUDA kernel
-`csrc/bank_attention.cu` for tensors on the card and runs
-`bank_attention_plain` for tensors on the CPU. It replaces
-rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer and the
-forward of pallas_bank_attention (the reference frame's S = 1 self-memory
-call).
+`csrc/bank_attention_infer.cu` (with the slot-PE logit bias and key padding)
+for tensors on the card and runs `bank_attention_plain` for tensors on the
+CPU. It replaces rmem_tpu/kernels/bank_attention.py:
+pallas_bank_attention_infer and the forward of pallas_bank_attention (the
+reference frame's S = 1 self-memory call).
 
-Inference with the slots split among blocks (kernel K3, opt-in):
-`bank_attention_qminor` launches `csrc/bank_attention_qminor.cu` for
-tensors on the card and runs `bank_attention_qminor_plain` for tensors on
-the CPU. K1's function with neither key padding nor a logit bias (the
-slot PE arrives added to the keys); it replaces
-rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor.
+Inference with the slot PE in the keys (kernel K3, opt-in):
+`bank_attention_qminor` launches the same source's other instantiation (no
+bias, no key padding) for tensors on the card and runs
+`bank_attention_qminor_plain` for tensors on the CPU; it replaces
+rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor. Both split
+the slots among blocks, SLOTS_PER_BLOCK each, and merge on the card.
 
 Training: `bank_attention_train` is differentiable. On the card it is an
-autograd Function whose forward is K1 with the per-row log-sum-exp output
-(`bank_attention_lse`) and whose backward is kernel K2
-(`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq` and `_dkv`);
-it replaces pallas_bank_attention and its custom VJP. On the CPU it is
-autograd through `bank_attention_plain`.
+autograd Function whose forward is `csrc/bank_attention.cu` with the
+per-row log-sum-exp output (`bank_attention_lse`, K1') and whose backward
+is kernel K2 (`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq`
+and `_dkv`); it replaces pallas_bank_attention and its custom VJP. On the
+CPU it is autograd through `bank_attention_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,9 +38,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
-# K3: slots walked by one block, fixed in csrc/bank_attention_qminor.cu (G,
-# checked against the library when it loads; PERF.md has the sweep of 1, 2,
-# 3 and 9 that chose it)
+# K1 and K3: slots walked by one block, fixed in csrc/bank_attention_infer.cu
+# (G, checked against the library when it loads; PERF.md has the sweep of 1,
+# 2, 3 and 9 that chose it)
 SLOTS_PER_BLOCK = 2
 
 
@@ -81,48 +82,71 @@ def _check_count(count: torch.Tensor, q: torch.Tensor) -> None:
            and count.numel() == 1, "count must be an int32 scalar on q's card")
 
 
-def _forward(q, bank_k, bank_v, count, num_heads, scale, true_lk, qbias,
-             train: bool):
-    """Launch K1; returns (out, rec [B*h, Lq, S], lse [B*h, Lq] or None).
-    With `train` the output is f32 and lse is written."""
+def _check_bank(q, bank_k, bank_v, count, num_heads) -> Tuple[int, ...]:
+    """The kernels' common checks; returns (s, b, lq, lk, dh, dv)."""
     s, b, lk, ck = bank_k.shape
     lq = q.shape[1]
     dh = ck // num_heads
     dv = bank_v.shape[-1] // num_heads
-    true_lk = lk if true_lk is None else true_lk
     _check_bf16(q, q=q, bank_k=bank_k, bank_v=bank_v)
     _check(q.shape == (b, lq, num_heads * dh), f"q shape {tuple(q.shape)}")
-    _check(bank_v.shape[:3] == (s, b, lk), f"bank_v shape {tuple(bank_v.shape)}")
+    _check(bank_v.shape[:3] == (s, b, lk),
+           f"bank_v shape {tuple(bank_v.shape)}")
     _check(num_heads == 1 and dh == 128,
            f"{num_heads} heads of width {dh} (the kernel is held to its "
            "plain version for one head of 128, r50_deaotl's)")
     _check(dv % 256 == 0, f"value width {dv} (multiple of 256)")
-    _check(0 < true_lk <= lk, f"true_lk {true_lk} for {lk} keys")
-    _check(s <= 16, f"{s} slots (kernel takes up to 16)")
     _check_count(count, q)
+    return s, b, lq, lk, dh, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _slots_entry():
+    """csrc/bank_attention_infer.cu's C entry, its slots a block held to
+    SLOTS_PER_BLOCK once."""
+    lib = build.load("bank_attention_infer")
+    lib.rmem_bank_attention_infer_slots.argtypes = []
+    lib.rmem_bank_attention_infer_slots.restype = _I
+    groups_of = lib.rmem_bank_attention_infer_slots()
+    _check(groups_of == SLOTS_PER_BLOCK, f"the library walks {groups_of} "
+           f"slots a block, the wrapper expects {SLOTS_PER_BLOCK}")
+    fn = lib.rmem_bank_attention_infer
+    fn.argtypes = [_P] * 10 + [_I] * 8 + [_F, _P]
+    fn.restype = _I
+    return fn
+
+
+def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
+                true_lk: Optional[int] = None,
+                qbias: Optional[torch.Tensor] = None):
+    """Launch csrc/bank_attention_infer.cu, K1's and K3's kernel. Returns
+    (out [B, Lq, h*dv] bf16, rec [B, Lq, S] f32)."""
+    s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, num_heads)
+    true_lk = lk if true_lk is None else true_lk
+    _check(0 < true_lk <= lk, f"true_lk {true_lk} for {lk} keys")
+    _check(s <= 128, f"{s} slots (the merge takes up to 128)")
     if qbias is not None:
         _check(qbias.device == q.device and qbias.dtype == torch.float32
                and qbias.is_contiguous()
                and qbias.shape == (b, num_heads, lq, s),
                "qbias must be contiguous f32 [B, h, Lq, S]")
-    fn = build.load("bank_attention").rmem_bank_attention
-    fn.argtypes = [_P] * 9 + [_I] * 8 + [_F, _P]
-    fn.restype = _I
-    out = torch.empty((b, lq, num_heads * dv), device=q.device,
-                      dtype=torch.float32 if train else q.dtype)
-    rec = torch.empty((b * num_heads, lq, s), dtype=torch.float32,
-                      device=q.device)
-    lse = (torch.empty((b * num_heads, lq), dtype=torch.float32,
-                       device=q.device) if train else None)
+    fn = _slots_entry()
+    groups = -(-s // SLOTS_PER_BLOCK)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_m = torch.empty((groups, b, lq), **f32)
+    part_l = torch.empty((s, b, lq), **f32)
+    part_o = torch.empty((groups, b, lq, dv), dtype=torch.bfloat16,
+                         device=q.device)
+    out = torch.empty((b, lq, dv), dtype=q.dtype, device=q.device)
+    rec = torch.empty((b, lq, s), **f32)
     err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
              None if qbias is None else qbias.data_ptr(), count.data_ptr(),
-             None if train else out.data_ptr(), rec.data_ptr(),
-             lse.data_ptr() if train else None,
-             out.data_ptr() if train else None, b, num_heads, lq, s, lk,
+             part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
+             out.data_ptr(), rec.data_ptr(), b, num_heads, lq, s, lk,
              true_lk, dh, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "bank_attention")
-    return out, rec, lse
+    build.check(err, "bank_attention_infer")
+    return out, rec
 
 
 def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
@@ -132,17 +156,17 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
                          qbias: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, Lq, h*dh]; bank_k [S, B, Lk, h*dh]; bank_v [S, B, Lk, h*dv];
-    count: int32 scalar tensor of valid slots, read on the device; qbias
-    [B, h, Lq, S] f32 or None. On the card: bf16 q/k/v, one head of 128,
-    dv a multiple of 256, all contiguous."""
+    count: int32 scalar tensor of valid slots, read on the device; keys
+    >= true_lk masked; qbias [B, h, Lq, S] f32 or None. Returns (out
+    [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32). On the card: bf16
+    q/k/v, one head of 128, dv a multiple of 256, all contiguous."""
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
                                     scale, true_lk, qbias)
-    out, rec, _ = _forward(q, bank_k, bank_v, count, num_heads, scale,
-                           true_lk, qbias, train=False)
+    out = _slots_call(q, bank_k, bank_v, count, num_heads, scale, true_lk,
+                      qbias)
     bank_attention_infer.launches += 1
-    rec = rec.view(q.shape[0], num_heads, q.shape[1], -1)
-    return out, (rec[:, 0] if num_heads == 1 else rec.mean(dim=1))
+    return out
 
 
 bank_attention_infer.launches = 0
@@ -169,47 +193,9 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
     if not q.is_cuda:
         return bank_attention_qminor_plain(q, bank_k, bank_v, count,
                                            num_heads, scale)
-    s, b, lk, ck = bank_k.shape
-    lq = q.shape[1]
-    dh = ck // num_heads
-    dv = bank_v.shape[-1] // num_heads
-    _check_bf16(q, q=q, bank_k=bank_k, bank_v=bank_v)
-    _check(q.shape == (b, lq, num_heads * dh), f"q shape {tuple(q.shape)}")
-    _check(bank_v.shape[:3] == (s, b, lk),
-           f"bank_v shape {tuple(bank_v.shape)}")
-    _check(num_heads == 1 and dh == 128,
-           f"{num_heads} heads of width {dh} (the kernel is held to its "
-           "plain version for one head of 128, r50_deaotl's)")
-    _check(dv % 256 == 0, f"value width {dv} (multiple of 256)")
-    _check_count(count, q)
-    lib = build.load("bank_attention_qminor")
-    lib.rmem_bank_attention_qminor_slots.argtypes = []
-    lib.rmem_bank_attention_qminor_slots.restype = _I
-    groups_of = lib.rmem_bank_attention_qminor_slots()
-    _check(groups_of == SLOTS_PER_BLOCK, f"the library walks {groups_of} "
-           f"slots a block, the wrapper expects {SLOTS_PER_BLOCK}")
-    fn = lib.rmem_bank_attention_qminor
-    groups = -(-s // groups_of)
-    bh = b * num_heads
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((groups, bh, lq), **f32)
-    part_l = torch.empty((s, bh, lq), **f32)
-    part_o = torch.empty((groups, b, lq, num_heads * dv),
-                         dtype=torch.bfloat16, device=q.device)
-    out = torch.empty((b, lq, num_heads * dv), dtype=q.dtype,
-                      device=q.device)
-    rec = torch.empty((bh, lq, s), **f32)
-    fn.argtypes = [_P] * 9 + [_I] * 7 + [_F, _P]
-    fn.restype = _I
-    err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
-             count.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-             part_o.data_ptr(), out.data_ptr(), rec.data_ptr(), b,
-             num_heads, lq, s, lk, dh, dv, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "bank_attention_qminor")
+    out = _slots_call(q, bank_k, bank_v, count, num_heads, scale)
     bank_attention_qminor.launches += 1
-    rec = rec.view(b, num_heads, lq, s)
-    return out, (rec[:, 0] if num_heads == 1 else rec.mean(dim=1))
+    return out
 
 
 bank_attention_qminor.launches = 0
@@ -219,12 +205,24 @@ def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
                        bank_v: torch.Tensor, count: torch.Tensor,
                        scale: float
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1 for training (card only): one head, no bias, every key valid.
-    Returns (out [B, Lq, dv] f32, rec [B, Lq, S] f32, lse [B, Lq] f32, the
-    log-sum-exp of each row's scaled logits over the valid slots). The
-    output stays f32 for the backward's row term (csrc/bank_attention.cu)."""
-    out, rec, lse = _forward(q, bank_k, bank_v, count, 1, scale, None, None,
-                             train=True)
+    """K1' for training (card only, csrc/bank_attention.cu): one head, no
+    bias, every key valid. Returns (out [B, Lq, dv] f32, rec [B, Lq, S]
+    f32, lse [B, Lq] f32, the log-sum-exp of each row's scaled logits over
+    the valid slots). The output stays f32 for the backward's row term."""
+    s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, 1)
+    _check(s <= 16, f"{s} slots (kernel takes up to 16)")
+    fn = build.load("bank_attention").rmem_bank_attention_lse
+    fn.argtypes = [_P] * 7 + [_I] * 7 + [_F, _P]
+    fn.restype = _I
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty((b, lq, dv), **f32)
+    rec = torch.empty((b, lq, s), **f32)
+    lse = torch.empty((b, lq), **f32)
+    err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
+             count.data_ptr(), out.data_ptr(), rec.data_ptr(),
+             lse.data_ptr(), b, 1, lq, s, lk, dh, dv, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "bank_attention_lse")
     bank_attention_lse.launches += 1
     return out, rec, lse
 

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` compiles with one `nvcc` call into
 `build/<name>-<hash>.so` at the repo root, a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). The hash covers
-the source and flags, so an edited kernel is rebuilt and an unchanged one
-is reused. `build()` starts one `nvcc` per missing library, all at once.
-Nothing here runs at import time.
+the source, every header of `csrc/` (`*.cuh`) and the flags, so an edited
+kernel or header is rebuilt and an unchanged one is reused. `build()`
+starts one `nvcc` per missing library, all at once. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-KERNELS = ("bank_attention", "bank_attention_bwd", "bank_attention_qminor",
+KERNELS = ("bank_attention", "bank_attention_bwd", "bank_attention_infer",
            "gated_dwconv", "local_attention", "stem")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,7 +42,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -26,6 +26,10 @@ from rmem_tpu_torch.ops.attention import dense_local_attention
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# K4: the dv slice of one block, fixed in csrc/local_attention.cu (FWD_DVB,
+# checked against the library when it loads; PERF.md has the sweep of 128
+# and 256, each with its columns on one or two warps, that chose it)
+SLICE = 256
 
 
 def local_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,13 +48,29 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"local_attention: {msg}")
 
 
+@functools.lru_cache(maxsize=None)
+def _forward_entry():
+    """The forward's C entry, its slice width held to SLICE once."""
+    lib = build.load("local_attention")
+    lib.rmem_local_attention_slice.argtypes = []
+    lib.rmem_local_attention_slice.restype = _I
+    slice_width = lib.rmem_local_attention_slice()
+    _check(slice_width == SLICE, f"the library's dv slice is {slice_width}, "
+           f"the wrapper expects {SLICE}")
+    fn = lib.rmem_local_attention
+    fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P]
+    fn.restype = _I
+    return fn
+
+
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rel_emb: torch.Tensor, size_2d: Tuple[int, int],
                     num_heads: int, max_dis: int,
                     scale: float) -> torch.Tensor:
     """q, k [B, HW, h*dh]; v [B, HW, h*dv]; rel_emb [B, HW, h*(2m+1)^2] made
     from the unscaled q. Returns [B, HW, h*dv]. On the card: bf16, one head
-    of 128, dv a multiple of 128, all contiguous."""
+    of 128, a 15 x 15 window (max_dis 7), dv a multiple of SLICE, all
+    contiguous."""
     if not q.is_cuda:
         return local_attention_plain(q, k, v, rel_emb, size_2d, num_heads,
                                      max_dis, scale)
@@ -72,10 +92,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(num_heads == 1 and dh == 128,
            f"{num_heads} heads of width {dh} (the kernel is held to its "
            "plain version for one head of 128, r50_deaotl's)")
-    _check(dv % 128 == 0, f"value width {dv} (multiple of 128)")
-    fn = build.load("local_attention").rmem_local_attention
-    fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P]
-    fn.restype = _I
+    _check(max_dis == 7, f"max_dis {max_dis} (the kernel's window is 15 x 15)")
+    _check(dv % SLICE == 0, f"value width {dv} (multiple of {SLICE})")
+    fn = _forward_entry()
     out = torch.empty((b, hw, num_heads * dv), dtype=v.dtype, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
              out.data_ptr(), b, h2d, w2d, num_heads, dh, dv, max_dis,

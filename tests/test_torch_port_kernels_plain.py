@@ -50,12 +50,21 @@ def _t(a):
     return torch.from_numpy(np.asarray(a, dtype=np.float32))
 
 
-@pytest.mark.parametrize("heads,count,true_lk", [(1, 3, 40), (2, 4, 48)])
-def test_bank_attention_plain_matches_pallas_infer(heads, count, true_lk):
-    """Partial slot count, key padding past true_lk and the per-(query,
-    slot) bias, against pallas_bank_attention_infer."""
+@pytest.mark.parametrize("heads,count,true_lk,b,lk", [
+    pytest.param(1, 3, 40, 1, 48, id="1-3-40"),
+    pytest.param(2, 4, 48, 1, 48, id="2-4-48"),
+    # two id groups; one slot, and keys padded 72 past true_lk (more than
+    # the kernel's 64-key chunk, so a chunk lies wholly in the padding)
+    pytest.param(1, 1, 40, 2, 112, id="b2-count1-padded"),
+    # two id groups, every slot valid
+    pytest.param(1, 5, 48, 2, 48, id="b2-full")])
+def test_bank_attention_plain_matches_pallas_infer(heads, count, true_lk, b,
+                                                   lk):
+    """Partial, single and full slot counts, key padding past true_lk, the
+    per-(query, slot) bias and two id groups, against
+    pallas_bank_attention_infer."""
     rng = np.random.RandomState(0)
-    s, b, lq, lk, dh, dv = 5, 1, 40, 48, 32, 64
+    s, lq, dh, dv = 5, 40, 32, 64
     q = _rand(rng, b, lq, heads * dh)
     bk = _rand(rng, s, b, lk, heads * dh)
     bv = _rand(rng, s, b, lk, heads * dv)
@@ -89,14 +98,20 @@ def test_bank_attention_plain_matches_pallas_self_memory():
     np.testing.assert_allclose(rec.numpy(), 1.0, atol=1e-6)
 
 
-@pytest.mark.parametrize("size", [(4, 4), (11, 17)])
-def test_local_attention_plain_matches_pallas(size):
+@pytest.mark.parametrize("size,b", [
+    pytest.param((4, 4), 1, id="size0"),
+    pytest.param((11, 17), 1, id="size1"),
+    # two id groups on a ragged grid (not a multiple of the kernel's 8 x 8
+    # tile on either side) whose windows cross every edge
+    pytest.param((13, 21), 2, id="b2-13x21")])
+def test_local_attention_plain_matches_pallas(size, b):
     """A grid smaller than the 15x15 window (the window shrinks to the grid
-    and the relative table is cropped on the JAX side) and one larger."""
+    and the relative table is cropped on the JAX side), one larger, and a
+    ragged one at batch 2."""
     rng = np.random.RandomState(2)
     hw = size[0] * size[1]
-    q, k = _rand(rng, 1, hw, 32), _rand(rng, 1, hw, 32)
-    v, rel = _rand(rng, 1, hw, 64), _rand(rng, 1, hw, 225)
+    q, k = _rand(rng, b, hw, 32), _rand(rng, b, hw, 32)
+    v, rel = _rand(rng, b, hw, 64), _rand(rng, b, hw, 225)
     ref = pallas_local_attention(*map(jnp.asarray, (q, k, v, rel)), size, 1,
                                  max_dis=7, interpret=True)
     out = klocal.local_attention(_t(q), _t(k), _t(v), _t(rel), size, 1, 7,
