@@ -16,14 +16,18 @@ non-zero exit code:
    the main path's call beside K3 on the same inputs, and at one slot, all
    ten, the reference frame's call, two id groups and keys padded past
    true_lk; K4 at the main path's call and phase 7's two batch-2 grids,
-   each beside SDPA with the dense bias, and on a ragged grid; K6) and the
-   opt-in inference kernels (K3 at the main path's call and at phase 7's
-   two batch-2 grids, from HBM and L2-resident; K8) at 481x849, and the
-   training kernels (K1' with its lse output, K2's three backward kernels
-   with a nonzero drec, K5's forward and backward kernels, each backward
-   output against its plain version and autograd of the plain forward, K7
-   forward and backward) at the training shapes. K4 and K8 take less device time than an eager call
-   takes the host, so their times are those of CUDA graphs;
+   each beside SDPA with the dense bias, and on a ragged grid; K6 at the
+   serving image and phase 7's 625x1105, each beside cuDNN's bf16 chain)
+   and the opt-in inference kernels (K3 at the main path's call and at
+   phase 7's two batch-2 grids, from HBM and L2-resident; K8) at 481x849,
+   and the training kernels (K1' with its lse output, beside SDPA, at 4
+   valid slots and at 2, where its output must not lie on the bf16 grid;
+   K2's three backward kernels with a nonzero drec, K5's forward and
+   backward kernels, each backward output against its plain version and
+   autograd of the plain forward, K7 forward and backward beside cuDNN's
+   chain through autograd) at the training shapes. K4 and K8 take less
+   device time than an eager call takes the host, so their times are those
+   of CUDA graphs;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
    objects, random weights from a seed, the reference frame with a
    long-term write every 5 frames, then N frames (default 130) at the
@@ -77,19 +81,21 @@ Prints the `kernels` JSON line, then the card line, then the result line
 no CUDA device is available or the package is not beside this script.
 
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
-(held_k2), K4 and K5's backward (held_k4, held_k5) and K1 and K3
-(held_k1, held_k3): for each mutant (MUTANTS), the package is copied into
-a temporary directory, one line of the kernel's source is changed there
-(K2: ds drops the slot-mass term, or dq the logit scale; K4: the
-accumulator is not rescaled when a row's maximum grows, or the bias is
-read at the transposed offset; K5: dq drops the scale, the key side reads
-p and ds unmirrored, or ds drops delta; K1: the bias is dropped, or the
-keys are masked at Lk instead of true_lk; K1 and K3's template: the keys
-past Lk go unmasked, or a quarter of the accumulator unrescaled), the
-copy's kernels
-are built, and the source's checks run on phase 2's inputs. Each mutant
-must fail a check and each unmutated copy pass them all; the checkout
-itself is never changed.
+(held_k2), K4 and K5's backward (held_k4, held_k5), K1, K3 and K1'
+(held_k1, held_k3, held_k2) and K6 and K7 (held, held_k7): for each
+mutant (MUTANTS), the package is copied into a temporary directory, one
+line of the kernel's source is changed there (K2: ds drops the slot-mass
+term, or dq the logit scale; K4: the accumulator is not rescaled when a
+row's maximum grows, or the bias is read at the transposed offset; K5: dq
+drops the scale, the key side reads p and ds unmirrored, or ds drops
+delta; K1: the bias is dropped, or the keys are masked at Lk instead of
+true_lk; the K1/K3/K1' template: the keys past Lk go unmasked, or a
+quarter of the accumulator unrescaled; K1': the partial outputs pass
+through bf16, or the lse drops the log of the sum; K6/K7: conv positions
+outside the conv grid enter the pool, or the pad taps carry weights), the
+copy's kernels are built, and the source's checks run on phase 2's
+inputs. Each mutant must fail a check and each unmutated copy pass them
+all; the checkout itself is never changed.
 """
 
 from __future__ import annotations
@@ -134,12 +140,17 @@ MASS_TOL = 1e-4         # K1: max |slot mass - plain|
 # K1's lse sums f32 exponentials of the same f32 logits as its plain
 # version (1.9e-6 to 3.8e-6 measured on an H100)
 LSE_TOL = 1e-3          # K1 with lse: max |lse - plain|
+# K1' keeps its output f32 for K2's row term: the share of its values
+# within 2^-20 of the bf16 grid is ~2^-11 for f32 values, and ~1 where
+# one slot group's output went through bf16 on the way
+ON_GRID_TOL = 0.05
 # K2's kernels round p and their outputs to bf16 and sum in f32: a few bf16
 # roundings of the output's scale (each kernel 1.4e-3 to 3.8e-3, the whole
 # backward against autograd up to 1.1e-2 over a training step's 45 calls,
 # measured on an H100); K5's backward rounds its bf16 outputs and p, and
-# carries ds as a bf16 hi/lo pair; K7 differs from its plain version only
-# in the forward (1.1e-3 measured)
+# carries ds as a bf16 hi/lo pair; K7's backward runs the chain's VJP in
+# bf16 from the forward's saved state, its sums in another order (3.8e-3
+# measured)
 GRAD_TOL = 2e-2         # max |kernel - plain| / max |plain|
 # one training step of the kernel model against one of the plain model:
 # the two differ by the kernels' bf16 roundings, carried through the clip
@@ -311,7 +322,6 @@ def check_kernels(dev):
 
     from rmem_tpu_torch.kernels import bank_attention as kb
     from rmem_tpu_torch.kernels import local_attention as kl
-    from rmem_tpu_torch.kernels import stem as ks
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -387,32 +397,100 @@ def check_kernels(dev):
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shapes=shapes)
 
-    # ---- K6 stem on the 481 x 849 image ----
-    x = torch.rand((1, *IN_HW, 3), generator=g, device=dev)
-    wt = randn(64, 3, 7, 7, scale=0.2)
-    sc = torch.ones(64, dtype=bf, device=dev)     # BN scale folded into wt
-    bi = randn(64, scale=0.1)
-    sargs = (x, wt, sc, bi)
-    out = ks.stem(*sargs)
-    ref = ks.stem_plain(*sargs)
-    ho, wo = (IN_HW[0] - 1) // 2 + 1, (IN_HW[1] - 1) // 2 + 1
-    check(out.shape == ref.shape == (1, (ho - 1) // 2 + 1,
-                                     (wo - 1) // 2 + 1, 64),
-          f"K6 shape {tuple(out.shape)}")
-    err, top, _ = held("stem", out, ref)
-    print(f"K6 stem: max|out-plain| {err:.3e} (max|plain| {top:.3e}), "
-          f"{int((out != ref).sum())} of {out.numel()} values differ")
-    b_ms, b_by = bound(2.0 * 147 * 64 * ho * wo,
-                       x.numel() * 4 + wt.numel() * 2 + out.numel() * 2)
+    # ---- K6 stem at the serving image and phase 7's two scales ----
+    shapes = {key: k6_shape(dev, g, hw) for key, hw in K6_SHAPES.items()}
+    for key, r in shapes.items():
+        print(f"K6 stem {key}: {r['ms']:.4f} ms, plain chain "
+              f"{r['plain_ms']:.4f} ms, library chain (cuDNN bf16 conv2d with "
+              f"the folded bias, relu, max_pool2d: three calls) "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms; "
+              f"max|out-plain| {r['err']:.3e} (max|plain| {r['top']:.3e}), "
+              f"{r['differ']} of {r['n']} values differ")
+    main = shapes["b1_481x849"]
     entries["stem"] = dict(
         name="stem", route="cuda", source="rmem_tpu_torch/csrc/stem.cu",
-        replaces="rmem_tpu/kernels/stem.py:137", max_abs_err=err,
-        ms=cuda_ms(lambda: ks.stem(*sargs), 50),
-        plain_ms=cuda_ms(lambda: ks.stem_plain(*sargs), 20),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        replaces="rmem_tpu/kernels/stem.py:137",
+        max_abs_err=max(r["err"] for r in shapes.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        library="cuDNN bf16 conv2d (channels-last, folded bias), relu, "
+                "max_pool2d: a chain of three calls",
+        shapes=shapes)
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
     return entries
+
+
+# K6 in phase 2: the serving image (phase 3, and phase 7's scale 1.0) and
+# phase 7's scale 1.3, at the batch the engine's encoder passes (one frame
+# of one aug at a time)
+K6_SHAPES = {"b1_481x849": (1, 481, 849), "b1_625x1105": (1, 625, 1105)}
+
+
+def stem_inputs(dev, g, batch: int, h: int, w: int, train: bool = False):
+    """The stem's inputs: an image in [0, 1) (f32 NHWC), weights, scale and
+    bias (bf16; f32 for training, as the trainer's parameters are)."""
+    import torch
+    dt = torch.float32 if train else torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    x = torch.rand((batch, h, w, 3), generator=g, device=dev)
+    return x, randn(64, 3, 7, 7, scale=0.2), 1.0 + randn(64, scale=0.1), \
+        randn(64, scale=0.1)
+
+
+def stem_library(x, wt, sc, bi):
+    """The library's chain for the stem's function, from the image in bf16
+    channels-last: (a function of (weight, bias) running cuDNN's conv2d with
+    the BN scale folded into the weight and the bias into the conv, relu and
+    max_pool2d; the folded weight; the bias)."""
+    import torch
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    xl = x.permute(0, 3, 1, 2).to(bf)               # channels-last strides
+    wl = (wt.float() * sc.float()[:, None, None, None]).to(bf).contiguous(
+        memory_format=torch.channels_last)
+    bl = bi.to(bf)
+
+    def chain(w_, b_):
+        return F.max_pool2d(torch.relu(F.conv2d(xl, w_, b_, 2, 3)), 3, 2, 1)
+
+    return chain, wl, bl
+
+
+def stem_bound(x, out, train: bool = False):
+    """The stem's bound: the conv's operations (and dW's, training) against
+    the f32 image read and the bf16 output written (and its cotangent read,
+    training), the weights once each way."""
+    b, h, w, _ = x.shape
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    flops = 2.0 * 147 * 64 * ho * wo * b * (2 if train else 1)
+    nbytes = (x.numel() * 4 + out.numel() * 2 * (2 if train else 1)
+              + 9408 * 2 * (2 if train else 1))
+    return bound(flops, nbytes)
+
+
+def k6_shape(dev, g, hw) -> dict:
+    """K6 at one shape, held against its plain version, timed beside the
+    plain chain and the library's chain, with its bound."""
+    from rmem_tpu_torch.kernels import stem as ks
+    sargs = stem_inputs(dev, g, *hw)
+    out = ks.stem(*sargs)
+    ref = ks.stem_plain(*sargs)
+    b, h, w = hw
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    check(out.shape == ref.shape == (b, (ho - 1) // 2 + 1, (wo - 1) // 2 + 1,
+                                     64), f"K6 shape {tuple(out.shape)}")
+    err, top, _ = held("stem", out, ref)
+    chain, wl, bl = stem_library(*sargs)
+    b_ms, b_by = stem_bound(sargs[0], out)
+    return dict(ms=cuda_ms(lambda: ks.stem(*sargs), 50),
+                plain_ms=cuda_ms(lambda: ks.stem_plain(*sargs), 20),
+                library_ms=cuda_ms(lambda: chain(wl, bl), 50),
+                bound_ms=b_ms, bound_by=b_by, err=err, top=top,
+                differ=int((out != ref).sum()), n=out.numel())
 
 
 # K1 in phase 2: the main path's call (batch 1 on 31 x 54, 9 valid slots of
@@ -751,9 +829,12 @@ def held_k2(q, bank_k, bank_v, count, dout, drec, scale):
     logits = torch.einsum("bqd,sbkd->bqsk", q.float(), bank_k[:n].float())
     ref_lse = (logits * scale).reshape(q.shape[0], q.shape[1], -1)
     ref_lse = ref_lse.logsumexp(-1)
+    on_grid = (out - out.to(torch.bfloat16).float()).abs() <= (
+        2 ** -20 * out.abs())
     errs = {"out": rel_err(out, ref_out),
             "rec": (rec - ref_rec).abs().max().item(),
-            "lse": (lse - ref_lse).abs().max().item()}
+            "lse": (lse - ref_lse).abs().max().item(),
+            "out_on_bf16_grid": on_grid[out != 0].float().mean().item()}
     delta = kb.bwd_delta(dout, out, drec, rec)
     p, ds = kb.bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse,
                                      delta, drec, scale)
@@ -779,16 +860,17 @@ def held_k2(q, bank_k, bank_v, count, dout, drec, scale):
     errs["whole_dk"] = rel_err(dk, gk)
     errs["whole_dv"] = rel_err(dv, gv)
     for key, err in errs.items():
-        tol = {"out": OUT_TOL, "rec": MASS_TOL, "lse": LSE_TOL}.get(key,
-                                                                    GRAD_TOL)
+        tol = {"out": OUT_TOL, "rec": MASS_TOL, "lse": LSE_TOL,
+               "out_on_bf16_grid": ON_GRID_TOL}.get(key, GRAD_TOL)
         check(err <= tol, f"K1 lse / K2 {key}: {err} (tolerance {tol})")
     return errs
 
 
-def k2_inputs(dev):
-    """K2's phase-2 inputs at the training shapes (B 4, a 30 x 30 grid, 4
-    valid slots of 10, dh 128, dv 1024, bf16) with a nonzero drec. Returns
-    (the generator, (q, bank_k, bank_v, count, dout, drec, scale))."""
+def k2_inputs(dev, count: int = 4):
+    """K2's phase-2 inputs at the training shapes (B 4, a 30 x 30 grid,
+    `count` valid slots of 10: 4, or 2 for one slot group; dh 128, dv 1024,
+    bf16) with a nonzero drec. Returns (the generator, (q, bank_k, bank_v,
+    count, dout, drec, scale))."""
     import torch
     g = torch.Generator(device=dev).manual_seed(2)
 
@@ -798,7 +880,7 @@ def k2_inputs(dev):
     b, hw, dh, dv, S = TRAIN_B, TRAIN_GRID[0] * TRAIN_GRID[1], 128, 1024, 10
     q = randn(b, hw, dh, scale=2.0)
     bk, bvv = randn(S, b, hw, dh), randn(S, b, hw, dv)
-    cnt = torch.tensor(4, dtype=torch.int32, device=dev)
+    cnt = torch.tensor(count, dtype=torch.int32, device=dev)
     dout = randn(b, hw, dv, scale=0.1)
     drec = randn(b, hw, S, dtype=torch.float32)
     return g, (q, bk, bvv, cnt, dout, drec, dh ** -0.5)
@@ -858,7 +940,6 @@ def check_train_kernels(dev):
 
     from rmem_tpu_torch.kernels import bank_attention as kb
     from rmem_tpu_torch.kernels import local_attention as kl
-    from rmem_tpu_torch.kernels import stem as ks
     from rmem_tpu_torch.ops.attention import NEG_INF, _local_offset_map_on
 
     bf = torch.bfloat16
@@ -870,9 +951,12 @@ def check_train_kernels(dev):
     b, (h, w) = TRAIN_B, TRAIN_GRID
     (S, _, hw, dh), dv, count = bk.shape, bvv.shape[-1], int(cnt)
     errs = held_k2(q, bk, bvv, cnt, dout, drec, scale)
-    print("K1 lse + K2 at the training shapes, max|kernel - plain| / "
-          "max|plain| (rec, lse absolute): "
-          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    one_group = held_k2(*k2_inputs(dev, count=2)[1])
+    for n, e in ((count, errs), (2, one_group)):
+        print(f"K1' (lse) + K2 at the training shapes, {n} valid slots, "
+              "max|kernel - plain| / max|plain| (rec, lse absolute; the "
+              "share of out on the bf16 grid): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
     entries = {}
     kv = count * hw
     lkp = (hw + 63) // 64 * 64
@@ -899,7 +983,7 @@ def check_train_kernels(dev):
     rows = {
         "bank_attention_lse": dict(
             replaces="rmem_tpu/kernels/bank_attention.py:687",
-            source="rmem_tpu_torch/csrc/bank_attention.cu",
+            source="rmem_tpu_torch/csrc/bank_attention_infer.cu",
             fn=lambda: kb.bank_attention_lse(q, bk, bvv, cnt, scale),
             plain=lambda: kb.bank_attention_plain(q, bk, bvv, cnt, 1, scale),
             flops=2.0 * b * hw * kv * (dh + dv),
@@ -1080,42 +1164,83 @@ def check_train_kernels(dev):
           f"(forward {lib_fwd_ms:.3f}), so {k5_whole['library_ratio']:.3f}x;"
           f" plain {k5_whole['plain_ms']:.3f} ms")
 
-    # ---- K7: stem forward kernel + plain backward over B*T frames ----
-    x = torch.rand((TRAIN_B * TRAIN_T, *TRAIN_HW, 3), generator=g,
-                   device=dev)
-    wt = randn(64, 3, 7, 7, dtype=torch.float32, scale=0.2)
-    sc = 1.0 + randn(64, dtype=torch.float32, scale=0.1)
-    bi = randn(64, dtype=torch.float32, scale=0.1)
-    sout = ks.stem_trainable(x, wt, sc, bi)
-    gs = torch.randn(sout.shape, generator=g, device=dev).to(bf)
-
-    def stem_fwd_bwd(fn):
-        ins = [t.detach().requires_grad_() for t in (wt, sc, bi)]
-        o = fn(x, *ins) if fn is ks.stem_trainable else fn(
-            x, *(t.to(bf) for t in ins))
-        return (o, *torch.autograd.grad(o, ins, gs))
-
-    got, ref = stem_fwd_bwd(ks.stem_trainable), stem_fwd_bwd(ks.stem_plain)
-    held("stem", got[0], ref[0])
-    serr = max(rel_err(a, r) for a, r in zip(got[1:], ref[1:]))
-    check(serr <= GRAD_TOL, f"K7 gradients {serr}")
-    print(f"K7 stem_trainable (fwd + bwd) over {x.shape[0]} frames: max rel "
-          f"err of the gradients {serr:.3e}")
-    ho, wo = (TRAIN_HW[0] - 1) // 2 + 1, (TRAIN_HW[1] - 1) // 2 + 1
-    # the forward conv and dW; the image takes no gradient, so no dx
-    s_flops = 2 * 2.0 * 147 * 64 * ho * wo * x.shape[0]
-    s_bytes = x.numel() * 4 + 2 * sout.numel() * 2 + wt.numel() * 2 * 2
-    b_ms, b_by = bound(s_flops, s_bytes)
+    # ---- K7: the stem's training forward and its backward over B*T
+    # frames ----
+    sargs = stem_inputs(dev, g, TRAIN_B * TRAIN_T, *TRAIN_HW, train=True)
+    k7 = held_k7(*sargs, g)
+    print(f"K7 stem_trainable (fwd + bwd) over {sargs[0].shape[0]} frames: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in k7["errs"].items())
+          + f" (max rel err); {k7['ms']:.3f} ms (forward {k7['fwd_ms']:.3f},"
+          f" backward {k7['bwd_ms']:.3f}), plain chain "
+          f"{k7['plain_ms']:.3f} ms, library chain forward + backward "
+          f"{k7['library_ms']:.3f} ms, bound {k7['bound_ms']:.4f} ms")
+    print("K7 backward by kernel (profiler, ms a call): " + ", ".join(
+        f"{k[:48]} {v:.4f}" for k, v in k7["bwd_split_ms"].items()))
     entries["stem_trainable"] = dict(
         name="stem_trainable", route="cuda",
         source="rmem_tpu_torch/csrc/stem.cu",
-        replaces="rmem_tpu/kernels/stem.py:210", max_abs_err=serr,
-        ms=cuda_ms(lambda: stem_fwd_bwd(ks.stem_trainable), 3),
-        plain_ms=cuda_ms(lambda: stem_fwd_bwd(ks.stem_plain), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        replaces="rmem_tpu/kernels/stem.py:210",
+        max_abs_err=max(k7["errs"].values()),
+        **{k: k7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "fwd_ms", "bwd_ms",
+                              "bwd_split_ms")},
+        library="autograd of cuDNN bf16 conv2d (channels-last, folded "
+                "bias), relu, max_pool2d: a chain of three calls")
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
     return entries, whole, k5_whole
+
+
+def held_k7(x, wt, sc, bi, g, timed: bool = True) -> dict:
+    """K7 on one batch: the kernel forward (the pooled map held against the
+    plain version) and the gradients of weight, scale and bias from
+    `stem_bwd` on its saved state, against autograd of the plain chain
+    (max rel err each, failing the run past GRAD_TOL). With `timed`, also
+    the times of the whole, its forward and backward, the plain chain and
+    the library's chain (forward + backward through autograd), and the
+    bound. Returns a dict."""
+    import torch
+
+    from rmem_tpu_torch.kernels import stem as ks
+    bf = torch.bfloat16
+    gs = None
+
+    def fwd_bwd(fn):
+        nonlocal gs
+        ins = [t.detach().requires_grad_() for t in (wt, sc, bi)]
+        o = fn(x, *ins) if fn is ks.stem_trainable else fn(
+            x, *(t.to(bf) for t in ins))
+        if gs is None:
+            gs = torch.randn(o.shape, generator=g, device=o.device).to(bf)
+        return (o, *torch.autograd.grad(o, ins, gs))
+
+    got, ref = fwd_bwd(ks.stem_trainable), fwd_bwd(ks.stem_plain)
+    held("stem", got[0], ref[0])
+    errs = {name: rel_err(a, r) for name, a, r in
+            zip(("dweight", "dscale", "dbias"), got[1:], ref[1:])}
+    for name, err in errs.items():
+        check(err <= GRAD_TOL, f"K7 {name}: {err} (tolerance {GRAD_TOL})")
+    if not timed:
+        return dict(errs=errs)
+    w16, s16, b16 = (t.to(bf) for t in (wt, sc, bi))
+    saved = ks.stem(x, w16, s16, b16, save=True)
+    chain, wl, bl = stem_library(x, wt, sc, bi)
+
+    def library():
+        ins = [t.detach().requires_grad_() for t in (wl, bl)]
+        torch.autograd.grad(chain(*ins), ins, gs.permute(0, 3, 1, 2))
+
+    b_ms, b_by = stem_bound(x, got[0], train=True)
+    bwd_split = kernel_split_ms(lambda: ks.stem_bwd(
+        x, *saved[1:], saved[0], w16, s16, gs), 3)
+    return dict(
+        errs=errs, ms=cuda_ms(lambda: fwd_bwd(ks.stem_trainable), 5),
+        bwd_split_ms=dict(sorted(bwd_split.items(), key=lambda kv: -kv[1])),
+        fwd_ms=cuda_ms(lambda: ks.stem(x, w16, s16, b16, save=True), 5),
+        bwd_ms=cuda_ms(lambda: ks.stem_bwd(x, *saved[1:], saved[0], w16, s16,
+                                           gs), 5),
+        plain_ms=cuda_ms(lambda: fwd_bwd(ks.stem_plain), 3),
+        library_ms=cuda_ms(library, 5), bound_ms=b_ms, bound_by=b_by)
 
 
 def reference_inputs(dev):
@@ -1899,27 +2024,63 @@ MUTANTS = {
         # K5: ds = p dp, without the row term delta
         "no_delta": [("prow[w[j]] * (drow[w[j]] - delta);",
                       "prow[w[j]] * drow[w[j]];")]}),
-    "bank_attention_infer": ("k1_k3", {
+    "bank_attention_infer": ("k1_k3_k1p", {
         # K1: the slot-PE bias is dropped
         "k1_no_bias": [("if (kBias && qbias != nullptr) {", "if (false) {")],
         # K1: the keys are masked at Lk, not at true_lk
-        "k1_mask_at_lk": [("(bf16*)part_o, B, Lq, S, true_lk, DV,",
-                           "(bf16*)part_o, B, Lq, S, Lk, DV,")],
+        "k1_mask_at_lk": [("(OT*)part_o, B, Lq, S, true_lk, DV,",
+                           "(OT*)part_o, B, Lq, S, Lk, DV,")],
         # K1 and K3: the zero keys that TMA fills past Lk are not masked
         "no_key_mask": [
             ("const bool ok = key0 + i * 8 + 2 * t4 + e < true_lk;",
              "const bool ok = true;")],
         # K1 and K3: one quarter of the accumulator is not rescaled as the
         # max grows
-        "no_rescale": [("        o[4 * i] *= a0;\n", "")]}),
+        "no_rescale": [("        o[4 * i] *= a0;\n", "")],
+        # K1': the training partial outputs pass through bf16
+        "k1p_bf16_partials": [
+            ("*reinterpret_cast<float2*>(p) = make_float2(a, b);",
+             "*reinterpret_cast<float2*>(p) = make_float2("
+             "__bfloat162float(__float2bfloat16_rn(a)), "
+             "__bfloat162float(__float2bfloat16_rn(b)));")],
+        # K1': the lse without the log of the sum
+        "k1p_lse_no_sum": [("lse[row] = (M + log2f(Lsum)) * LN2;",
+                            "lse[row] = M * LN2;")]}),
+    "stem": ("stem", {
+        # conv positions outside the conv grid enter the pool
+        "pool_out_of_grid": [
+            ("const bool in_grid = cy >= 0 && cy < ho && cx >= 0 && cx < wo;",
+             "const bool in_grid = true;")],
+        # the 13 pad taps carry nonzero weights
+        "pad_tap_weights": [("pad ? __float2bfloat16_rn(0.f)",
+                             "pad ? __float2bfloat16_rn(0.25f)")]}),
 }
 
 
-def k1_k3_check(dev):
-    """K1's phase-2 calls with the bias and with padded keys, then K3's."""
+def k1_k3_k1p_check(dev):
+    """The template's three instantiations: K1's phase-2 calls with the bias
+    and with padded keys, K3's, then K1' (with K2) at 2 and 4 valid
+    slots."""
     errs = {key: held_k1(*k1_inputs(dev, **K1_CASES[key]))
             for key in ("main", "padded")}
     errs["k3"] = held_k3(*k3_inputs(dev))
+    for count in (2, 4):
+        errs[f"k1p_{count}"] = held_k2(*k2_inputs(dev, count)[1])
+    return errs
+
+
+def stem_check(dev):
+    """K6 at phase 2's two shapes, then K7 over 8 training frames."""
+    import torch
+
+    from rmem_tpu_torch.kernels import stem as ks
+    g = torch.Generator(device=dev).manual_seed(0)
+    errs = {}
+    for key, hw in K6_SHAPES.items():
+        sargs = stem_inputs(dev, g, *hw)
+        errs[key] = held("stem", ks.stem(*sargs), ks.stem_plain(*sargs))[0]
+    errs["k7"] = held_k7(*stem_inputs(dev, g, 8, *TRAIN_HW, train=True), g,
+                         timed=False)["errs"]
     return errs
 
 
@@ -1935,8 +2096,9 @@ def k4_k5_check(dev):
 
 MUTANT_CHECKS = {
     "k2": lambda dev: held_k2(*k2_inputs(dev)[1]),
+    "k1_k3_k1p": k1_k3_k1p_check,
+    "stem": stem_check,
     "k4_k5": k4_k5_check,
-    "k1_k3": k1_k3_check,
 }
 # runs in a copy: the copy's chip_smoke and package come first on the path
 MUTANT_RUN = """
@@ -2003,7 +2165,8 @@ def main() -> int:
                          "of phases 3 and 7 and of one training step")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
-                         "K5, K1 and K3 checks; prints no result line")
+                         "K5, K1, K3, K1', K6 and K7 checks; prints no "
+                         "result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")

@@ -1,7 +1,7 @@
 // Bank attention backward (kernel K2): the gradients of the training
-// forward (csrc/bank_attention.cu with its lse output) with respect to the
-// queries and the valid slots of the bank, including the gradient that
-// flows in through the per-slot mass.
+// forward (K1', csrc/bank_attention_infer.cu's lse instantiation) with
+// respect to the queries and the valid slots of the bank, including the
+// gradient that flows in through the per-slot mass.
 //
 // Replaces rmem_tpu/kernels/bank_attention.py:_bank_attention_bwd, its
 // _dq_kernel and _dkv_kernel. With p = exp(q.k * scale - lse),

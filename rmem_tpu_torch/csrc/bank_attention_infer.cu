@@ -1,25 +1,33 @@
-// Bank attention for inference with the slots split among blocks: the
-// current frame's queries attend into the valid slots of the long-term
-// memory bank, and each slot's share of the softmax mass is returned beside
-// the output (RMem's eviction signal). One kernel template, instantiated
-// twice:
+// Bank attention with the slots split among blocks: the queries attend into
+// the valid slots of the long-term memory bank, and each slot's share of
+// the softmax mass is returned beside the output (RMem's eviction signal).
+// One kernel template, instantiated three times:
 //   - K1: with a per-(query, slot) logit bias (the factored slot temporal
 //     PE) and the keys masked past true_lk. Replaces
 //     rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer
 //     (_forward, _kernel) and, with one slot and no bias, the reference
 //     frame's self-memory call of pallas_bank_attention;
 //   - K3: neither; the slot PE arrives added to the keys. Replaces
-//     pallas_bank_attention_qminor (_kernel_qminor, _forward_qminor). That kernel runs the grid (bh, slots x chunks, query
-//     tiles) so that each K/V chunk is fetched once and every query tile
-//     streams past it, with the online-softmax state and an [Lq, dv] f32
-//     accumulator for all queries kept in VMEM. At the main path that
-//     accumulator is 1674 x 1024 x 4 B = 6.9 MB, 30x an SM's shared memory,
-//     so the order cannot keep its state on chip here. What this kernel
-//     takes from it is the other axis of the work: the slots.
+//     pallas_bank_attention_qminor (_kernel_qminor, _forward_qminor);
+//   - K1', training's forward: as K3, with f32 partial outputs, an f32
+//     output and the per-row log-sum-exp for the backward
+//     (csrc/bank_attention_bwd.cu). Replaces the forward of
+//     pallas_bank_attention's VJP (_forward with want_lse). The output stays
+//     f32 all the way: the backward's row term delta = rowsum(dout * out)
+//     is a small difference of large terms, and an output carrying bf16
+//     rounding missed dq by 7.5e-2 of its largest value on a training call.
+// K3's TPU kernel runs the grid (bh, slots x chunks, query tiles) so that
+// each K/V chunk is fetched once and every query tile streams past it, with
+// the online-softmax state and an [Lq, dv] f32 accumulator for all queries
+// kept in VMEM. At the main path that accumulator is 1674 x 1024 x 4 B =
+// 6.9 MB, 30x an SM's shared memory, so the order cannot keep its state on
+// chip here. What this kernel takes from it is the other axis of the work:
+// the slots.
 //
 // What bounds it on an H100: operations. At the main path (Lq = Lk = 1674,
 // 9 valid slots, dh 128, dv 1024) the work is 2 Lq (S Lk) (dh + dv) ~ 5.8e10
-// FLOP against ~40 MB of bank read: ~59 us at 989 TFLOP/s. The full
+// FLOP against ~40 MB of bank read: ~59 us at 989 TFLOP/s; at training's
+// (B 4, Lq = Lk = 900, up to 4 valid slots) 3.0e10 FLOP, ~30 us. The full
 // tensor-core rate needs wgmma fed by TMA, so the kernel is built on them.
 //
 // Design. A block owns 128 queries (two consumer warpgroups of 64 rows), a
@@ -52,10 +60,13 @@
 // (log2 units), the per-slot row sums l_s (relative to m) and its output
 // normalised by its own sum, in bf16 (ceil(S / G) x B x Lq x dv x 2 bytes,
 // 17.1 MB at the main path with G = 2 over the bank's 10 slots: half of
-// the f32 accumulator it replaces). A second kernel reads the count and
-// merges the groups of each row: with w_g = 2^(m_g - M) sum_{s in g} l_s,
-//   out   = sum_g w_g o_g / sum_g w_g            (rounded to bf16)
-//   rec_s = 2^(m_g(s) - M) l_s / sum_g w_g       (0 for slots >= count).
+// the f32 accumulator it replaces); K1' keeps them in f32 (kF32), 29.5 MB
+// written and read back at training's 4 valid slots. A second kernel reads
+// the count and merges the groups of each row: with w_g = 2^(m_g - M)
+// sum_{s in g} l_s,
+//   out   = sum_g w_g o_g / sum_g w_g            (bf16; f32 for K1')
+//   rec_s = 2^(m_g(s) - M) l_s / sum_g w_g       (0 for slots >= count)
+//   lse   = (M + log2 sum_g w_g) / log2(e)       (K1' only: natural units).
 // G = 2 is fixed at compile time. Of 1, 2, 3 and 9 slots a block on this
 // design (PERF.md), it is fastest at batch 1 on the 31 x 54 grid, and on
 // phase 7's calls of chip_smoke.py (batch 2, half on 31 x 54, half on
@@ -65,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace rmem_qminor {
 
@@ -88,6 +101,7 @@ constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
 constexpr int SMEM_BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
 constexpr int kMergeThreads = 128;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -175,6 +189,27 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+// Two neighbouring columns of a partial output: bf16 for K1 and K3, f32 for
+// K1' (the training output must not carry bf16 rounding).
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+// Eight columns of a partial output as f32.
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(h[j]);
+}
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory
@@ -266,19 +301,20 @@ __device__ __forceinline__ void wgmma_rs_m64n256(float* d, const uint32_t* a,
 
 
 // One (128-query tile, 256-wide dv slice, batch x slot group): part_m
-// [NG, B, Lq] and part_l [S, B, Lq] f32, part_o [NG, B, Lq, DV] bf16. With
-// kBias, qbias [B, Lq, S] f32 (natural units, or null for none) is added
-// to the scaled logits and keys >= true_lk are masked; without, true_lk =
-// Lk.
-template <bool kBias>
+// [NG, B, Lq] and part_l [S, B, Lq] f32, part_o [NG, B, Lq, DV] bf16 (f32
+// with kF32). With kBias, qbias [B, Lq, S] f32 (natural units, or null for
+// none) is added to the scaled logits and keys >= true_lk are masked;
+// without, true_lk = Lk.
+template <bool kBias, bool kF32>
 __global__ void __launch_bounds__(kThreads, 1)
 partial_kernel(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
                const int* __restrict__ count_ptr,
                const float* __restrict__ qbias, float* __restrict__ part_m,
-               float* __restrict__ part_l, bf16* __restrict__ part_o, int B,
-               int Lq, int S, int true_lk, int DV, float scale_log2) {
+               float* __restrict__ part_l,
+               std::conditional_t<kF32, float, bf16>* __restrict__ part_o,
+               int B, int Lq, int S, int true_lk, int DV, float scale_log2) {
   extern __shared__ __align__(1024) char smem_raw[];
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -470,16 +506,15 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const float ia = La > 0.f ? 1.f / La : 0.f;
     const float ib = Lb > 0.f ? 1.f / Lb : 0.f;
-    bf16* po = part_o + ((size_t)grp * B + b) * Lq * DV;
+    auto* po = part_o + ((size_t)grp * B + b) * Lq * DV;
 #pragma unroll
     for (int i = 0; i < DVB / 8; ++i) {
       const int col = c0 + 8 * i + 2 * t4;
       if (qa < Lq)
-        *reinterpret_cast<uint32_t*>(po + (size_t)qa * DV + col) =
-            pack_bf16(o[4 * i] * ia, o[4 * i + 1] * ia);
+        store2(po + (size_t)qa * DV + col, o[4 * i] * ia, o[4 * i + 1] * ia);
       if (qb < Lq)
-        *reinterpret_cast<uint32_t*>(po + (size_t)qb * DV + col) =
-            pack_bf16(o[4 * i + 2] * ib, o[4 * i + 3] * ib);
+        store2(po + (size_t)qb * DV + col, o[4 * i + 2] * ib,
+               o[4 * i + 3] * ib);
     }
     // one dv slice writes m and the per-slot l; every slice computed the
     // same values from the same logits
@@ -499,13 +534,17 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // One row and 8 columns a thread: merges the slot groups of the row.
-// out [B, Lq, DV] bf16; rec [B, Lq, S] f32.
+// out [B, Lq, DV] bf16 (with kF32: f32, and lse [B, Lq] f32 in natural
+// units); rec [B, Lq, S] f32.
+template <bool kF32>
 __global__ void __launch_bounds__(kMergeThreads)
 merge_kernel(const float* __restrict__ part_m,
              const float* __restrict__ part_l,
-             const bf16* __restrict__ part_o,
-             const int* __restrict__ count_ptr, bf16* __restrict__ out,
-             float* __restrict__ rec, int B, int Lq, int S, int DV) {
+             const std::conditional_t<kF32, float, bf16>* __restrict__ part_o,
+             const int* __restrict__ count_ptr,
+             std::conditional_t<kF32, float, bf16>* __restrict__ out,
+             float* __restrict__ rec, float* __restrict__ lse, int B, int Lq,
+             int S, int DV) {
   const int row = blockIdx.x;                    // b * Lq + qi
   const int b = row / Lq, qi = row % Lq;
   const int col = (blockIdx.y * kMergeThreads + threadIdx.x) * 8;
@@ -526,22 +565,21 @@ merge_kernel(const float* __restrict__ part_m,
     const float wg = exp2f(part_m[((size_t)g * B + b) * Lq + qi] - M) * lg;
     Lsum += wg;
     if (col < DV) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          part_o + (((size_t)g * B + b) * Lq + qi) * DV + col);
-      const bf16* v = reinterpret_cast<const bf16*>(&raw);
+      float v[8];
+      load8(part_o + (((size_t)g * B + b) * Lq + qi) * DV + col, v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += wg * __bfloat162float(v[j]);
+      for (int j = 0; j < 8; ++j) acc[j] += wg * v[j];
     }
   }
   const float il = Lsum > 0.f ? 1.f / Lsum : 0.f;
   if (col < DV) {
-    uint4 packed;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      w[j] = pack_bf16(acc[2 * j] * il, acc[2 * j + 1] * il);
-    *reinterpret_cast<uint4*>(out + (size_t)row * DV + col) = packed;
+      store2(out + (size_t)row * DV + col + 2 * j, acc[2 * j] * il,
+             acc[2 * j + 1] * il);
   }
+  if (kF32 && blockIdx.y == 0 && threadIdx.x == 0)
+    lse[row] = (M + log2f(Lsum)) * LN2;
   if (blockIdx.y == 0 && (int)threadIdx.x < S) {
     const int s = threadIdx.x;
     float r = 0.f;
@@ -593,18 +631,19 @@ static int map3d(CUtensorMap* map, const void* base, uint64_t cols,
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-template <bool kBias>
+template <bool kBias, bool kF32>
 static int launch(const void* q, const void* k, const void* v,
                   const void* qbias, const void* count, void* part_m,
-                  void* part_l, void* part_o, void* out, void* rec, int B,
-                  int Lq, int S, int Lk, int true_lk, int DV, float scale,
-                  cudaStream_t stream) {
+                  void* part_l, void* part_o, void* out, void* rec, void* lse,
+                  int B, int Lq, int S, int Lk, int true_lk, int DV,
+                  float scale, cudaStream_t stream) {
+  using OT = std::conditional_t<kF32, float, bf16>;
   CUtensorMap tq, tk, tv;
   int e = map3d(&tq, q, D, Lq, B);
   if (e == 0) e = map3d(&tk, k, D, Lk, (uint64_t)S * B);
   if (e == 0) e = map3d(&tv, v, DV, Lk, (uint64_t)S * B);
   if (e != 0) return e;
-  auto kern = partial_kernel<kBias>;
+  auto kern = partial_kernel<kBias, kF32>;
   static bool configured = false;     // once per process and instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -616,13 +655,13 @@ static int launch(const void* q, const void* k, const void* v,
   dim3 grid((Lq + BQ * NCONS - 1) / (BQ * NCONS), DV / DVB, B * ngroups);
   kern<<<grid, kThreads, SMEM_BYTES, stream>>>(
       tq, tk, tv, (const int*)count, (const float*)qbias, (float*)part_m,
-      (float*)part_l, (bf16*)part_o, B, Lq, S, true_lk, DV, scale * LOG2E);
+      (float*)part_l, (OT*)part_o, B, Lq, S, true_lk, DV, scale * LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid2(B * Lq, (DV / 8 + kMergeThreads - 1) / kMergeThreads);
-  merge_kernel<<<grid2, kMergeThreads, 0, stream>>>(
-      (const float*)part_m, (const float*)part_l, (const bf16*)part_o,
-      (const int*)count, (bf16*)out, (float*)rec, B, Lq, S, DV);
+  merge_kernel<kF32><<<grid2, kMergeThreads, 0, stream>>>(
+      (const float*)part_m, (const float*)part_l, (const OT*)part_o,
+      (const int*)count, (OT*)out, (float*)rec, (float*)lse, B, Lq, S, DV);
   return (int)cudaGetLastError();
 }
 
@@ -646,12 +685,30 @@ extern "C" int rmem_bank_attention_infer(
     return -1;
   cudaStream_t st = (cudaStream_t)stream;
   if (qbias == nullptr && true_lk == Lk)
-    return rmem_qminor::launch<false>(q, k, v, nullptr, count, part_m, part_l,
-                                      part_o, out, rec, B, Lq, S, Lk, Lk, dv,
-                                      scale, st);
-  return rmem_qminor::launch<true>(q, k, v, qbias, count, part_m, part_l,
-                                   part_o, out, rec, B, Lq, S, Lk, true_lk,
-                                   dv, scale, st);
+    return rmem_qminor::launch<false, false>(q, k, v, nullptr, count, part_m,
+                                             part_l, part_o, out, rec, nullptr,
+                                             B, Lq, S, Lk, Lk, dv, scale, st);
+  return rmem_qminor::launch<true, false>(q, k, v, qbias, count, part_m,
+                                          part_l, part_o, out, rec, nullptr,
+                                          B, Lq, S, Lk, true_lk, dv, scale,
+                                          st);
+}
+
+// K1', training's forward: one head of 128, every key valid, no bias, f32
+// partial outputs. Scratch as above with part_o f32; out [B, Lq, dv] f32,
+// rec [B, Lq, S] f32, lse [B, Lq] f32 (the natural log of each row's sum of
+// exp of the scaled logits over the valid slots). Returns as
+// rmem_bank_attention_infer.
+extern "C" int rmem_bank_attention_lse(
+    const void* q, const void* k, const void* v, const void* count,
+    void* part_m, void* part_l, void* part_o, void* out, void* rec,
+    void* lse, int B, int Lq, int S, int Lk, int dh, int dv, float scale,
+    void* stream) {
+  if (dh != 128 || dv % 256 != 0 || Lk < 1) return -1;
+  return rmem_qminor::launch<false, true>(q, k, v, nullptr, count, part_m,
+                                          part_l, part_o, out, rec, lse, B,
+                                          Lq, S, Lk, Lk, dv, scale,
+                                          (cudaStream_t)stream);
 }
 
 // The slots a block walks.

@@ -1,6 +1,6 @@
 // Warp-level tensor-core building blocks shared by the mma.sync kernels
-// (csrc/bank_attention.cu, csrc/bank_attention_bwd.cu,
-// csrc/local_attention.cu): cp.async copies into shared memory, ldmatrix
+// (csrc/bank_attention_bwd.cu, csrc/local_attention.cu, csrc/stem.cu):
+// cp.async copies into shared memory, ldmatrix
 // operand loads and the m16n8k16 bf16 product with f32 sums. The build
 // hashes every header of csrc/ with each source, so an edit here rebuilds
 // them all.

@@ -16,9 +16,11 @@ rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor. Both split
 the slots among blocks, SLOTS_PER_BLOCK each, and merge on the card.
 
 Training: `bank_attention_train` is differentiable. On the card it is an
-autograd Function whose forward is `csrc/bank_attention.cu` with the
-per-row log-sum-exp output (`bank_attention_lse`, K1') and whose backward
-is kernel K2 (`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq`
+autograd Function whose forward is the same source's third instantiation,
+with f32 partial outputs, an f32 output and the per-row log-sum-exp
+(`bank_attention_lse`, K1'; `bank_attention_lse_plain` is its plain
+version, in the kernel's partial + merge form), and whose backward is
+kernel K2 (`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq`
 and `_dkv`); it replaces pallas_bank_attention and its custom VJP. On the
 CPU it is autograd through `bank_attention_plain`.
 """
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -38,9 +41,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
-# K1 and K3: slots walked by one block, fixed in csrc/bank_attention_infer.cu
-# (G, checked against the library when it loads; PERF.md has the sweep of 1,
-# 2, 3 and 9 that chose it)
+# K1, K3 and K1': slots walked by one block, fixed in
+# csrc/bank_attention_infer.cu (G, checked against the library when it
+# loads; PERF.md has the sweep of 1, 2, 3 and 9 that chose it)
 SLOTS_PER_BLOCK = 2
 
 
@@ -116,6 +119,25 @@ def _slots_entry():
     return fn
 
 
+def _scratch(s: int, b: int, lq: int, dv: int, dtype, device):
+    """The template's partial state for s slots: (part_m, part_l, part_o)."""
+    groups = -(-s // SLOTS_PER_BLOCK)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((groups, b, lq), **f32),
+            torch.empty((s, b, lq), **f32),
+            torch.empty((groups, b, lq, dv), dtype=dtype, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _lse_entry():
+    """K1''s C entry in the same library."""
+    _slots_entry()
+    fn = build.load("bank_attention_infer").rmem_bank_attention_lse
+    fn.argtypes = [_P] * 10 + [_I] * 6 + [_F, _P]
+    fn.restype = _I
+    return fn
+
+
 def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
                 true_lk: Optional[int] = None,
                 qbias: Optional[torch.Tensor] = None):
@@ -131,14 +153,10 @@ def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
                and qbias.shape == (b, num_heads, lq, s),
                "qbias must be contiguous f32 [B, h, Lq, S]")
     fn = _slots_entry()
-    groups = -(-s // SLOTS_PER_BLOCK)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((groups, b, lq), **f32)
-    part_l = torch.empty((s, b, lq), **f32)
-    part_o = torch.empty((groups, b, lq, dv), dtype=torch.bfloat16,
-                         device=q.device)
+    part_m, part_l, part_o = _scratch(s, b, lq, dv, torch.bfloat16,
+                                      q.device)
     out = torch.empty((b, lq, dv), dtype=q.dtype, device=q.device)
-    rec = torch.empty((b, lq, s), **f32)
+    rec = torch.empty((b, lq, s), dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
              None if qbias is None else qbias.data_ptr(), count.data_ptr(),
              part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
@@ -201,26 +219,68 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
 bank_attention_qminor.launches = 0
 
 
+def bank_attention_lse_plain(q: torch.Tensor, bank_k: torch.Tensor,
+                             bank_v: torch.Tensor, count: torch.Tensor,
+                             scale: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K1''s function in plain PyTorch (f32), in its kernel's partial + merge
+    form: the valid slots in groups of SLOTS_PER_BLOCK; each group's row
+    maximum m_g of the scaled logits in log2 units, per-slot sums l_s
+    relative to it and its output normalised by its own sum; then with
+    w_g = 2^(m_g - M) sum_{s in g} l_s over the groups, out = sum_g w_g o_g
+    / sum_g w_g, rec_s = 2^(m_g(s) - M) l_s / sum_g w_g and lse = (M +
+    log2 sum_g w_g) ln 2. One head, every key valid. Returns (out
+    [B, Lq, dv], rec [B, Lq, S], lse [B, Lq]), all f32."""
+    n = int(count)
+    s = bank_k.shape[0]
+    logits = torch.einsum("bqd,sbkd->sbqk", q.float(),
+                          bank_k[:n].float()) * (scale / math.log(2.0))
+    ms, ls, os_ = [], [], []
+    group = SLOTS_PER_BLOCK
+    for g0 in range(0, n, group):
+        lg = logits[g0:g0 + group]                       # [G, B, Lq, Lk]
+        m = lg.amax(dim=(0, 3))                          # [B, Lq]
+        p = torch.exp2(lg - m[None, :, :, None])
+        l = p.sum(-1)                                    # [G, B, Lq]
+        o = torch.einsum("sbqk,sbkv->bqv", p,
+                         bank_v[g0:min(g0 + group, n)].float())
+        ms.append(m)
+        ls.append(l)
+        os_.append(o / l.sum(0)[..., None])
+    big_m = torch.stack(ms).amax(0)
+    scales = [torch.exp2(m - big_m) for m in ms]         # 2^(m_g - M)
+    total = sum(a * l.sum(0) for a, l in zip(scales, ls))
+    out = sum((a * l.sum(0))[..., None] * o
+              for a, l, o in zip(scales, ls, os_)) / total[..., None]
+    rec = torch.zeros(q.shape[0], q.shape[1], s, device=q.device)
+    rec[..., :n] = torch.cat([a[None] * l for a, l in zip(scales, ls)]
+                             ).permute(1, 2, 0) / total[..., None]
+    lse = (big_m + torch.log2(total)) * math.log(2.0)
+    return out, rec, lse
+
+
 def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
                        bank_v: torch.Tensor, count: torch.Tensor,
                        scale: float
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1' for training (card only, csrc/bank_attention.cu): one head, no
-    bias, every key valid. Returns (out [B, Lq, dv] f32, rec [B, Lq, S]
-    f32, lse [B, Lq] f32, the log-sum-exp of each row's scaled logits over
-    the valid slots). The output stays f32 for the backward's row term."""
+    """K1' for training (card only, the f32 instantiation of
+    csrc/bank_attention_infer.cu): one head, no bias, every key valid.
+    Returns (out [B, Lq, dv] f32, rec [B, Lq, S] f32, lse [B, Lq] f32, the
+    log-sum-exp of each row's scaled logits over the valid slots). The
+    output stays f32 for the backward's row term."""
     s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, 1)
-    _check(s <= 16, f"{s} slots (kernel takes up to 16)")
-    fn = build.load("bank_attention").rmem_bank_attention_lse
-    fn.argtypes = [_P] * 7 + [_I] * 7 + [_F, _P]
-    fn.restype = _I
+    _check(s <= 128, f"{s} slots (the merge takes up to 128)")
+    fn = _lse_entry()
+    part_m, part_l, part_o = _scratch(s, b, lq, dv, torch.float32, q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((b, lq, dv), **f32)
     rec = torch.empty((b, lq, s), **f32)
     lse = torch.empty((b, lq), **f32)
     err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
-             count.data_ptr(), out.data_ptr(), rec.data_ptr(),
-             lse.data_ptr(), b, 1, lq, s, lk, dh, dv, float(scale),
+             count.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+             part_o.data_ptr(), out.data_ptr(), rec.data_ptr(),
+             lse.data_ptr(), b, lq, s, lk, dh, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_lse")
     bank_attention_lse.launches += 1
