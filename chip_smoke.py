@@ -15,7 +15,9 @@ non-zero exit code:
    call for the same function where one exists: the serving kernels (K1 at
    the main path's call beside K3 on the same inputs, and at one slot, all
    ten, the reference frame's call, two id groups and keys padded past
-   true_lk; K4 at the main path's call and phase 7's two batch-2 grids,
+   true_lk; K1h, the bank attention at AOT's 8 heads of 32, at the same
+   six calls, beside SDPA over the valid slots with and without the bias;
+   K4 at the main path's call and phase 7's two batch-2 grids,
    each beside SDPA with the dense bias, and on a ragged grid; K6 at the
    serving image and phase 7's 625x1105, each beside cuDNN's bf16 chain)
    and the opt-in inference kernels (K3 at the main path's call and at
@@ -74,7 +76,20 @@ non-zero exit code:
    (K1, the gate multiply and PyTorch's depthwise conv); each fills its
    bank on phase 7's video, then three 10-frame windows of each, the
    routes alternating, and one chunk of each under torch.profiler:
-   frames/s and the device's busy time per frame of each route.
+   frames/s and the device's busy time per frame of each route;
+9. serve R50-AOTL + RMem (3 LSTT layers, 8 heads of 32) on phase 3's
+   traffic: the reference frame and N frames, a long-term write every 5,
+   so the bank fills at frame 40 and evicts. Launch counts are zeroed just
+   before and read just after: K1h 3 a frame and K6 1 a frame (the
+   reference frame included), the one-head K1, K3 and K4 never (phase 3
+   holds the same exact counts for its model: K1 and K4 3 a frame, K6 1,
+   K1h and K3 never); evictions counted on the device, labels in [0, 10],
+   finite logits; frames/s over three 30-frame windows (`--profile`: the
+   device's busy time a frame and the top ops);
+10. phase 4 for R50-AOTL: the reference frame and 44 frames through the
+   kernel engine, every K1h and K6 call held against its plain version,
+   and through an all-plain engine teacher-forced with its labels: logits
+   and labels agree per frame.
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
@@ -82,7 +97,8 @@ no CUDA device is available or the package is not beside this script.
 
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
 (held_k2), K4 and K5's backward (held_k4, held_k5), K1, K3 and K1'
-(held_k1, held_k3, held_k2) and K6 and K7 (held, held_k7): for each
+(held_k1, held_k3, held_k2), K1h (held_k1h) and K6 and K7 (held,
+held_k7): for each
 mutant (MUTANTS), the package is copied into a temporary directory, one
 line of the kernel's source is changed there (K2: ds drops the slot-mass
 term, or dq the logit scale; K4: the accumulator is not rescaled when a
@@ -91,7 +107,9 @@ drops the scale, the key side reads p and ds unmirrored, or ds drops
 delta; K1: the bias is dropped, or the keys are masked at Lk instead of
 true_lk; the K1/K3/K1' template: the keys past Lk go unmasked, or a
 quarter of the accumulator unrescaled; K1': the partial outputs pass
-through bf16, or the lse drops the log of the sum; K6/K7: conv positions
+through bf16, or the lse drops the log of the sum; K1h: the bias is
+dropped, a slot's sum is not rescaled as the row's maximum grows, or the
+keys are masked at Lk instead of true_lk; K6/K7: conv positions
 outside the conv grid enter the pool, or the pad taps carry weights), the
 copy's kernels are built, and the source's checks run on phase 2's
 inputs. Each mutant must fail a check and each unmutated copy pass them
@@ -292,7 +310,8 @@ def held(name: str, got, ref):
     K3 max |slot mass - plain|, else None)."""
     import torch
     mass_err = None
-    if name in ("bank_attention", "bank_attention_qminor"):
+    if name in ("bank_attention", "bank_attention_qminor",
+                "bank_attention_mh"):
         (got, mass), (ref, mass_ref) = got, ref
         mass_err = (mass - mass_ref).abs().max().item()
         check(mass_err <= MASS_TOL, f"{name} slot mass {mass_err}")
@@ -375,6 +394,9 @@ def check_kernels(dev):
         k3_same_inputs_ms=k3_ms,
         cases={key: dict(ms=c["ms"], rel_err=c["err"][0] / c["err"][1],
                          mass_err=c["err"][2]) for key, c in cases.items()})
+
+    # ---- K1h: the bank attention at 8 heads of 32 (AOT) ----
+    entries["bank_attention_mh"] = k1h_entry(dev)
 
     # ---- K4 local attention: the main path's call (31 x 54), phase 7's
     # (batch 2 on 31 x 54 and 40 x 70) and a ragged grid held ----
@@ -538,6 +560,116 @@ def held_k1(*args):
         check(torch.allclose(rec[..., 0], torch.ones_like(rec[..., 0]),
                              atol=1e-4), "K1 one-slot mass")
     return errs
+
+
+def k1h_inputs(dev, batch: int = 1, slots: int = 10, count: int = 9,
+               bias: bool = True, pad: int = 0):
+    """K1h's inputs at a call of the AOT serving path on the 31 x 54 grid
+    (bf16, 8 heads of 32, Lq = true_lk = 1674 and Lk = true_lk + pad): (q,
+    bank_k, bank_v, count, heads, scale, true_lk, qbias [B, 8, Lq, S] or
+    None). Phase 2 holds K1h at K1's cases (K1_CASES)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    hw = ((IN_HW[0] - 1) // 16 + 1) * ((IN_HW[1] - 1) // 16 + 1)
+    q = randn(batch, hw, 256, scale=2.0)
+    bk, bv = (randn(slots, batch, hw + pad, 256),
+              randn(slots, batch, hw + pad, 256))
+    qbias = (randn(batch, 8, hw, slots, dtype=torch.float32, scale=0.5)
+             if bias else None)
+    return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev), 8,
+            32 ** -0.5, hw, qbias)
+
+
+def held_k1h(*args):
+    """One K1h call against its plain version (output and head-mean slot
+    mass, see held); the empty slots' mass must be 0, and with one slot
+    every row's mass 1. With keys past true_lk, the kernel must give the
+    same bits as on the bank cut at true_lk: the padding is never read.
+    Returns held's tuple."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    out, rec = kb.bank_attention_infer_mh(*args)
+    errs = held("bank_attention_mh", (out, rec),
+                kb.bank_attention_plain(*args))
+    q, bk, bv, cnt, heads, scale, true_lk, qbias = args
+    if true_lk < bk.shape[2] and q.is_cuda:
+        cut = [x[:, :, :true_lk].contiguous() for x in (bk, bv)]
+        out_cut, rec_cut = kb.bank_attention_infer_mh(q, *cut, cnt, heads,
+                                                      scale, true_lk, qbias)
+        check(torch.equal(out, out_cut) and torch.equal(rec, rec_cut),
+              "K1h keys past true_lk changed the result")
+    count = int(cnt)
+    check(bool(torch.all(rec[..., count:] == 0)), "K1h mass of empty slots")
+    if count == 1:
+        check(torch.allclose(rec[..., 0], torch.ones_like(rec[..., 0]),
+                             atol=1e-4), "K1h one-slot mass")
+    return errs
+
+
+def k1h_entry(dev) -> dict:
+    """Phase 2's K1h rows: every case held and timed (CUDA events), the main
+    call beside its plain version, its bound and SDPA over the valid slots'
+    keys flattened (8 heads of 32, the bias as an additive mask; and without
+    it). Returns the kernels-line entry without its launch count."""
+    import torch
+    import torch.nn.functional as F
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    cases = {}
+    for key, kw in K1_CASES.items():
+        args = k1h_inputs(dev, **kw)
+        cases[key] = dict(
+            err=held_k1h(*args),
+            ms=cuda_ms(lambda: kb.bank_attention_infer_mh(*args), 20))
+        print(f"K1h bank_attention_mh {key} {kw}: {cases[key]['ms']:.4f} ms, "
+              f"max|out-plain| {cases[key]['err'][0]:.3e} (max|plain| "
+              f"{cases[key]['err'][1]:.3e}), max|rec-plain| "
+              f"{cases[key]['err'][2]:.3e}")
+    args = k1h_inputs(dev)
+    q, bk, bvv, cnt, heads, scale, lk, qbias = args
+    count, b, lq = int(cnt), q.shape[0], q.shape[1]
+    kv = count * lk
+
+    def heads_first(x, n):          # [B, n, 256] -> [B, 8, n, 32]
+        return x.reshape(b, n, 8, 32).transpose(1, 2).contiguous()
+
+    q_lib = heads_first(q, lq)
+    k_lib = heads_first(bk[:count].transpose(0, 1).reshape(b, kv, 256), kv)
+    v_lib = heads_first(bvv[:count].transpose(0, 1).reshape(b, kv, 256), kv)
+    mask = qbias[..., :count].to(torch.bfloat16).repeat_interleave(lk, dim=3)
+    # 8 heads x (q.k, p.v) over the valid keys; q, the valid keys and
+    # values, the bias read once, the output and the head-mean mass written
+    flops = 2.0 * b * lq * kv * (32 + 32) * 8
+    nbytes = ((q.numel() + 2 * b * kv * 256 + q.numel()) * 2
+              + (qbias.numel() + b * lq * bk.shape[0]) * 4)
+    b_ms, b_by = bound(flops, nbytes)
+    main = cases["main"]
+    entry = dict(
+        name="bank_attention_mh", route="cuda",
+        source="rmem_tpu_torch/csrc/bank_attention_mh.cu",
+        replaces="rmem_tpu/kernels/bank_attention.py:505",
+        max_abs_err=max(c["err"][0] for c in cases.values()),
+        max_abs_err_rec=max(c["err"][2] for c in cases.values()),
+        ms=main["ms"],
+        plain_ms=cuda_ms(lambda: kb.bank_attention_plain(*args), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q_lib, k_lib, v_lib, attn_mask=mask, scale=scale), 20),
+        library_nobias_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q_lib, k_lib, v_lib, scale=scale), 20),
+        cases={key: dict(ms=c["ms"], rel_err=c["err"][0] / c["err"][1],
+                         mass_err=c["err"][2]) for key, c in cases.items()})
+    print(f"K1h at the main path {main['ms']:.4f} ms, plain "
+          f"{entry['plain_ms']:.4f} ms, SDPA over the 9 valid slots with the "
+          f"bias as a mask {entry['library_ms']:.4f} ms (without it "
+          f"{entry['library_nobias_ms']:.4f} ms), bound {b_ms:.5f} ms "
+          f"({b_by})")
+    return entry
 
 
 # K4 in phase 2: the main path's call and phase 7's two (batch 2, the grids
@@ -1254,11 +1386,11 @@ def reference_inputs(dev):
     return img0, mask, g
 
 
-def build_engine(dev):
+def build_engine(dev, model: str = "r50_deaotl"):
     from rmem_tpu_torch.config import get_config
     from rmem_tpu_torch.engine import InferenceEngine
     from rmem_tpu_torch.models import build_vos_model, init_params
-    cfg = get_config("pre_vost", model="r50_deaotl")
+    cfg = get_config("pre_vost", model=model)
     model = init_params(build_vos_model(cfg.model_vos, cfg), seed=0)
     return InferenceEngine(model, cfg, device=dev), cfg
 
@@ -1301,24 +1433,40 @@ def device_busy_table(fn, n: int, wall_ms: float, per: str) -> None:
           f"{100 * (1 - busy_ms / wall_ms):.1f} %")
 
 
-def main_path(dev, frames: int, card: str, profile: bool):
-    """Phase 3: returns (launch counts, per-window frames/s)."""
+# the serving phases' models: each kernel wrapper's launches per served
+# frame (the reference frame included); 0 where the model must not reach it
+SERVED_LAUNCHES = {
+    "r50_deaotl": dict(bank_attention_infer=3, local_attention=3, stem=1,
+                       bank_attention_infer_mh=0, bank_attention_qminor=0),
+    "r50_aotl": dict(bank_attention_infer_mh=3, stem=1,
+                     bank_attention_infer=0, local_attention=0,
+                     bank_attention_qminor=0),
+}
+PHASE_LABEL = {"r50_deaotl": "main path", "r50_aotl": "phase 9 (AOT)"}
+
+
+def main_path(dev, frames: int, card: str, profile: bool,
+              model: str = "r50_deaotl"):
+    """Phase 3 (R50-DeAOTL) or phase 9 (R50-AOTL): returns (launch counts,
+    per-window frames/s)."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
     from rmem_tpu_torch.kernels import local_attention as kl
     from rmem_tpu_torch.kernels import stem as ks
 
+    phase = PHASE_LABEL[model]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine, cfg = build_engine(dev)
+    engine, cfg = build_engine(dev, model)
     img0, mask, g = reference_inputs(dev)
     imgs = torch.rand((frames, 1, *IN_HW, 3), generator=g, device=dev)
     torch.cuda.synchronize()
-    print(f"main path: model built in {time.perf_counter() - t0:.1f} s, "
+    print(f"{phase}: {model} built in {time.perf_counter() - t0:.1f} s, "
           f"{sum(p.numel() for p in engine.model.parameters())} weights")
 
-    wrappers = (kb.bank_attention_infer, kl.local_attention, ks.stem)
+    wrappers = (kb.bank_attention_infer, kb.bank_attention_infer_mh,
+                kb.bank_attention_qminor, kl.local_attention, ks.stem)
     for fn in wrappers:
         fn.launches = 0
     gap = cfg.test_long_term_mem_gap
@@ -1349,10 +1497,13 @@ def main_path(dev, frames: int, card: str, profile: bool):
     evictions = int(evictions)
     # the reference fills slot 1; a write every `gap` frames fills the rest
     scheduled = frames // gap - (slots - 1)
-    print(f"main path: {frames} frames, launches {counts}, bank count "
+    print(f"{phase}: {frames} frames, launches {counts}, bank count "
           f"{int(state.bank.count)}, order {state.bank.order.tolist()}, "
           f"times {state.bank.times.tolist()}")
-    check(all(n > 0 for n in counts.values()), f"a kernel never ran: {counts}")
+    expected = {name: n * (frames + 1)
+                for name, n in SERVED_LAUNCHES[model].items()}
+    check(counts == expected, f"{phase} launches {counts}, expected "
+          f"{expected}")
     check(int(state.bank.count) == slots, "bank not full")
     check(evictions >= 1 and evictions == scheduled,
           f"{evictions} evictions, {scheduled} scheduled")
@@ -1360,16 +1511,16 @@ def main_path(dev, frames: int, card: str, profile: bool):
     check(int(labels.min()) >= 0 and int(labels.max()) <= NUM_OBJECTS,
           "labels out of [0, 10]")
     check(bool(torch.isfinite(state.logits4x).all()), "non-finite logits")
-    print(f"main path: {evictions} evictions counted on the device "
+    print(f"{phase}: {evictions} evictions counted on the device "
           f"({scheduled} scheduled); labels in "
           f"[{int(labels.min())}, {int(labels.max())}]; per-frame label "
           f"histogram of the last frame "
           f"{torch.bincount(labels[-1].flatten().long(), minlength=11).tolist()}")
-    print(f"main path: {fps:.3f} frames/s, median of {windows} windows of "
+    print(f"{phase}: {fps:.3f} frames/s, median of {windows} windows of "
           f"{WINDOW} frames ("
           + ", ".join(f"{x:.3f}" for x in window_fps)
           + f"; the last is the last {WINDOW} frames) at 481x849 in, "
-          f"480x854 out, 10 objects, on {card}; host {host}; main-path "
+          f"480x854 out, 10 objects, {model}, on {card}; host {host}; "
           f"peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -1381,15 +1532,15 @@ def main_path(dev, frames: int, card: str, profile: bool):
     return counts, window_fps
 
 
-def plain_agreement(dev):
-    """Phase 4: the same weights and frames through the kernel engine,
-    each of whose kernel calls is held against its plain version on the
-    same inputs, and through an engine whose kernels are their plain
-    versions. The plain engine is teacher-forced with the kernel engine's
-    labels, so both banks take the same writes and the logits of every
-    frame compare, with 1 to 9 valid slots. Returns (per-kernel worst call,
-    per-frame relative logit error with the reference frame first,
-    per-frame label agreement)."""
+def plain_agreement(dev, model: str = "r50_deaotl"):
+    """Phase 4 (R50-DeAOTL) or phase 10 (R50-AOTL): the same weights and
+    frames through the kernel engine, each of whose kernel calls is held
+    against its plain version on the same inputs, and through an engine
+    whose kernels are their plain versions. The plain engine is
+    teacher-forced with the kernel engine's labels, so both banks take the
+    same writes and the logits of every frame compare, with 1 to 9 valid
+    slots. Returns (per-kernel worst call, per-frame relative logit error
+    with the reference frame first, per-frame label agreement)."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
@@ -1397,12 +1548,20 @@ def plain_agreement(dev):
     from rmem_tpu_torch.kernels import stem as ks
     from rmem_tpu_torch.ops.resize import resize_nearest, upsample_argmax
 
-    kernels = (("bank_attention", kb, "bank_attention_infer",
-                kb.bank_attention_plain),
-               ("local_attention", kl, "local_attention",
-                kl.local_attention_plain),
-               ("stem", ks, "stem", ks.stem_plain))
+    phase = "phase 4" if model == "r50_deaotl" else "phase 10"
+    if model == "r50_deaotl":
+        kernels = (("bank_attention", kb, "bank_attention_infer",
+                    kb.bank_attention_plain),
+                   ("local_attention", kl, "local_attention",
+                    kl.local_attention_plain),
+                   ("stem", ks, "stem", ks.stem_plain))
+    else:
+        # the LSTT calls bank_attention_infer, which routes 8 heads to K1h
+        kernels = (("bank_attention_mh", kb, "bank_attention_infer",
+                    kb.bank_attention_plain),
+                   ("stem", ks, "stem", ks.stem_plain))
     calls = {name: [] for name, *_ in kernels}
+    kb.bank_attention_infer_mh.launches = 0
 
     def on_path(name, kernel, plain_fn):
         def call(*args, **kwargs):
@@ -1423,7 +1582,7 @@ def plain_agreement(dev):
                 fn = (plain_fn if plain
                       else on_path(name, getattr(mod, attr), plain_fn))
                 stack.enter_context(mock.patch.object(mod, attr, fn))
-            engine, cfg = build_engine(dev)
+            engine, cfg = build_engine(dev, model)
             state, logits = engine.add_reference(
                 img0, mask, [NUM_OBJECTS], gap=cfg.test_long_term_mem_gap)
             frame_logits, labels = [logits.float()], []
@@ -1444,23 +1603,30 @@ def plain_agreement(dev):
     for name, errs in calls.items():
         worst[name] = dict(calls=len(errs),
                            rel_err=max(e / top for e, top, _ in errs))
-        if name == "bank_attention":
+        if name in ("bank_attention", "bank_attention_mh"):
             worst[name]["slot_mass_err"] = max(m for *_, m in errs)
-    print(f"phase 4, every kernel call on the path against its plain "
+    print(f"{phase}, every kernel call on the path against its plain "
           f"version: {worst}")
+    if model != "r50_deaotl":
+        check(kb.bank_attention_infer_mh.launches
+              == len(calls["bank_attention_mh"]) > 0,
+              f"{phase}: {kb.bank_attention_infer_mh.launches} K1h launches "
+              f"for {len(calls['bank_attention_mh'])} held calls")
     (lk, yk, count), (lp, yp, count_p) = runs
     errs = [((a - b).abs().max() / b.abs().max()).item()
             for a, b in zip(lk, lp)]
     agree = [(a == b).float().mean().item() for a, b in zip(yk, yp)]
-    print("kernel vs plain engine, max|logits diff| / max|plain logits| per "
-          "frame (reference first): " + ", ".join(f"{e:.3e}" for e in errs))
-    print("kernel vs plain engine, label agreement per frame: "
+    print(f"{phase}, kernel vs plain engine, max|logits diff| / max|plain "
+          "logits| per frame (reference first): "
+          + ", ".join(f"{e:.3e}" for e in errs))
+    print(f"{phase}, kernel vs plain engine, label agreement per frame: "
           + ", ".join(f"{a:.5f}" for a in agree))
     slots = cfg.former_mem_len + cfg.latter_mem_len
-    check(count == count_p == slots, f"bank counts {count}, {count_p}")
+    check(count == count_p == slots, f"{phase} bank counts {count}, "
+          f"{count_p}")
     check(all(w["calls"] > 0 for w in worst.values()), f"calls {worst}")
-    check(max(errs) <= LOGIT_TOL, f"logits {max(errs)}")
-    check(min(agree) >= AGREE_FLOOR, f"label agreement {min(agree)}")
+    check(max(errs) <= LOGIT_TOL, f"{phase} logits {max(errs)}")
+    check(min(agree) >= AGREE_FLOOR, f"{phase} label agreement {min(agree)}")
     return worst, errs, agree
 
 
@@ -2046,6 +2212,18 @@ MUTANTS = {
         # K1': the lse without the log of the sum
         "k1p_lse_no_sum": [("lse[row] = (M + log2f(Lsum)) * LN2;",
                             "lse[row] = M * LN2;")]}),
+    "bank_attention_mh": ("k1h", {
+        # K1h: the slot-PE bias is dropped
+        "k1h_no_bias": [("if (qbias != nullptr) {", "if (false) {")],
+        # K1h: a slot's sum is not rescaled when the row's maximum grows
+        "k1h_slot_sum_unrescaled": [("ls0 = ls0 * a0 + ps0;",
+                                     "ls0 = ls0 + ps0;"),
+                                    ("ls1 = ls1 * a1 + ps1;",
+                                     "ls1 = ls1 + ps1;")],
+        # K1h: the keys are masked at Lk, not at true_lk
+        "k1h_mask_at_lk": [
+            ("const bool ok = key0 + n * 8 + 2 * t + e < true_lk;",
+             "const bool ok = key0 + n * 8 + 2 * t + e < Lk;")]}),
     "stem": ("stem", {
         # conv positions outside the conv grid enter the pool
         "pool_out_of_grid": [
@@ -2094,8 +2272,16 @@ def k4_k5_check(dev):
     return errs
 
 
+def k1h_check(dev):
+    """K1h at phase 2's main call, one slot, the reference frame's shape
+    and with keys padded past true_lk."""
+    return {key: held_k1h(*k1h_inputs(dev, **K1_CASES[key]))
+            for key in ("main", "count_1", "reference", "padded")}
+
+
 MUTANT_CHECKS = {
     "k2": lambda dev: held_k2(*k2_inputs(dev)[1]),
+    "k1h": k1h_check,
     "k1_k3_k1p": k1_k3_k1p_check,
     "stem": stem_check,
     "k4_k5": k4_k5_check,
@@ -2162,11 +2348,11 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=BANK_FULL + 3 * WINDOW)
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 steady frames "
-                         "of phases 3 and 7 and of one training step")
+                         "of phases 3, 7 and 9 and of one training step")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
-                         "K5, K1, K3, K1', K6 and K7 checks; prints no "
-                         "result line")
+                         "K5, K1, K3, K1', K1h, K6 and K7 checks; prints "
+                         "no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")
@@ -2226,6 +2412,13 @@ def main() -> int:
     print(f"phase 8: {time.perf_counter() - t0:.1f} s")
     for key in ("bank_attention_qminor", "gated_dwconv"):
         entries[key]["launches"] = optin_counts[key]
+    t0 = time.perf_counter()
+    aot_counts, aot_fps = main_path(dev, args.frames, card, args.profile,
+                                    model="r50_aotl")
+    aot_worst, aot_logit_errs, aot_agree = plain_agreement(dev, "r50_aotl")
+    print(f"phases 9 and 10: {time.perf_counter() - t0:.1f} s")
+    entries["bank_attention_mh"]["launches"] = aot_counts[
+        "bank_attention_infer_mh"]
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -2244,6 +2437,12 @@ def main() -> int:
                       "optin_logit_rel_err": optin_logit_errs,
                       "optin_label_agreement": optin_agree,
                       "route_turns": turns,
+                      "aot_fps_windows": aot_fps,
+                      "aot_fps_median": statistics.median(aot_fps),
+                      "aot_launches": aot_counts,
+                      "aot_on_path": aot_worst,
+                      "aot_logit_rel_err": aot_logit_errs,
+                      "aot_label_agreement": aot_agree,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

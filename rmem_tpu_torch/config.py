@@ -1,5 +1,6 @@
 """Config for the PyTorch port: the model and stage presets of R50-DeAOTL +
-RMem inference and training, as one dataclass.
+RMem inference and training and of R50-AOTL + RMem inference, as one
+dataclass.
 
 A copy of the fields of `rmem_tpu/config.py` that the port reads, with the
 same names and defaults, so that one preset name gives the same model on
@@ -40,6 +41,9 @@ class Config:
     model_self_heads: int = 8
     model_att_heads: int = 8
     model_lstt_num: int = 3
+    # AOT's LSTT: the short-term memory is the previous frame's entries
+    # concatenated with the current ones (True) or their sum through norm4
+    model_linear_q: bool = False
 
     # ---- RMem knobs ----
     former_mem_len: int = 1
@@ -119,6 +123,16 @@ class Config:
 
 
 MODEL_PRESETS: Dict[str, Dict[str, Any]] = {
+    # CI-only tiny variant: the full AOT graph (8 heads of 8) on a toy encoder
+    "tiny_aotl": dict(model_vos="aot", model_encoder="tiny",
+                      model_encoder_dim=(32, 48, 64, 64),
+                      model_encoder_embedding_dim=64, model_lstt_num=2,
+                      train_long_term_mem_gap=2, test_long_term_mem_gap=2),
+    # ResNet-50 OS16, 3 LSTT layers at d 256 with 8 heads of 32
+    "r50_aotl": dict(model_vos="aot", model_encoder="resnet50",
+                     model_encoder_dim=(256, 512, 1024, 1024),
+                     model_lstt_num=3, train_long_term_mem_gap=2,
+                     test_long_term_mem_gap=5),
     # CI-only tiny variant: the full DeAOT graph on a toy encoder
     "tiny_deaotl": dict(model_vos="deaot", model_encoder="tiny",
                         model_encoder_dim=(32, 48, 64, 64),
@@ -139,7 +153,8 @@ MODEL_PRESETS: Dict[str, Dict[str, Any]] = {
 STAGE_PRESETS: Dict[str, Dict[str, Any]] = {
     "default": {},
     "pre_vost": dict(train_total_steps=20_000, data_seq_len=15,
-                     train_long_term_mem_gap=4, model_ignore_token=True),
+                     train_long_term_mem_gap=4, model_linear_q=False,
+                     model_ignore_token=True),
     # synthetic smoke stage: small crops, short clips
     "test": dict(train_total_steps=100, data_seq_len=3, train_batch_size=2,
                  data_randomcrop=(129, 129)),

@@ -17,7 +17,8 @@ passed in.
 The engine runs on the card unless the caller passes `device="cpu"`; with
 no card and no device given it raises. On the card every kernel of the path
 (stem, bank attention, local attention, and with the opt-ins the slot-split
-bank attention and the gated depthwise conv) is the CUDA kernel; on the CPU
+bank attention and the gated depthwise conv; for AOT the stem and the
+8-head bank attention) is the CUDA kernel; on the CPU
 each is its plain PyTorch version. The opt-ins (`Config.use_pallas_dwconv`
 and the environment variable `RMEM_BANK_QMINOR`) are read once, when the
 engine is built.
@@ -185,7 +186,7 @@ class InferenceEngine:
             mem_pe = mem_pe[0:1]     # one slot: the first PE row
         intermediates, mems, _ = self.model.lstt_forward(
             feat, None, None, None, id_emb, cur_pe, mem_pe, (eh, ew),
-            **self.route)
+            self_pos=self.model.get_pos_emb(eh, ew), **self.route)
         lk, lv, sk, sv = self.model.write_memories(mems, id_emb)
         b, hw = feat.shape[:2]
         bank = init_bank(num_layers=lk.shape[0], capacity=cfg.max_mem_slots,
@@ -218,7 +219,7 @@ class InferenceEngine:
         intermediates, mems, record = self.model.lstt_forward(
             feat, (bank.k, bank.v), bank.count,
             (state.short_k, state.short_v), None, cur_pe, slot_pe, size_2d,
-            **self.route)
+            self_pos=self.model.get_pos_emb(*size_2d), **self.route)
         logits = self._decode(intermediates, xs, state.obj_nums)
         state.frame_step = state.frame_step + 1
         state.mems = mems

@@ -44,6 +44,10 @@ from rmem_tpu_torch.utils.metric import pytorch_iou_batched
 
 def check_supported(cfg: Config) -> None:
     """The JAX step's branches that the port does not take."""
+    if cfg.model_vos != "deaot":
+        raise NotImplementedError(f"{cfg.model_vos} training is not ported "
+                                  "(the 8-head bank attention's training "
+                                  "kernels are still to port)")
     for flag in ("reverse_infer", "gru_memory"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} training is not ported")

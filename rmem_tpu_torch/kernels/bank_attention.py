@@ -8,6 +8,12 @@ CPU. It replaces rmem_tpu/kernels/bank_attention.py:
 pallas_bank_attention_infer and the forward of pallas_bank_attention (the
 reference frame's S = 1 self-memory call).
 
+At 8 heads of 32 (AOT's LSTT, kernel K1ʰ) `bank_attention_infer` routes
+to `bank_attention_infer_mh`, which launches `csrc/bank_attention_mh.cu`
+(its own launch count) and averages the per-head slot mass over the heads;
+`infer_route` is the shape rule. `bank_attention_plain` is the plain version
+of both.
+
 Inference with the slot PE in the keys (kernel K3, opt-in):
 `bank_attention_qminor` launches the same source's other instantiation (no
 bias, no key padding) for tensors on the card and runs
@@ -45,6 +51,9 @@ BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
 # csrc/bank_attention_infer.cu (G, checked against the library when it
 # loads; PERF.md has the sweep of 1, 2, 3 and 9 that chose it)
 SLOTS_PER_BLOCK = 2
+# K1ʰ: the head shape csrc/bank_attention_mh.cu is written for, and the
+# slots whose mass a block keeps in shared memory
+MH_HEADS, MH_WIDTH, MH_MAX_SLOTS = 8, 32, 16
 
 
 def bank_attention_plain(q: torch.Tensor, bank_k: torch.Tensor,
@@ -167,6 +176,77 @@ def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
     return out, rec
 
 
+def infer_route(num_heads: int, dh: int, dv: int) -> str:
+    """The CUDA kernel that takes an inference call of this head shape on
+    the card: "slots" (K1's template: one head of 128, values a multiple of
+    256) or "heads" (K1ʰ: 8 heads of 32, values 32 a head). Any other shape
+    raises."""
+    if num_heads == 1 and dh == 128 and dv % 256 == 0:
+        return "slots"
+    if (num_heads, dh, dv) == (MH_HEADS, MH_WIDTH, MH_WIDTH):
+        return "heads"
+    raise ValueError(f"bank_attention: {num_heads} heads of width {dh}, "
+                     f"values {dv} a head (the kernels are held to their "
+                     "plain version for one head of 128 and for 8 heads of "
+                     "32)")
+
+
+@functools.lru_cache(maxsize=None)
+def _mh_entry():
+    fn = build.load("bank_attention_mh").rmem_bank_attention_mh
+    fn.argtypes = [_P] * 7 + [_I] * 6 + [_F, _P]
+    fn.restype = _I
+    return fn
+
+
+def bank_attention_infer_mh(q: torch.Tensor, bank_k: torch.Tensor,
+                            bank_v: torch.Tensor, count: torch.Tensor,
+                            num_heads: int, scale: float,
+                            true_lk: Optional[int] = None,
+                            qbias: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1ʰ: `bank_attention_infer` at 8 heads of 32. q [B, Lq, 256] (head
+    h owns columns 32h .. 32h + 31); bank_k, bank_v [S, B, Lk, 256] bf16,
+    contiguous; count an int32 scalar on the card; keys >= true_lk masked;
+    qbias [B, 8, Lq, S] f32 or None. Returns (out [B, Lq, 256] bf16, rec
+    [B, Lq, S] f32, the kernel's per-head slot mass averaged over the
+    heads)."""
+    if not q.is_cuda:
+        return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
+                                    scale, true_lk, qbias)
+    s, b, lk, ck = bank_k.shape
+    lq = q.shape[1]
+    _check_bf16(q, q=q, bank_k=bank_k, bank_v=bank_v)
+    _check(num_heads == MH_HEADS and ck == MH_HEADS * MH_WIDTH
+           and q.shape == (b, lq, ck) and bank_v.shape == bank_k.shape,
+           f"q {tuple(q.shape)}, bank_k {tuple(bank_k.shape)}, bank_v "
+           f"{tuple(bank_v.shape)} at {num_heads} heads (8 of 32)")
+    _check_count(count, q)
+    true_lk = lk if true_lk is None else true_lk
+    _check(0 < true_lk <= lk, f"true_lk {true_lk} for {lk} keys")
+    _check(s <= MH_MAX_SLOTS, f"{s} slots (the kernel takes up to "
+           f"{MH_MAX_SLOTS})")
+    if qbias is not None:
+        _check(qbias.device == q.device and qbias.dtype == torch.float32
+               and qbias.is_contiguous()
+               and qbias.shape == (b, num_heads, lq, s),
+               "qbias must be contiguous f32 [B, h, Lq, S]")
+    out = torch.empty_like(q)
+    rec_h = torch.empty((b, num_heads, lq, s), dtype=torch.float32,
+                        device=q.device)
+    err = _mh_entry()(
+        q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
+        None if qbias is None else qbias.data_ptr(), count.data_ptr(),
+        out.data_ptr(), rec_h.data_ptr(), b, num_heads, lq, s, lk, true_lk,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "bank_attention_mh")
+    bank_attention_infer_mh.launches += 1
+    return out, rec_h.mean(dim=1)
+
+
+bank_attention_infer_mh.launches = 0
+
+
 def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
                          bank_v: torch.Tensor, count: torch.Tensor,
                          num_heads: int, scale: float,
@@ -177,10 +257,16 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
     count: int32 scalar tensor of valid slots, read on the device; keys
     >= true_lk masked; qbias [B, h, Lq, S] f32 or None. Returns (out
     [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32). On the card: bf16
-    q/k/v, one head of 128, dv a multiple of 256, all contiguous."""
+    q/k/v, all contiguous, at a head shape `infer_route` takes: one head of
+    128 with dv a multiple of 256 launches K1 (counted here), 8 heads of 32
+    go to `bank_attention_infer_mh` (K1ʰ, counted there)."""
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
                                     scale, true_lk, qbias)
+    if infer_route(num_heads, q.shape[-1] // num_heads,
+                   bank_v.shape[-1] // num_heads) == "heads":
+        return bank_attention_infer_mh(q, bank_k, bank_v, count, num_heads,
+                                       scale, true_lk, qbias)
     out = _slots_call(q, bank_k, bank_v, count, num_heads, scale, true_lk,
                       qbias)
     bank_attention_infer.launches += 1

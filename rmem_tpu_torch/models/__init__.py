@@ -8,14 +8,17 @@ import torch
 import torch.nn as nn
 
 from rmem_tpu_torch.config import Config
-from rmem_tpu_torch.models.aot import AOT  # noqa: F401
-from rmem_tpu_torch.models.deaot import DeAOT  # noqa: F401
+from rmem_tpu_torch.models.aot import AOT
+from rmem_tpu_torch.models.deaot import DeAOT
 
 
 def build_vos_model(name: str, cfg: Config) -> nn.Module:
+    if name == "aot":
+        return AOT(cfg)
     if name == "deaot":
         return DeAOT(cfg)
-    raise NotImplementedError(f"model {name!r} not ported (have: deaot)")
+    raise NotImplementedError(f"model {name!r} not ported (have: aot, "
+                              "deaot)")
 
 
 @torch.no_grad()

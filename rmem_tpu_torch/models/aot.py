@@ -1,6 +1,6 @@
-"""The shared half of the AOT-family model: encoder, projector, identity
-bank, positional embeddings, propagation stack and FPN decoder, with the
-methods the inference engine calls.
+"""The AOT-family model: encoder, projector, identity bank, positional
+embeddings, propagation stack (AOT's LSTT here; DeAOT overrides it with the
+GPM) and FPN decoder, with the methods the inference engine calls.
 
 Counterpart of `rmem_tpu/models/aot.py`. Module and parameter names follow
 the flax tree (`encoder.layer1_0.conv1.weight` is the flax
@@ -19,8 +19,9 @@ import torch.nn as nn
 from rmem_tpu_torch.config import Config
 from rmem_tpu_torch.models.decoders import build_decoder
 from rmem_tpu_torch.models.encoders import build_encoder
+from rmem_tpu_torch.models.lstt import LSTT
 from rmem_tpu_torch.ops.layers import conv, seq_to_map
-from rmem_tpu_torch.ops.position import sine_position_embedding
+from rmem_tpu_torch.ops.position import sine_position_embedding_on
 
 
 class AOT(nn.Module):
@@ -48,7 +49,16 @@ class AOT(nn.Module):
             self.mem_pos_emb = nn.Parameter(torch.zeros(slots, pe_dim))
 
     def _build_lstt(self) -> nn.Module:
-        raise NotImplementedError("the AOT/LSTT family is not ported yet")
+        cfg = self.cfg
+        if cfg.gru_memory:
+            raise NotImplementedError("the ConvGRU memory (gru_memory) is "
+                                      "not ported")
+        return LSTT(num_layers=cfg.model_lstt_num,
+                    d_model=cfg.model_encoder_embedding_dim,
+                    self_heads=cfg.model_self_heads,
+                    att_heads=cfg.model_att_heads,
+                    linear_q=cfg.model_linear_q,
+                    intermediate_norm=cfg.model_decoder_intermediate_lstt)
 
     def _decoder_indim(self) -> int:
         cfg = self.cfg
@@ -80,10 +90,12 @@ class AOT(nn.Module):
         return self._id_post(e.flatten(2).transpose(1, 2))
 
     def get_pos_emb(self, h: int, w: int) -> torch.Tensor:
-        return sine_position_embedding(h, w,
-                                       self.cfg.model_encoder_embedding_dim,
-                                       device=self.encoder_projector.weight
-                                       .device)
+        """[1, HW, C] sine position embedding on the weights' device, in
+        their dtype."""
+        weight = self.encoder_projector.weight
+        return sine_position_embedding_on(
+            h, w, self.cfg.model_encoder_embedding_dim, weight.device,
+            weight.dtype)
 
     def temporal_pe(self):
         if not self.cfg.use_temporal_positional_embedding:
@@ -92,12 +104,16 @@ class AOT(nn.Module):
 
     def lstt_forward(self, feat, bank, count, short, id_emb, cur_pe, slot_pe,
                      size_2d: Tuple[int, int], qminor: bool = False,
-                     fused_dw: bool = False):
+                     fused_dw: bool = False, self_pos=None):
         return self.lstt(feat, bank, count, short, id_emb, cur_pe, slot_pe,
-                         size_2d, qminor=qminor, fused_dw=fused_dw)
+                         size_2d, qminor=qminor, fused_dw=fused_dw,
+                         self_pos=self_pos)
 
     def write_memories(self, mems: Dict[str, torch.Tensor], id_emb):
-        raise NotImplementedError("the AOT/LSTT family is not ported yet")
+        """(long_k, long_v, short_k, short_v), each [L, B, HW, C]: the
+        values id-conditioned and re-projected."""
+        long_v, short_v = self.lstt.project_memories(mems, id_emb)
+        return mems["curr_k"], long_v, mems["short_k"], short_v
 
     def decode_id_logits(self, intermediates: Sequence[torch.Tensor],
                          shortcuts: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -90,7 +90,7 @@ def slot_pe_bias(q: torch.Tensor, slot_pe: torch.Tensor, num_heads: int,
     dh = ck // num_heads
     qh = q.reshape(b, lq, num_heads, dh).to(torch.float32)
     peh = slot_pe.reshape(slot_pe.shape[0], num_heads, dh).to(torch.float32)
-    return torch.einsum("bqhd,shd->bhqs", qh, peh) * scale
+    return (torch.einsum("bqhd,shd->bhqs", qh, peh) * scale).contiguous()
 
 
 @functools.lru_cache(maxsize=16)

@@ -38,3 +38,14 @@ def sine_position_embedding(h: int, w: int, channels: int,
     """[1, H*W, C] sine PE (half the channels per spatial axis)."""
     pe = _sine_pe_np(h, w, channels // 2, temperature, scale)
     return torch.from_numpy(pe.reshape(1, h * w, channels)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def sine_position_embedding_on(h: int, w: int, channels: int,
+                               device: torch.device,
+                               dtype: torch.dtype) -> torch.Tensor:
+    """sine_position_embedding made once per grid, device and dtype: a
+    served frame reads it without a copy from the host."""
+    with torch.inference_mode(False):
+        return sine_position_embedding(h, w, channels,
+                                       device=device).to(dtype)

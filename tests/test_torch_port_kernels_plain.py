@@ -50,21 +50,25 @@ def _t(a):
     return torch.from_numpy(np.asarray(a, dtype=np.float32))
 
 
-@pytest.mark.parametrize("heads,count,true_lk,b,lk", [
-    pytest.param(1, 3, 40, 1, 48, id="1-3-40"),
-    pytest.param(2, 4, 48, 1, 48, id="2-4-48"),
+@pytest.mark.parametrize("heads,count,true_lk,b,lk,dv", [
+    pytest.param(1, 3, 40, 1, 48, 64, id="1-3-40"),
+    pytest.param(2, 4, 48, 1, 48, 64, id="2-4-48"),
     # two id groups; one slot, and keys padded 72 past true_lk (more than
     # the kernel's 64-key chunk, so a chunk lies wholly in the padding)
-    pytest.param(1, 1, 40, 2, 112, id="b2-count1-padded"),
+    pytest.param(1, 1, 40, 2, 112, 64, id="b2-count1-padded"),
     # two id groups, every slot valid
-    pytest.param(1, 5, 48, 2, 48, id="b2-full")])
+    pytest.param(1, 5, 48, 2, 48, 64, id="b2-full"),
+    # AOT's 8 heads of 32 (K1h's shape): partial slots with keys padded 13
+    # past true_lk; two id groups
+    pytest.param(8, 3, 43, 1, 56, 32, id="h8-3-43-padded"),
+    pytest.param(8, 4, 48, 2, 48, 32, id="h8-b2")])
 def test_bank_attention_plain_matches_pallas_infer(heads, count, true_lk, b,
-                                                   lk):
+                                                   lk, dv):
     """Partial, single and full slot counts, key padding past true_lk, the
-    per-(query, slot) bias and two id groups, against
-    pallas_bank_attention_infer."""
+    per-(query, slot) bias and two id groups, at one, two and eight heads,
+    against pallas_bank_attention_infer."""
     rng = np.random.RandomState(0)
-    s, lq, dh, dv = 5, 40, 32, 64
+    s, lq, dh = 5, 40, 32
     q = _rand(rng, b, lq, heads * dh)
     bk = _rand(rng, s, b, lk, heads * dh)
     bv = _rand(rng, s, b, lk, heads * dv)
@@ -95,6 +99,23 @@ def test_bank_attention_plain_matches_pallas_self_memory():
         _t(q), _t(bk), _t(bv), torch.ones((), dtype=torch.int32), 1,
         32 ** -0.5)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(rec.numpy(), 1.0, atol=1e-6)
+
+
+def test_bank_attention_plain_matches_pallas_self_memory_8_heads():
+    """The reference frame's call at AOT's 8 heads of 32: one slot, no
+    bias, no padding; the head-mean slot mass is 1."""
+    rng = np.random.RandomState(5)
+    q, bk = _rand(rng, 1, 50, 256), _rand(rng, 1, 1, 50, 256)
+    bv = _rand(rng, 1, 1, 50, 256)
+    with pltpu.force_tpu_interpret_mode():
+        ref, rrec = pallas_bank_attention(jnp.asarray(q), jnp.asarray(bk),
+                                          jnp.asarray(bv), jnp.int32(1), 8)
+    out, rec = kbank.bank_attention_infer(
+        _t(q), _t(bk), _t(bv), torch.ones((), dtype=torch.int32), 8,
+        32 ** -0.5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(rec.numpy(), np.asarray(rrec), **TOL)
     np.testing.assert_allclose(rec.numpy(), 1.0, atol=1e-6)
 
 
