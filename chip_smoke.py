@@ -27,9 +27,13 @@ non-zero exit code:
    K2's three backward kernels with a nonzero drec, K5's forward and
    backward kernels, each backward output against its plain version and
    autograd of the plain forward, K7 forward and backward beside cuDNN's
-   chain through autograd) at the training shapes. K4 and K8 take less
-   device time than an eager call takes the host, so their times are those
-   of CUDA graphs;
+   chain through autograd) at the training shapes, and AOT's training
+   kernels at 8 heads of 32 (K1'h, the forward with lse, at 4 valid slots
+   of 10, at 2 and at the reference frame's one, beside SDPA over the
+   valid slots; K2h, its backward, after each, with a nonzero drec, against
+   its plain stages and autograd of the plain forward, its invalid slots'
+   dk and dv exactly 0). K4 and K8 take less device time than an eager
+   call takes the host, so their times are those of CUDA graphs;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
    objects, random weights from a seed, the reference frame with a
    long-term write every 5 frames, then N frames (default 130) at the
@@ -48,9 +52,9 @@ non-zero exit code:
 5. drive the training path: 6 steps of R50-DeAOTL pre_vost at
    465x465, 15 frames, 4 clips of seeded synthetic blobs, with the
    use_prev_pred curriculum starting inside the run. Launch counts are
-   zeroed just before and read just after (per step too); every training
-   kernel must launch in every step, K5's backward once per layer and
-   frame (45); losses finite, parameters changed;
+   zeroed just before and read just after, and each step's are exact
+   (TRAIN_LAUNCHES: K1' and K4 87, K2's three kernels and K5's backward
+   45, K7 1, K1'h and K2h 0); losses finite, parameters changed;
    seconds per step (median and each) and peak memory beside the card and
    the host;
 6. one step of the kernel model, every K2 call and K5 forward call of
@@ -89,7 +93,13 @@ non-zero exit code:
 10. phase 4 for R50-AOTL: the reference frame and 44 frames through the
    kernel engine, every K1h and K6 call held against its plain version,
    and through an all-plain engine teacher-forced with its labels: logits
-   and labels agree per frame.
+   and labels agree per frame;
+11. phase 5 for R50-AOTL: 6 training steps of r50_aotl pre_vost, exact
+   launches in each (K1'h 87: 3 layers x (15 frames + 14 recomputed under
+   the checkpoint), K2h 45, K7 1, K1', K2, K4 and K5 0);
+12. phase 6 for R50-AOTL: one step of the kernel model, every K2h call
+   held against its plain stages, and one of the all-plain model on the
+   same batch, weights and shuffle: loss and global gradient norm.
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
@@ -97,8 +107,8 @@ no CUDA device is available or the package is not beside this script.
 
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
 (held_k2), K4 and K5's backward (held_k4, held_k5), K1, K3 and K1'
-(held_k1, held_k3, held_k2), K1h (held_k1h) and K6 and K7 (held,
-held_k7): for each
+(held_k1, held_k3, held_k2), K1h and K1'h (held_k1h, held_k1ph), K2h
+(held_k2h) and K6 and K7 (held, held_k7): for each
 mutant (MUTANTS), the package is copied into a temporary directory, one
 line of the kernel's source is changed there (K2: ds drops the slot-mass
 term, or dq the logit scale; K4: the accumulator is not rescaled when a
@@ -109,7 +119,10 @@ true_lk; the K1/K3/K1' template: the keys past Lk go unmasked, or a
 quarter of the accumulator unrescaled; K1': the partial outputs pass
 through bf16, or the lse drops the log of the sum; K1h: the bias is
 dropped, a slot's sum is not rescaled as the row's maximum grows, or the
-keys are masked at Lk instead of true_lk; K6/K7: conv positions
+keys are masked at Lk instead of true_lk; K1'h: the f32 output stored
+through bf16, or the lse without the log of the sum; K2h: ds drops the
+slot-mass term, dq the logit scale, or the invalid slots' dk is left
+unwritten; K6/K7: conv positions
 outside the conv grid enter the pool, or the pad taps carry weights), the
 copy's kernels are built, and the source's checks run on phase 2's
 inputs. Each mutant must fail a check and each unmutated copy pass them
@@ -1059,6 +1072,214 @@ def held_k5(q, k, v, rel, g, size_2d, num_heads, max_dis, scale):
     return errs
 
 
+# K1'h and K2h in phase 2: AOT's training calls (B 4, a 30 x 30 grid, 8
+# heads of 32) with 4 and 2 valid slots of 10, and the reference frame's
+# single slot
+K1PH_CASES = {"four_slots": dict(count=4), "two_slots": dict(count=2),
+              "reference": dict(slots=1, count=1)}
+# H100 SXM special-function units: 16 exponentials a clock on each of 132
+# SMs at the 1.98 GHz boost clock (NVIDIA's Hopper white paper)
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
+
+
+def k1ph_inputs(dev, slots: int = 10, count: int = 4):
+    """K1'h's and K2h's phase-2 inputs at AOT's training call (B 4, a 30 x
+    30 grid, 8 heads of 32, bf16) with a nonzero drec: (q, bank_k, bank_v,
+    count, dout, drec, scale)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    b, hw = TRAIN_B, TRAIN_GRID[0] * TRAIN_GRID[1]
+    q = randn(b, hw, 256, scale=2.0)
+    bk, bv = randn(slots, b, hw, 256), randn(slots, b, hw, 256)
+    return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev),
+            randn(b, hw, 256, scale=0.1),
+            randn(b, hw, slots, dtype=torch.float32), 32 ** -0.5)
+
+
+def held_k1ph(q, bank_k, bank_v, count, scale):
+    """K1'h on one call's inputs against its plain version on the valid
+    slots: the output (OUT_TOL of its max), each head's slot mass
+    (MASS_TOL) and lse (LSE_TOL), the share of the output on the bf16 grid
+    (ON_GRID_TOL), and each head's mass exactly 0 past count. Returns
+    ((out, rec_h, lse_h), {check: error})."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    n = int(count)
+    out, rec_h, lse_h = kb.bank_attention_lse_mh(q, bank_k, bank_v, count,
+                                                 scale)
+    ref_out, ref_rec, ref_lse = kb.bank_attention_lse_mh_plain(
+        q, bank_k[:n], bank_v[:n], count, scale)
+    on_grid = (out - out.to(torch.bfloat16).float()).abs() <= (
+        2 ** -20 * out.abs())
+    errs = {"out": rel_err(out, ref_out),
+            "rec": (rec_h[..., :n] - ref_rec).abs().max().item(),
+            "lse": (lse_h - ref_lse).abs().max().item(),
+            "out_on_bf16_grid": on_grid[out != 0].float().mean().item()}
+    for key, err in errs.items():
+        tol = {"out": OUT_TOL, "rec": MASS_TOL, "lse": LSE_TOL,
+               "out_on_bf16_grid": ON_GRID_TOL}[key]
+        check(err <= tol, f"K1'h {key}: {err} (tolerance {tol})")
+    check(bool((rec_h[..., n:] == 0).all()), "K1'h mass of empty slots")
+    return (out, rec_h, lse_h), errs
+
+
+def held_k2h_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
+                  scale, kernel=None):
+    """One K2h call (`kernel`, by default the wrapper) against its two plain
+    stages on the valid slots, fed the same lse_h and delta_h (GRAD_TOL of
+    each output's max), and its dk and dv exactly 0 in slots >= count. The
+    blocks the call allocates dk and dv from are filled with NaN first, so
+    a slot the kernel leaves unwritten shows. Returns ((dq, dk, dv),
+    {check: error})."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    n = int(count)
+    poison = [torch.full_like(bank_k, float("nan")) for _ in range(2)]
+    del poison
+    dq, dk, dv = (kernel or kb.bank_attention_bwd_mh)(
+        q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale)
+    args = (q, bank_k[:n], bank_v[:n], count, dout, lse_h, delta_h,
+            drec[..., :n].contiguous(), scale)
+    rdk, rdv = kb.bank_attention_bwd_mh_dkv_plain(*args)
+    errs = {"dq": rel_err(dq, kb.bank_attention_bwd_mh_dq_plain(*args)),
+            "dk": rel_err(dk[:n], rdk), "dv": rel_err(dv[:n], rdv)}
+    for key, err in errs.items():
+        check(err <= GRAD_TOL, f"K2h {key}: {err} (tolerance {GRAD_TOL})")
+    check(bool((dk[n:] == 0).all() and (dv[n:] == 0).all()),
+          "K2h gradients of invalid slots are not 0")
+    return (dq, dk, dv), errs
+
+
+def held_k2h(q, bank_k, bank_v, count, dout, drec, scale):
+    """K1'h then K2h on one call's inputs (held_k1ph, held_k2h_call), and
+    K2h's outputs against autograd of the plain forward on the valid
+    slots (GRAD_TOL). Returns {check: error}."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    n = int(count)
+    (out, rec_h, lse_h), errs = held_k1ph(q, bank_k, bank_v, count, scale)
+    delta_h = kb.bwd_delta_mh(dout, out, drec, rec_h)
+    (dq, dk, dv), call_errs = held_k2h_call(q, bank_k, bank_v, count, dout,
+                                            lse_h, delta_h, drec, scale)
+    errs.update(call_errs)
+    ins = [t.detach().float().requires_grad_()
+           for t in (q, bank_k[:n], bank_v[:n])]
+    o, r = kb.bank_attention_plain(*ins, count, 8, scale)
+    auto = torch.autograd.grad((o, r), ins,
+                               (dout.float(), drec[..., :n].float()))
+    for key, got, ref in (("whole_dq", dq, auto[0]),
+                          ("whole_dk", dk[:n], auto[1]),
+                          ("whole_dv", dv[:n], auto[2])):
+        errs[key] = rel_err(got, ref)
+        check(errs[key] <= GRAD_TOL,
+              f"K2h {key}: {errs[key]} (tolerance {GRAD_TOL})")
+    return errs
+
+
+def check_aot_train_kernels(dev):
+    """Phase 2, AOT's training rows: K1'h at K1PH_CASES and K2h after it at
+    4 valid slots, held (held_k2h) and timed beside their plain versions,
+    bounds and SDPA over the valid slots' keys flattened to [B, 8, Lq,
+    count * Lk] (the backward's: forward + backward less forward). Returns
+    {name: entry} without launch counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    cases = {}
+    for key, kw in K1PH_CASES.items():
+        args = k1ph_inputs(dev, **kw)
+        q, bk, bv, cnt, dout, drec, scale = args
+        cases[key] = dict(
+            errs=held_k2h(*args),
+            ms=cuda_ms(lambda: kb.bank_attention_lse_mh(q, bk, bv, cnt,
+                                                        scale), 20))
+        print(f"K1'h + K2h {key} {kw}: K1'h {cases[key]['ms']:.4f} ms; "
+              "max|kernel - plain| / max|plain| (rec, lse absolute; the "
+              "share of out on the bf16 grid): " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in cases[key]["errs"].items()))
+    q, bk, bv, cnt, dout, drec, scale = k1ph_inputs(dev)
+    count, (S, b, lk, _), lq = int(cnt), bk.shape, q.shape[1]
+    kv = count * lk
+    out, rec_h, lse_h = kb.bank_attention_lse_mh(q, bk, bv, cnt, scale)
+    delta_h = kb.bwd_delta_mh(dout, out, drec, rec_h)
+    bargs = (q, bk, bv, cnt, dout, lse_h, delta_h, drec, scale)
+
+    def heads_first(x, n):          # [B, n, 256] -> [B, 8, n, 32]
+        return x.reshape(b, n, 8, 32).transpose(1, 2).contiguous()
+
+    lib = [heads_first(q, lq)] + [
+        heads_first(t[:count].transpose(0, 1).reshape(b, kv, 256), kv)
+        for t in (bk, bv)]
+    lib_grad = [t.detach().requires_grad_() for t in lib]
+    dout_lib = heads_first(dout, lq)
+
+    def sdpa(backward: bool):
+        o = F.scaled_dot_product_attention(*lib_grad, scale=scale)
+        if backward:
+            torch.autograd.grad(o, lib_grad, dout_lib)
+
+    sdpa_fwd_ms = cuda_ms(lambda: sdpa(False), 20)
+    # bytes: q, dout and the valid slots' keys and values read once; the
+    # f32 output, lse and per-head mass (K1'h), and dq and every slot's dk,
+    # dv (K2h, zeros included) written once, with the f32 row terms
+    qb, kvb = b * lq * 256 * 2, 2 * b * kv * 256 * 2
+    rows = {
+        "bank_attention_lse_mh": dict(
+            replaces="rmem_tpu/kernels/bank_attention.py:687",
+            source="rmem_tpu_torch/csrc/bank_attention_mh.cu",
+            ms=cases["four_slots"]["ms"],
+            plain=lambda: kb.bank_attention_lse_mh_plain(q, bk, bv, cnt,
+                                                         scale),
+            flops=2.0 * b * lq * kv * (32 + 32) * 8,
+            nbytes=qb + kvb + b * lq * 256 * 4 + b * 8 * lq * (S + 1) * 4,
+            err=max(max(c["errs"]["out"], c["errs"]["lse"])
+                    for c in cases.values()),
+            library_ms=sdpa_fwd_ms),
+        "bank_attention_bwd_mh": dict(
+            replaces="rmem_tpu/kernels/bank_attention.py:581",
+            source="rmem_tpu_torch/csrc/bank_attention_mh_bwd.cu",
+            ms=cuda_ms(lambda: kb.bank_attention_bwd_mh(*bargs), 20),
+            plain=lambda: (kb.bank_attention_bwd_mh_dq_plain(*bargs),
+                           kb.bank_attention_bwd_mh_dkv_plain(*bargs)),
+            flops=2.0 * b * lq * kv * 32 * 5 * 8,
+            nbytes=(2 * qb + kvb + b * 8 * lq * 2 * 4 + b * lq * S * 4
+                    + qb + 2 * S * b * lk * 256 * 2),
+            err=max(v for c in cases.values() for k, v in c["errs"].items()
+                    if k.startswith(("d", "whole"))),
+            library_ms=cuda_ms(lambda: sdpa(True), 20) - sdpa_fwd_ms),
+    }
+    entries = {}
+    for name, r in rows.items():
+        b_ms, b_by = bound(r["flops"], r["nbytes"])
+        entries[name] = dict(
+            name=name, route="cuda", source=r["source"],
+            replaces=r["replaces"], max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=cuda_ms(r["plain"], 3), bound_ms=b_ms, bound_by=b_by,
+            library_ms=r["library_ms"])
+    # p's exponentials: once in K1'h, once in each of K2h's two kernels
+    exps = b * 8 * lq * kv
+    entries["bank_attention_lse_mh"].update(
+        exponentials=exps, sfu_ms=exps / PEAK_SFU_OPS * 1e3,
+        cases={key: c["ms"] for key, c in cases.items()})
+    entries["bank_attention_bwd_mh"].update(
+        exponentials=2 * exps, sfu_ms=2 * exps / PEAK_SFU_OPS * 1e3)
+    for name, e in entries.items():
+        print(f"{name}: {e['ms']:.4f} ms at 4 valid slots, plain "
+              f"{e['plain_ms']:.4f} ms, SDPA over the valid slots "
+              f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms "
+              f"({e['bound_by']}); {e['exponentials']:.3g} exponentials, "
+              f"{e['sfu_ms']:.4f} ms on the special-function units")
+    return entries
+
+
 def check_train_kernels(dev):
     """Phase 2, training rows: K1 with lse and the three K2 kernels at the
     training shapes (B 4, a 30 x 30 grid, 4 valid slots of 10), K5's
@@ -1901,7 +2122,28 @@ TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
                  ("bank_attention", "bank_attention_bwd_dkv"),
                  ("local_attention", "local_attention"),
                  ("local_attention", "local_attention_bwd"),
-                 ("stem", "stem"))
+                 ("stem", "stem"),
+                 ("bank_attention", "bank_attention_lse_mh"),
+                 ("bank_attention", "bank_attention_bwd_mh"))
+# each training wrapper's launches in every step of the training phases: 3
+# layers' bank (and DeAOT's local) attention forward over 15 frames and
+# again over the 14 checkpointed ones, its backward over 15, the stem once
+# over the clip's 60 frames
+_FWD, _BWD = 3 * (2 * TRAIN_T - 1), 3 * TRAIN_T
+TRAIN_LAUNCHES = {
+    "r50_deaotl": dict(bank_attention_lse=_FWD, bank_attention_bwd_ds=_BWD,
+                       bank_attention_bwd_dq=_BWD, bank_attention_bwd_dkv=_BWD,
+                       local_attention=_FWD, local_attention_bwd=_BWD,
+                       stem=1, bank_attention_lse_mh=0,
+                       bank_attention_bwd_mh=0),
+    "r50_aotl": dict(bank_attention_lse=0, bank_attention_bwd_ds=0,
+                     bank_attention_bwd_dq=0, bank_attention_bwd_dkv=0,
+                     local_attention=0, local_attention_bwd=0, stem=1,
+                     bank_attention_lse_mh=_FWD,
+                     bank_attention_bwd_mh=_BWD),
+}
+TRAIN_PHASE = {"r50_deaotl": ("phase 5", "R50-DeAOTL"),
+               "r50_aotl": ("phase 11", "R50-AOTL")}
 
 
 def route_turns(dev, card: str):
@@ -1988,22 +2230,22 @@ def route_turns(dev, card: str):
             for name, r in routes.items()}
 
 
-def train_config():
-    """pre_vost R50-DeAOTL at the card's batch, with train_total_steps set
-    so that the use_prev_pred curriculum (from half the total) starts inside
-    a run of TRAIN_STEPS steps."""
+def train_config(model: str = "r50_deaotl"):
+    """pre_vost `model` at the card's batch, with train_total_steps set so
+    that the use_prev_pred curriculum (from half the total) starts inside a
+    run of TRAIN_STEPS steps."""
     from rmem_tpu_torch.config import get_config
-    return get_config("pre_vost", model="r50_deaotl",
-                      train_batch_size=TRAIN_B,
+    return get_config("pre_vost", model=model, train_batch_size=TRAIN_B,
                       train_total_steps=TRAIN_STEPS + 2)
 
 
-def train_phase(dev, card: str, profile: bool):
-    """Phase 5: TRAIN_STEPS training steps of R50-DeAOTL on synthetic clips
-    (465 x 465, 15 frames, 4 clips), random weights from a seed. Launch
-    counts are zeroed just before and read just after. With `profile`, one
-    more step runs under torch.profiler. Returns (launch counts by
-    wrapper, per-step seconds, peak GiB)."""
+def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
+    """Phase 5 (R50-DeAOTL) or phase 11 (R50-AOTL): TRAIN_STEPS training
+    steps on synthetic clips (465 x 465, 15 frames, 4 clips), random
+    weights from a seed. Launch counts are zeroed just before and read just
+    after, and each step's must equal TRAIN_LAUNCHES[model]. With
+    `profile`, one more step runs under torch.profiler. Returns (launch
+    counts by wrapper, per-step seconds, peak GiB)."""
     import importlib
 
     import torch
@@ -2011,7 +2253,8 @@ def train_phase(dev, card: str, profile: bool):
     from rmem_tpu_torch.managers.trainer import Trainer, train_step
 
     steps = TRAIN_STEPS
-    cfg = train_config()
+    phase, name = TRAIN_PHASE[model]
+    cfg = train_config(model)
     check(cfg.data_seq_len == TRAIN_T
           and tuple(cfg.data_randomcrop) == TRAIN_HW, "pre_vost's shapes")
     torch.cuda.synchronize()
@@ -2036,7 +2279,8 @@ def train_phase(dev, card: str, profile: bool):
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         per_step.append([fn.launches - c for fn, c in zip(wrappers, counts0)])
-        print(f"train step {i} (curriculum {'on' if i >= seq_start else 'off'}"
+        print(f"{phase}: train step {i} (curriculum "
+              f"{'on' if i >= seq_start else 'off'}"
               f"): loss {losses[-1]:.4f}, grad norm "
               f"{float(metrics['grad_norm']):.3f}, iou "
               f"{float(metrics['iou']):.4f}, {times[-1]:.3f} s, launches "
@@ -2045,20 +2289,14 @@ def train_phase(dev, card: str, profile: bool):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     moved = max((p.detach() - before[n]).abs().max().item()
                 for n, p in trainer.state.model.named_parameters())
-    check(all(n > 0 for n in counts.values()), f"a kernel never ran: {counts}")
-    check(all(all(n > 0 for n in s) for s in per_step),
-          f"a kernel missed a step: {per_step}")
-    # K5's backward once per layer and frame, as K2's
-    k5_bwd = [s[[fn for _, fn in TRAIN_KERNELS].index("local_attention_bwd")]
-              for s in per_step]
-    check(all(n == cfg.model_lstt_num * TRAIN_T for n in k5_bwd),
-          f"K5 backward launches per step {k5_bwd}, expected "
-          f"{cfg.model_lstt_num * TRAIN_T}")
+    expected = [TRAIN_LAUNCHES[model][fn] for _, fn in TRAIN_KERNELS]
+    check(cfg.model_lstt_num == 3 and all(s == expected for s in per_step),
+          f"{phase} launches per step {per_step}, expected {expected}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(moved > 0, "the parameters did not change")
     check(seq_start < steps, "the curriculum did not start")
     timed = times[1:]     # the first step includes cuDNN's autotuning
-    print(f"train: {steps} steps of R50-DeAOTL pre_vost at 465x465, T "
+    print(f"{phase}: {steps} steps of {name} pre_vost at 465x465, T "
           f"{TRAIN_T}, B {TRAIN_B} (the reference's 16 over 4 GPUs), the "
           f"curriculum from step {seq_start:g}; {statistics.median(timed):.3f}"
           f" s/step median of steps 1..{steps - 1} (each: "
@@ -2074,13 +2312,14 @@ def train_phase(dev, card: str, profile: bool):
     return counts, times, peak
 
 
-def held_train_step(dev):
-    """Phase 6: one step of the kernel model, every K2 call and every K5
-    forward (K4) call of which is held against its plain version on the
-    same inputs, and one step of a
-    model whose kernels are all their plain versions (computed in f32 from
-    the same bf16 inputs), on the same batch, weights and shuffle. Holds
-    the loss and the global gradient norm of the two. Returns a summary."""
+def held_train_step(dev, model: str = "r50_deaotl"):
+    """Phase 6 (R50-DeAOTL) or phase 12 (R50-AOTL): one step of the kernel
+    model, every K2 call and every K5 forward (K4) call (R50-DeAOTL) or
+    every K2h call (R50-AOTL) of which is held against its plain version on
+    the same inputs, and one step of a model whose kernels are all their
+    plain versions (computed in f32 from the same bf16 inputs), on the
+    same batch, weights and shuffle. Holds the loss and the global gradient
+    norm of the two. Returns a summary."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
@@ -2088,11 +2327,13 @@ def held_train_step(dev):
     from rmem_tpu_torch.kernels import stem as ks
     from rmem_tpu_torch.managers.trainer import Trainer, train_step
 
-    cfg = train_config()
+    cfg = train_config(model)
+    phase = "phase 6" if model == "r50_deaotl" else "phase 12"
     bf = torch.bfloat16
     calls, fwd_calls = [], []
     kernel_bwd = kb.bank_attention_bwd
     kernel_fwd = kl.local_attention
+    kernel_bwd_mh = kb.bank_attention_bwd_mh
 
     def held_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec, scale):
         calls.append(held_k2(q, bank_k, bank_v, count, dout, drec, scale))
@@ -2104,15 +2345,24 @@ def held_train_step(dev):
         fwd_calls.append(held("local_attention", got,
                               kl.local_attention_plain(*args)))
         return got
-    # the wrapper counts its launches on the name it has in its module,
-    # which is now this function's
-    held_fwd.launches = 0
+
+    def held_bwd_mh(*args):
+        got, errs = held_k2h_call(*args, kernel=kernel_bwd_mh)
+        calls.append(errs)
+        return got
+    # a wrapper counts its launches on the name it has in its module, which
+    # is now the held function's
+    held_fwd.launches = held_bwd_mh.launches = 0
+    held_patches = ([((kb, "bank_attention_bwd"), held_bwd),
+                     ((kl, "local_attention"), held_fwd)]
+                    if model == "r50_deaotl"
+                    else [((kb, "bank_attention_bwd_mh"), held_bwd_mh)])
 
     # the plain versions take the inputs in bf16, as the kernels do
     plain = {
-        (kb, "bank_attention_train"): lambda q, k, v, c, scale:
-            kb.bank_attention_plain(q.to(bf), k.to(bf), v.to(bf), c, 1,
-                                    scale),
+        (kb, "bank_attention_train"): lambda q, k, v, c, scale, num_heads=1:
+            kb.bank_attention_plain(q.to(bf), k.to(bf), v.to(bf), c,
+                                    num_heads, scale),
         (kl, "local_attention_trainable"): lambda q, k, v, r, *a:
             kl.local_attention_plain(q.to(bf), k.to(bf), v.to(bf), r.to(bf),
                                      *a),
@@ -2122,9 +2372,7 @@ def held_train_step(dev):
     runs = []
     for use_plain in (False, True):
         with ExitStack() as stack:
-            patches = (plain.items() if use_plain
-                       else [((kb, "bank_attention_bwd"), held_bwd),
-                             ((kl, "local_attention"), held_fwd)])
+            patches = plain.items() if use_plain else held_patches
             for (mod, attr), fn in patches:
                 stack.enter_context(mock.patch.object(mod, attr, fn))
             trainer = Trainer(cfg, device=dev, seed=1)
@@ -2135,20 +2383,22 @@ def held_train_step(dev):
             runs.append((float(m["loss"]), float(m["grad_norm"])))
             del trainer
     (loss_k, gn_k), (loss_p, gn_p) = runs
+    k2 = "K2" if model == "r50_deaotl" else "K2h"
     worst = {key: max(c[key] for c in calls) for key in calls[0]}
-    fwd_worst = max(e / top for e, top, _ in fwd_calls)
+    fwd_worst = max((e / top for e, top, _ in fwd_calls), default=None)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     gn_err = abs(gn_k - gn_p) / gn_p
-    print(f"phase 6: kernel step loss {loss_k:.6f}, grad norm {gn_k:.6f}; "
+    print(f"{phase}: kernel step loss {loss_k:.6f}, grad norm {gn_k:.6f}; "
           f"plain step loss {loss_p:.6f}, grad norm {gn_p:.6f}; relative "
-          f"differences {loss_err:.3e} and {gn_err:.3e}; {len(calls)} K2 "
+          f"differences {loss_err:.3e} and {gn_err:.3e}; {len(calls)} {k2} "
           f"calls held, worst of each check: "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f"; {len(fwd_calls)} K5 forward calls held, worst "
-          f"{fwd_worst:.3e} of max|plain|")
+          + (f"; {len(fwd_calls)} K5 forward calls held, worst "
+             f"{fwd_worst:.3e} of max|plain|" if fwd_calls else ""))
     check(len(calls) == cfg.model_lstt_num * TRAIN_T,
-          f"{len(calls)} K2 calls on the path")
-    check(len(fwd_calls) >= cfg.model_lstt_num * TRAIN_T,
+          f"{len(calls)} {k2} calls on the path")
+    check(model != "r50_deaotl"
+          or len(fwd_calls) >= cfg.model_lstt_num * TRAIN_T,
           f"{len(fwd_calls)} K5 forward calls on the path")
     check(loss_err <= STEP_LOSS_TOL, f"step loss {loss_err}")
     check(gn_err <= STEP_GNORM_TOL, f"step grad norm {gn_err}")
@@ -2214,7 +2464,8 @@ MUTANTS = {
                             "lse[row] = M * LN2;")]}),
     "bank_attention_mh": ("k1h", {
         # K1h: the slot-PE bias is dropped
-        "k1h_no_bias": [("if (qbias != nullptr) {", "if (false) {")],
+        "k1h_no_bias": [("if (!kTrain && qbias != nullptr) {",
+                         "if (false) {")],
         # K1h: a slot's sum is not rescaled when the row's maximum grows
         "k1h_slot_sum_unrescaled": [("ls0 = ls0 * a0 + ps0;",
                                      "ls0 = ls0 + ps0;"),
@@ -2223,7 +2474,30 @@ MUTANTS = {
         # K1h: the keys are masked at Lk, not at true_lk
         "k1h_mask_at_lk": [
             ("const bool ok = key0 + n * 8 + 2 * t + e < true_lk;",
-             "const bool ok = key0 + n * 8 + 2 * t + e < Lk;")]}),
+             "const bool ok = key0 + n * 8 + 2 * t + e < Lk;")],
+        # K1'h: the f32 output is stored through bf16
+        "k1ph_out_bf16": [
+            ("*reinterpret_cast<float2*>(p) = make_float2(a, b);",
+             "*reinterpret_cast<float2*>(p) = make_float2("
+             "__bfloat162float(__float2bfloat16_rn(a)), "
+             "__bfloat162float(__float2bfloat16_rn(b)));")],
+        # K1'h: the lse without the log of the sum
+        "k1ph_lse_no_sum": [("(m0 + log2f(L0)) * LN2", "m0 * LN2"),
+                            ("(m1 + log2f(L1)) * LN2", "m1 * LN2")]}),
+    "bank_attention_mh_bwd": ("k2h", {
+        # K2h: ds drops the slot-mass term, in both kernels
+        "no_drec": [("ok ? drec_h[((size_t)b * Lq + qi) * S + s] - "
+                     "delta_bh[qi] : 0.f;", "ok ? -delta_bh[qi] : 0.f;"),
+                    ("ra = qa < Lq ? dr[(size_t)qa * S] - da : 0.f;",
+                     "ra = qa < Lq ? -da : 0.f;"),
+                    ("rb = qb < Lq ? dr[(size_t)qb * S] - db : 0.f;",
+                     "rb = qb < Lq ? -db : 0.f;")],
+        # K2h: dq is not multiplied by the logit scale
+        "dq_scale": [("dqa, scale, q0, Lq,", "dqa, 1.f, q0, Lq,")],
+        # K2h: the invalid slots' dk is left unwritten
+        "invalid_dk_unwritten": [
+            ("      *reinterpret_cast<uint4*>(dk + off) = "
+             "make_uint4(0, 0, 0, 0);\n", "")]}),
     "stem": ("stem", {
         # conv positions outside the conv grid enter the pool
         "pool_out_of_grid": [
@@ -2274,14 +2548,19 @@ def k4_k5_check(dev):
 
 def k1h_check(dev):
     """K1h at phase 2's main call, one slot, the reference frame's shape
-    and with keys padded past true_lk."""
-    return {key: held_k1h(*k1h_inputs(dev, **K1_CASES[key]))
+    and with keys padded past true_lk; K1'h at K1PH_CASES."""
+    errs = {key: held_k1h(*k1h_inputs(dev, **K1_CASES[key]))
             for key in ("main", "count_1", "reference", "padded")}
+    for key, kw in K1PH_CASES.items():
+        q, bk, bv, cnt, _, _, scale = k1ph_inputs(dev, **kw)
+        errs[f"k1ph_{key}"] = held_k1ph(q, bk, bv, cnt, scale)[1]
+    return errs
 
 
 MUTANT_CHECKS = {
     "k2": lambda dev: held_k2(*k2_inputs(dev)[1]),
     "k1h": k1h_check,
+    "k2h": lambda dev: held_k2h(*k1ph_inputs(dev)),
     "k1_k3_k1p": k1_k3_k1p_check,
     "stem": stem_check,
     "k4_k5": k4_k5_check,
@@ -2348,11 +2627,12 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=BANK_FULL + 3 * WINDOW)
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 steady frames "
-                         "of phases 3, 7 and 9 and of one training step")
+                         "of phases 3, 7 and 9 and of one training step of "
+                         "phases 5 and 11")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
-                         "K5, K1, K3, K1', K1h, K6 and K7 checks; prints "
-                         "no result line")
+                         "K5, K1, K3, K1', K1h, K1'h, K2h, K6 and K7 "
+                         "checks; prints no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")
@@ -2385,15 +2665,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     entries = check_kernels(dev)
     entries.update(check_optin_kernels(dev))
     train_entries, k2_whole, k5_whole = check_train_kernels(dev)
+    aot_train_entries = check_aot_train_kernels(dev)
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counts, window_fps = main_path(dev, args.frames, card, args.profile)
     for key, fn_name in (("bank_attention", "bank_attention_infer"),
                          ("local_attention", "local_attention"),
                          ("stem", "stem")):
         entries[key]["launches"] = counts[fn_name]
     on_path, logit_errs, agree = plain_agreement(dev)
+    print(f"phases 3 and 4: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     train_counts, step_times, peak = train_phase(dev, card, args.profile)
     # the trainable wrappers launch K4 and K6 forwards
     for key in train_entries:
@@ -2402,6 +2688,7 @@ def main() -> int:
         train_entries[key]["launches"] = train_counts[fn_name]
     held_step = held_train_step(dev)
     entries.update(train_entries)
+    print(f"phases 5 and 6: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with mock.patch.dict(os.environ, {"RMEM_BANK_QMINOR": "1"}):
         optin_counts, optin_fps = optin_path(dev, card, args.profile)
@@ -2419,6 +2706,14 @@ def main() -> int:
     print(f"phases 9 and 10: {time.perf_counter() - t0:.1f} s")
     entries["bank_attention_mh"]["launches"] = aot_counts[
         "bank_attention_infer_mh"]
+    t0 = time.perf_counter()
+    aot_train_counts, aot_step_times, aot_peak = train_phase(
+        dev, card, args.profile, model="r50_aotl")
+    for key, e in aot_train_entries.items():
+        e["launches"] = aot_train_counts[key]
+    entries.update(aot_train_entries)
+    aot_held_step = held_train_step(dev, "r50_aotl")
+    print(f"phases 11 and 12: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -2443,6 +2738,12 @@ def main() -> int:
                       "aot_on_path": aot_worst,
                       "aot_logit_rel_err": aot_logit_errs,
                       "aot_label_agreement": aot_agree,
+                      "aot_train_step_s": aot_step_times,
+                      "aot_train_step_s_median": statistics.median(
+                          aot_step_times[1:]),
+                      "aot_train_peak_gib": aot_peak,
+                      "aot_train_launches": aot_train_counts,
+                      "aot_held_step": aot_held_step,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

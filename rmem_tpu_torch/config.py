@@ -1,6 +1,5 @@
 """Config for the PyTorch port: the model and stage presets of R50-DeAOTL +
-RMem inference and training and of R50-AOTL + RMem inference, as one
-dataclass.
+RMem and R50-AOTL + RMem, inference and training, as one dataclass.
 
 A copy of the fields of `rmem_tpu/config.py` that the port reads, with the
 same names and defaults, so that one preset name gives the same model on
@@ -85,6 +84,9 @@ class Config:
     train_ema_ratio: float = 0.1
     train_clip_grad_norm: float = 5.0
     train_encoder_freeze_at: int = 2
+    # the LSTT's stochastic depth rate; the training step passes no
+    # generator, as the JAX step passes no dp_rng, so it stays the identity
+    train_lstt_droppath: float = 0.1
     # per-frame recompute in the backward: "full" or "dots" checkpoints each
     # frame of the clip (the port has no policy that keeps matmul outputs,
     # so "dots" is "full" here); "none" keeps every activation
@@ -117,6 +119,12 @@ class Config:
     @property
     def id_channels(self) -> int:
         return self.model_max_obj_num + (2 if self.model_ignore_token else 1)
+
+    @property
+    def gru_memory_active(self) -> bool:
+        """The ConvGRU memory exists on the AOT path only: DeAOT ignores
+        the flag, as in the JAX package."""
+        return self.gru_memory and self.model_vos == "aot"
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

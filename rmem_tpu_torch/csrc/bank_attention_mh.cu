@@ -1,12 +1,19 @@
-// Bank attention at 8 heads of 32 (kernel K1h): the long-term attention of
-// AOT's LSTT, from the frame's queries into the valid slots of the memory
-// bank, with each slot's share of the softmax mass (the eviction signal).
+// Bank attention at 8 heads of 32 (kernels K1h and K1'h): the long-term
+// attention of AOT's LSTT, from the frame's queries into the valid slots of
+// the memory bank, with each slot's share of the softmax mass (the eviction
+// signal).
 //
 // Replaces rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer
 // and the forward of pallas_bank_attention at num_heads = 8, the AOT
 // family's head count (rmem_tpu/config.py:53): the Pallas kernel folds the
 // heads into its grid's first axis (_layout) and averages the slot mass
-// over them outside the kernel (_unlayout_out).
+// over them outside the kernel (_unlayout_out). mh_kernel<false> is the
+// inference kernel K1h (bf16 output, optional slot-PE bias); mh_kernel<true>
+// is training's forward K1'h, the VJP forward of pallas_bank_attention
+// (_bank_attention_fwd, want_lse): no bias (training adds the slot PE to
+// the keys), every key valid, an f32 output for the backward's row term
+// and each head's natural-log lse, M ln 2 + ln L. Its backward is K2h,
+// csrc/bank_attention_mh_bwd.cu.
 //
 // Per head h (columns 32h .. 32h + 31 of q, k and v), query i, valid slot
 // s < count and key j < true_lk: x = q.k * scale + qbias[b, h, i, s],
@@ -20,7 +27,8 @@
 // 2.6e10 FLOP, 26 us at 989 TFLOP/s, against ~18 MB moved (5.5 us at 3.35
 // TB/s). With heads this narrow the softmax's exponentials (2.0e8 of them)
 // weigh as much as the products, and they run on the SMs' special-function
-// units, not the tensor cores.
+// units, not the tensor cores. K1'h at the training call (B 4, Lq = Lk =
+// 900, 4 valid slots): 1.3e10 FLOP (13 us) and 1.0e8 exponentials.
 //
 // Design (simple first; no TMA, no wgmma): one block of 8 warps takes 128
 // queries of one head of one batch row, so at 481 x 849 the grid is 14 query
@@ -63,6 +71,7 @@ constexpr int BK = 64;            // keys of a chunk
 constexpr int LD = D + 8;         // bf16 pitch of the Q, K and V tiles
 constexpr int MAX_SLOTS = 16;     // slots whose mass a block keeps
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -74,15 +83,22 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// q [B, Lq, C]; k, v [S, B, Lk, C]; qbias [B, H, Lq, S] f32 or null; count
-// an int32 on the card; out [B, Lq, C] bf16; rec [B, H, Lq, S] f32, each
-// head's slot mass. Block (query tile, head, batch row).
+// K1'h's output: two f32 values, never rounded to bf16
+__device__ __forceinline__ void store_f32x2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// q [B, Lq, C]; k, v [S, B, Lk, C]; qbias [B, H, Lq, S] f32 or null (read
+// only by K1h); count an int32 on the card; out [B, Lq, C], bf16 (K1h) or
+// f32 (K1'h); rec [B, H, Lq, S] f32, each head's slot mass; lse [B, H, Lq]
+// f32 (K1'h only). Block (query tile, head, batch row).
+template <bool kTrain>
 __global__ void __launch_bounds__(NT)
 mh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const float* __restrict__ qbias,
-          const int* __restrict__ count, bf16* __restrict__ out,
-          float* __restrict__ rec, int B, int Lq, int S, int Lk,
-          int true_lk, float scale_log2) {
+          const int* __restrict__ count, void* __restrict__ out,
+          float* __restrict__ rec, float* __restrict__ lse, int B, int Lq,
+          int S, int Lk, int true_lk, float scale_log2) {
   __shared__ __align__(128) bf16 sQ[BQ * LD];
   __shared__ __align__(128) bf16 sK[2][BK * LD];
   __shared__ __align__(128) bf16 sV[2][BK * LD];
@@ -148,7 +164,7 @@ mh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int s = i / nch, c = i - s * nch;
     if (c == 0) {
       bias0 = bias1 = 0.f;
-      if (qbias != nullptr) {
+      if (!kTrain && qbias != nullptr) {
         const float* bp = qbias + (size_t)(b * H + h) * Lq * S + s;
         if (qa < Lq) bias0 = bp[(size_t)qa * S] * LOG2E;
         if (qb < Lq) bias1 = bp[(size_t)qb * S] * LOG2E;
@@ -248,20 +264,34 @@ mh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // buffer buf is free for the chunk after next
   }
 
-  // ---- epilogue: normalise, write the valid rows in bf16 ----
+  // ---- epilogue: normalise, write the valid rows (bf16, or f32 and the
+  // lse for training) ----
   const float L0 = quad_sum(l0), L1 = quad_sum(l1);
   const float il0 = L0 > 0.f ? 1.f / L0 : 0.f;
   const float il1 = L1 > 0.f ? 1.f / L1 : 0.f;
-  bf16* oa = out + ((size_t)b * Lq + qa) * C + h * D + 2 * t;
-  bf16* ob = out + ((size_t)b * Lq + qb) * C + h * D + 2 * t;
+  const size_t oa = ((size_t)b * Lq + qa) * C + h * D + 2 * t;
+  const size_t ob = ((size_t)b * Lq + qb) * C + h * D + 2 * t;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    if (qa < Lq)
-      *reinterpret_cast<unsigned*>(oa + n * 8) =
-          pack_bf16(o[n][0] * il0, o[n][1] * il0);
-    if (qb < Lq)
-      *reinterpret_cast<unsigned*>(ob + n * 8) =
-          pack_bf16(o[n][2] * il1, o[n][3] * il1);
+    if constexpr (kTrain) {
+      float* fo = static_cast<float*>(out);
+      if (qa < Lq) store_f32x2(fo + oa + n * 8, o[n][0] * il0, o[n][1] * il0);
+      if (qb < Lq) store_f32x2(fo + ob + n * 8, o[n][2] * il1, o[n][3] * il1);
+    } else {
+      bf16* bo = static_cast<bf16*>(out);
+      if (qa < Lq)
+        *reinterpret_cast<unsigned*>(bo + oa + n * 8) =
+            pack_bf16(o[n][0] * il0, o[n][1] * il0);
+      if (qb < Lq)
+        *reinterpret_cast<unsigned*>(bo + ob + n * 8) =
+            pack_bf16(o[n][2] * il1, o[n][3] * il1);
+    }
+  }
+  if constexpr (kTrain) {
+    // the natural-log lse of each row's scaled logits, M ln 2 + ln L
+    float* lrow = lse + ((size_t)b * H + h) * Lq;
+    if (t == 0 && qa < Lq) lrow[qa] = (m0 + log2f(L0)) * LN2;
+    if (t == 0 && qb < Lq) lrow[qb] = (m1 + log2f(L1)) * LN2;
   }
   if (t == 0) {
     sTot[0][r0] = m0;
@@ -296,9 +326,31 @@ extern "C" int rmem_bank_attention_mh(const void* q, const void* k,
       true_lk > Lk || B < 1 || Lq < 1)
     return -1;
   const dim3 grid((Lq + BQ - 1) / BQ, rmem_mh::H, B);
-  mh_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+  mh_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)qbias,
-      (const int*)count, (bf16*)out, (float*)rec, B, Lq, S, Lk, true_lk,
+      (const int*)count, out, (float*)rec, nullptr, B, Lq, S, Lk, true_lk,
+      scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// K1'h: training's forward at 8 heads of 32, every key valid, no bias:
+// out [B, Lq, 256] f32, rec [B, 8, Lq, S] f32 and lse [B, 8, Lq] f32.
+// Returns a CUDA error code (0 on success; -1 for a shape it does not
+// take).
+extern "C" int rmem_bank_attention_mh_lse(const void* q, const void* k,
+                                          const void* v, const void* count,
+                                          void* out, void* rec, void* lse,
+                                          int B, int H, int Lq, int S,
+                                          int Lk, float scale,
+                                          void* stream) {
+  using namespace rmem_mh;
+  if (H != rmem_mh::H || S < 1 || S > MAX_SLOTS || Lk < 1 || B < 1 ||
+      Lq < 1)
+    return -1;
+  const dim3 grid((Lq + BQ - 1) / BQ, rmem_mh::H, B);
+  mh_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, nullptr,
+      (const int*)count, out, (float*)rec, (float*)lse, B, Lq, S, Lk, Lk,
       scale * LOG2E);
   return (int)cudaGetLastError();
 }

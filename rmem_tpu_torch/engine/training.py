@@ -14,13 +14,16 @@ Counterpart of `rmem_tpu/engine/training.py:train_forward`:
 4. the upsample, loss and IoU once over all frames after the loop, and the
    loss aux_weight(step) * aux + mean(frame losses).
 
-Each frame's propagate and decode run under torch.utils.checkpoint (the
-JAX package's remat of its scan body), so the backward recomputes them
-instead of keeping T sets of activations. The bank is rebuilt out of place
-at each write. Everything the loop branches on (the frame index, the write
-schedule and so the bank's fill and its evictions, the curriculum flag, the
-step) is a host integer, and the bank's
-count stays on the device, so the loop never reads back from the card.
+Every LSTT call takes the sine position embedding for its self-attention
+(the GPM ignores it) and no drop-path generator, as the JAX step passes
+no dp_rng. Each frame's propagate and decode run under
+torch.utils.checkpoint (the JAX package's remat of its scan body), so the
+backward recomputes them instead of keeping T sets of activations. The
+bank is rebuilt out of place at each write. Everything the loop branches
+on (the frame index, the write schedule and so the bank's fill and its
+evictions, the curriculum flag, the step) is a host integer, and the
+bank's count stays on the device, so the loop never reads back from the
+card.
 """
 
 from __future__ import annotations
@@ -43,14 +46,13 @@ from rmem_tpu_torch.utils.metric import pytorch_iou_batched
 
 
 def check_supported(cfg: Config) -> None:
-    """The JAX step's branches that the port does not take."""
-    if cfg.model_vos != "deaot":
-        raise NotImplementedError(f"{cfg.model_vos} training is not ported "
-                                  "(the 8-head bank attention's training "
-                                  "kernels are still to port)")
-    for flag in ("reverse_infer", "gru_memory"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} training is not ported")
+    """The JAX step's branches that the port does not take. The ConvGRU
+    memory acts only where the JAX step acts on it, on the AOT path
+    (`gru_memory_active`); DeAOT trains with the flag ignored, as there."""
+    if cfg.reverse_infer:
+        raise NotImplementedError("reverse_infer training is not ported")
+    if cfg.gru_memory_active:
+        raise NotImplementedError("gru_memory training is not ported")
     if cfg.var_loss_weight > 0:
         raise NotImplementedError("var_loss_weight > 0 is not ported")
     if cfg.train_remat not in ("full", "dots", "none"):
@@ -83,6 +85,7 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
     xs_bt = [x.reshape(b, t, *x.shape[1:]) for x in
              model.encode_image(imgs.reshape(b * t, *imgs.shape[2:]))]
     eh, ew = xs_bt[-1].shape[-2:]
+    self_pos = model.get_pos_emb(eh, ew)
     cur_pe, mem_pe = model.temporal_pe()
     perm = None if shuffle is None else torch.argmax(shuffle, dim=-1)
 
@@ -113,7 +116,7 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
     ref_id = id_embed(labels[:, 0])
     inter0, mems0, _ = model.lstt_forward(
         feat0, None, None, None, ref_id, cur_pe,
-        None if mem_pe is None else mem_pe[0:1], (eh, ew))
+        None if mem_pe is None else mem_pe[0:1], (eh, ew), self_pos=self_pos)
     lk, lv, short_k, short_v = model.write_memories(mems0, ref_id)
     bank = init_bank(lk.shape[0], cfg.max_mem_slots, b, eh * ew,
                      lk.shape[-1], lv.shape[-1], dtype=lk.dtype,
@@ -127,7 +130,7 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
             mem_pe, count, bank_k.shape[1]))
         inter, mems, _ = model.lstt_forward(
             feat, (bank_k, bank_v), count, (short_k, short_v), None, cur_pe,
-            slot_pe, (eh, ew))
+            slot_pe, (eh, ew), self_pos=self_pos)
         return decode4(inter, xs), mems
 
     remat = cfg.train_remat != "none" and t > 2

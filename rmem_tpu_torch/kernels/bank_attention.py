@@ -21,14 +21,20 @@ bias, no key padding) for tensors on the card and runs
 rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor. Both split
 the slots among blocks, SLOTS_PER_BLOCK each, and merge on the card.
 
-Training: `bank_attention_train` is differentiable. On the card it is an
-autograd Function whose forward is the same source's third instantiation,
-with f32 partial outputs, an f32 output and the per-row log-sum-exp
+Training: `bank_attention_train` is differentiable and routes by head
+shape (`train_route`). At one head of 128 it is, on the card, an autograd
+Function whose forward is the same source's third instantiation, with f32
+partial outputs, an f32 output and the per-row log-sum-exp
 (`bank_attention_lse`, K1'; `bank_attention_lse_plain` is its plain
 version, in the kernel's partial + merge form), and whose backward is
 kernel K2 (`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq`
-and `_dkv`); it replaces pallas_bank_attention and its custom VJP. On the
-CPU it is autograd through `bank_attention_plain`.
+and `_dkv`). At 8 heads of 32 (AOT's LSTT) the forward is K1'ʰ, the
+training instantiation of `csrc/bank_attention_mh.cu`
+(`bank_attention_lse_mh`: f32 output, each head's slot mass and lse), and
+the backward K2ʰ (`csrc/bank_attention_mh_bwd.cu`: `bank_attention_bwd_mh`,
+whose plain stages are `bank_attention_bwd_mh_dq_plain` and `_dkv_plain`).
+Both replace pallas_bank_attention and its custom VJP. On the CPU it is
+autograd through `bank_attention_plain`.
 """
 
 from __future__ import annotations
@@ -191,6 +197,30 @@ def infer_route(num_heads: int, dh: int, dv: int) -> str:
                      "32)")
 
 
+def train_route(num_heads: int, dh: int, dv: int) -> str:
+    """The CUDA kernels that take a training call of this head shape on the
+    card, by `infer_route`'s rule: "slots" (K1' and K2: one head of 128,
+    values a multiple of 256) or "heads" (K1'ʰ and K2ʰ: 8 heads of 32).
+    Any other shape raises."""
+    return infer_route(num_heads, dh, dv)
+
+
+def _check_mh(q, bank_k, bank_v, count, num_heads: int = MH_HEADS
+              ) -> Tuple[int, int, int, int]:
+    """K1ʰ's, K1'ʰ's and K2ʰ's common checks; returns (s, b, lq, lk)."""
+    s, b, lk, ck = bank_k.shape
+    lq = q.shape[1]
+    _check_bf16(q, q=q, bank_k=bank_k, bank_v=bank_v)
+    _check(num_heads == MH_HEADS and ck == MH_HEADS * MH_WIDTH
+           and q.shape == (b, lq, ck) and bank_v.shape == bank_k.shape,
+           f"q {tuple(q.shape)}, bank_k {tuple(bank_k.shape)}, bank_v "
+           f"{tuple(bank_v.shape)} at {num_heads} heads (8 of 32)")
+    _check_count(count, q)
+    _check(s <= MH_MAX_SLOTS, f"{s} slots (the kernel takes up to "
+           f"{MH_MAX_SLOTS})")
+    return s, b, lq, lk
+
+
 @functools.lru_cache(maxsize=None)
 def _mh_entry():
     fn = build.load("bank_attention_mh").rmem_bank_attention_mh
@@ -214,18 +244,9 @@ def bank_attention_infer_mh(q: torch.Tensor, bank_k: torch.Tensor,
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
                                     scale, true_lk, qbias)
-    s, b, lk, ck = bank_k.shape
-    lq = q.shape[1]
-    _check_bf16(q, q=q, bank_k=bank_k, bank_v=bank_v)
-    _check(num_heads == MH_HEADS and ck == MH_HEADS * MH_WIDTH
-           and q.shape == (b, lq, ck) and bank_v.shape == bank_k.shape,
-           f"q {tuple(q.shape)}, bank_k {tuple(bank_k.shape)}, bank_v "
-           f"{tuple(bank_v.shape)} at {num_heads} heads (8 of 32)")
-    _check_count(count, q)
+    s, b, lq, lk = _check_mh(q, bank_k, bank_v, count, num_heads)
     true_lk = lk if true_lk is None else true_lk
     _check(0 < true_lk <= lk, f"true_lk {true_lk} for {lk} keys")
-    _check(s <= MH_MAX_SLOTS, f"{s} slots (the kernel takes up to "
-           f"{MH_MAX_SLOTS})")
     if qbias is not None:
         _check(qbias.device == q.device and qbias.dtype == torch.float32
                and qbias.is_contiguous()
@@ -533,6 +554,199 @@ def bank_attention_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec,
     return dq, dk, dv
 
 
+# ---- training at 8 heads of 32 (kernels K1'ʰ and K2ʰ) --------------------
+
+def bank_attention_lse_mh_plain(q: torch.Tensor, bank_k: torch.Tensor,
+                                bank_v: torch.Tensor, count: torch.Tensor,
+                                scale: float, num_heads: int = MH_HEADS
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """K1'ʰ's function in plain PyTorch (f32): per head, one softmax over
+    every key of the valid slots. Returns (out [B, Lq, h*dv], rec_h
+    [B, h, Lq, S] each head's slot mass, 0 past count, and lse_h [B, h, Lq]
+    the natural-log log-sum-exp of each row's scaled logits)."""
+    s, b, lk, ck = bank_k.shape
+    lq = q.shape[1]
+    dh, dv = ck // num_heads, bank_v.shape[-1] // num_heads
+    logits = torch.einsum(
+        "bqhd,sbkhd->bhqsk", q.float().reshape(b, lq, num_heads, dh),
+        bank_k.float().reshape(s, b, lk, num_heads, dh)) * scale
+    valid = torch.arange(s, device=q.device) < count
+    logits = torch.where(valid[:, None], logits, float("-inf"))
+    lse = logits.flatten(-2).logsumexp(-1)                   # [B, h, Lq]
+    p = torch.exp(logits - lse[..., None, None])
+    out = torch.einsum("bhqsk,sbkhd->bqhd", p,
+                       bank_v.float().reshape(s, b, lk, num_heads, dv))
+    return out.reshape(b, lq, num_heads * dv), p.sum(-1), lse
+
+
+@functools.lru_cache(maxsize=None)
+def _mh_lse_entry():
+    fn = build.load("bank_attention_mh").rmem_bank_attention_mh_lse
+    fn.argtypes = [_P] * 7 + [_I] * 5 + [_F, _P]
+    fn.restype = _I
+    return fn
+
+
+def bank_attention_lse_mh(q: torch.Tensor, bank_k: torch.Tensor,
+                          bank_v: torch.Tensor, count: torch.Tensor,
+                          scale: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """K1'ʰ: training's forward at 8 heads of 32, every key valid, no
+    bias. q [B, Lq, 256]; bank_k, bank_v [S, B, Lk, 256] bf16, contiguous;
+    count an int32 scalar on the card. Returns (out [B, Lq, 256] f32, rec_h
+    [B, 8, Lq, S] f32, lse_h [B, 8, Lq] f32). The output stays f32 for the
+    backward's row term. CPU tensors take the plain version."""
+    if not q.is_cuda:
+        return bank_attention_lse_mh_plain(q, bank_k, bank_v, count, scale)
+    s, b, lq, lk = _check_mh(q, bank_k, bank_v, count)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty((b, lq, MH_HEADS * MH_WIDTH), **f32)
+    rec_h = torch.empty((b, MH_HEADS, lq, s), **f32)
+    lse_h = torch.empty((b, MH_HEADS, lq), **f32)
+    err = _mh_lse_entry()(
+        q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(), count.data_ptr(),
+        out.data_ptr(), rec_h.data_ptr(), lse_h.data_ptr(), b, MH_HEADS, lq,
+        s, lk, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "bank_attention_mh_lse")
+    bank_attention_lse_mh.launches += 1
+    return out, rec_h, lse_h
+
+
+bank_attention_lse_mh.launches = 0
+
+
+def bwd_delta_mh(dout: torch.Tensor, out: torch.Tensor, drec: torch.Tensor,
+                 rec_h: torch.Tensor) -> torch.Tensor:
+    """delta_h [B, h, Lq] f32: per head, the rowsum over its columns of
+    dout * out plus rowsum_s(drec / h * rec_h); the record is the head mean
+    of the slot mass, so each head takes drec / h."""
+    b, heads, lq, _ = rec_h.shape
+    do = (dout.float() * out.float()).reshape(b, lq, heads, -1).sum(-1)
+    dr = (drec.float()[:, None] / heads * rec_h.float()).sum(-1)
+    return (do.transpose(1, 2) + dr).contiguous()
+
+
+def _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale):
+    """K2ʰ's p and ds, f32 [B, h, Lq, S, Lk], zero in slots >= count, each
+    recomputed from the lse as both kernels do."""
+    s, b, lk, ck = bank_k.shape
+    heads, lq = lse_h.shape[1], q.shape[1]
+    dh, dv = ck // heads, bank_v.shape[-1] // heads
+    logits = torch.einsum(
+        "bqhd,sbkhd->bhqsk", q.float().reshape(b, lq, heads, dh),
+        bank_k.float().reshape(s, b, lk, heads, dh)) * scale
+    valid = torch.arange(s, device=q.device) < count
+    p = torch.where(valid[:, None],
+                    torch.exp(logits - lse_h.float()[..., None, None]), 0.0)
+    g = torch.einsum("bqhd,sbkhd->bhqsk",
+                     dout.float().reshape(b, lq, heads, dv),
+                     bank_v.float().reshape(s, b, lk, heads, dv))
+    r = (drec.float() / heads)[:, None, :, :, None]         # [B, 1, Lq, S, 1]
+    return p, p * (g + r - delta_h.float()[..., None, None])
+
+
+def bank_attention_bwd_mh_dq_plain(q, bank_k, bank_v, count, dout, lse_h,
+                                   delta_h, drec, scale):
+    """K2ʰ's dq kernel in plain PyTorch: dq = scale * sum over the valid
+    slots' keys of ds k, f32 [B, Lq, h*dh]."""
+    s, b, lk, ck = bank_k.shape
+    heads = lse_h.shape[1]
+    _, ds = _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
+                     scale)
+    dq = torch.einsum("bhqsk,sbkhd->bqhd", ds,
+                      bank_k.float().reshape(s, b, lk, heads, -1)) * scale
+    return dq.reshape(q.shape)
+
+
+def bank_attention_bwd_mh_dkv_plain(q, bank_k, bank_v, count, dout, lse_h,
+                                    delta_h, drec, scale):
+    """K2ʰ's dkv kernel in plain PyTorch: dk = scale * sum_i ds q, dv =
+    sum_i p dout, f32 [S, B, Lk, h*d], zero in slots >= count."""
+    b, lq = q.shape[:2]
+    heads = lse_h.shape[1]
+    p, ds = _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
+                     scale)
+    dk = torch.einsum("bhqsk,bqhd->sbkhd", ds,
+                      q.float().reshape(b, lq, heads, -1)) * scale
+    dv = torch.einsum("bhqsk,bqhd->sbkhd", p,
+                      dout.float().reshape(b, lq, heads, -1))
+    return dk.flatten(-2), dv.flatten(-2)
+
+
+@functools.lru_cache(maxsize=None)
+def _mh_bwd_entry():
+    fn = build.load("bank_attention_mh_bwd").rmem_bank_attention_mh_bwd
+    fn.argtypes = [_P] * 11 + [_I] * 5 + [_F, _P]
+    fn.restype = _I
+    return fn
+
+
+def bank_attention_bwd_mh(q, bank_k, bank_v, count, dout, lse_h, delta_h,
+                          drec, scale):
+    """K2ʰ: (dq, dk, dv) at 8 heads of 32 from the forward's inputs, its
+    lse_h, the row term delta_h (`bwd_delta_mh`) and the cotangents dout
+    [B, Lq, 256] (bf16 on the card) and drec [B, Lq, S] (f32, of the head
+    mean). bf16 on the card, dk and dv exactly 0 in slots >= count; CPU
+    tensors take the plain stages (f32)."""
+    if not q.is_cuda:
+        args = (q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale)
+        return (bank_attention_bwd_mh_dq_plain(*args),
+                *bank_attention_bwd_mh_dkv_plain(*args))
+    s, b, lq, lk = _check_mh(q, bank_k, bank_v, count)
+    _check_bf16(q, dout=dout)
+    _check(dout.shape == q.shape, f"dout shape {tuple(dout.shape)}")
+    for name, t, shape in (("lse_h", lse_h, (b, MH_HEADS, lq)),
+                           ("delta_h", delta_h, (b, MH_HEADS, lq)),
+                           ("drec", drec, (b, lq, s))):
+        _check(t.device == q.device and t.dtype == torch.float32
+               and t.is_contiguous() and tuple(t.shape) == shape,
+               f"{name} must be contiguous f32 {shape}")
+    drec_h = (drec / MH_HEADS).contiguous()
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(bank_k), torch.empty_like(bank_v)
+    err = _mh_bwd_entry()(
+        q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(), dout.data_ptr(),
+        lse_h.data_ptr(), delta_h.data_ptr(), drec_h.data_ptr(),
+        count.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        MH_HEADS, lq, s, lk, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "bank_attention_mh_bwd")
+    bank_attention_bwd_mh.launches += 1
+    return dq, dk, dv
+
+
+bank_attention_bwd_mh.launches = 0
+
+
+class _BankAttentionMH(torch.autograd.Function):
+    """K1'ʰ forward, K2ʰ backward (bf16 tensors on the card, 8 heads of
+    32); the record is the head mean of the slot mass, as `_unlayout_out`
+    returns it."""
+
+    @staticmethod
+    def forward(ctx, q, bank_k, bank_v, count, scale):
+        out, rec_h, lse_h = bank_attention_lse_mh(q, bank_k, bank_v, count,
+                                                  scale)
+        ctx.save_for_backward(q, bank_k, bank_v, count, out, rec_h, lse_h)
+        ctx.scale = scale
+        return out.to(q.dtype), rec_h.mean(dim=1)
+
+    @staticmethod
+    def backward(ctx, dout, drec):
+        q, bank_k, bank_v, count, out, rec_h, lse_h = ctx.saved_tensors
+        # FIFO eviction reads no slot mass, so drec arrives as zeros
+        dout = (torch.zeros_like(q) if dout is None
+                else dout.to(q.dtype).contiguous())
+        drec = (rec_h.new_zeros(rec_h[:, 0].shape) if drec is None
+                else drec.float().contiguous())
+        delta_h = bwd_delta_mh(dout, out, drec, rec_h)
+        dq, dk, dv = bank_attention_bwd_mh(q, bank_k, bank_v, count, dout,
+                                           lse_h, delta_h, drec, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 class _BankAttention(torch.autograd.Function):
     """K1 with lse forward, K2 backward (bf16 tensors on the card)."""
 
@@ -558,16 +772,22 @@ class _BankAttention(torch.autograd.Function):
 
 def bank_attention_train(q: torch.Tensor, bank_k: torch.Tensor,
                          bank_v: torch.Tensor, count: torch.Tensor,
-                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Differentiable bank attention for one head, every key valid:
-    q [B, Lq, dh], bank_k [S, B, Lk, dh], bank_v [S, B, Lk, dv], count the
-    valid slots (int32 on q's device). Returns (out [B, Lq, dv], rec
-    [B, Lq, S]). On the card the inputs are taken in bf16 (the kernel's
-    type, as autocast takes a matmul's) and K1/K2 run; on the CPU it is
-    autograd through the plain version."""
+                         scale: float, num_heads: int = 1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable bank attention, every key valid: q [B, Lq, h*dh],
+    bank_k [S, B, Lk, h*dh], bank_v [S, B, Lk, h*dv], count the valid slots
+    (int32 on q's device). Returns (out [B, Lq, h*dv], rec [B, Lq, S], the
+    head-mean slot mass). On the card the inputs are taken in bf16 (the
+    kernels' type, as autocast takes a matmul's) and the head shape picks
+    the kernels (`train_route`: K1'/K2 at one head of 128, K1'ʰ/K2ʰ at 8
+    heads of 32, any other shape raises); on the CPU it is autograd through
+    the plain version."""
     if not q.is_cuda:
-        return bank_attention_plain(q, bank_k, bank_v, count, 1, scale)
+        return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
+                                    scale)
+    route = train_route(num_heads, q.shape[-1] // num_heads,
+                        bank_v.shape[-1] // num_heads)
+    fn = _BankAttentionMH if route == "heads" else _BankAttention
     bf = torch.bfloat16
-    return _BankAttention.apply(q.to(bf).contiguous(),
-                                bank_k.to(bf).contiguous(),
-                                bank_v.to(bf).contiguous(), count, scale)
+    return fn.apply(q.to(bf).contiguous(), bank_k.to(bf).contiguous(),
+                    bank_v.to(bf).contiguous(), count, scale)

@@ -58,6 +58,7 @@ class AOT(nn.Module):
                     self_heads=cfg.model_self_heads,
                     att_heads=cfg.model_att_heads,
                     linear_q=cfg.model_linear_q,
+                    droppath=cfg.train_lstt_droppath,
                     intermediate_norm=cfg.model_decoder_intermediate_lstt)
 
     def _decoder_indim(self) -> int:
@@ -104,10 +105,12 @@ class AOT(nn.Module):
 
     def lstt_forward(self, feat, bank, count, short, id_emb, cur_pe, slot_pe,
                      size_2d: Tuple[int, int], qminor: bool = False,
-                     fused_dw: bool = False, self_pos=None):
+                     fused_dw: bool = False, self_pos=None, dp_gen=None):
+        """The propagation stack; `dp_gen` (a torch.Generator or None) is
+        its drop-path generator."""
         return self.lstt(feat, bank, count, short, id_emb, cur_pe, slot_pe,
                          size_2d, qminor=qminor, fused_dw=fused_dw,
-                         self_pos=self_pos)
+                         self_pos=self_pos, dp_gen=dp_gen)
 
     def write_memories(self, mems: Dict[str, torch.Tensor], id_emb):
         """(long_k, long_v, short_k, short_v), each [L, B, HW, C]: the

@@ -229,12 +229,15 @@ class GPM(nn.Module):
     def forward(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 count, short, id_emb, cur_pe, slot_pe,
                 size_2d: Tuple[int, int], qminor: bool = False,
-                fused_dw: bool = False, self_pos=None):
+                fused_dw: bool = False, self_pos=None, dp_gen=None):
         """bank: (k [L,S,B,HW,Ck], v [L,S,B,HW,Cv]) or None for the
         reference frame; short: (k [L,B,HW,Ck], v [L,B,HW,Cv]) or None;
         `qminor` and `fused_dw` go to every block; `self_pos` is unused, as
-        in the JAX package's GPM. Returns (intermediates [L x (B,HW,2C)],
-        mems, layer-0 record)."""
+        in the JAX package's GPM; a drop-path generator `dp_gen` raises
+        (the GPM's drop-path is not ported; the training step passes none).
+        Returns (intermediates [L x (B,HW,2C)], mems, layer-0 record)."""
+        if dp_gen is not None:
+            raise NotImplementedError("the GPM's drop-path is not ported")
         out, out_id = tgt, None
         intermediates: List[torch.Tensor] = []
         mems_list: List[Dict[str, torch.Tensor]] = []

@@ -1,12 +1,22 @@
-"""Long Short-Term Transformer: AOT's propagation stack, for inference.
+"""Long Short-Term Transformer: AOT's propagation stack.
 
 Counterpart of `rmem_tpu/models/lstt.py`. Each block runs self-attention
 over the frame (queries and keys carry the sine position embedding), then
 long-term attention into the bank's valid slots with each slot's attention
-mass (kernel K1ʰ at 8 heads of 32, `kernels/bank_attention.py`), then
-short-term attention to the previous frame's entries, then a conv FFN. The
-self-attention and the short-term attention are plain PyTorch matmul +
-softmax: the JAX package computes them outside any Pallas kernel.
+mass, then short-term attention to the previous frame's entries, then a
+conv FFN. The self-attention and the short-term attention are plain
+PyTorch matmul + softmax: the JAX package computes them outside any Pallas
+kernel.
+
+The bank attention goes through `kernels/bank_attention.py`. In eval mode
+it is `bank_attention_infer` (kernel K1ʰ at 8 heads of 32) with the slot
+temporal PE as a factored logit bias. In training mode (`module.train()`)
+the slot PE is added to the bank's keys as a slab, as the JAX package does
+for its VJP kernel, and the call is the differentiable
+`bank_attention_train` (K1'ʰ and K2ʰ at 8 heads of 32). Given a
+`torch.Generator`, each block applies drop-path after its self-attention
+and its FFN in training mode; the training step passes none, as the JAX
+step passes no dp_rng.
 
 The forward returns the raw current keys and values; `project_memories`
 applies the id-conditioned re-projections when the engine writes them, so
@@ -14,8 +24,7 @@ the reference frame and later frames share one path. Module and parameter
 names follow the flax tree (`lstt.block0.linear_Q.weight`), so
 utils/checkpoint.params_from_jax maps one onto the other by its fixed rule.
 
-Inference only: drop-path is the identity here, and the ConvGRU memory
-(`gru_memory`) is not ported.
+The ConvGRU memory (`gru_memory`) is not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import torch.nn as nn
 
 from rmem_tpu_torch.kernels import bank_attention as bank_kernel
 from rmem_tpu_torch.ops.attention import multihead_attention, slot_pe_bias
-from rmem_tpu_torch.ops.layers import GNActDWConv2d, LayerNorm
+from rmem_tpu_torch.ops.layers import GNActDWConv2d, LayerNorm, drop_path
 
 
 class MultiheadAttentionModule(nn.Module):
@@ -52,11 +61,13 @@ class LSTTBlock(nn.Module):
     short-term attention to the previous frame, conv FFN."""
 
     def __init__(self, d_model: int, self_heads: int, att_heads: int,
-                 dim_feedforward: int, linear_q: bool = False):
+                 dim_feedforward: int, linear_q: bool = False,
+                 droppath: float = 0.1):
         super().__init__()
         d = d_model
         self.att_heads = att_heads
         self.linear_q = linear_q
+        self.droppath = droppath
         self.norm1 = LayerNorm(d)
         self.self_attn = MultiheadAttentionModule(d, self_heads)
         self.norm2 = LayerNorm(d)
@@ -74,16 +85,19 @@ class LSTTBlock(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d)
 
     def forward(self, tgt, bank_k, bank_v, count, short_k, short_v, id_emb,
-                self_pos, cur_pe, slot_pe, size_2d, true_lk=None):
+                self_pos, cur_pe, slot_pe, size_2d, true_lk=None,
+                dp_gen: Optional[torch.Generator] = None):
         """tgt [B, HW, C]; bank_k, bank_v [S, B, Lk, C] with `count` valid
-        slots (int32 tensor) and keys >= true_lk masked; short_k, short_v
-        [B, HW, C]; self_pos [1, HW, C] or None; slot_pe [S, C] or None.
-        With `id_emb` (the reference frame) the block's memory is its own
-        frame, id-conditioned: one slot, and the short-term memory too.
-        Returns (tgt, mems, record [B, HW, S])."""
+        slots (int32 tensor) and keys >= true_lk masked (in eval mode; the
+        training bank holds no padding); short_k, short_v [B, HW, C];
+        self_pos [1, HW, C] or None; slot_pe [S, C] or None; dp_gen the
+        drop-path generator or None. With `id_emb` (the reference frame)
+        the block's memory is its own frame, id-conditioned: one slot, and
+        the short-term memory too. Returns (tgt, mems, record [B, HW, S])."""
         _tgt = self.norm1(tgt)
         q = k = _tgt + self_pos if self_pos is not None else _tgt
-        tgt = tgt + self.self_attn(q, k, _tgt)
+        tgt = tgt + drop_path(self.self_attn(q, k, _tgt), self.droppath,
+                              dp_gen, self.training)
 
         _tgt = self.norm2(tgt)
         curr_q = curr_k = self.linear_Q(_tgt)
@@ -99,11 +113,17 @@ class LSTTBlock(nn.Module):
 
         q_t = curr_q + cur_pe if cur_pe is not None else curr_q
         scale = (q_t.shape[-1] // self.att_heads) ** -0.5
-        bias = (None if slot_pe is None
-                else slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
-        tgt2, record = bank_kernel.bank_attention_infer(
-            q_t, bank_k, bank_v, count, self.att_heads, scale,
-            true_lk=true_lk, qbias=bias)
+        if self.training:
+            if slot_pe is not None:
+                bank_k = bank_k + slot_pe.to(bank_k.dtype)[:, None, None, :]
+            tgt2, record = bank_kernel.bank_attention_train(
+                q_t, bank_k, bank_v, count, scale, num_heads=self.att_heads)
+        else:
+            bias = (None if slot_pe is None
+                    else slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
+            tgt2, record = bank_kernel.bank_attention_infer(
+                q_t, bank_k, bank_v, count, self.att_heads, scale,
+                true_lk=true_lk, qbias=bias)
         tgt2 = self.long_proj(tgt2)
 
         if self.linear_q:
@@ -117,7 +137,9 @@ class LSTTBlock(nn.Module):
         tgt = tgt + tgt2 + tgt3
 
         _tgt = self.norm3(tgt)
-        tgt = tgt + self.linear2(self.activation(self.linear1(_tgt), size_2d))
+        tgt = tgt + drop_path(
+            self.linear2(self.activation(self.linear1(_tgt), size_2d)),
+            self.droppath, dp_gen, self.training)
         mems = dict(curr_k=curr_k, curr_v=curr_v,
                     short_k=self.linear_QMem(tgt3), short_v=tgt3)
         return tgt, mems, record
@@ -133,8 +155,8 @@ class LSTT(nn.Module):
 
     def __init__(self, num_layers: int, d_model: int, self_heads: int = 8,
                  att_heads: int = 8, dim_feedforward: int = 1024,
-                 linear_q: bool = False, intermediate_norm: bool = True,
-                 final_norm: bool = True):
+                 linear_q: bool = False, droppath: float = 0.1,
+                 intermediate_norm: bool = True, final_norm: bool = True):
         super().__init__()
         self.num_layers = num_layers
         self.intermediate_norm = intermediate_norm
@@ -142,7 +164,7 @@ class LSTT(nn.Module):
         for i in range(num_layers):
             setattr(self, f"block{i}",
                     LSTTBlock(d_model, self_heads, att_heads,
-                              dim_feedforward, linear_q))
+                              dim_feedforward, linear_q, droppath))
         self.num_norms = ((num_layers - 1 if intermediate_norm else 0)
                           + int(final_norm))
         for i in range(self.num_norms):
@@ -154,15 +176,14 @@ class LSTT(nn.Module):
     def forward(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 count, short, id_emb, cur_pe, slot_pe,
                 size_2d: Tuple[int, int], qminor: bool = False,
-                fused_dw: bool = False, self_pos=None):
+                fused_dw: bool = False, self_pos=None,
+                dp_gen: Optional[torch.Generator] = None):
         """bank: (k [L,S,B,HW,C], v [L,S,B,HW,C]) or None for the reference
-        frame; short: (k [L,B,HW,C], v) or None. The opt-in routes
-        `qminor` and `fused_dw` do not apply: the JAX engine sends AOT
-        through neither, and the LSTT has no gated tail. Returns
-        (intermediates [L x (B,HW,C)], mems stacked [L, ...], layer-0
-        record)."""
-        if self.training:
-            raise NotImplementedError("LSTT training is not ported")
+        frame; short: (k [L,B,HW,C], v) or None; dp_gen the drop-path
+        generator or None. The opt-in routes `qminor` and `fused_dw` do
+        not apply: the JAX engine sends AOT through neither, and the LSTT
+        has no gated tail. Returns (intermediates [L x (B,HW,C)], mems
+        stacked [L, ...], layer-0 record)."""
         out = tgt
         intermediates: List[torch.Tensor] = []
         mems_list: List[Dict[str, torch.Tensor]] = []
@@ -176,7 +197,8 @@ class LSTT(nn.Module):
                 short[0][i] if short is not None else None,
                 short[1][i] if short is not None else None,
                 id_emb, self_pos, cur_pe, slot_pe, size_2d,
-                true_lk=true_lk if bank is not None else None)
+                true_lk=true_lk if bank is not None else None,
+                dp_gen=dp_gen)
             if i == 0:
                 record0 = rec
             intermediates.append(out)

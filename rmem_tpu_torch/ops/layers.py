@@ -9,7 +9,7 @@ modules by a fixed rule (see utils/checkpoint.py).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,6 +35,21 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator],
+              training: bool) -> torch.Tensor:
+    """Stochastic depth over the batch dim: each sample kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), from `generator`'s
+    uniform draws. The identity without a generator, at rate 0 or outside
+    training."""
+    if generator is None or rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
+                   device=x.device, dtype=x.dtype)
+    return x / keep * torch.floor(keep + u)
 
 
 class FoldedBN(nn.Module):

@@ -2,6 +2,7 @@
 clips.
 
     python -m rmem_tpu_torch.tools.train --stage test --model tiny_deaotl
+    python -m rmem_tpu_torch.tools.train --model r50_aotl --batch_size 4
     python -m rmem_tpu_torch.tools.train ... --device cpu
 
 Runs on the card unless --device cpu is given; on the CPU the activations

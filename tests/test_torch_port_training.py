@@ -338,10 +338,30 @@ def test_trainer_saves_and_resumes(tmp_path):
 
 def test_unported_training_branches_raise():
     """reverse_infer, GRU memory and the var loss are not ported: the
-    trainer refuses each instead of skipping it."""
-    for over in (dict(reverse_infer=True), dict(gru_memory=True),
-                 dict(var_loss_weight=0.01)):
-        cfg = get_config("test", model="tiny_deaotl",
-                         compute_dtype="float32", **over)
+    trainer refuses each instead of skipping it. The GRU memory acts only
+    on the AOT path (`gru_memory_active`), so its case is tiny_aotl's."""
+    for model, over in (("tiny_deaotl", dict(reverse_infer=True)),
+                        ("tiny_aotl", dict(gru_memory=True)),
+                        ("tiny_deaotl", dict(var_loss_weight=0.01))):
+        cfg = get_config("test", model=model, compute_dtype="float32",
+                         **over)
         with pytest.raises(NotImplementedError):
             Trainer(cfg, device="cpu")
+
+
+def test_deaot_trains_with_gru_memory_ignored():
+    """DeAOT ignores gru_memory, as the JAX step does (it acts on
+    `gru_memory_active`, which holds for AOT only): a tiny_deaotl step with
+    the flag equals one without, bit for bit."""
+    runs = []
+    for flag in (False, True):
+        cfg = get_config("test", model="tiny_deaotl", compute_dtype="float32",
+                         train_batch_size=1, data_randomcrop=(65, 65),
+                         gru_memory=flag)
+        assert cfg.gru_memory_active is False
+        trainer = Trainer(cfg, device="cpu", seed=3, log=lambda s: None)
+        runs.append((trainer.train(max_steps=1), trainer.state.model))
+    (m0, model0), (m1, model1) = runs
+    assert m0 == m1
+    for (name, p), q in zip(model0.named_parameters(), model1.parameters()):
+        assert torch.equal(p, q), name
