@@ -32,8 +32,13 @@ non-zero exit code:
    of 10, at 2 and at the reference frame's one, beside SDPA over the
    valid slots; K2h, its backward, after each, with a nonzero drec, against
    its plain stages and autograd of the plain forward, its invalid slots'
-   dk and dv exactly 0). K4 and K8 take less device time than an eager
-   call takes the host, so their times are those of CUDA graphs;
+   dk and dv exactly 0), and the serving kernels at no_memory_gap's 2 heads
+   of 128 (K1 at K1's six calls beside SDPA over the valid slots with the
+   bias as a mask; K3 at the main path's call and phase 7's two batch-2
+   grids; K4 at the main path's call and phase 7's grids beside SDPA with
+   the dense bias, and on a ragged grid). K4 and K8 take less device time
+   than an eager call takes the host, so their times are those of CUDA
+   graphs;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
    objects, random weights from a seed, the reference frame with a
    long-term write every 5 frames, then N frames (default 130) at the
@@ -99,24 +104,44 @@ non-zero exit code:
    the checkpoint), K2h 45, K7 1, K1', K2, K4 and K5 0);
 12. phase 6 for R50-AOTL: one step of the kernel model, every K2h call
    held against its plain stages, and one of the all-plain model on the
-   same batch, weights and shuffle: loss and global gradient norm.
+   same batch, weights and shuffle: loss and global gradient norm;
+13. serve R50-DeAOTL + RMem with no_memory_gap (2 heads of 128 in the
+   bank and local attentions, values 512 a head) on phase 3's traffic,
+   with the evaluator's write gap (evaluator_gap: 1), so the bank fills
+   at frame 8 and evicts on every later frame. Launch counts are zeroed
+   just before and read just after: K1 and K4 3 a frame and K6 1 (the
+   reference frame included), K1h and K3 never; evictions counted on the
+   device equal the scheduled count; labels in [0, 10], finite logits;
+   frames/s over three 30-frame windows (`--profile`: the device's busy
+   time a frame and the top ops);
+14. phase 4 for phase 13's engine: every K1, K4 and K6 call over the
+   reference frame and 44 frames held against its plain version, and an
+   all-plain engine teacher-forced with the kernel engine's labels, logits
+   and labels held frame by frame through frame 8 (before the first
+   eviction: a near tie in the slot mass may pick another victim after
+   it); then, with RMEM_BANK_QMINOR set for this part only, the reference
+   frame and 12 frames again with every K3 call held against its plain
+   version: K3 3 launches a frame, K1 none.
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
 no CUDA device is available or the package is not beside this script.
 
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
-(held_k2), K4 and K5's backward (held_k4, held_k5), K1, K3 and K1'
-(held_k1, held_k3, held_k2), K1h and K1'h (held_k1h, held_k1ph), K2h
-(held_k2h) and K6 and K7 (held, held_k7): for each
+(held_k2), K4 and K5's backward (held_k4, held_k5; K4 at one head and at
+two), K1, K3 and K1' (held_k1, held_k3, held_k2; K1 and K3 at one head and
+at two), K1h and K1'h (held_k1h, held_k1ph), K2h (held_k2h) and K6 and K7
+(held, held_k7): for each
 mutant (MUTANTS), the package is copied into a temporary directory, one
-line of the kernel's source is changed there (K2: ds drops the slot-mass
+line of the kernel's source (or its wrapper) is changed there (K2: ds drops the slot-mass
 term, or dq the logit scale; K4: the accumulator is not rescaled when a
 row's maximum grows, or the bias is read at the transposed offset; K5: dq
 drops the scale, the key side reads p and ds unmirrored, or ds drops
-delta; K1: the bias is dropped, or the keys are masked at Lk instead of
-true_lk; the K1/K3/K1' template: the keys past Lk go unmasked, or a
-quarter of the accumulator unrescaled; K1': the partial outputs pass
+delta; K4 at 2 heads: head 1 reads head 0's bias; K1: the bias is
+dropped, or the keys are masked at Lk instead of true_lk; the K1/K3/K1'
+template: the keys past Lk go unmasked, or a quarter of the accumulator
+unrescaled; at 2 heads, head 1 reads head 0's keys, or the wrapper takes
+head 0's slot mass for the heads' mean; K1': the partial outputs pass
 through bf16, or the lse drops the log of the sum; K1h: the bias is
 dropped, a slot's sum is not rescaled as the row's maximum grows, or the
 keys are masked at Lk instead of true_lk; K1'h: the f32 output stored
@@ -409,7 +434,7 @@ def check_kernels(dev):
                          mass_err=c["err"][2]) for key, c in cases.items()})
 
     # ---- K1h: the bank attention at 8 heads of 32 (AOT) ----
-    entries["bank_attention_mh"] = k1h_entry(dev)
+    entries["bank_attention_mh"] = heads_entry(dev, "bank_attention_mh")
 
     # ---- K4 local attention: the main path's call (31 x 54), phase 7's
     # (batch 2 on 31 x 54 and 40 x 70) and a ragged grid held ----
@@ -538,10 +563,12 @@ K1_CASES = {"main": {}, "count_1": dict(count=1), "count_10": dict(count=10),
 
 
 def k1_inputs(dev, batch: int = 1, slots: int = 10, count: int = 9,
-              bias: bool = True, pad: int = 0):
-    """K1's inputs at a serving call on the 31 x 54 grid (bf16, dh 128,
-    dv 1024, Lq = true_lk = 1674 and Lk = true_lk + pad): (q, bank_k,
-    bank_v, count, heads, scale, true_lk, qbias or None)."""
+              bias: bool = True, pad: int = 0, heads: int = 1):
+    """K1's inputs at a serving call on the 31 x 54 grid (bf16, `heads`
+    heads of 128, values 1024 over the heads, Lq = true_lk = 1674 and Lk =
+    true_lk + pad): (q, bank_k, bank_v, count, heads, scale, true_lk,
+    qbias [B, heads, Lq, S] or None). Two heads are no_memory_gap's
+    (phase 13)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -549,13 +576,13 @@ def k1_inputs(dev, batch: int = 1, slots: int = 10, count: int = 9,
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
     hw = ((IN_HW[0] - 1) // 16 + 1) * ((IN_HW[1] - 1) // 16 + 1)
-    q = randn(batch, hw, 128, scale=2.0)
-    bk, bv = randn(slots, batch, hw + pad, 128), randn(slots, batch, hw + pad,
-                                                       1024)
-    qbias = (randn(batch, 1, hw, slots, dtype=torch.float32, scale=0.5)
+    q = randn(batch, hw, 128 * heads, scale=2.0)
+    bk = randn(slots, batch, hw + pad, 128 * heads)
+    bv = randn(slots, batch, hw + pad, 1024)
+    qbias = (randn(batch, heads, hw, slots, dtype=torch.float32, scale=0.5)
              if bias else None)
-    return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev), 1,
-            128 ** -0.5, hw, qbias)
+    return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev),
+            heads, 128 ** -0.5, hw, qbias)
 
 
 def held_k1(*args):
@@ -624,48 +651,72 @@ def held_k1h(*args):
     return errs
 
 
-def k1h_entry(dev) -> dict:
-    """Phase 2's K1h rows: every case held and timed (CUDA events), the main
-    call beside its plain version, its bound and SDPA over the valid slots'
-    keys flattened (8 heads of 32, the bias as an additive mask; and without
-    it). Returns the kernels-line entry without its launch count."""
+def k1x2_inputs(dev, **kw):
+    """K1's inputs at no_memory_gap's 2 heads of 128 (values 512 a head)."""
+    return k1_inputs(dev, heads=2, **kw)
+
+
+# the multi-head rows of K1 in phase 2 (heads_entry): K1h, AOT's 8 heads
+# of 32 (csrc/bank_attention_mh.cu), and K1x2, no_memory_gap's 2 heads of
+# 128 with values 512 a head (K1's template, csrc/bank_attention_infer.cu);
+# `call` names the wrapper in kernels/bank_attention.py
+HEAD_ROWS = {
+    "bank_attention_mh": dict(
+        label="K1h", inputs=k1h_inputs, held=held_k1h,
+        call="bank_attention_infer_mh",
+        source="rmem_tpu_torch/csrc/bank_attention_mh.cu"),
+    "bank_attention_h2": dict(
+        label="K1x2", inputs=k1x2_inputs, held=held_k1,
+        call="bank_attention_infer",
+        source="rmem_tpu_torch/csrc/bank_attention_infer.cu"),
+}
+
+
+def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
+    """Phase 2's rows of a multi-head bank attention (HEAD_ROWS): every case
+    of K1_CASES held and timed (CUDA events), the main call beside its plain
+    version, its bound and SDPA over the valid slots' keys flattened (the
+    bias as an additive mask; and without it). Returns the kernels-line
+    entry without its launch count."""
     import torch
     import torch.nn.functional as F
 
     from rmem_tpu_torch.kernels import bank_attention as kb
+    row = HEAD_ROWS[name]
+    inputs, held_fn = row["inputs"], row["held"]
+    call = getattr(kb, row["call"])
     cases = {}
     for key, kw in K1_CASES.items():
-        args = k1h_inputs(dev, **kw)
-        cases[key] = dict(
-            err=held_k1h(*args),
-            ms=cuda_ms(lambda: kb.bank_attention_infer_mh(*args), 20))
-        print(f"K1h bank_attention_mh {key} {kw}: {cases[key]['ms']:.4f} ms, "
+        args = inputs(dev, **kw)
+        cases[key] = dict(err=held_fn(*args),
+                          ms=cuda_ms(lambda: call(*args), 20))
+        print(f"{row['label']} {name} {key} {kw}: {cases[key]['ms']:.4f} ms, "
               f"max|out-plain| {cases[key]['err'][0]:.3e} (max|plain| "
               f"{cases[key]['err'][1]:.3e}), max|rec-plain| "
               f"{cases[key]['err'][2]:.3e}")
-    args = k1h_inputs(dev)
+    args = inputs(dev)
     q, bk, bvv, cnt, heads, scale, lk, qbias = args
     count, b, lq = int(cnt), q.shape[0], q.shape[1]
     kv = count * lk
+    kw_, vw = bk.shape[-1], bvv.shape[-1]       # widths over the heads
 
-    def heads_first(x, n):          # [B, n, 256] -> [B, 8, n, 32]
-        return x.reshape(b, n, 8, 32).transpose(1, 2).contiguous()
+    def heads_first(x, n):          # [B, n, h*d] -> [B, h, n, d]
+        return x.reshape(b, n, heads, -1).transpose(1, 2).contiguous()
 
     q_lib = heads_first(q, lq)
-    k_lib = heads_first(bk[:count].transpose(0, 1).reshape(b, kv, 256), kv)
-    v_lib = heads_first(bvv[:count].transpose(0, 1).reshape(b, kv, 256), kv)
+    k_lib = heads_first(bk[:count].transpose(0, 1).reshape(b, kv, kw_), kv)
+    v_lib = heads_first(bvv[:count].transpose(0, 1).reshape(b, kv, vw), kv)
     mask = qbias[..., :count].to(torch.bfloat16).repeat_interleave(lk, dim=3)
-    # 8 heads x (q.k, p.v) over the valid keys; q, the valid keys and
+    # every head's (q.k, p.v) over the valid keys; q, the valid keys and
     # values, the bias read once, the output and the head-mean mass written
-    flops = 2.0 * b * lq * kv * (32 + 32) * 8
-    nbytes = ((q.numel() + 2 * b * kv * 256 + q.numel()) * 2
+    flops = 2.0 * b * lq * kv * (kw_ + vw)
+    nbytes = ((q.numel() + b * kv * (kw_ + vw) + b * lq * vw) * 2
               + (qbias.numel() + b * lq * bk.shape[0]) * 4)
     b_ms, b_by = bound(flops, nbytes)
     main = cases["main"]
     entry = dict(
-        name="bank_attention_mh", route="cuda",
-        source="rmem_tpu_torch/csrc/bank_attention_mh.cu",
-        replaces="rmem_tpu/kernels/bank_attention.py:505",
+        name=name, route="cuda", source=row["source"],
+        replaces="rmem_tpu/kernels/bank_attention.py:505", heads=heads,
         max_abs_err=max(c["err"][0] for c in cases.values()),
         max_abs_err_rec=max(c["err"][2] for c in cases.values()),
         ms=main["ms"],
@@ -677,7 +728,7 @@ def k1h_entry(dev) -> dict:
             q_lib, k_lib, v_lib, scale=scale), 20),
         cases={key: dict(ms=c["ms"], rel_err=c["err"][0] / c["err"][1],
                          mass_err=c["err"][2]) for key, c in cases.items()})
-    print(f"K1h at the main path {main['ms']:.4f} ms, plain "
+    print(f"{row['label']} at the main path {main['ms']:.4f} ms, plain "
           f"{entry['plain_ms']:.4f} ms, SDPA over the 9 valid slots with the "
           f"bias as a mask {entry['library_ms']:.4f} ms (without it "
           f"{entry['library_nobias_ms']:.4f} ms), bound {b_ms:.5f} ms "
@@ -692,9 +743,10 @@ K4_SHAPES = {"b1_31x54": (1, 31, 54), "b2_31x54": (2, 31, 54),
              "b2_40x70": (2, 40, 70)}
 
 
-def k4_inputs(dev, batch: int, gh: int, gw: int):
-    """K4's inputs at a call of the serving path (bf16, dh 128, dv 1024):
-    (q, k, v, rel, size_2d, heads, max_dis, scale)."""
+def k4_inputs(dev, batch: int, gh: int, gw: int, heads: int = 1):
+    """K4's inputs at a call of the serving path (bf16, `heads` heads of
+    128, values 1024 over the heads, the bias 225 a head): (q, k, v, rel,
+    size_2d, heads, max_dis, scale)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -703,9 +755,9 @@ def k4_inputs(dev, batch: int, gh: int, gw: int):
                 * scale).to(torch.bfloat16)
 
     hw = gh * gw
-    return (randn(batch, hw, 128, scale=2.0), randn(batch, hw, 128),
-            randn(batch, hw, 1024), randn(batch, hw, 225), (gh, gw), 1, 7,
-            128 ** -0.5)
+    return (randn(batch, hw, 128 * heads, scale=2.0),
+            randn(batch, hw, 128 * heads), randn(batch, hw, 1024),
+            randn(batch, hw, 225 * heads), (gh, gw), heads, 7, 128 ** -0.5)
 
 
 def held_k4(*args):
@@ -718,35 +770,43 @@ def held_k4(*args):
 
 def sdpa_local(q, k, v, rel, size_2d, scale):
     """The library's call for K4's function: SDPA with the window, image
-    mask and relative bias as a dense additive [B, 1, HW, HW] mask. Returns
-    (a function computing it, the in-image (query, key) pairs)."""
+    mask and relative bias as a dense additive [B, h, HW, HW] mask. Returns
+    (a function computing it, the in-image (query, key) pairs of every
+    head)."""
     import torch
     import torch.nn.functional as F
 
     from rmem_tpu_torch.ops.attention import NEG_INF, _local_offset_map_on
     b, hw = q.shape[:2]
+    heads = rel.shape[-1] // 225
+
+    def heads_first(x):             # [B, HW, h*d] -> [B, h, HW, d]
+        return x.reshape(b, hw, heads, -1).transpose(1, 2).contiguous()
+
     omap = _local_offset_map_on(*size_2d, 7, q.device)
-    relp = torch.cat([rel, torch.full((b, hw, 1), NEG_INF, dtype=rel.dtype,
-                                      device=q.device)], dim=2)
-    dense = torch.gather(relp, 2, omap.expand(b, hw, hw))[:, None]
-    pairs = b * (omap < 225).sum().item()
+    relp = torch.cat([heads_first(rel),
+                      torch.full((b, heads, hw, 1), NEG_INF, dtype=rel.dtype,
+                                 device=q.device)], dim=3)
+    dense = torch.gather(relp, 3, omap.expand(b, heads, hw, hw))
+    pairs = b * heads * (omap < 225).sum().item()
+    ql, kl_, vl = heads_first(q), heads_first(k), heads_first(v)
     return (lambda: F.scaled_dot_product_attention(
-        q[:, None], k[:, None], v[:, None], attn_mask=dense, scale=scale),
-        pairs)
+        ql, kl_, vl, attn_mask=dense, scale=scale), pairs)
 
 
-def k4_shape(dev, batch: int, gh: int, gw: int) -> dict:
+def k4_shape(dev, batch: int, gh: int, gw: int, heads: int = 1) -> dict:
     """K4 at one call shape: held against its plain version and timed
     beside SDPA with the dense bias on the same inputs."""
     from rmem_tpu_torch.kernels import local_attention as kl
-    args = k4_inputs(dev, batch, gh, gw)
+    args = k4_inputs(dev, batch, gh, gw, heads)
     q, k, v, rel, size_2d, _, _, scale = args
     err, top, _ = held_k4(*args)
     lib, pairs = sdpa_local(q, k, v, rel, size_2d, scale)
+    # widths over the heads; pairs counts every head's
     dh, dv, hw = q.shape[-1], v.shape[-1], gh * gw
     # q, k, v and rel read once, the output written once
-    b_ms, b_by = bound(2.0 * pairs * (dh + dv),
-                       batch * hw * (2 * dh + 2 * dv + 225) * 2)
+    b_ms, b_by = bound(2.0 * pairs * (dh + dv) / heads,
+                       batch * hw * (2 * dh + 2 * dv + rel.shape[-1]) * 2)
     # the kernel takes less device time than an eager call takes the host,
     # so its time is that of a CUDA graph of 20 calls (the eager one beside)
     r = dict(batch=batch, grid=[gh, gw], err=err, rel_err=err / top,
@@ -879,11 +939,89 @@ def check_optin_kernels(dev):
     return entries
 
 
-def k3_inputs(dev, batch: int = 1, grid=None, seed: int = 3):
+def check_two_head_kernels(dev):
+    """Phase 2, the serving kernels at no_memory_gap's 2 heads of 128
+    (values 512 a head, the bias 2 x 225): K1 at K1_CASES beside SDPA over
+    the valid slots (heads_entry), K3 at the main path's call and phase 7's
+    two batch-2 grids (from HBM and L2-resident, as K3's row) beside SDPA
+    over the valid slots, and K4 at the main path's call and phase 7's two
+    grids beside SDPA with the dense bias, and on a ragged grid. Returns
+    {name: entry} without launch counts."""
+    import torch.nn.functional as F
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import local_attention as kl
+
+    entries = {"bank_attention_h2": heads_entry(dev, "bank_attention_h2")}
+
+    errs, shapes = [], {}
+    for key, (nb, gh, gw) in K3_SHAPES.items():
+        shapes[key] = k3_shape(dev, nb, gh, gw, errs, heads=2)
+        print(f"K3x2 bank_attention_qminor {key}: {shapes[key]['ms']:.4f} ms "
+              f"from HBM ({shapes[key]['sets']} input sets), "
+              f"{shapes[key]['l2_resident_ms']:.4f} ms on one set; bound "
+              f"{shapes[key]['bound_ms']:.4f} ms")
+    q, bk, bvv, cnt, scale = k3_inputs(dev, heads=2)
+    count, hw = int(cnt), q.shape[1]
+    kv = count * hw
+
+    def heads_first(x, n):          # [1, n, 2*d] -> [1, 2, n, d]
+        return x.reshape(1, n, 2, -1).transpose(1, 2).contiguous()
+
+    libs = [heads_first(q, hw)] + [
+        heads_first(t[:count].reshape(1, kv, t.shape[-1]), kv)
+        for t in (bk, bvv)]
+    main = shapes["b1_31x54"]
+    entries["bank_attention_qminor_h2"] = dict(
+        name="bank_attention_qminor_h2", route="cuda", heads=2,
+        source="rmem_tpu_torch/csrc/bank_attention_infer.cu",
+        replaces="rmem_tpu/kernels/bank_attention.py:540",
+        max_abs_err=max(e for e, _, _ in errs),
+        max_abs_err_rec=max(m for _, _, m in errs), ms=main["ms"],
+        plain_ms=cuda_ms(lambda: kb.bank_attention_qminor_plain(
+            q, bk, bvv, cnt, 2, scale), 5),
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            *libs, scale=scale), 20),
+        l2_resident_ms=main["l2_resident_ms"], shapes=shapes)
+    e = entries["bank_attention_qminor_h2"]
+    print(f"K3x2: max|out-plain| {e['max_abs_err']:.3e}, max|rec-plain| "
+          f"{e['max_abs_err_rec']:.3e} over {len(errs)} calls; plain "
+          f"{e['plain_ms']:.4f} ms, SDPA over the 9 valid slots "
+          f"{e['library_ms']:.4f} ms")
+
+    shapes = {key: k4_shape(dev, *shape, heads=2)
+              for key, shape in K4_SHAPES.items()}
+    for key, r in shapes.items():
+        print(f"K4x2 local_attention {key}: {r['ms']:.4f} ms (eager "
+              f"{r['eager_ms']:.4f}), SDPA with the dense bias "
+              f"{r['library_ms']:.4f} ms ({r['library_ratio']:.3f}x), bound "
+              f"{r['bound_ms']:.5f} ms, max|out-plain| / max|plain| "
+              f"{r['rel_err']:.3e}")
+    ragged = held_k4(*k4_inputs(dev, 2, 13, 21, heads=2))
+    main = shapes["b1_31x54"]
+    largs = k4_inputs(dev, *K4_SHAPES["b1_31x54"], heads=2)
+    entries["local_attention_h2"] = dict(
+        name="local_attention_h2", route="cuda", heads=2,
+        source="rmem_tpu_torch/csrc/local_attention.cu",
+        replaces="rmem_tpu/kernels/local_attention.py:133",
+        max_abs_err=max([r["err"] for r in shapes.values()] + [ragged[0]]),
+        ms=main["ms"],
+        plain_ms=cuda_ms(lambda: kl.local_attention_plain(*largs), 5),
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], shapes=shapes)
+    for e in entries.values():
+        e["kernel_ms"] = e["ms"]
+    return entries
+
+
+def k3_inputs(dev, batch: int = 1, grid=None, seed: int = 3,
+              heads: int = 1):
     """K3's inputs at a bank-attention call of the serving path (bf16, 10
-    slots, 9 valid, dh 128, dv 1024, Lq = Lk = the grid's cells; by default
-    batch 1 on the 31 x 54 grid of 481 x 849): (q, bank_k, bank_v, count,
-    scale)."""
+    slots, 9 valid, `heads` heads of 128, values 1024 over the heads, Lq =
+    Lk = the grid's cells; by default batch 1 on the 31 x 54 grid of 481 x
+    849): (q, bank_k, bank_v, count, scale); the head count is q's width
+    over 128."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     gh, gw = grid or ((IN_HW[0] - 1) // 16 + 1, (IN_HW[1] - 1) // 16 + 1)
@@ -893,8 +1031,8 @@ def k3_inputs(dev, batch: int = 1, grid=None, seed: int = 3):
                 * scale).to(torch.bfloat16)
 
     hw, S = gh * gw, 10
-    return (randn(batch, hw, 128, scale=2.0), randn(S, batch, hw, 128),
-            randn(S, batch, hw, 1024),
+    return (randn(batch, hw, 128 * heads, scale=2.0),
+            randn(S, batch, hw, 128 * heads), randn(S, batch, hw, 1024),
             torch.tensor(9, dtype=torch.int32, device=dev), 128 ** -0.5)
 
 
@@ -904,28 +1042,31 @@ def held_k3(q, bank_k, bank_v, count, scale):
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
-    out, rec = kb.bank_attention_qminor(q, bank_k, bank_v, count, 1, scale)
+    heads = q.shape[-1] // 128
+    out, rec = kb.bank_attention_qminor(q, bank_k, bank_v, count, heads,
+                                        scale)
     errs = held("bank_attention_qminor", (out, rec),
-                kb.bank_attention_qminor_plain(q, bank_k, bank_v, count, 1,
-                                               scale))
+                kb.bank_attention_qminor_plain(q, bank_k, bank_v, count,
+                                               heads, scale))
     check(bool(torch.all(rec[..., int(count):] == 0)),
           "K3 mass of empty slots")
     return errs
 
 
-def k3_shape(dev, batch: int, gh: int, gw: int, errs: list) -> dict:
+def k3_shape(dev, batch: int, gh: int, gw: int, errs: list,
+             heads: int = 1) -> dict:
     """K3 at one call shape: held against its plain version on each input
     set (appended to errs), timed over input sets that together exceed the
     50 MB L2 (so the bank comes from HBM, as the bound counts it) and on
     one L2-resident set. Returns the shape's timings. (K1 is the same
     kernel with the bias; phase 2 times it beside K3 on its own inputs.)"""
     from rmem_tpu_torch.kernels import bank_attention as kb
-    one = k3_inputs(dev, batch, (gh, gw))
+    one = k3_inputs(dev, batch, (gh, gw), heads=heads)
     q, bk, bvv, cnt, _ = one
     set_bytes = sum(t.numel() * t.element_size() for t in (q, bk, bvv))
     n_sets = max(1, -(-K3_COLD_BYTES // set_bytes))
-    sets = [one] + [k3_inputs(dev, batch, (gh, gw), seed=100 + i)
-                    for i in range(1, n_sets)]
+    sets = [one] + [k3_inputs(dev, batch, (gh, gw), seed=100 + i,
+                              heads=heads) for i in range(1, n_sets)]
     for a in sets:
         errs.append(held_k3(*a))
     turn = itertools.count()
@@ -937,7 +1078,8 @@ def k3_shape(dev, batch: int, gh: int, gw: int, errs: list) -> dict:
         return call
 
     k3 = lambda q_, k_, v_, c_, s_: kb.bank_attention_qminor(q_, k_, v_, c_,
-                                                             1, s_)
+                                                             heads, s_)
+    # the bound in widths over the heads: heads x (dh + dv) a head
     hw, count = gh * gw, int(cnt)
     kv = count * hw
     dh, dv = bk.shape[-1], bvv.shape[-1]
@@ -1607,13 +1749,38 @@ def reference_inputs(dev):
     return img0, mask, g
 
 
+# the served configurations: phase 3's and 4's, phase 9's and 10's, and
+# phase 13's and 14's (R50-DeAOTL with no_memory_gap: 2 heads of 128)
+SERVED = {"r50_deaotl": dict(model="r50_deaotl"),
+          "r50_aotl": dict(model="r50_aotl"),
+          "r50_deaotl_nmg": dict(model="r50_deaotl", no_memory_gap=True)}
+
+
 def build_engine(dev, model: str = "r50_deaotl"):
     from rmem_tpu_torch.config import get_config
     from rmem_tpu_torch.engine import InferenceEngine
     from rmem_tpu_torch.models import build_vos_model, init_params
-    cfg = get_config("pre_vost", model=model)
+    cfg = get_config("pre_vost", **SERVED[model])
     model = init_params(build_vos_model(cfg.model_vos, cfg), seed=0)
     return InferenceEngine(model, cfg, device=dev), cfg
+
+
+def evaluator_gap(cfg, num_frames: int) -> int:
+    """The long-term write gap the evaluator serves a video of num_frames
+    frames with (rmem_tpu/managers/evaluator.py:328-331): one write in
+    about 30 frames, at least every 5, and a quarter of that with
+    no_memory_gap. The evaluator is not ported; phase 13 serves with it."""
+    gap = max(int(round(num_frames / 30)), 5)
+    if cfg.no_memory_gap:
+        gap = int(round(gap / 4))
+    return gap
+
+
+def served_gap(cfg, num_frames: int) -> int:
+    """Phases 3 and 9 serve with the preset's gap (5), phases 13 and 14
+    with the evaluator's (1 with no_memory_gap)."""
+    return (evaluator_gap(cfg, num_frames) if cfg.no_memory_gap
+            else cfg.test_long_term_mem_gap)
 
 
 def device_busy_ms(fn, n: int, table: bool = False) -> float:
@@ -1662,13 +1829,18 @@ SERVED_LAUNCHES = {
     "r50_aotl": dict(bank_attention_infer_mh=3, stem=1,
                      bank_attention_infer=0, local_attention=0,
                      bank_attention_qminor=0),
+    "r50_deaotl_nmg": dict(bank_attention_infer=3, local_attention=3, stem=1,
+                           bank_attention_infer_mh=0,
+                           bank_attention_qminor=0),
 }
-PHASE_LABEL = {"r50_deaotl": "main path", "r50_aotl": "phase 9 (AOT)"}
+PHASE_LABEL = {"r50_deaotl": "main path", "r50_aotl": "phase 9 (AOT)",
+               "r50_deaotl_nmg": "phase 13 (no_memory_gap)"}
 
 
 def main_path(dev, frames: int, card: str, profile: bool,
               model: str = "r50_deaotl"):
-    """Phase 3 (R50-DeAOTL) or phase 9 (R50-AOTL): returns (launch counts,
+    """Phase 3 (R50-DeAOTL), phase 9 (R50-AOTL) or phase 13 (R50-DeAOTL with
+    no_memory_gap, the evaluator's gap of 1): returns (launch counts,
     per-window frames/s)."""
     import torch
 
@@ -1690,7 +1862,7 @@ def main_path(dev, frames: int, card: str, profile: bool,
                 kb.bank_attention_qminor, kl.local_attention, ks.stem)
     for fn in wrappers:
         fn.launches = 0
-    gap = cfg.test_long_term_mem_gap
+    gap = served_gap(cfg, frames + 1)
     state, logits = engine.add_reference(img0, mask, [NUM_OBJECTS], gap=gap)
     labels = []
     windows = max(1, (frames - BANK_FULL) // WINDOW)
@@ -1718,7 +1890,8 @@ def main_path(dev, frames: int, card: str, profile: bool,
     evictions = int(evictions)
     # the reference fills slot 1; a write every `gap` frames fills the rest
     scheduled = frames // gap - (slots - 1)
-    print(f"{phase}: {frames} frames, launches {counts}, bank count "
+    print(f"{phase}: {frames} frames, a long-term write every {gap}, "
+          f"launches {counts}, bank count "
           f"{int(state.bank.count)}, order {state.bank.order.tolist()}, "
           f"times {state.bank.times.tolist()}")
     expected = {name: n * (frames + 1)
@@ -1753,15 +1926,42 @@ def main_path(dev, frames: int, card: str, profile: bool,
     return counts, window_fps
 
 
+# phases 4, 10 and 14: the frames through which the kernel and plain
+# engines are held frame by frame. With a write every 5 frames the bank
+# fills at frame 40 and AGREE_FRAMES stops before the first eviction; with
+# no_memory_gap's write every frame it fills at frame 8, whose write is the
+# first eviction, so phase 14 holds frames 0 to 8 (the eviction's victim
+# may follow a near tie in the slot mass, which the bf16 rounding inside
+# the kernels can flip)
+PLAIN_FRAMES = {"r50_deaotl": AGREE_FRAMES, "r50_aotl": AGREE_FRAMES,
+                "r50_deaotl_nmg": 9}
+AGREE_PHASE = {"r50_deaotl": "phase 4", "r50_aotl": "phase 10",
+               "r50_deaotl_nmg": "phase 14"}
+
+
+def holding(calls: dict, name: str, kernel, plain_fn):
+    """A stand-in for a kernel wrapper that runs it and holds each call
+    against its plain version on the same inputs (see held), appending the
+    result to calls[name]. The wrapper counts its launches on the name it
+    has in its module, which is then this function's: `.launches`."""
+    def call(*args, **kwargs):
+        got = kernel(*args, **kwargs)
+        calls[name].append(held(name, got, plain_fn(*args, **kwargs)))
+        return got
+    call.launches = 0
+    return call
+
+
 def plain_agreement(dev, model: str = "r50_deaotl"):
-    """Phase 4 (R50-DeAOTL) or phase 10 (R50-AOTL): the same weights and
-    frames through the kernel engine, each of whose kernel calls is held
-    against its plain version on the same inputs, and through an engine
-    whose kernels are their plain versions. The plain engine is
-    teacher-forced with the kernel engine's labels, so both banks take the
-    same writes and the logits of every frame compare, with 1 to 9 valid
-    slots. Returns (per-kernel worst call, per-frame relative logit error
-    with the reference frame first, per-frame label agreement)."""
+    """Phase 4 (R50-DeAOTL), phase 10 (R50-AOTL) or phase 14 (R50-DeAOTL
+    with no_memory_gap): the same weights and frames through the kernel
+    engine, each of whose kernel calls is held against its plain version on
+    the same inputs, and through an engine whose kernels are their plain
+    versions. The plain engine is teacher-forced with the kernel engine's
+    labels, so both banks take the same writes and the logits of every
+    frame compare, with 1 to 9 valid slots, through PLAIN_FRAMES. Returns
+    (per-kernel worst call, per-frame relative logit error with the
+    reference frame first, per-frame label agreement)."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
@@ -1769,8 +1969,8 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
     from rmem_tpu_torch.kernels import stem as ks
     from rmem_tpu_torch.ops.resize import resize_nearest, upsample_argmax
 
-    phase = "phase 4" if model == "r50_deaotl" else "phase 10"
-    if model == "r50_deaotl":
+    phase = AGREE_PHASE[model]
+    if model != "r50_aotl":
         kernels = (("bank_attention", kb, "bank_attention_infer",
                     kb.bank_attention_plain),
                    ("local_attention", kl, "local_attention",
@@ -1784,16 +1984,6 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
     calls = {name: [] for name, *_ in kernels}
     kb.bank_attention_infer_mh.launches = 0
 
-    def on_path(name, kernel, plain_fn):
-        def call(*args, **kwargs):
-            got = kernel(*args, **kwargs)
-            calls[name].append(held(name, got, plain_fn(*args, **kwargs)))
-            return got
-        # the wrapper counts its launches on the name it has in its module,
-        # which is now this function's
-        call.launches = 0
-        return call
-
     img0, mask, g = reference_inputs(dev)
     imgs = torch.rand((AGREE_FRAMES, 1, *IN_HW, 3), generator=g, device=dev)
     runs = []
@@ -1801,13 +1991,15 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
         with ExitStack() as stack:
             for name, mod, attr, plain_fn in kernels:
                 fn = (plain_fn if plain
-                      else on_path(name, getattr(mod, attr), plain_fn))
+                      else holding(calls, name, getattr(mod, attr), plain_fn))
                 stack.enter_context(mock.patch.object(mod, attr, fn))
             engine, cfg = build_engine(dev, model)
             state, logits = engine.add_reference(
-                img0, mask, [NUM_OBJECTS], gap=cfg.test_long_term_mem_gap)
+                img0, mask, [NUM_OBJECTS],
+                gap=served_gap(cfg, AGREE_FRAMES + 1))
             frame_logits, labels = [logits.float()], []
-            for t in range(AGREE_FRAMES):
+            for t in range(AGREE_FRAMES if not plain
+                           else PLAIN_FRAMES[model]):
                 if not plain:
                     state, label = engine.step(state, imgs[t], OUT_HW)
                 else:
@@ -1828,12 +2020,13 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
             worst[name]["slot_mass_err"] = max(m for *_, m in errs)
     print(f"{phase}, every kernel call on the path against its plain "
           f"version: {worst}")
-    if model != "r50_deaotl":
+    if model == "r50_aotl":
         check(kb.bank_attention_infer_mh.launches
               == len(calls["bank_attention_mh"]) > 0,
               f"{phase}: {kb.bank_attention_infer_mh.launches} K1h launches "
               f"for {len(calls['bank_attention_mh'])} held calls")
     (lk, yk, count), (lp, yp, count_p) = runs
+    # zip stops at the plain run's last frame
     errs = [((a - b).abs().max() / b.abs().max()).item()
             for a, b in zip(lk, lp)]
     agree = [(a == b).float().mean().item() for a, b in zip(yk, yp)]
@@ -1849,6 +2042,54 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
     check(max(errs) <= LOGIT_TOL, f"{phase} logits {max(errs)}")
     check(min(agree) >= AGREE_FLOOR, f"{phase} label agreement {min(agree)}")
     return worst, errs, agree
+
+
+# phase 14's K3 part: frames after the reference frame, every K3 call held
+NMG_QMINOR_FRAMES = 12
+
+
+def nmg_qminor_agreement(dev):
+    """Phase 14, K3 at 2 heads: phase 13's engine built with
+    RMEM_BANK_QMINOR set, the reference frame and NMG_QMINOR_FRAMES frames,
+    every K3 call held against its plain version on the same inputs. Each
+    frame launches K3 3 times (the reference frame included) and K1 never.
+    Returns (K3 launches, worst call)."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+
+    calls = {"bank_attention_qminor": []}
+    k3 = holding(calls, "bank_attention_qminor", kb.bank_attention_qminor,
+                 kb.bank_attention_qminor_plain)
+    img0, mask, g = reference_inputs(dev)
+    imgs = torch.rand((NMG_QMINOR_FRAMES, 1, *IN_HW, 3), generator=g,
+                      device=dev)
+    kb.bank_attention_infer.launches = 0
+    with mock.patch.dict(os.environ, {"RMEM_BANK_QMINOR": "1"}), \
+            mock.patch.object(kb, "bank_attention_qminor", k3):
+        engine, cfg = build_engine(dev, "r50_deaotl_nmg")
+        check(engine.route["qminor"], f"phase 14 routes {engine.route}")
+        state, _ = engine.add_reference(
+            img0, mask, [NUM_OBJECTS],
+            gap=served_gap(cfg, NMG_QMINOR_FRAMES + 1))
+        for t in range(NMG_QMINOR_FRAMES):
+            state, label = engine.step(state, imgs[t], OUT_HW)
+        torch.cuda.synchronize()
+    errs = calls["bank_attention_qminor"]
+    expected = 3 * (NMG_QMINOR_FRAMES + 1)
+    worst = dict(calls=len(errs), launches=k3.launches,
+                 rel_err=max(e / top for e, top, _ in errs),
+                 slot_mass_err=max(m for *_, m in errs))
+    print(f"phase 14, K3 at 2 heads over the reference and "
+          f"{NMG_QMINOR_FRAMES} frames, every call against its plain "
+          f"version: {worst}; K1 launches {kb.bank_attention_infer.launches}")
+    check(k3.launches == len(errs) == expected,
+          f"phase 14: {k3.launches} K3 launches, {len(errs)} held, "
+          f"{expected} expected")
+    check(kb.bank_attention_infer.launches == 0,
+          f"phase 14: K1 launched {kb.bank_attention_infer.launches} times "
+          "with RMEM_BANK_QMINOR set")
+    return k3.launches, worst
 
 
 def optin_config(fused_dw: bool = True):
@@ -2036,14 +2277,6 @@ def optin_agreement(dev):
     plain_only = ((ks, "stem", ks.stem_plain),)
     calls = {name: [] for name, *_ in held_kernels}
 
-    def on_path(name, kernel, plain_fn):
-        def call(*args, **kwargs):
-            got = kernel(*args, **kwargs)
-            calls[name].append(held(name, got, plain_fn(*args, **kwargs)))
-            return got
-        call.launches = 0
-        return call
-
     cfg = optin_config()
     raw, mask = optin_inputs()
     runs = []
@@ -2051,7 +2284,8 @@ def optin_agreement(dev):
         with ExitStack() as stack:
             for name, mod, plain_fn in held_kernels:
                 fn = (plain_fn if plain
-                      else on_path(name, getattr(mod, name), plain_fn))
+                      else holding(calls, name, getattr(mod, name),
+                                   plain_fn))
                 stack.enter_context(mock.patch.object(mod, name, fn))
             if plain:
                 for mod, attr, plain_fn in plain_only:
@@ -2409,7 +2643,8 @@ def held_train_step(dev, model: str = "r50_deaotl"):
 
 # --mutants: for each kernel source, the per-call checks of phase 2 that
 # must catch its one-line mutants, and the mutants (a list of (line,
-# replacement))
+# replacement), or (line, replacement, file) for a line of the source's
+# Python wrapper)
 MUTANTS = {
     "bank_attention_bwd": ("k2", {
         # ds drops the slot-mass term
@@ -2431,6 +2666,10 @@ MUTANTS = {
         "k4_bias_transposed": [
             ("return __bfloat162float(row[wy * WIN + wx])",
              "return __bfloat162float(row[wx * WIN + wy])")],
+        # K4 at 2 heads: head 1 reads head 0's bias rows
+        "k4x2_head0_bias": [
+            ("const size_t rbase = ((size_t)b * H + h) * Hg * Wg;",
+             "const size_t rbase = (size_t)b * H * Hg * Wg;")],
         # K5: dq is not multiplied by the logit scale
         "dq_scale": [("store_rows<D, NF>(smem, dacc, rt, cb, scale,",
                       "store_rows<D, NF>(smem, dacc, rt, cb, 1.f,")],
@@ -2444,8 +2683,18 @@ MUTANTS = {
         # K1: the slot-PE bias is dropped
         "k1_no_bias": [("if (kBias && qbias != nullptr) {", "if (false) {")],
         # K1: the keys are masked at Lk, not at true_lk
-        "k1_mask_at_lk": [("(OT*)part_o, B, Lq, S, true_lk, DV,",
-                           "(OT*)part_o, B, Lq, S, Lk, DV,")],
+        "k1_mask_at_lk": [("(OT*)part_o, B, H, Lq, S, true_lk, DV,",
+                           "(OT*)part_o, B, H, Lq, S, Lk, DV,")],
+        # K1 and K3 at 2 heads: head 1 reads head 0's keys (the head
+        # coordinate of the key map dropped)
+        "k1x2_head0_keys": [
+            ("tma_load(sk + a * ATOM, &tm_k, &full[st], a * 64, h, key0, z);",
+             "tma_load(sk + a * ATOM, &tm_k, &full[st], a * 64, 0, key0, z);")],
+        # K1 and K3 at 2 heads: the slot mass is head 0's, not the heads'
+        # mean (the wrapper's line)
+        "k1x2_mass_not_averaged": [
+            ("rec_h[:, 0] if num_heads == 1 else rec_h.mean(dim=1)",
+             "rec_h[:, 0]", "rmem_tpu_torch/kernels/bank_attention.py")],
         # K1 and K3: the zero keys that TMA fills past Lk are not masked
         "no_key_mask": [
             ("const bool ok = key0 + i * 8 + 2 * t4 + e < true_lk;",
@@ -2511,11 +2760,13 @@ MUTANTS = {
 
 def k1_k3_k1p_check(dev):
     """The template's three instantiations: K1's phase-2 calls with the bias
-    and with padded keys, K3's, then K1' (with K2) at 2 and 4 valid
-    slots."""
-    errs = {key: held_k1(*k1_inputs(dev, **K1_CASES[key]))
-            for key in ("main", "padded")}
+    and with padded keys, at one head and at two, K3's at one head and at
+    two, then K1' (with K2) at 2 and 4 valid slots."""
+    errs = {f"{key}_h{heads}": held_k1(*k1_inputs(dev, heads=heads,
+                                                 **K1_CASES[key]))
+            for key in ("main", "padded") for heads in (1, 2)}
     errs["k3"] = held_k3(*k3_inputs(dev))
+    errs["k3_h2"] = held_k3(*k3_inputs(dev, heads=2))
     for count in (2, 4):
         errs[f"k1p_{count}"] = held_k2(*k2_inputs(dev, count)[1])
     return errs
@@ -2537,11 +2788,12 @@ def stem_check(dev):
 
 
 def k4_k5_check(dev):
-    """K4 at the main path's call and on a ragged grid, then K5's
-    backward."""
-    errs = {key: held_k4(*k4_inputs(dev, *shape))
+    """K4 at the main path's call and on a ragged grid, at one head and at
+    two, then K5's backward."""
+    errs = {f"{key}_h{heads}": held_k4(*k4_inputs(dev, *shape, heads=heads))
             for key, shape in (("b1_31x54", (1, 31, 54)),
-                               ("b2_13x21", (2, 13, 21)))}
+                               ("b2_13x21", (2, 13, 21)))
+            for heads in (1, 2)}
     errs["k5"] = held_k5(*k5_inputs(dev))
     return errs
 
@@ -2595,12 +2847,12 @@ def mutation_check(sources=tuple(MUTANTS)) -> int:
                                 copy / "rmem_tpu_torch",
                                 ignore=shutil.ignore_patterns("__pycache__"))
                 shutil.copy(ROOT / "chip_smoke.py", copy)
-                text = (copy / path).read_text()
-                for old, new in edits:
+                for old, new, *where in edits:
+                    target = copy / (where[0] if where else path)
+                    text = target.read_text()
                     check(text.count(old) == 1, f"{source} {name}: {old!r} "
                           "not one line")
-                    text = text.replace(old, new)
-                (copy / path).write_text(text)
+                    target.write_text(text.replace(old, new))
                 proc = subprocess.Popen(
                     [sys.executable, "-c", MUTANT_RUN, str(copy), check_name],
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -2627,12 +2879,13 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=BANK_FULL + 3 * WINDOW)
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 steady frames "
-                         "of phases 3, 7 and 9 and of one training step of "
-                         "phases 5 and 11")
+                         "of phases 3, 7, 9 and 13 and of one training step "
+                         "of phases 5 and 11")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
                          "K5, K1, K3, K1', K1h, K1'h, K2h, K6 and K7 "
-                         "checks; prints no result line")
+                         "checks (K1, K3 and K4 at one head and at two); "
+                         "prints no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")
@@ -2668,6 +2921,7 @@ def main() -> int:
     t0 = time.perf_counter()
     entries = check_kernels(dev)
     entries.update(check_optin_kernels(dev))
+    entries.update(check_two_head_kernels(dev))
     train_entries, k2_whole, k5_whole = check_train_kernels(dev)
     aot_train_entries = check_aot_train_kernels(dev)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
@@ -2714,6 +2968,22 @@ def main() -> int:
     entries.update(aot_train_entries)
     aot_held_step = held_train_step(dev, "r50_aotl")
     print(f"phases 11 and 12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    nmg_counts, nmg_fps = main_path(dev, args.frames, card, args.profile,
+                                    model="r50_deaotl_nmg")
+    nmg_worst, nmg_logit_errs, nmg_agree = plain_agreement(
+        dev, "r50_deaotl_nmg")
+    nmg_k3_launches, nmg_k3_worst = nmg_qminor_agreement(dev)
+    print(f"phases 13 and 14: {time.perf_counter() - t0:.1f} s")
+    for key, fn_name in (("bank_attention_h2", "bank_attention"),
+                         ("local_attention_h2", "local_attention")):
+        entries[key]["launches"] = nmg_counts[
+            "bank_attention_infer" if fn_name == "bank_attention"
+            else fn_name]
+        entries[key]["phase14_launches"] = nmg_worst[fn_name]["calls"]
+    entries["bank_attention_qminor_h2"].update(
+        launches=nmg_k3_launches, launches_from="phase 14, RMEM_BANK_QMINOR "
+        "set: K3 is the opt-in route")
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -2744,6 +3014,13 @@ def main() -> int:
                       "aot_train_peak_gib": aot_peak,
                       "aot_train_launches": aot_train_counts,
                       "aot_held_step": aot_held_step,
+                      "nmg_fps_windows": nmg_fps,
+                      "nmg_fps_median": statistics.median(nmg_fps),
+                      "nmg_launches": nmg_counts,
+                      "nmg_on_path": nmg_worst,
+                      "nmg_logit_rel_err": nmg_logit_errs,
+                      "nmg_label_agreement": nmg_agree,
+                      "nmg_k3_on_path": nmg_k3_worst,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

@@ -50,6 +50,11 @@ class Config:
     use_temporal_positional_embedding: bool = True
     temporal_positional_embedding_slot_4: bool = True
     no_long_memory: bool = False
+    # DeAOT's and AOT's NO_MEMORY_GAP (the reference's
+    # configs/models/r50_deaotl.py:26-27): 2 attention heads and a
+    # long-term write every training frame (get_config applies both); the
+    # serving gap is the evaluator's rule divided by 4
+    no_memory_gap: bool = False
 
     # ---- memory cadence: frames between long-term writes ----
     train_long_term_mem_gap: int = 9999
@@ -176,5 +181,11 @@ def get_config(stage: str = "default", model: str = "r50_deaotl",
         raise ValueError(f"unknown model {model!r}; have {list(MODEL_PRESETS)}")
     if stage not in STAGE_PRESETS:
         raise ValueError(f"unknown stage {stage!r}; have {list(STAGE_PRESETS)}")
-    return Config(**{**MODEL_PRESETS[model], **STAGE_PRESETS[stage],
-                     **overrides})
+    kw = {**MODEL_PRESETS[model], **STAGE_PRESETS[stage], **overrides}
+    if kw.get("no_memory_gap"):
+        # as rmem_tpu/config.py:get_config. It also divides reverse_loss by
+        # 4: the port has no such field and raises on reverse_infer, so the
+        # division has nothing to act on yet
+        kw["model_att_heads"] = 2
+        kw["train_long_term_mem_gap"] = 1
+    return Config(**kw)

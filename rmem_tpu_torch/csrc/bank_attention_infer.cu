@@ -30,17 +30,22 @@
 // (B 4, Lq = Lk = 900, up to 4 valid slots) 3.0e10 FLOP, ~30 us. The full
 // tensor-core rate needs wgmma fed by TMA, so the kernel is built on them.
 //
-// Design. A block owns 128 queries (two consumer warpgroups of 64 rows), a
-// 256-wide slice of dv and a group of G slots; the grid is (query tile, dv
-// slice, batch x slot group), and blocks whose group starts at or beyond the
-// slot count, read on the device, return before any barrier or copy, so a
-// frame never waits for the host.
+// Design. A block owns 128 queries (two consumer warpgroups of 64 rows) of
+// one head, a 256-wide slice of that head's dv and a group of G slots; the
+// grid is (query tile, dv slice, (batch x head) x slot group), the heads
+// folded in as rmem_tpu/kernels/bank_attention.py:_layout folds them but
+// without its transposes: every tensor keeps its [.., H x d] rows and the
+// tensor maps pick a head's columns out of them. Blocks whose group starts
+// at or beyond the slot count, read on the device, return before any
+// barrier or copy, so a frame never waits for the host. Heads: 1 or 2, of
+// 128 (DeAOT's, and DeAOT's no_memory_gap with 512 values a head).
 //   - A producer warpgroup (one thread, its registers given back with
 //     setmaxnreg) loads the two Q tiles once and then keeps the block's K
 //     and V chunks (64 keys: K [64 x 128], V [64 x 256]) in flight by TMA
 //     into a ring of 3 stages, each with a full and an empty mbarrier. The
-//     tensor maps are 3-D, [slot x batch, key, column], so a chunk never
-//     runs across two slots, and the keys past Lk arrive as zeros. A slot
+//     tensor maps are 4-D, [slot x batch, key, head, column], so a chunk
+//     never runs across two slots, a box holds one head's columns, and the
+//     keys past Lk arrive as zeros. A slot
 //     takes ceil(true_lk / 64) chunks, so every chunk holds a key below
 //     true_lk.
 //   - Each consumer warpgroup runs, per chunk, S = Q K^T as wgmma m64n64k16
@@ -58,14 +63,17 @@
 //     exchange of P between blocks.
 // Each block writes its partial state: the row maximum m over its group
 // (log2 units), the per-slot row sums l_s (relative to m) and its output
-// normalised by its own sum, in bf16 (ceil(S / G) x B x Lq x dv x 2 bytes,
-// 17.1 MB at the main path with G = 2 over the bank's 10 slots: half of
+// normalised by its own sum, in bf16 (ceil(S / G) x B x H x Lq x dv x 2
+// bytes, 17.1 MB at the main path with G = 2 over the bank's 10 slots at
+// one head or two of half the values: half of
 // the f32 accumulator it replaces); K1' keeps them in f32 (kF32), 29.5 MB
 // written and read back at training's 4 valid slots. A second kernel reads
 // the count and merges the groups of each row: with w_g = 2^(m_g - M)
-// sum_{s in g} l_s,
+// sum_{s in g} l_s, per head,
 //   out   = sum_g w_g o_g / sum_g w_g            (bf16; f32 for K1')
-//   rec_s = 2^(m_g(s) - M) l_s / sum_g w_g       (0 for slots >= count)
+//   rec_s = 2^(m_g(s) - M) l_s / sum_g w_g       (0 for slots >= count;
+//                                                 the wrapper takes the
+//                                                 head mean)
 //   lse   = (M + log2 sum_g w_g) / log2(e)       (K1' only: natural units).
 // G = 2 is fixed at compile time. Of 1, 2, 3 and 9 slots a block on this
 // design (PERF.md), it is fastest at batch 1 on the 31 x 54 grid, and on
@@ -139,16 +147,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
   }
 }
-// One [64 x 64] box of a 3-D tensor map into shared memory, completing on
+// One [64 x 64] box of a 4-D tensor map [outer, row, head, column] into
+// shared memory at (column c0, head h, row r, outer z), completing on
 // `bar`'s transaction count.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
+                                         uint64_t* bar, int c0, int h, int r,
+                                         int z) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
+      "r"(h), "r"(r), "r"(z)
       : "memory");
 }
 __device__ __forceinline__ void wgmma_fence() {
@@ -300,11 +309,12 @@ __device__ __forceinline__ void wgmma_rs_m64n256(float* d, const uint32_t* a,
 }
 
 
-// One (128-query tile, 256-wide dv slice, batch x slot group): part_m
-// [NG, B, Lq] and part_l [S, B, Lq] f32, part_o [NG, B, Lq, DV] bf16 (f32
-// with kF32). With kBias, qbias [B, Lq, S] f32 (natural units, or null for
-// none) is added to the scaled logits and keys >= true_lk are masked;
-// without, true_lk = Lk.
+// One (128-query tile, 256-wide slice of a head's DV columns, (batch x
+// head) x slot group), bh = b H + h: part_m [NG, B H, Lq] and part_l
+// [S, B H, Lq] f32, part_o [NG, B H, Lq, DV] bf16 (f32 with kF32). With
+// kBias, qbias [B, H, Lq, S] f32 (natural units, or null for none) is added
+// to the scaled logits and keys >= true_lk are masked; without, true_lk =
+// Lk.
 template <bool kBias, bool kF32>
 __global__ void __launch_bounds__(kThreads, 1)
 partial_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -314,7 +324,8 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
                const float* __restrict__ qbias, float* __restrict__ part_m,
                float* __restrict__ part_l,
                std::conditional_t<kF32, float, bf16>* __restrict__ part_o,
-               int B, int Lq, int S, int true_lk, int DV, float scale_log2) {
+               int B, int H, int Lq, int S, int true_lk, int DV,
+               float scale_log2) {
   extern __shared__ __align__(1024) char smem_raw[];
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -323,7 +334,8 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* qbar = empty + STAGES;
 
   const int ngroups = (S + G - 1) / G;
-  const int grp = blockIdx.z % ngroups, b = blockIdx.z / ngroups;
+  const int grp = blockIdx.z % ngroups, bh = blockIdx.z / ngroups;
+  const int b = bh / H, h = bh % H, BH = B * H;
   int count = *count_ptr;
   count = count < 0 ? 0 : (count > S ? S : count);
   const int s0 = grp * G;
@@ -350,7 +362,7 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(qbar, Q_BYTES);
       for (int c = 0; c < NCONS; ++c)
         for (int a = 0; a < 2; ++a)
-          tma_load(smem + (c * 2 + a) * ATOM, &tm_q, qbar, a * 64,
+          tma_load(smem + (c * 2 + a) * ATOM, &tm_q, qbar, a * 64, h,
                    q0 + c * BQ, b);
       for (int ch = 0; ch < nch; ++ch) {
         const int st = ch % STAGES, use = ch / STAGES;
@@ -360,9 +372,9 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int z = (s0 + ch / cps) * B + b, key0 = (ch % cps) * BK;
         mbar_expect_tx(&full[st], STAGE_BYTES);
         for (int a = 0; a < 2; ++a)
-          tma_load(sk + a * ATOM, &tm_k, &full[st], a * 64, key0, z);
+          tma_load(sk + a * ATOM, &tm_k, &full[st], a * 64, h, key0, z);
         for (int a = 0; a < DVB / 64; ++a)
-          tma_load(sv + a * ATOM, &tm_v, &full[st], c0 + a * 64, key0, z);
+          tma_load(sv + a * ATOM, &tm_v, &full[st], c0 + a * 64, h, key0, z);
       }
     }
   } else {
@@ -390,8 +402,8 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         if (j >= ns) break;
-        if (qa < Lq) ba[j] = qbias[((size_t)b * Lq + qa) * S + s0 + j] * LOG2E;
-        if (qb < Lq) bb[j] = qbias[((size_t)b * Lq + qb) * S + s0 + j] * LOG2E;
+        if (qa < Lq) ba[j] = qbias[((size_t)bh * Lq + qa) * S + s0 + j] * LOG2E;
+        if (qb < Lq) bb[j] = qbias[((size_t)bh * Lq + qb) * S + s0 + j] * LOG2E;
       }
     }
     mbar_wait(qbar, 0);
@@ -506,7 +518,7 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const float ia = La > 0.f ? 1.f / La : 0.f;
     const float ib = Lb > 0.f ? 1.f / Lb : 0.f;
-    auto* po = part_o + ((size_t)grp * B + b) * Lq * DV;
+    auto* po = part_o + ((size_t)grp * BH + bh) * Lq * DV;
 #pragma unroll
     for (int i = 0; i < DVB / 8; ++i) {
       const int col = c0 + 8 * i + 2 * t4;
@@ -522,20 +534,21 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         if (j >= ns) break;
-        const size_t base = ((size_t)(s0 + j) * B + b) * Lq;
+        const size_t base = ((size_t)(s0 + j) * BH + bh) * Lq;
         if (qa < Lq) part_l[base + qa] = la[j];
         if (qb < Lq) part_l[base + qb] = lb[j];
       }
-      const size_t base = ((size_t)grp * B + b) * Lq;
+      const size_t base = ((size_t)grp * BH + bh) * Lq;
       if (qa < Lq) part_m[base + qa] = m0;
       if (qb < Lq) part_m[base + qb] = m1;
     }
   }
 }
 
-// One row and 8 columns a thread: merges the slot groups of the row.
-// out [B, Lq, DV] bf16 (with kF32: f32, and lse [B, Lq] f32 in natural
-// units); rec [B, Lq, S] f32.
+// One row of one head and 8 columns a thread: merges the slot groups of the
+// row. out [B, Lq, H DV] bf16, head h's columns at h DV (with kF32: f32,
+// and lse [B, Lq] f32 in natural units, one head); rec [B, H, Lq, S] f32,
+// each head's slot mass.
 template <bool kF32>
 __global__ void __launch_bounds__(kMergeThreads)
 merge_kernel(const float* __restrict__ part_m,
@@ -543,17 +556,18 @@ merge_kernel(const float* __restrict__ part_m,
              const std::conditional_t<kF32, float, bf16>* __restrict__ part_o,
              const int* __restrict__ count_ptr,
              std::conditional_t<kF32, float, bf16>* __restrict__ out,
-             float* __restrict__ rec, float* __restrict__ lse, int B, int Lq,
-             int S, int DV) {
-  const int row = blockIdx.x;                    // b * Lq + qi
-  const int b = row / Lq, qi = row % Lq;
+             float* __restrict__ rec, float* __restrict__ lse, int B, int H,
+             int Lq, int S, int DV) {
+  const int row = blockIdx.x;                    // (b H + h) Lq + qi
+  const int bh = row / Lq, qi = row % Lq, b = bh / H, h = bh % H;
+  const int BH = B * H;
   const int col = (blockIdx.y * kMergeThreads + threadIdx.x) * 8;
   int count = *count_ptr;
   count = count < 0 ? 0 : (count > S ? S : count);
   const int ng = (count + G - 1) / G;
   float M = -INFINITY;
   for (int g = 0; g < ng; ++g)
-    M = fmaxf(M, part_m[((size_t)g * B + b) * Lq + qi]);
+    M = fmaxf(M, part_m[((size_t)g * BH + bh) * Lq + qi]);
   float Lsum = 0.f, acc[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j] = 0.f;
@@ -561,22 +575,22 @@ merge_kernel(const float* __restrict__ part_m,
     const int s1 = (g + 1) * G < count ? (g + 1) * G : count;
     float lg = 0.f;
     for (int s = g * G; s < s1; ++s)
-      lg += part_l[((size_t)s * B + b) * Lq + qi];
-    const float wg = exp2f(part_m[((size_t)g * B + b) * Lq + qi] - M) * lg;
+      lg += part_l[((size_t)s * BH + bh) * Lq + qi];
+    const float wg = exp2f(part_m[((size_t)g * BH + bh) * Lq + qi] - M) * lg;
     Lsum += wg;
     if (col < DV) {
       float v[8];
-      load8(part_o + (((size_t)g * B + b) * Lq + qi) * DV + col, v);
+      load8(part_o + (((size_t)g * BH + bh) * Lq + qi) * DV + col, v);
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j] += wg * v[j];
     }
   }
   const float il = Lsum > 0.f ? 1.f / Lsum : 0.f;
   if (col < DV) {
+    auto* orow = out + (((size_t)b * Lq + qi) * H + h) * DV + col;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      store2(out + (size_t)row * DV + col + 2 * j, acc[2 * j] * il,
-             acc[2 * j + 1] * il);
+      store2(orow + 2 * j, acc[2 * j] * il, acc[2 * j + 1] * il);
   }
   if (kF32 && blockIdx.y == 0 && threadIdx.x == 0)
     lse[row] = (M + log2f(Lsum)) * LN2;
@@ -584,8 +598,8 @@ merge_kernel(const float* __restrict__ part_m,
     const int s = threadIdx.x;
     float r = 0.f;
     if (s < count)
-      r = exp2f(part_m[((size_t)(s / G) * B + b) * Lq + qi] - M) *
-          part_l[((size_t)s * B + b) * Lq + qi] * il;
+      r = exp2f(part_m[((size_t)(s / G) * BH + bh) * Lq + qi] - M) *
+          part_l[((size_t)s * BH + bh) * Lq + qi] * il;
     rec[(size_t)row * S + s] = r;
   }
 }
@@ -612,19 +626,24 @@ static EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D bf16 tensor map [outer, rows, cols] read in [64 x 64] boxes with
-// the 128-byte swizzle; rows past `rows` read as zeros. 0, or -2 when the
-// encoder cannot be found, -3 if it refuses the map.
-static int map3d(CUtensorMap* map, const void* base, uint64_t cols,
-                 uint64_t rows, uint64_t outer) {
+// A 4-D bf16 tensor map [outer, rows, heads, cols] (a row holds the heads'
+// columns side by side, heads x cols wide) read in [1, 64, 1, 64] boxes
+// with the 128-byte swizzle: one head's 64 columns of 64 rows, read in
+// place; rows past `rows` read as zeros. Every global stride (cols, heads x
+// cols and rows x heads x cols bf16) is a multiple of 16 bytes for cols a
+// multiple of 64. 0, or -2 when the encoder cannot be found, -3 if it
+// refuses the map.
+static int map4d(CUtensorMap* map, const void* base, uint64_t cols,
+                 uint64_t heads, uint64_t rows, uint64_t outer) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return -2;
-  const cuuint64_t dims[3] = {cols, rows, outer};
-  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
+  const cuuint64_t dims[4] = {cols, heads, rows, outer};
+  const cuuint64_t strides[3] = {cols * 2, heads * cols * 2,
+                                 rows * heads * cols * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r =
-      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
           dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -635,13 +654,13 @@ template <bool kBias, bool kF32>
 static int launch(const void* q, const void* k, const void* v,
                   const void* qbias, const void* count, void* part_m,
                   void* part_l, void* part_o, void* out, void* rec, void* lse,
-                  int B, int Lq, int S, int Lk, int true_lk, int DV,
+                  int B, int H, int Lq, int S, int Lk, int true_lk, int DV,
                   float scale, cudaStream_t stream) {
   using OT = std::conditional_t<kF32, float, bf16>;
   CUtensorMap tq, tk, tv;
-  int e = map3d(&tq, q, D, Lq, B);
-  if (e == 0) e = map3d(&tk, k, D, Lk, (uint64_t)S * B);
-  if (e == 0) e = map3d(&tv, v, DV, Lk, (uint64_t)S * B);
+  int e = map4d(&tq, q, D, H, Lq, B);
+  if (e == 0) e = map4d(&tk, k, D, H, Lk, (uint64_t)S * B);
+  if (e == 0) e = map4d(&tv, v, DV, H, Lk, (uint64_t)S * B);
   if (e != 0) return e;
   auto kern = partial_kernel<kBias, kF32>;
   static bool configured = false;     // once per process and instantiation
@@ -652,45 +671,51 @@ static int launch(const void* q, const void* k, const void* v,
     configured = true;
   }
   const int ngroups = (S + G - 1) / G;
-  dim3 grid((Lq + BQ * NCONS - 1) / (BQ * NCONS), DV / DVB, B * ngroups);
+  dim3 grid((Lq + BQ * NCONS - 1) / (BQ * NCONS), DV / DVB,
+            B * H * ngroups);
   kern<<<grid, kThreads, SMEM_BYTES, stream>>>(
       tq, tk, tv, (const int*)count, (const float*)qbias, (float*)part_m,
-      (float*)part_l, (OT*)part_o, B, Lq, S, true_lk, DV, scale * LOG2E);
+      (float*)part_l, (OT*)part_o, B, H, Lq, S, true_lk, DV, scale * LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid2(B * Lq, (DV / 8 + kMergeThreads - 1) / kMergeThreads);
+  dim3 grid2(B * H * Lq, (DV / 8 + kMergeThreads - 1) / kMergeThreads);
   merge_kernel<kF32><<<grid2, kMergeThreads, 0, stream>>>(
       (const float*)part_m, (const float*)part_l, (const OT*)part_o,
-      (const int*)count, (OT*)out, (float*)rec, (float*)lse, B, Lq, S, DV);
+      (const int*)count, (OT*)out, (float*)rec, (float*)lse, B, H, Lq, S,
+      DV);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rmem_qminor
 
 // Returns the cudaError_t of the launches (0 on success); -1 for anything
-// but one head of 128 with dv a multiple of 256 and true_lk in 1..Lk, -2 or
-// -3 if a tensor map cannot be made. qbias [B, Lq, S] f32 (scaled logit
-// units) or null; keys >= true_lk masked. With a bias or padded keys (K1)
-// the kernel's kBias instantiation runs, with neither (K3, and K1's
-// reference-frame call) the other. Scratch, with G =
-// rmem_bank_attention_infer_slots(): part_m [ceil(S/G), B, Lq] and part_l
-// [S, B, Lq] f32, part_o [ceil(S/G), B, Lq, dv] bf16. q, k, v 16-byte
-// aligned; out [B, Lq, dv] bf16, rec [B, Lq, S] f32.
+// but 1 or 2 heads of 128 with dv (a head's values) a multiple of 256 and
+// true_lk in 1..Lk, -2 or -3 if a tensor map cannot be made. q [B, Lq,
+// H x 128], k [S, B, Lk, H x 128], v [S, B, Lk, H x dv]; qbias [B, H, Lq,
+// S] f32 (scaled logit units) or null; keys >= true_lk masked. With a bias
+// or padded keys (K1) the kernel's kBias instantiation runs, with neither
+// (K3, and K1's reference-frame call) the other. Scratch, with G =
+// rmem_bank_attention_infer_slots(): part_m [ceil(S/G), B H, Lq] and part_l
+// [S, B H, Lq] f32, part_o [ceil(S/G), B H, Lq, dv] bf16. q, k, v 16-byte
+// aligned; out [B, Lq, H x dv] bf16, rec [B, H, Lq, S] f32 (each head's
+// slot mass).
 extern "C" int rmem_bank_attention_infer(
     const void* q, const void* k, const void* v, const void* qbias,
     const void* count, void* part_m, void* part_l, void* part_o, void* out,
     void* rec, int B, int H, int Lq, int S, int Lk, int true_lk, int dh,
     int dv, float scale, void* stream) {
-  if (H != 1 || dh != 128 || dv % 256 != 0 || true_lk < 1 || true_lk > Lk)
+  if ((H != 1 && H != 2) || dh != 128 || dv % 256 != 0 || true_lk < 1 ||
+      true_lk > Lk)
     return -1;
   cudaStream_t st = (cudaStream_t)stream;
   if (qbias == nullptr && true_lk == Lk)
     return rmem_qminor::launch<false, false>(q, k, v, nullptr, count, part_m,
                                              part_l, part_o, out, rec, nullptr,
-                                             B, Lq, S, Lk, Lk, dv, scale, st);
+                                             B, H, Lq, S, Lk, Lk, dv, scale,
+                                             st);
   return rmem_qminor::launch<true, false>(q, k, v, qbias, count, part_m,
                                           part_l, part_o, out, rec, nullptr,
-                                          B, Lq, S, Lk, true_lk, dv, scale,
+                                          B, H, Lq, S, Lk, true_lk, dv, scale,
                                           st);
 }
 
@@ -706,7 +731,7 @@ extern "C" int rmem_bank_attention_lse(
     void* stream) {
   if (dh != 128 || dv % 256 != 0 || Lk < 1) return -1;
   return rmem_qminor::launch<false, true>(q, k, v, nullptr, count, part_m,
-                                          part_l, part_o, out, rec, lse, B,
+                                          part_l, part_o, out, rec, lse, B, 1,
                                           Lq, S, Lk, Lk, dv, scale,
                                           (cudaStream_t)stream);
 }

@@ -45,6 +45,14 @@
 // The wider slice (256 against 128) computes Q K^T a quarter as often per
 // tile; the grid then has fewer blocks (28 tiles x 4 slices = 112 at the
 // main path, under one wave of 132 SMs).
+//   - Heads (1 or 2 of 128: DeAOT's, and its no_memory_gap): the grid's
+//     third axis is (image, head), as rmem_tpu/kernels/local_attention.py:
+//     to_bh folds them. q, k, v and out keep their [.., H x d] token rows
+//     and a block reads its head's columns in place. The bias comes
+//     head-major, [B, H, HW, 225] (the wrapper's copy at two heads), so a
+//     tile row's 8 x 225 values stay one span: in the caller's [B, HW,
+//     H x 225] rows head 1's spans would start 450 bytes into a token's 900,
+//     only 2-byte aligned for the 4-byte copies.
 //
 // The backward (K5's gradient), rmem_local_attention_bwd. Replaces the
 // gradient of rmem_tpu/kernels/local_attention.py:
@@ -271,14 +279,16 @@ __device__ __forceinline__ float bias_at(const bf16* row, int wy, int wx) {
   return __bfloat162float(row[wy * WIN + wx]) * LOG2E;
 }
 
-// One 8 x 8 query tile of image b and one DVB-wide slice of dv. Warp w
-// owns query rows 16 (w % 4) .. +16 (tile rows 2 (w % 4) and +1) and
-// columns (w / 4) DVB / SPLIT .. of the slice. out [B, HW, dv] bf16.
+// One 8 x 8 query tile of image b, head h (blockIdx.z = b H + h) and one
+// DVB-wide slice of the head's dv. Warp w owns query rows 16 (w % 4) .. +16
+// (tile rows 2 (w % 4) and +1) and columns (w / 4) DVB / SPLIT .. of the
+// slice. q, k [B, HW, H x 128], v [B, HW, H x dv], rel head-major
+// [B, H, HW, 225]; out [B, HW, H x dv] bf16.
 template <int DVB, int SPLIT>
 __global__ void __launch_bounds__(128 * SPLIT, DVB == 128 ? 2 : 1)
 local_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ rel,
-                 bf16* __restrict__ out, int Hg, int Wg, int dv,
+                 bf16* __restrict__ out, int Hg, int Wg, int H, int dv,
                  float scale_log2) {
   using L = FwdSmem<DVB>;
   constexpr int NT = 128 * SPLIT;         // threads
@@ -301,7 +311,16 @@ local_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int y0 = (blockIdx.x / tiles_x) * TILE;
   const int x0 = (blockIdx.x % tiles_x) * TILE;
   const int c0 = blockIdx.y * DVB;
-  const size_t base = (size_t)blockIdx.z * Hg * Wg;
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const size_t base = (size_t)b * Hg * Wg;     // the image's first token
+  // head h's bias rows of image b
+  const size_t rbase = ((size_t)b * H + h) * Hg * Wg;
+  // token strides, and the head's columns within a token's row
+  const size_t qs = (size_t)H * FD, vs = (size_t)H * dv;
+  q += (size_t)h * FD;
+  k += (size_t)h * FD;
+  v += (size_t)h * dv;
+  out += (size_t)h * dv;
   const int ty0 = 2 * rt, ty1 = ty0 + 1;   // this thread's rows: (ty, g)
 
   // ---- which chunks each warp needs: halo rows inside the image and the
@@ -349,14 +368,14 @@ local_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int j = i / (FD / 8), s8 = i % (FD / 8);
       int idx;
       const bool ok = key_at(c * BK + j, idx);
-      cp_async16(dK + j * LQF + s8 * 8, k + (base + idx) * FD + s8 * 8, ok);
+      cp_async16(dK + j * LQF + s8 * 8, k + (base + idx) * qs + s8 * 8, ok);
     }
     for (int i = tid; i < BK * (DVB / 8); i += NT) {
       const int j = i / (DVB / 8), s8 = i % (DVB / 8);
       int idx;
       const bool ok = key_at(c * BK + j, idx);
       cp_async16(dV + j * L::LV + s8 * 8,
-                 v + (base + idx) * dv + c0 + s8 * 8, ok);
+                 v + (base + idx) * vs + c0 + s8 * 8, ok);
     }
   };
 
@@ -366,12 +385,12 @@ local_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qy = y0 + r / TILE, qx = x0 + r % TILE;
     const bool ok = qy < Hg && qx < Wg;
     cp_async16(sQ + r * LQF + s8 * 8,
-               q + (base + (ok ? qy * Wg + qx : 0)) * FD + s8 * 8, ok);
+               q + (base + (ok ? qy * Wg + qx : 0)) * qs + s8 * 8, ok);
   }
   const int nx = min(TILE, Wg - x0);
   const char* relb = reinterpret_cast<const char*>(rel);
   auto bias_span = [&](int ty, size_t& start) {   // the row's byte span
-    start = (base + (size_t)(y0 + ty) * Wg + x0) * WIN2 * 2;
+    start = (rbase + (size_t)(y0 + ty) * Wg + x0) * WIN2 * 2;
     return start + (size_t)nx * WIN2 * 2;
   };
   for (int i = tid; i < TILE * BIAS_WORDS; i += NT) {
@@ -520,9 +539,9 @@ local_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 = quad_sum(l1);
   const float il0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float il1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  bf16* oa = out + (base + (size_t)(y0 + ty0) * Wg + x0 + g) * dv + c0 +
+  bf16* oa = out + (base + (size_t)(y0 + ty0) * Wg + x0 + g) * vs + c0 +
              cs * CW + 2 * t;
-  bf16* ob = out + (base + (size_t)(y0 + ty1) * Wg + x0 + g) * dv + c0 +
+  bf16* ob = out + (base + (size_t)(y0 + ty1) * Wg + x0 + g) * vs + c0 +
              cs * CW + 2 * t;
 #pragma unroll
   for (int nt = 0; nt < NF; ++nt) {
@@ -538,7 +557,7 @@ local_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DVB, int SPLIT>
 static int launch_fwd(const void* q, const void* k, const void* v,
                       const void* rel, void* out, int B, int Hg, int Wg,
-                      int dv, float scale, cudaStream_t stream) {
+                      int H, int dv, float scale, cudaStream_t stream) {
   constexpr int smem = FwdSmem<DVB>::bytes;
   auto kern = local_fwd_kernel<DVB, SPLIT>;
   static bool configured = false;     // once per process and instantiation
@@ -549,9 +568,9 @@ static int launch_fwd(const void* q, const void* k, const void* v,
     configured = true;
   }
   const int tiles = ((Hg + TILE - 1) / TILE) * ((Wg + TILE - 1) / TILE);
-  kern<<<dim3(tiles, dv / DVB, B), 128 * SPLIT, smem, stream>>>(
+  kern<<<dim3(tiles, dv / DVB, B * H), 128 * SPLIT, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rel,
-      (bf16*)out, Hg, Wg, dv, scale * LOG2E);
+      (bf16*)out, Hg, Wg, H, dv, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -968,19 +987,21 @@ extern "C" int rmem_local_attention_bwd(const void* q, const void* k,
                                (cudaStream_t)stream);
 }
 
-// The forward: out [B, HW, dv] bf16. Returns the cudaError_t of the launch
-// (0 on success); -1 for anything but one head of 128, a 15 x 15 window
-// (max_dis 7) and dv a multiple of the slice width.
+// The forward: q, k [B, HW, H x 128], v [B, HW, H x dv], rel head-major
+// [B, H, HW, (2m+1)^2]; out [B, HW, H x dv] bf16. Returns the cudaError_t
+// of the launch (0 on success); -1 for anything but 1 or 2 heads of 128, a
+// 15 x 15 window (max_dis 7) and dv (a head's values) a multiple of the
+// slice width.
 extern "C" int rmem_local_attention(const void* q, const void* k,
                                     const void* v, const void* rel, void* out,
                                     int B, int Hg, int Wg, int H, int dh,
                                     int dv, int max_dis, float scale,
                                     void* stream) {
-  if (H != 1 || dh != rmem::FD || max_dis != rmem::M ||
+  if ((H != 1 && H != 2) || dh != rmem::FD || max_dis != rmem::M ||
       dv % rmem::FWD_DVB != 0)
     return -1;
   return rmem::launch_fwd<rmem::FWD_DVB, rmem::FWD_SPLIT>(
-      q, k, v, rel, out, B, Hg, Wg, dv, scale, (cudaStream_t)stream);
+      q, k, v, rel, out, B, Hg, Wg, H, dv, scale, (cudaStream_t)stream);
 }
 
 // The forward's dv slice width.

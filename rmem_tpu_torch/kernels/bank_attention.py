@@ -8,6 +8,11 @@ CPU. It replaces rmem_tpu/kernels/bank_attention.py:
 pallas_bank_attention_infer and the forward of pallas_bank_attention (the
 reference frame's S = 1 self-memory call).
 
+The template takes one head of 128 or two (DeAOT's `no_memory_gap`: 2
+heads of 128, values 512 a head), the heads on its grid; at two it returns
+each head's slot mass and the wrapper averages them, as
+rmem_tpu/kernels/bank_attention.py:_unlayout_out does.
+
 At 8 heads of 32 (AOT's LSTT, kernel K1ʰ) `bank_attention_infer` routes
 to `bank_attention_infer_mh`, which launches `csrc/bank_attention_mh.cu`
 (its own launch count) and averages the per-head slot mass over the heads;
@@ -22,7 +27,8 @@ rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor. Both split
 the slots among blocks, SLOTS_PER_BLOCK each, and merge on the card.
 
 Training: `bank_attention_train` is differentiable and routes by head
-shape (`train_route`). At one head of 128 it is, on the card, an autograd
+shape (`train_route`; two heads of 128 raise on the card: K1' and K2 take
+one). At one head of 128 it is, on the card, an autograd
 Function whose forward is the same source's third instantiation, with f32
 partial outputs, an f32 output and the per-row log-sum-exp
 (`bank_attention_lse`, K1'; `bank_attention_lse_plain` is its plain
@@ -57,6 +63,8 @@ BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
 # csrc/bank_attention_infer.cu (G, checked against the library when it
 # loads; PERF.md has the sweep of 1, 2, 3 and 9 that chose it)
 SLOTS_PER_BLOCK = 2
+# K1 and K3: the head counts of 128 that the template takes on its grid
+SLOT_HEADS = (1, 2)
 # K1ʰ: the head shape csrc/bank_attention_mh.cu is written for, and the
 # slots whose mass a block keeps in shared memory
 MH_HEADS, MH_WIDTH, MH_MAX_SLOTS = 8, 32, 16
@@ -101,7 +109,8 @@ def _check_count(count: torch.Tensor, q: torch.Tensor) -> None:
 
 
 def _check_bank(q, bank_k, bank_v, count, num_heads) -> Tuple[int, ...]:
-    """The kernels' common checks; returns (s, b, lq, lk, dh, dv)."""
+    """The kernels' common checks; returns (s, b, lq, lk, dh, dv), dv a
+    head's values."""
     s, b, lk, ck = bank_k.shape
     lq = q.shape[1]
     dh = ck // num_heads
@@ -110,9 +119,9 @@ def _check_bank(q, bank_k, bank_v, count, num_heads) -> Tuple[int, ...]:
     _check(q.shape == (b, lq, num_heads * dh), f"q shape {tuple(q.shape)}")
     _check(bank_v.shape[:3] == (s, b, lk),
            f"bank_v shape {tuple(bank_v.shape)}")
-    _check(num_heads == 1 and dh == 128,
+    _check(num_heads in SLOT_HEADS and dh == 128,
            f"{num_heads} heads of width {dh} (the kernel is held to its "
-           "plain version for one head of 128, r50_deaotl's)")
+           "plain version for one or two heads of 128, r50_deaotl's)")
     _check(dv % 256 == 0, f"value width {dv} (multiple of 256)")
     _check_count(count, q)
     return s, b, lq, lk, dh, dv
@@ -135,7 +144,8 @@ def _slots_entry():
 
 
 def _scratch(s: int, b: int, lq: int, dv: int, dtype, device):
-    """The template's partial state for s slots: (part_m, part_l, part_o)."""
+    """The template's partial state for s slots and b rows of (batch,
+    head): (part_m, part_l, part_o)."""
     groups = -(-s // SLOTS_PER_BLOCK)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((groups, b, lq), **f32),
@@ -157,7 +167,8 @@ def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
                 true_lk: Optional[int] = None,
                 qbias: Optional[torch.Tensor] = None):
     """Launch csrc/bank_attention_infer.cu, K1's and K3's kernel. Returns
-    (out [B, Lq, h*dv] bf16, rec [B, Lq, S] f32)."""
+    (out [B, Lq, h*dv] bf16, rec [B, Lq, S] f32, the head mean of the
+    kernel's per-head slot mass)."""
     s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, num_heads)
     true_lk = lk if true_lk is None else true_lk
     _check(0 < true_lk <= lk, f"true_lk {true_lk} for {lk} keys")
@@ -168,41 +179,48 @@ def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
                and qbias.shape == (b, num_heads, lq, s),
                "qbias must be contiguous f32 [B, h, Lq, S]")
     fn = _slots_entry()
-    part_m, part_l, part_o = _scratch(s, b, lq, dv, torch.bfloat16,
-                                      q.device)
-    out = torch.empty((b, lq, dv), dtype=q.dtype, device=q.device)
-    rec = torch.empty((b, lq, s), dtype=torch.float32, device=q.device)
+    part_m, part_l, part_o = _scratch(s, b * num_heads, lq, dv,
+                                      torch.bfloat16, q.device)
+    out = torch.empty((b, lq, num_heads * dv), dtype=q.dtype,
+                      device=q.device)
+    rec_h = torch.empty((b, num_heads, lq, s), dtype=torch.float32,
+                        device=q.device)
     err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
              None if qbias is None else qbias.data_ptr(), count.data_ptr(),
              part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
-             out.data_ptr(), rec.data_ptr(), b, num_heads, lq, s, lk,
+             out.data_ptr(), rec_h.data_ptr(), b, num_heads, lq, s, lk,
              true_lk, dh, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_infer")
-    return out, rec
+    return out, rec_h[:, 0] if num_heads == 1 else rec_h.mean(dim=1)
 
 
 def infer_route(num_heads: int, dh: int, dv: int) -> str:
     """The CUDA kernel that takes an inference call of this head shape on
-    the card: "slots" (K1's template: one head of 128, values a multiple of
-    256) or "heads" (K1ʰ: 8 heads of 32, values 32 a head). Any other shape
-    raises."""
-    if num_heads == 1 and dh == 128 and dv % 256 == 0:
+    the card: "slots" (K1's template: one or two heads of 128, values a
+    multiple of 256 a head) or "heads" (K1ʰ: 8 heads of 32, values 32 a
+    head). Any other shape raises."""
+    if num_heads in SLOT_HEADS and dh == 128 and dv % 256 == 0:
         return "slots"
     if (num_heads, dh, dv) == (MH_HEADS, MH_WIDTH, MH_WIDTH):
         return "heads"
     raise ValueError(f"bank_attention: {num_heads} heads of width {dh}, "
                      f"values {dv} a head (the kernels are held to their "
-                     "plain version for one head of 128 and for 8 heads of "
-                     "32)")
+                     "plain version for one or two heads of 128 and for 8 "
+                     "heads of 32)")
 
 
 def train_route(num_heads: int, dh: int, dv: int) -> str:
     """The CUDA kernels that take a training call of this head shape on the
-    card, by `infer_route`'s rule: "slots" (K1' and K2: one head of 128,
-    values a multiple of 256) or "heads" (K1'ʰ and K2ʰ: 8 heads of 32).
-    Any other shape raises."""
-    return infer_route(num_heads, dh, dv)
+    card: "slots" (K1' and K2: one head of 128, values a multiple of 256)
+    or "heads" (K1'ʰ and K2ʰ: 8 heads of 32). Any other shape raises, two
+    heads of 128 included."""
+    route = infer_route(num_heads, dh, dv)
+    if route == "slots" and num_heads != 1:
+        raise ValueError(f"bank_attention: {num_heads} heads of width {dh} "
+                         "in training (K1' and K2 are held to their plain "
+                         "versions for one head of 128)")
+    return route
 
 
 def _check_mh(q, bank_k, bank_v, count, num_heads: int = MH_HEADS
@@ -278,9 +296,9 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
     count: int32 scalar tensor of valid slots, read on the device; keys
     >= true_lk masked; qbias [B, h, Lq, S] f32 or None. Returns (out
     [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32). On the card: bf16
-    q/k/v, all contiguous, at a head shape `infer_route` takes: one head of
-    128 with dv a multiple of 256 launches K1 (counted here), 8 heads of 32
-    go to `bank_attention_infer_mh` (K1ʰ, counted there)."""
+    q/k/v, all contiguous, at a head shape `infer_route` takes: one or two
+    heads of 128 with dv a multiple of 256 a head launch K1 (counted here),
+    8 heads of 32 go to `bank_attention_infer_mh` (K1ʰ, counted there)."""
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
                                     scale, true_lk, qbias)
@@ -312,9 +330,9 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, Lq, h*dh]; bank_k [S, B, Lk, h*dh]; bank_v [S, B, Lk, h*dv];
     count: int32 scalar tensor of valid slots, read on the device. Returns
-    (out [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32). On the card: bf16
-    q/k/v, one head of 128, dv a multiple of 256, all contiguous; each block
-    walks SLOTS_PER_BLOCK slots."""
+    (out [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32, the head mean). On
+    the card: bf16 q/k/v, one or two heads of 128, dv a multiple of 256 a
+    head, all contiguous; each block walks SLOTS_PER_BLOCK slots."""
     if not q.is_cuda:
         return bank_attention_qminor_plain(q, bank_k, bank_v, count,
                                            num_heads, scale)

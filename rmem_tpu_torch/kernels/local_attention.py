@@ -4,6 +4,8 @@ window of short-term keys around it, plus a learned relative bias.
 `local_attention` launches the CUDA kernel `csrc/local_attention.cu` for
 tensors on the card and runs `local_attention_plain` for tensors on the
 CPU. It replaces rmem_tpu/kernels/local_attention.py:pallas_local_attention.
+It takes one or two heads of 128 (DeAOT's, and its `no_memory_gap`); at two
+it hands the kernel the bias head-major (`rel_head_major`), one copy of it.
 
 `local_attention_trainable` (K5) is its differentiable form, the
 counterpart of pallas_local_attention_trainable: on the card the forward is
@@ -48,6 +50,21 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"local_attention: {msg}")
 
 
+# the head counts of 128 that the forward kernel takes on its grid
+FWD_HEADS = (1, 2)
+
+
+def rel_head_major(rel_emb: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The bias [B, HW, h*win^2] as the forward kernel reads it, [B, h, HW,
+    win^2] contiguous: each head's rows of a tile are then one span. A
+    copy at two heads (1.5 MB in bf16 at 31 x 54); the same tensor at
+    one."""
+    if num_heads == 1:
+        return rel_emb
+    b, hw, _ = rel_emb.shape
+    return rel_emb.reshape(b, hw, num_heads, -1).transpose(1, 2).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _forward_entry():
     """The forward's C entry, its slice width held to SLICE once."""
@@ -68,9 +85,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int, max_dis: int,
                     scale: float) -> torch.Tensor:
     """q, k [B, HW, h*dh]; v [B, HW, h*dv]; rel_emb [B, HW, h*(2m+1)^2] made
-    from the unscaled q. Returns [B, HW, h*dv]. On the card: bf16, one head
-    of 128, a 15 x 15 window (max_dis 7), dv a multiple of SLICE, all
-    contiguous."""
+    from the unscaled q. Returns [B, HW, h*dv]. On the card: bf16, one or
+    two heads of 128, a 15 x 15 window (max_dis 7), dv a multiple of SLICE
+    a head, all contiguous."""
     if not q.is_cuda:
         return local_attention_plain(q, k, v, rel_emb, size_2d, num_heads,
                                      max_dis, scale)
@@ -89,14 +106,15 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(v.shape[:2] == (b, hw), f"v shape {tuple(v.shape)}")
     _check(rel_emb.shape == (b, hw, num_heads * win2),
            f"rel_emb shape {tuple(rel_emb.shape)}")
-    _check(num_heads == 1 and dh == 128,
+    _check(num_heads in FWD_HEADS and dh == 128,
            f"{num_heads} heads of width {dh} (the kernel is held to its "
-           "plain version for one head of 128, r50_deaotl's)")
+           "plain version for one or two heads of 128, r50_deaotl's)")
     _check(max_dis == 7, f"max_dis {max_dis} (the kernel's window is 15 x 15)")
     _check(dv % SLICE == 0, f"value width {dv} (multiple of {SLICE})")
     fn = _forward_entry()
+    rel = rel_head_major(rel_emb, num_heads)
     out = torch.empty((b, hw, num_heads * dv), dtype=v.dtype, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(),
              out.data_ptr(), b, h2d, w2d, num_heads, dh, dv, max_dis,
              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "local_attention")
@@ -247,10 +265,14 @@ def local_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                               size_2d: Tuple[int, int], num_heads: int,
                               max_dis: int, scale: float) -> torch.Tensor:
     """Differentiable `local_attention`. On the card the inputs are taken in
-    bf16, the kernel's type."""
+    bf16, the kernel's type, at one head of 128 (the backward kernels'
+    shape)."""
     if not q.is_cuda:
         return local_attention_plain(q, k, v, rel_emb, size_2d, num_heads,
                                      max_dis, scale)
+    _check(num_heads == 1, f"{num_heads} heads of width "
+           f"{q.shape[-1] // num_heads} in training (the backward kernels "
+           "are held to their plain version for one head of 128)")
     bf = torch.bfloat16
     return _LocalAttention.apply(
         q.to(bf).contiguous(), k.to(bf).contiguous(), v.to(bf).contiguous(),

@@ -2,7 +2,9 @@
 
 Counterpart of `rmem_tpu/models/deaot.py`: the decoder input doubles
 (visual and id streams), the id embedding gets a LayerNorm, and the
-temporal PE is half width (GPM keys are C/2 wide with one head).
+temporal PE is as wide as the GPM's keys: C/2 with one head, C with
+`no_memory_gap`'s two (the JAX package fixes it at C/2, which at two heads
+does not broadcast against the keys: ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ class DeAOT(AOT):
         return c * 2
 
     def _temporal_pe_dim(self) -> int:
-        return self.cfg.model_encoder_embedding_dim // 2
+        """The GPM's key width, d_att x heads (GPMBlock's rule)."""
+        c, heads = (self.cfg.model_encoder_embedding_dim,
+                    self.cfg.model_att_heads)
+        return c // 2 if heads == 1 else c // heads * heads
 
     def _id_post(self, e):
         return self.id_norm(e)

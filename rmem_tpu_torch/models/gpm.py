@@ -164,7 +164,7 @@ class GPMBlock(nn.Module):
             if slot_pe is not None:
                 bank_k = bank_k + slot_pe.to(bank_k.dtype)[:, None, None, :]
             agg, record = bank_kernel.bank_attention_train(
-                q_t, bank_k, bank_v, count, scale)
+                q_t, bank_k, bank_v, count, scale, num_heads=self.att_heads)
             agg3 = local_kernel.local_attention_trainable(
                 curr_q, short_k, short_v, rel, size_2d, self.att_heads,
                 MAX_LOCAL_DIS, scale)
