@@ -36,9 +36,16 @@ non-zero exit code:
    of 128 (K1 at K1's six calls beside SDPA over the valid slots with the
    bias as a mask; K3 at the main path's call and phase 7's two batch-2
    grids; K4 at the main path's call and phase 7's grids beside SDPA with
-   the dense bias, and on a ragged grid). K4 and K8 take less device time
-   than an eager call takes the host, so their times are those of CUDA
-   graphs;
+   the dense bias, and on a ragged grid), and the training kernels at
+   no_memory_gap's 2 heads of 128 (K1'x2 at 9 valid slots of 10, at 4 and
+   at the reference frame's one: output, each head's lse and slot mass,
+   the bf16-grid share; K2x2 after each with a nonzero drec, its three
+   kernels against their plain stages and the whole against autograd of
+   the plain forward, dk and dv exactly 0 past count; K5's backward at 2
+   heads on the training grid and a ragged one; each beside SDPA over the
+   valid slots or with the dense bias, forward or backward). K4 and K8
+   take less device time than an eager call takes the host, so their
+   times are those of CUDA graphs;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
    objects, random weights from a seed, the reference frame with a
    long-term write every 5 frames, then N frames (default 130) at the
@@ -121,28 +128,44 @@ non-zero exit code:
    eviction: a near tie in the slot mass may pick another victim after
    it); then, with RMEM_BANK_QMINOR set for this part only, the reference
    frame and 12 frames again with every K3 call held against its plain
-   version: K3 3 launches a frame, K1 none.
+   version: K3 3 launches a frame, K1 none;
+15. phase 5 for R50-DeAOTL with no_memory_gap (2 heads of 128, a
+   long-term write every frame, so the 1 + 8 slots fill at frame 8 and
+   frames 9 to 14 evict FIFO): 6 steps, exact launches in each (as phase
+   5's, through the same wrappers at 2 heads), 6 FIFO evictions a clip
+   counted on the host, finite losses, parameters changed, the curriculum
+   started; s/step, peak memory (`--profile`: busy ms a step, top ops);
+16. phase 6 for phase 15's model: one step of the kernel model, every
+   K1'x2, K2x2 (its three kernels against their plain stages on the
+   call's own forward), K4x2 and K5x2-backward call held against its plain
+   version, and one of the all-plain model on the same batch, weights and
+   shuffle: loss and global gradient norm.
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
 no CUDA device is available or the package is not beside this script.
 
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
-(held_k2), K4 and K5's backward (held_k4, held_k5; K4 at one head and at
-two), K1, K3 and K1' (held_k1, held_k3, held_k2; K1 and K3 at one head and
-at two), K1h and K1'h (held_k1h, held_k1ph), K2h (held_k2h) and K6 and K7
-(held, held_k7): for each
+(held_k2; K1'x2 + K2x2 by held_k2h at 2 heads), K4 and K5's backward
+(held_k4, held_k5; each at one head and at two), K1, K3 and K1' (held_k1,
+held_k3, held_k2, held_k1ph; each at one head and at two), K1h and K1'h
+(held_k1h, held_k1ph), K2h (held_k2h) and K6 and K7 (held, held_k7): for
+each
 mutant (MUTANTS), the package is copied into a temporary directory, one
 line of the kernel's source (or its wrapper) is changed there (K2: ds drops the slot-mass
-term, or dq the logit scale; K4: the accumulator is not rescaled when a
+term, or dq the logit scale; K2x2: head 1 reads head 0's q and k
+columns, or the wrapper hands each head drec undivided by the head
+count; K4: the accumulator is not rescaled when a
 row's maximum grows, or the bias is read at the transposed offset; K5: dq
 drops the scale, the key side reads p and ds unmirrored, or ds drops
-delta; K4 at 2 heads: head 1 reads head 0's bias; K1: the bias is
+delta; K4 at 2 heads: head 1 reads head 0's bias; K5 at 2 heads: head
+1's drel is written into head 0's; K1: the bias is
 dropped, or the keys are masked at Lk instead of true_lk; the K1/K3/K1'
 template: the keys past Lk go unmasked, or a quarter of the accumulator
 unrescaled; at 2 heads, head 1 reads head 0's keys, or the wrapper takes
 head 0's slot mass for the heads' mean; K1': the partial outputs pass
-through bf16, or the lse drops the log of the sum; K1h: the bias is
+through bf16, or the lse drops the log of the sum; K1'x2: only head 0's
+lse is written; K1h: the bias is
 dropped, a slot's sum is not rescaled as the row's maximum grows, or the
 keys are masked at Lk instead of true_lk; K1'h: the f32 output stored
 through bf16, or the lse without the log of the sum; K2h: ds drops the
@@ -162,6 +185,7 @@ import json
 import math
 import os
 import platform
+import re
 import statistics
 import subprocess
 import sys
@@ -266,6 +290,24 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_lines(log: str):
+    """nvcc -Xptxas -v's registers and spills of each kernel in a build
+    log, one line a kernel led by its name (the mangled entry's nested
+    names, e.g. rmem_bwd::ds_kernel)."""
+    entry = "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
+        if m:
+            parts, s = [], m.group(1)
+            while (n := re.match(r"\d+", s)):
+                k = n.end() + int(n.group())
+                parts.append(s[n.end():k])
+                s = s[k:]
+            entry = "::".join(parts) or m.group(1)
+        elif "registers" in line or "spill" in line:
+            yield f"{entry}: {line.split(':', 1)[-1].strip()}"
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
@@ -768,11 +810,12 @@ def held_k4(*args):
                 kl.local_attention_plain(*args))
 
 
-def sdpa_local(q, k, v, rel, size_2d, scale):
+def sdpa_local(q, k, v, rel, size_2d, scale, g=None):
     """The library's call for K4's function: SDPA with the window, image
     mask and relative bias as a dense additive [B, h, HW, HW] mask. Returns
-    (a function computing it, the in-image (query, key) pairs of every
-    head)."""
+    (a function computing it, or with the output's cotangent `g` its
+    forward and backward through autograd; the in-image (query, key) pairs
+    of every head)."""
     import torch
     import torch.nn.functional as F
 
@@ -790,8 +833,16 @@ def sdpa_local(q, k, v, rel, size_2d, scale):
     dense = torch.gather(relp, 3, omap.expand(b, heads, hw, hw))
     pairs = b * heads * (omap < 225).sum().item()
     ql, kl_, vl = heads_first(q), heads_first(k), heads_first(v)
-    return (lambda: F.scaled_dot_product_attention(
-        ql, kl_, vl, attn_mask=dense, scale=scale), pairs)
+    if g is None:
+        return (lambda: F.scaled_dot_product_attention(
+            ql, kl_, vl, attn_mask=dense, scale=scale), pairs)
+    ins = [t.requires_grad_() for t in (ql, kl_, vl)]
+    gl = heads_first(g)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(*ins, attn_mask=dense, scale=scale)
+        torch.autograd.grad(o, ins, gl)
+    return fwd_bwd, pairs
 
 
 def k4_shape(dev, batch: int, gh: int, gw: int, heads: int = 1) -> dict:
@@ -1173,10 +1224,11 @@ def k2_inputs(dev, count: int = 4):
     return g, (q, bk, bvv, cnt, dout, drec, dh ** -0.5)
 
 
-def k5_inputs(dev):
-    """K5's phase-2 inputs at the training shapes (B 4, a 30 x 30 grid,
-    dh 128, dv 1024, bf16): (q, k, v, rel, g, size_2d, heads, max_dis,
-    scale), g the output's cotangent."""
+def k5_inputs(dev, heads: int = 1, batch: int = TRAIN_B, grid=TRAIN_GRID):
+    """K5's phase-2 inputs, by default at the training shapes (B 4, a 30 x
+    30 grid; `heads` heads of 128, values 1024 over the heads, the bias 225
+    a head; bf16): (q, k, v, rel, g, size_2d, heads, max_dis, scale), g the
+    output's cotangent. Two heads are no_memory_gap's."""
     import torch
     g = torch.Generator(device=dev).manual_seed(4)
 
@@ -1184,10 +1236,10 @@ def k5_inputs(dev):
         return (torch.randn(shape, generator=g, device=dev)
                 * scale).to(torch.bfloat16)
 
-    b, hw, dh, dv = TRAIN_B, TRAIN_GRID[0] * TRAIN_GRID[1], 128, 1024
+    b, hw, dh, dv = batch, grid[0] * grid[1], 128 * heads, 1024
     return (randn(b, hw, dh, scale=2.0), randn(b, hw, dh), randn(b, hw, dv),
-            randn(b, hw, 225), randn(b, hw, dv, scale=0.1), TRAIN_GRID, 1, 7,
-            dh ** -0.5)
+            randn(b, hw, 225 * heads), randn(b, hw, dv, scale=0.1),
+            tuple(grid), heads, 7, 128 ** -0.5)
 
 
 def held_k5(q, k, v, rel, g, size_2d, num_heads, max_dis, scale):
@@ -1242,20 +1294,27 @@ def k1ph_inputs(dev, slots: int = 10, count: int = 4):
             randn(b, hw, slots, dtype=torch.float32), 32 ** -0.5)
 
 
-def held_k1ph(q, bank_k, bank_v, count, scale):
-    """K1'h on one call's inputs against its plain version on the valid
-    slots: the output (OUT_TOL of its max), each head's slot mass
-    (MASS_TOL) and lse (LSE_TOL), the share of the output on the bf16 grid
-    (ON_GRID_TOL), and each head's mass exactly 0 past count. Returns
-    ((out, rec_h, lse_h), {check: error})."""
+def held_k1ph(q, bank_k, bank_v, count, scale, heads: int = 8,
+              kernel=None):
+    """K1'h (8 heads of 32) or, with heads=2, K1'x2 (K1' at no_memory_gap's
+    2 heads of 128) on one call's inputs (`kernel`, by default the wrapper)
+    against its plain version on the valid slots: the output (OUT_TOL of
+    its max), each head's slot mass (MASS_TOL) and lse (LSE_TOL), the share
+    of the output on the bf16 grid (ON_GRID_TOL), and each head's mass
+    exactly 0 past count. Returns ((out, rec_h, lse_h), {check: error})."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
     n = int(count)
-    out, rec_h, lse_h = kb.bank_attention_lse_mh(q, bank_k, bank_v, count,
-                                                 scale)
+    label = "K1'h" if heads == 8 else "K1'x2"
+    if heads == 8:
+        out, rec_h, lse_h = (kernel or kb.bank_attention_lse_mh)(
+            q, bank_k, bank_v, count, scale)
+    else:
+        out, rec_h, lse_h = (kernel or kb.bank_attention_lse)(
+            q, bank_k, bank_v, count, scale, heads)
     ref_out, ref_rec, ref_lse = kb.bank_attention_lse_mh_plain(
-        q, bank_k[:n], bank_v[:n], count, scale)
+        q, bank_k[:n], bank_v[:n], count, scale, heads)
     on_grid = (out - out.to(torch.bfloat16).float()).abs() <= (
         2 ** -20 * out.abs())
     errs = {"out": rel_err(out, ref_out),
@@ -1265,8 +1324,8 @@ def held_k1ph(q, bank_k, bank_v, count, scale):
     for key, err in errs.items():
         tol = {"out": OUT_TOL, "rec": MASS_TOL, "lse": LSE_TOL,
                "out_on_bf16_grid": ON_GRID_TOL}[key]
-        check(err <= tol, f"K1'h {key}: {err} (tolerance {tol})")
-    check(bool((rec_h[..., n:] == 0).all()), "K1'h mass of empty slots")
+        check(err <= tol, f"{label} {key}: {err} (tolerance {tol})")
+    check(bool((rec_h[..., n:] == 0).all()), f"{label} mass of empty slots")
     return (out, rec_h, lse_h), errs
 
 
@@ -1298,22 +1357,60 @@ def held_k2h_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
     return (dq, dk, dv), errs
 
 
-def held_k2h(q, bank_k, bank_v, count, dout, drec, scale):
-    """K1'h then K2h on one call's inputs (held_k1ph, held_k2h_call), and
-    K2h's outputs against autograd of the plain forward on the valid
-    slots (GRAD_TOL). Returns {check: error}."""
+def held_k2x2_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
+                   scale):
+    """One K2x2 call (K2's three kernels at no_memory_gap's 2 heads of 128,
+    the wrappers `bank_attention_bwd_ds`, `_dq`, `_dkv`) against its plain
+    stages on the valid slots, fed the same lse_h and delta_h: p and ds
+    (the hi + lo pair) against the head-generic plain p and ds, dq, dk and
+    dv against `bank_attention_bwd_mh_dq_plain` and `_dkv_plain` (GRAD_TOL
+    of each one's max), and dk and dv exactly 0 in slots >= count. Returns
+    ((dq, dk, dv), {check: error})."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    n, lk = int(count), bank_k.shape[2]
+    p, ds = kb.bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse_h,
+                                     delta_h, drec, scale, 2)
+    dq = kb.bank_attention_bwd_dq(bank_k, ds, count, scale, 2)
+    dk, dv = kb.bank_attention_bwd_dkv(q, dout, p, ds, count, scale, lk, 2)
+    args = (q, bank_k[:n], bank_v[:n], count, dout, lse_h, delta_h,
+            drec[..., :n].contiguous(), scale)
+    rp, rds = kb._mh_p_ds(*args)                     # [B, h, Lq, n, Lk]
+    errs = {"p": rel_err(p[:, :, :n, :, :lk], rp.transpose(2, 3)),
+            "ds": rel_err(ds.float().sum(0)[:, :, :n, :, :lk],
+                          rds.transpose(2, 3))}
+    del rp, rds
+    rdk, rdv = kb.bank_attention_bwd_mh_dkv_plain(*args)
+    errs.update(dq=rel_err(dq, kb.bank_attention_bwd_mh_dq_plain(*args)),
+                dk=rel_err(dk[:n], rdk), dv=rel_err(dv[:n], rdv))
+    for key, err in errs.items():
+        check(err <= GRAD_TOL, f"K2x2 {key}: {err} (tolerance {GRAD_TOL})")
+    check(bool((dk[n:] == 0).all() and (dv[n:] == 0).all()),
+          "K2x2 gradients of invalid slots are not 0")
+    return (dq, dk, dv), errs
+
+
+def held_k2h(q, bank_k, bank_v, count, dout, drec, scale, heads: int = 8):
+    """K1'h then K2h on one call's inputs (held_k1ph, held_k2h_call), or
+    with heads=2 K1'x2 then K2x2 (held_k2x2_call), and the backward's
+    outputs against autograd of the plain forward on the valid slots
+    (GRAD_TOL). Returns {check: error}."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
     n = int(count)
-    (out, rec_h, lse_h), errs = held_k1ph(q, bank_k, bank_v, count, scale)
+    label = "K2h" if heads == 8 else "K2x2"
+    (out, rec_h, lse_h), errs = held_k1ph(q, bank_k, bank_v, count, scale,
+                                          heads)
     delta_h = kb.bwd_delta_mh(dout, out, drec, rec_h)
-    (dq, dk, dv), call_errs = held_k2h_call(q, bank_k, bank_v, count, dout,
-                                            lse_h, delta_h, drec, scale)
+    call = held_k2h_call if heads == 8 else held_k2x2_call
+    (dq, dk, dv), call_errs = call(q, bank_k, bank_v, count, dout, lse_h,
+                                   delta_h, drec, scale)
     errs.update(call_errs)
     ins = [t.detach().float().requires_grad_()
            for t in (q, bank_k[:n], bank_v[:n])]
-    o, r = kb.bank_attention_plain(*ins, count, 8, scale)
+    o, r = kb.bank_attention_plain(*ins, count, heads, scale)
     auto = torch.autograd.grad((o, r), ins,
                                (dout.float(), drec[..., :n].float()))
     for key, got, ref in (("whole_dq", dq, auto[0]),
@@ -1321,7 +1418,7 @@ def held_k2h(q, bank_k, bank_v, count, dout, drec, scale):
                           ("whole_dv", dv[:n], auto[2])):
         errs[key] = rel_err(got, ref)
         check(errs[key] <= GRAD_TOL,
-              f"K2h {key}: {errs[key]} (tolerance {GRAD_TOL})")
+              f"{label} {key}: {errs[key]} (tolerance {GRAD_TOL})")
     return errs
 
 
@@ -1420,6 +1517,232 @@ def check_aot_train_kernels(dev):
               f"({e['bound_by']}); {e['exponentials']:.3g} exponentials, "
               f"{e['sfu_ms']:.4f} ms on the special-function units")
     return entries
+
+
+# K1'x2 and K2x2 in phase 2: no_memory_gap's training calls (B 4, a 30 x
+# 30 grid, 2 heads of 128, values 512 a head) at 9 valid slots of 10 (the
+# full bank, frames 9 to 14 of a clip), at 4 and at the reference frame's
+# one; the rows' numbers are the 9-slot call's
+K1PX2_CASES = {"nine_slots": dict(count=9), "four_slots": dict(count=4),
+               "reference": dict(slots=1, count=1)}
+
+
+def k2x2_inputs(dev, slots: int = 10, count: int = 9):
+    """K1'x2's and K2x2's phase-2 inputs at no_memory_gap's training call
+    (B 4, a 30 x 30 grid, 2 heads of 128, values 1024 over the heads, bf16)
+    with a nonzero drec: (q, bank_k, bank_v, count, dout, drec, scale)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    b, hw = TRAIN_B, TRAIN_GRID[0] * TRAIN_GRID[1]
+    q = randn(b, hw, 256, scale=2.0)
+    bk, bv = randn(slots, b, hw, 256), randn(slots, b, hw, 1024)
+    return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev),
+            randn(b, hw, 1024, scale=0.1),
+            randn(b, hw, slots, dtype=torch.float32), 128 ** -0.5)
+
+
+def k2x2_case(args) -> dict:
+    """One K1'x2 + K2x2 call shape: each stage timed (CUDA events) beside
+    its plain version, its bound and, where one exists, the library's call
+    (SDPA over the valid slots' keys flattened to [B, 2, Lq, count * Lk];
+    its backward as forward + backward less forward). Returns {stage:
+    {ms, plain_ms, bound_ms, bound_by, library_ms}}, the stages
+    K2x2's rows' names and "whole" (the row term and the three kernels)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    q, bk, bv, cnt, dout, drec, scale = args
+    (S, b, lk, _), lq, count = bk.shape, q.shape[1], int(cnt)
+    kv, lkp = count * lk, (lk + 63) // 64 * 64
+    dh, dv = 256, 1024                      # widths over the two heads
+    out, rec_h, lse_h = kb.bank_attention_lse(q, bk, bv, cnt, scale, 2)
+    delta_h = kb.bwd_delta_mh(dout, out, drec, rec_h)
+    p, ds = kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout, lse_h, delta_h,
+                                     drec, scale, 2)
+    sargs = (q, bk[:count], bv[:count], cnt, dout, lse_h, delta_h,
+             drec[..., :count].contiguous(), scale)
+
+    def heads_first(x, n):          # [B, n, 2*d] -> [B, 2, n, d]
+        return x.reshape(b, n, 2, -1).transpose(1, 2).contiguous()
+
+    lib = [heads_first(q, lq)] + [
+        heads_first(t[:count].transpose(0, 1).reshape(b, kv, t.shape[-1]),
+                    kv) for t in (bk, bv)]
+    lib_grad = [t.detach().requires_grad_() for t in lib]
+    dout_lib = heads_first(dout, lq)
+
+    def sdpa(backward: bool):
+        o = F.scaled_dot_product_attention(*lib_grad, scale=scale)
+        if backward:
+            torch.autograd.grad(o, lib_grad, dout_lib)
+
+    sdpa_fwd_ms = cuda_ms(lambda: sdpa(False), 10)
+    # bytes: inputs read once (valid slots only), outputs written once
+    qb, kb_, vb = b * lq * dh * 2, kv * b * dh * 2, kv * b * dv * 2
+    ob, sb = b * lq * dv * 2, b * 2 * lq * 4
+    pb = b * 2 * count * lq * lkp * 2
+    stages = {
+        "bank_attention_lse_h2": dict(
+            fn=lambda: kb.bank_attention_lse(q, bk, bv, cnt, scale, 2),
+            plain=lambda: kb.bank_attention_lse_plain(q, bk, bv, cnt, scale,
+                                                      2),
+            flops=2.0 * b * lq * kv * (dh + dv),
+            nbytes=qb + kb_ + vb + 2 * ob + b * 2 * lq * S * 4 + sb,
+            library=sdpa_fwd_ms),
+        "bank_attention_bwd_ds_h2": dict(
+            fn=lambda: kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout, lse_h,
+                                                delta_h, drec, scale, 2),
+            plain=lambda: kb._mh_p_ds(*sargs),
+            flops=2.0 * b * lq * kv * (dh + dv),
+            nbytes=qb + kb_ + vb + ob + 2 * sb + b * lq * S * 4 + 3 * pb,
+            library=None),
+        "bank_attention_bwd_dq_h2": dict(
+            fn=lambda: kb.bank_attention_bwd_dq(bk, ds, cnt, scale, 2),
+            plain=lambda: kb.bank_attention_bwd_mh_dq_plain(*sargs),
+            flops=2 * 2.0 * b * lq * kv * dh, nbytes=2 * pb + kb_ + qb,
+            library=cuda_ms(lambda: torch.einsum(
+                "xbhsqk,sbkhd->bqhd", ds[..., :count, :, :lk],
+                bk[:count].unflatten(-1, (2, 128))), 10)),
+        "bank_attention_bwd_dkv_h2": dict(
+            fn=lambda: kb.bank_attention_bwd_dkv(q, dout, p, ds, cnt, scale,
+                                                 lk, 2),
+            plain=lambda: kb.bank_attention_bwd_mh_dkv_plain(*sargs),
+            flops=2.0 * b * lq * kv * (2 * dh + dv),
+            nbytes=3 * pb + qb + ob + S * b * lk * (dh + dv) * 2,
+            library=None),
+        "whole": dict(
+            fn=lambda: kb.bank_attention_bwd(q, bk, bv, cnt, out, rec_h,
+                                             lse_h, dout, drec, scale, 2),
+            plain=lambda: kb.bank_attention_bwd_plain(q, bk, bv, cnt, dout,
+                                                      drec, scale, 2),
+            # S.T recomputed and g = dout.v^T once each, then dq, dk and
+            # dv; reads q, k, v, dout, out (f32), lse, drec, rec; writes dq
+            # and every slot's dk, dv
+            flops=2.0 * b * lq * kv * (3 * dh + 2 * dv),
+            nbytes=(2 * qb + kb_ + vb + 3 * ob + sb + b * lq * S * 4
+                    + b * 2 * lq * S * 4 + S * b * lk * (dh + dv) * 2),
+            library=cuda_ms(lambda: sdpa(True), 10) - sdpa_fwd_ms),
+    }
+    rows = {}
+    for name, r in stages.items():
+        b_ms, b_by = bound(r["flops"], r["nbytes"])
+        rows[name] = dict(ms=cuda_ms(r["fn"], 20 if name != "whole" else 10),
+                          plain_ms=cuda_ms(r["plain"], 3), bound_ms=b_ms,
+                          bound_by=b_by, library_ms=r["library"])
+    return rows
+
+
+def check_nmg_train_kernels(dev):
+    """Phase 2, no_memory_gap's training rows (2 heads of 128, values 512 a
+    head): K1'x2 at K1PX2_CASES and K2x2 after each, held (held_k2h with
+    heads=2: K1'x2's output, each head's slot mass and lse, K2x2's three
+    kernels against their plain stages, the whole backward against
+    autograd of the plain forward, with a nonzero drec) and timed
+    (k2x2_case) at 9 and 4 valid slots; K5's backward at 2 heads on the
+    training grid and a ragged one (held_k5), timed beside its plain
+    version and SDPA's backward with the dense bias. Returns ({name: entry}
+    without launch counts, whole-K2x2 timings)."""
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import local_attention as kl
+    held_errs, timed = {}, {}
+    for key, kw in K1PX2_CASES.items():
+        args = k2x2_inputs(dev, **kw)
+        held_errs[key] = held_k2h(*args, heads=2)
+        print(f"K1'x2 + K2x2 {key} {kw}: max|kernel - plain| / max|plain| "
+              "(rec, lse absolute; the share of out on the bf16 grid): "
+              + ", ".join(f"{k} {v:.3e}"
+                          for k, v in held_errs[key].items()))
+        if key != "reference":
+            timed[key] = k2x2_case(args)
+        else:
+            q, bk, bv, cnt, _, _, scale = args
+            timed[key] = {"bank_attention_lse_h2": dict(ms=cuda_ms(
+                lambda: kb.bank_attention_lse(q, bk, bv, cnt, scale, 2),
+                20))}
+    for key, rows in timed.items():
+        print(f"K1'x2 + K2x2 {key}: " + "; ".join(
+            f"{name} {r['ms']:.4f} ms" + (
+                f" (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
+                f"{r['bound_by']}, library "
+                + ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}") + ")"
+                if "bound_ms" in r else "")
+            for name, r in rows.items()))
+
+    def worst(*keys):
+        return max(e[k] for e in held_errs.values() for k in keys)
+
+    errs = {"bank_attention_lse_h2": worst("out", "lse"),
+            "bank_attention_bwd_ds_h2": worst("p", "ds"),
+            "bank_attention_bwd_dq_h2": worst("dq"),
+            "bank_attention_bwd_dkv_h2": worst("dk", "dv")}
+    sources = {"bank_attention_lse_h2": (
+        "rmem_tpu_torch/csrc/bank_attention_infer.cu",
+        "rmem_tpu/kernels/bank_attention.py:687"),
+        "bank_attention_bwd_ds_h2": (
+            "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
+            "rmem_tpu/kernels/bank_attention.py:581"),
+        "bank_attention_bwd_dq_h2": (
+            "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
+            "rmem_tpu/kernels/bank_attention.py:113"),
+        "bank_attention_bwd_dkv_h2": (
+            "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
+            "rmem_tpu/kernels/bank_attention.py:155")}
+    entries = {}
+    for name, (source, replaces) in sources.items():
+        main = timed["nine_slots"][name]
+        entries[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            heads=2, valid_slots=9, max_abs_err=errs[name], **main,
+            cases={key: rows[name] for key, rows in timed.items()
+                   if name in rows})
+    whole = {key: dict(rows["whole"], held=held_errs[key])
+             for key, rows in timed.items() if "whole" in rows}
+
+    # ---- K5's backward at 2 heads: the training grid, then a ragged one ----
+    k5 = k5_inputs(dev, heads=2)
+    k5_errs = held_k5(*k5)
+    ragged = held_k5(*k5_inputs(dev, heads=2, batch=2, grid=(13, 21)))
+    print("K5x2 local_attention_bwd at the training shapes, max|kernel - "
+          "plain| / max|plain|: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in k5_errs.items())
+          + "; on a ragged 13 x 21 grid (B 2): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in ragged.items()))
+    q, k, v, rel, g, size_2d, heads, _, scale = k5
+    lib_fwd, pairs = sdpa_local(q, k, v, rel, size_2d, scale)
+    lib_fwd_bwd, _ = sdpa_local(q, k, v, rel, size_2d, scale, g=g)
+    lib_fwd_ms, lib_fwd_bwd_ms = cuda_ms(lib_fwd, 20), cuda_ms(lib_fwd_bwd,
+                                                               20)
+    b, hw, dh, dv = q.shape[0], q.shape[1], q.shape[-1], v.shape[-1]
+    # q, k, v, rel and g read once, dq, dk, dv (bf16) and drel (f32)
+    # written once; widths over the heads, pairs counted for every head
+    b_ms, b_by = bound(2.0 * pairs * (3 * dh + 2 * dv) / heads,
+                       (2 * dh + 2 * dv + rel.shape[-1]) * b * hw * 2
+                       + (2 * dh + dv) * b * hw * 2 + rel.numel() * 4)
+    call = lambda: kl.local_attention_bwd(*k5)
+    entries["local_attention_bwd_h2"] = dict(
+        name="local_attention_bwd_h2", route="cuda", heads=2,
+        source="rmem_tpu_torch/csrc/local_attention.cu",
+        replaces="rmem_tpu/kernels/local_attention.py:266",
+        max_abs_err=max([*k5_errs.values(), *ragged.values()]),
+        ms=cuda_ms(call, 20),
+        plain_ms=cuda_ms(lambda: kl.local_attention_bwd_plain(*k5), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+        split_ms=kernel_split_ms(call))
+    e = entries["local_attention_bwd_h2"]
+    print(f"K5x2 backward: {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
+          f"SDPA backward with the dense bias {e['library_ms']:.4f} ms "
+          f"(forward {lib_fwd_ms:.4f}), bound {b_ms:.5f} ms ({b_by}); by "
+          "kernel (profiler, ms a call): " + ", ".join(
+              f"{k[:40]} {x:.4f}" for k, x in e["split_ms"].items()))
+    for e in entries.values():
+        e["kernel_ms"] = e["ms"]
+    return entries, whole
 
 
 def check_train_kernels(dev):
@@ -2362,7 +2685,8 @@ TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
 # each training wrapper's launches in every step of the training phases: 3
 # layers' bank (and DeAOT's local) attention forward over 15 frames and
 # again over the 14 checkpointed ones, its backward over 15, the stem once
-# over the clip's 60 frames
+# over the clip's 60 frames; no_memory_gap's (phase 15) at 2 heads of 128
+# through the same wrappers
 _FWD, _BWD = 3 * (2 * TRAIN_T - 1), 3 * TRAIN_T
 TRAIN_LAUNCHES = {
     "r50_deaotl": dict(bank_attention_lse=_FWD, bank_attention_bwd_ds=_BWD,
@@ -2376,8 +2700,14 @@ TRAIN_LAUNCHES = {
                      bank_attention_lse_mh=_FWD,
                      bank_attention_bwd_mh=_BWD),
 }
+TRAIN_LAUNCHES["r50_deaotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"])
 TRAIN_PHASE = {"r50_deaotl": ("phase 5", "R50-DeAOTL"),
-               "r50_aotl": ("phase 11", "R50-AOTL")}
+               "r50_aotl": ("phase 11", "R50-AOTL"),
+               "r50_deaotl_nmg": ("phase 15",
+                                  "R50-DeAOTL with no_memory_gap")}
+# the held kernel step against the all-plain step of each trained model
+HELD_PHASE = {"r50_deaotl": "phase 6", "r50_aotl": "phase 12",
+              "r50_deaotl_nmg": "phase 16"}
 
 
 def route_turns(dev, card: str):
@@ -2465,32 +2795,50 @@ def route_turns(dev, card: str):
 
 
 def train_config(model: str = "r50_deaotl"):
-    """pre_vost `model` at the card's batch, with train_total_steps set so
-    that the use_prev_pred curriculum (from half the total) starts inside a
-    run of TRAIN_STEPS steps."""
+    """pre_vost `model` (a key of SERVED: r50_deaotl_nmg is R50-DeAOTL with
+    no_memory_gap) at the card's batch, with train_total_steps set so that
+    the use_prev_pred curriculum (from half the total) starts inside a run
+    of TRAIN_STEPS steps."""
     from rmem_tpu_torch.config import get_config
-    return get_config("pre_vost", model=model, train_batch_size=TRAIN_B,
+    return get_config("pre_vost", **SERVED[model], train_batch_size=TRAIN_B,
                       train_total_steps=TRAIN_STEPS + 2)
 
 
+def fifo_evictions(cfg) -> int:
+    """The FIFO evictions of one training clip: frames 1 .. T-1 write every
+    train_long_term_mem_gap frames after the reference's slot, and each
+    write past former + latter slots evicts (engine/training.py)."""
+    writes = (cfg.data_seq_len - 1) // cfg.train_long_term_mem_gap
+    return max(0, 1 + writes - cfg.former_mem_len - cfg.latter_mem_len)
+
+
 def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
-    """Phase 5 (R50-DeAOTL) or phase 11 (R50-AOTL): TRAIN_STEPS training
-    steps on synthetic clips (465 x 465, 15 frames, 4 clips), random
-    weights from a seed. Launch counts are zeroed just before and read just
-    after, and each step's must equal TRAIN_LAUNCHES[model]. With
-    `profile`, one more step runs under torch.profiler. Returns (launch
-    counts by wrapper, per-step seconds, peak GiB)."""
+    """Phase 5 (R50-DeAOTL), phase 11 (R50-AOTL) or phase 15 (R50-DeAOTL
+    with no_memory_gap: 2 heads of 128, a long-term write every frame):
+    TRAIN_STEPS training steps on synthetic clips (465 x 465, 15 frames, 4
+    clips), random weights from a seed. Launch counts are zeroed just
+    before and read just after, and each step's must equal
+    TRAIN_LAUNCHES[model]; the FIFO evictions each step makes (counted on
+    the host at the bank's out-of-place compaction) must equal the
+    schedule's (fifo_evictions: phase 15's 6 a clip). With `profile`, one
+    more step runs under torch.profiler. Returns (launch counts by wrapper,
+    per-step seconds, peak GiB)."""
     import importlib
 
     import torch
 
     from rmem_tpu_torch.managers.trainer import Trainer, train_step
+    from rmem_tpu_torch.memory import eviction
 
     steps = TRAIN_STEPS
     phase, name = TRAIN_PHASE[model]
     cfg = train_config(model)
     check(cfg.data_seq_len == TRAIN_T
           and tuple(cfg.data_randomcrop) == TRAIN_HW, "pre_vost's shapes")
+    check(model != "r50_deaotl_nmg" or (
+        cfg.model_att_heads, cfg.train_long_term_mem_gap) == (2, 1),
+        f"{phase}: {cfg.model_att_heads} heads, a write every "
+        f"{cfg.train_long_term_mem_gap}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(cfg, device=dev, seed=0)
@@ -2503,22 +2851,33 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
         fn.launches = 0
     seq_start = cfg.train_seq_training_start_ratio * cfg.train_total_steps
     host = host_line()
+    compact, evictions = eviction.bank_compact, []
+
+    def counted_compact(*a, **kw):
+        evictions[-1] += 1
+        return compact(*a, **kw)
+
     times, losses, per_step = [], [], []
-    for i, (batch, shuffle) in enumerate(batches):
-        counts0 = [fn.launches for fn in wrappers]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = train_step(trainer.state, batch, shuffle, cfg)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        per_step.append([fn.launches - c for fn, c in zip(wrappers, counts0)])
-        print(f"{phase}: train step {i} (curriculum "
-              f"{'on' if i >= seq_start else 'off'}"
-              f"): loss {losses[-1]:.4f}, grad norm "
-              f"{float(metrics['grad_norm']):.3f}, iou "
-              f"{float(metrics['iou']):.4f}, {times[-1]:.3f} s, launches "
-              + str(dict(zip((fn for _, fn in TRAIN_KERNELS), per_step[-1]))))
+    with mock.patch.object(eviction, "bank_compact", counted_compact):
+        for i, (batch, shuffle) in enumerate(batches):
+            counts0 = [fn.launches for fn in wrappers]
+            evictions.append(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(trainer.state, batch, shuffle, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            per_step.append([fn.launches - c
+                             for fn, c in zip(wrappers, counts0)])
+            print(f"{phase}: train step {i} (curriculum "
+                  f"{'on' if i >= seq_start else 'off'}"
+                  f"): loss {losses[-1]:.4f}, grad norm "
+                  f"{float(metrics['grad_norm']):.3f}, iou "
+                  f"{float(metrics['iou']):.4f}, {times[-1]:.3f} s, "
+                  f"{evictions[-1]} FIFO evictions, launches "
+                  + str(dict(zip((fn for _, fn in TRAIN_KERNELS),
+                                 per_step[-1]))))
     counts = {fn: w.launches for (_, fn), w in zip(TRAIN_KERNELS, wrappers)}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     moved = max((p.detach() - before[n]).abs().max().item()
@@ -2526,13 +2885,19 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
     expected = [TRAIN_LAUNCHES[model][fn] for _, fn in TRAIN_KERNELS]
     check(cfg.model_lstt_num == 3 and all(s == expected for s in per_step),
           f"{phase} launches per step {per_step}, expected {expected}")
+    check(evictions == [fifo_evictions(cfg)] * steps,
+          f"{phase} FIFO evictions per step {evictions}, expected "
+          f"{fifo_evictions(cfg)}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(moved > 0, "the parameters did not change")
     check(seq_start < steps, "the curriculum did not start")
     timed = times[1:]     # the first step includes cuDNN's autotuning
     print(f"{phase}: {steps} steps of {name} pre_vost at 465x465, T "
-          f"{TRAIN_T}, B {TRAIN_B} (the reference's 16 over 4 GPUs), the "
-          f"curriculum from step {seq_start:g}; {statistics.median(timed):.3f}"
+          f"{TRAIN_T}, B {TRAIN_B} (the reference's 16 over 4 GPUs), "
+          f"{cfg.model_att_heads} heads, a long-term write every "
+          f"{cfg.train_long_term_mem_gap} frames, {evictions[0]} FIFO "
+          f"evictions a clip, the curriculum from step {seq_start:g}; "
+          f"{statistics.median(timed):.3f}"
           f" s/step median of steps 1..{steps - 1} (each: "
           + ", ".join(f"{t:.3f}" for t in times)
           + f"); peak memory {peak:.2f} GiB; largest parameter change "
@@ -2547,13 +2912,15 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
 
 
 def held_train_step(dev, model: str = "r50_deaotl"):
-    """Phase 6 (R50-DeAOTL) or phase 12 (R50-AOTL): one step of the kernel
-    model, every K2 call and every K5 forward (K4) call (R50-DeAOTL) or
-    every K2h call (R50-AOTL) of which is held against its plain version on
-    the same inputs, and one step of a model whose kernels are all their
-    plain versions (computed in f32 from the same bf16 inputs), on the
-    same batch, weights and shuffle. Holds the loss and the global gradient
-    norm of the two. Returns a summary."""
+    """Phase 6 (R50-DeAOTL), phase 12 (R50-AOTL) or phase 16 (R50-DeAOTL
+    with no_memory_gap): one step of the kernel model, every K2 call and
+    every K5 forward (K4) call (R50-DeAOTL), every K2h call (R50-AOTL) or
+    every K1'x2, K2x2, K5x2 forward and K5x2 backward call (no_memory_gap)
+    of which is held against its plain version on the same inputs, and one
+    step of a model whose kernels are all their plain versions (computed in
+    f32 from the same bf16 inputs), on the same batch, weights and shuffle.
+    Holds the loss and the global gradient norm of the two. Returns a
+    summary."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
@@ -2562,17 +2929,47 @@ def held_train_step(dev, model: str = "r50_deaotl"):
     from rmem_tpu_torch.managers.trainer import Trainer, train_step
 
     cfg = train_config(model)
-    phase = "phase 6" if model == "r50_deaotl" else "phase 12"
+    phase = HELD_PHASE[model]
     bf = torch.bfloat16
-    calls, fwd_calls = [], []
+    calls, fwd_calls, lse_calls, k5_calls = [], [], [], []
     kernel_bwd = kb.bank_attention_bwd
     kernel_fwd = kl.local_attention
     kernel_bwd_mh = kb.bank_attention_bwd_mh
+    kernel_lse = kb.bank_attention_lse
+    kernel_bwd_la = kl.local_attention_bwd
 
-    def held_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec, scale):
-        calls.append(held_k2(q, bank_k, bank_v, count, dout, drec, scale))
-        return kernel_bwd(q, bank_k, bank_v, count, out, rec, lse, dout,
-                          drec, scale)
+    def held_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec, scale,
+                 num_heads=1):
+        if num_heads == 1:
+            calls.append(held_k2(q, bank_k, bank_v, count, dout, drec,
+                                 scale))
+            return kernel_bwd(q, bank_k, bank_v, count, out, rec, lse, dout,
+                              drec, scale)
+        # K2x2 on this call's own forward: its three kernels against their
+        # plain stages
+        delta_h = kb.bwd_delta_mh(dout, out, drec, rec)
+        got, errs = held_k2x2_call(q, bank_k, bank_v, count, dout, lse,
+                                   delta_h, drec, scale)
+        calls.append(errs)
+        return got
+
+    def held_lse(q, bank_k, bank_v, count, scale, num_heads=1):
+        # the forward runs under the trainer's bf16 autocast: the plain
+        # version computes in f32 outside it
+        with torch.autocast(q.device.type, enabled=False):
+            got, errs = held_k1ph(q, bank_k, bank_v, count, scale, num_heads,
+                                  kernel=kernel_lse)
+        lse_calls.append(errs)
+        return got
+
+    def held_bwd_la(*args):
+        got = kernel_bwd_la(*args)
+        plain = kl.local_attention_bwd_plain(*args)
+        errs = {name: rel_err(a, r) for name, a, r in
+                zip(("dq", "dk", "dv", "drel"), got, plain)}
+        check(max(errs.values()) <= GRAD_TOL, f"K5x2 backward {errs}")
+        k5_calls.append(errs)
+        return got
 
     def held_fwd(*args):
         got = kernel_fwd(*args)
@@ -2587,10 +2984,16 @@ def held_train_step(dev, model: str = "r50_deaotl"):
     # a wrapper counts its launches on the name it has in its module, which
     # is now the held function's
     held_fwd.launches = held_bwd_mh.launches = 0
-    held_patches = ([((kb, "bank_attention_bwd"), held_bwd),
-                     ((kl, "local_attention"), held_fwd)]
-                    if model == "r50_deaotl"
-                    else [((kb, "bank_attention_bwd_mh"), held_bwd_mh)])
+    held_lse.launches = held_bwd_la.launches = 0
+    held_patches = {
+        "r50_deaotl": [((kb, "bank_attention_bwd"), held_bwd),
+                       ((kl, "local_attention"), held_fwd)],
+        "r50_aotl": [((kb, "bank_attention_bwd_mh"), held_bwd_mh)],
+        "r50_deaotl_nmg": [((kb, "bank_attention_lse"), held_lse),
+                           ((kb, "bank_attention_bwd"), held_bwd),
+                           ((kl, "local_attention"), held_fwd),
+                           ((kl, "local_attention_bwd"), held_bwd_la)],
+    }[model]
 
     # the plain versions take the inputs in bf16, as the kernels do
     plain = {
@@ -2617,8 +3020,14 @@ def held_train_step(dev, model: str = "r50_deaotl"):
             runs.append((float(m["loss"]), float(m["grad_norm"])))
             del trainer
     (loss_k, gn_k), (loss_p, gn_p) = runs
-    k2 = "K2" if model == "r50_deaotl" else "K2h"
-    worst = {key: max(c[key] for c in calls) for key in calls[0]}
+    k2 = {"r50_deaotl": "K2", "r50_aotl": "K2h",
+          "r50_deaotl_nmg": "K2x2"}[model]
+
+    def worst_of(held_calls):
+        return {key: max(c[key] for c in held_calls)
+                for key in (held_calls[0] if held_calls else ())}
+
+    worst = worst_of(calls)
     fwd_worst = max((e / top for e, top, _ in fwd_calls), default=None)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     gn_err = abs(gn_k - gn_p) / gn_p
@@ -2628,17 +3037,31 @@ def held_train_step(dev, model: str = "r50_deaotl"):
           f"calls held, worst of each check: "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + (f"; {len(fwd_calls)} K5 forward calls held, worst "
-             f"{fwd_worst:.3e} of max|plain|" if fwd_calls else ""))
-    check(len(calls) == cfg.model_lstt_num * TRAIN_T,
-          f"{len(calls)} {k2} calls on the path")
-    check(model != "r50_deaotl"
-          or len(fwd_calls) >= cfg.model_lstt_num * TRAIN_T,
+             f"{fwd_worst:.3e} of max|plain|" if fwd_calls else "")
+          + (f"; {len(lse_calls)} K1'x2 calls held, worst: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst_of(lse_calls).items())
+             if lse_calls else "")
+          + (f"; {len(k5_calls)} K5x2 backward calls held, worst: "
+             + ", ".join(f"{k} {v:.3e}"
+                         for k, v in worst_of(k5_calls).items())
+             if k5_calls else ""))
+    layers_frames = cfg.model_lstt_num * TRAIN_T
+    check(len(calls) == layers_frames, f"{len(calls)} {k2} calls on the path")
+    check(model == "r50_aotl" or len(fwd_calls) >= layers_frames,
           f"{len(fwd_calls)} K5 forward calls on the path")
+    check(model != "r50_deaotl_nmg" or (
+        len(lse_calls) == TRAIN_LAUNCHES[model]["bank_attention_lse"]
+        and len(k5_calls) == layers_frames),
+        f"{len(lse_calls)} K1'x2 and {len(k5_calls)} K5x2 backward calls on "
+        "the path")
     check(loss_err <= STEP_LOSS_TOL, f"step loss {loss_err}")
     check(gn_err <= STEP_GNORM_TOL, f"step grad norm {gn_err}")
     return dict(loss=[loss_k, loss_p], grad_norm=[gn_k, gn_p],
                 k2_calls=len(calls), k2_worst=worst,
-                k5_forward_calls=len(fwd_calls), k5_forward_worst=fwd_worst)
+                k5_forward_calls=len(fwd_calls), k5_forward_worst=fwd_worst,
+                k1p_calls=len(lse_calls), k1p_worst=worst_of(lse_calls),
+                k5_backward_calls=len(k5_calls),
+                k5_backward_worst=worst_of(k5_calls))
 
 
 # --mutants: for each kernel source, the per-call checks of phase 2 that
@@ -2656,7 +3079,20 @@ MUTANTS = {
         "dq_scale": [("pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);",
                       "pack_bf16(acc[nt][0], acc[nt][1]);"),
                      ("pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);",
-                      "pack_bf16(acc[nt][2], acc[nt][3]);")]}),
+                      "pack_bf16(acc[nt][2], acc[nt][3]);")],
+        # K2x2: head 1's ds reads head 0's q and k columns
+        "k2x2_head0_qk": [
+            ("const bf16* qb = q + ((size_t)b * Lq + q0) * ldk + h * D;",
+             "const bf16* qb = q + ((size_t)b * Lq + q0) * ldk;"),
+            ("const bf16* kb = k + (((size_t)s * B + b) * Lk + key0) * ldk "
+             "+ h * D;",
+             "const bf16* kb = k + (((size_t)s * B + b) * Lk + key0) * ldk;")],
+        # K2x2: drec reaches each head undivided by the head count (the
+        # wrapper's line)
+        "k2x2_drec_undivided": [
+            ("drec_h = (drec / num_heads).contiguous()",
+             "drec_h = drec.contiguous()",
+             "rmem_tpu_torch/kernels/bank_attention.py")]}),
     "local_attention": ("k4_k5", {
         # K4: the accumulator is not rescaled when a row's maximum grows
         "k4_no_rescale": [
@@ -2678,7 +3114,12 @@ MUTANTS = {
         "unflipped": [("* win2 + (win2 - 1 - wk)];", "* win2 + wk];")],
         # K5: ds = p dp, without the row term delta
         "no_delta": [("prow[w[j]] * (drow[w[j]] - delta);",
-                      "prow[w[j]] * drow[w[j]];")]}),
+                      "prow[w[j]] * drow[w[j]];")],
+        # K5 at 2 heads: the query side writes head 1's dp and ds into head
+        # 0's rows of drel
+        "k5x2_drel_head0": [
+            ("float* drow = drel + (((size_t)pol.b * H + pol.h) * HW",
+             "float* drow = drel + (((size_t)pol.b * H) * HW")]}),
     "bank_attention_infer": ("k1_k3_k1p", {
         # K1: the slot-PE bias is dropped
         "k1_no_bias": [("if (kBias && qbias != nullptr) {", "if (false) {")],
@@ -2710,7 +3151,11 @@ MUTANTS = {
              "__bfloat162float(__float2bfloat16_rn(b)));")],
         # K1': the lse without the log of the sum
         "k1p_lse_no_sum": [("lse[row] = (M + log2f(Lsum)) * LN2;",
-                            "lse[row] = M * LN2;")]}),
+                            "lse[row] = M * LN2;")],
+        # K1'x2: the merge writes head 0's lse only
+        "k1px2_lse_head0_only": [
+            ("if (kF32 && blockIdx.y == 0 && threadIdx.x == 0)",
+             "if (kF32 && h == 0 && blockIdx.y == 0 && threadIdx.x == 0)")]}),
     "bank_attention_mh": ("k1h", {
         # K1h: the slot-PE bias is dropped
         "k1h_no_bias": [("if (!kTrain && qbias != nullptr) {",
@@ -2761,7 +3206,7 @@ MUTANTS = {
 def k1_k3_k1p_check(dev):
     """The template's three instantiations: K1's phase-2 calls with the bias
     and with padded keys, at one head and at two, K3's at one head and at
-    two, then K1' (with K2) at 2 and 4 valid slots."""
+    two, then K1' (with K2) at 2 and 4 valid slots, and K1'x2 at 4."""
     errs = {f"{key}_h{heads}": held_k1(*k1_inputs(dev, heads=heads,
                                                  **K1_CASES[key]))
             for key in ("main", "padded") for heads in (1, 2)}
@@ -2769,6 +3214,8 @@ def k1_k3_k1p_check(dev):
     errs["k3_h2"] = held_k3(*k3_inputs(dev, heads=2))
     for count in (2, 4):
         errs[f"k1p_{count}"] = held_k2(*k2_inputs(dev, count)[1])
+    q, bk, bv, cnt, _, _, scale = k2x2_inputs(dev, count=4)
+    errs["k1px2_4"] = held_k1ph(q, bk, bv, cnt, scale, 2)[1]
     return errs
 
 
@@ -2789,12 +3236,13 @@ def stem_check(dev):
 
 def k4_k5_check(dev):
     """K4 at the main path's call and on a ragged grid, at one head and at
-    two, then K5's backward."""
+    two, then K5's backward at one head and at two."""
     errs = {f"{key}_h{heads}": held_k4(*k4_inputs(dev, *shape, heads=heads))
             for key, shape in (("b1_31x54", (1, 31, 54)),
                                ("b2_13x21", (2, 13, 21)))
             for heads in (1, 2)}
     errs["k5"] = held_k5(*k5_inputs(dev))
+    errs["k5_h2"] = held_k5(*k5_inputs(dev, heads=2))
     return errs
 
 
@@ -2810,7 +3258,9 @@ def k1h_check(dev):
 
 
 MUTANT_CHECKS = {
-    "k2": lambda dev: held_k2(*k2_inputs(dev)[1]),
+    # K2 at one head, then K1'x2 + K2x2 at 4 valid slots
+    "k2": lambda dev: dict(h1=held_k2(*k2_inputs(dev)[1]),
+                           h2=held_k2h(*k2x2_inputs(dev, count=4), heads=2)),
     "k1h": k1h_check,
     "k2h": lambda dev: held_k2h(*k1ph_inputs(dev)),
     "k1_k3_k1p": k1_k3_k1p_check,
@@ -2880,12 +3330,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 steady frames "
                          "of phases 3, 7, 9 and 13 and of one training step "
-                         "of phases 5 and 11")
+                         "of phases 5, 11 and 15")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
                          "K5, K1, K3, K1', K1h, K1'h, K2h, K6 and K7 "
-                         "checks (K1, K3 and K4 at one head and at two); "
-                         "prints no result line")
+                         "checks (K1, K3, K4, K1', K2 and K5's backward at "
+                         "one head and at two); prints no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")
@@ -2913,10 +3363,8 @@ def main() -> int:
     paths = build.build()
     print(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
-        log = path.with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(path.with_suffix(".log").read_text()):
+            print(f"  {name}: {line}")
 
     t0 = time.perf_counter()
     entries = check_kernels(dev)
@@ -2924,6 +3372,7 @@ def main() -> int:
     entries.update(check_two_head_kernels(dev))
     train_entries, k2_whole, k5_whole = check_train_kernels(dev)
     aot_train_entries = check_aot_train_kernels(dev)
+    nmg_train_entries, k2x2_whole = check_nmg_train_kernels(dev)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, window_fps = main_path(dev, args.frames, card, args.profile)
@@ -2984,6 +3433,14 @@ def main() -> int:
     entries["bank_attention_qminor_h2"].update(
         launches=nmg_k3_launches, launches_from="phase 14, RMEM_BANK_QMINOR "
         "set: K3 is the opt-in route")
+    t0 = time.perf_counter()
+    nmg_train_counts, nmg_step_times, nmg_peak = train_phase(
+        dev, card, args.profile, model="r50_deaotl_nmg")
+    for key, e in nmg_train_entries.items():
+        e["launches"] = nmg_train_counts[key.removesuffix("_h2")]
+    entries.update(nmg_train_entries)
+    nmg_held_step = held_train_step(dev, "r50_deaotl_nmg")
+    print(f"phases 15 and 16: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -3021,6 +3478,13 @@ def main() -> int:
                       "nmg_logit_rel_err": nmg_logit_errs,
                       "nmg_label_agreement": nmg_agree,
                       "nmg_k3_on_path": nmg_k3_worst,
+                      "k2x2_whole": k2x2_whole,
+                      "nmg_train_step_s": nmg_step_times,
+                      "nmg_train_step_s_median": statistics.median(
+                          nmg_step_times[1:]),
+                      "nmg_train_peak_gib": nmg_peak,
+                      "nmg_train_launches": nmg_train_counts,
+                      "nmg_held_step": nmg_held_step,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

@@ -11,10 +11,18 @@
 //   dq = scale * ds K,  dk = scale * ds^T Q,  dv = p^T dout
 // Slots >= count (read on the device) take no work; their dk and dv are 0.
 //
+// Heads: H of 128 (1, DeAOT's; 2, its no_memory_gap with 512 values a
+// head), each head its own softmax, as rmem_tpu/kernels/bank_attention.py:
+// _layout folds them into the grid, but without its transposes: q, k, v,
+// dout, dq, dk and dv keep their [.., H x d] rows and each block reads and
+// writes its head's columns in place; lse, delta and the scratch carry the
+// head axis. drec arrives divided by H (the record is the head mean).
+//
 // What bounds it on an H100: operations. At the training shapes (B 4,
-// Lq = Lk = 900, 4 valid slots, dh 128, dv 1024) the work is
-// 2*Lq*(4*Lk)*(3*dh + 2*dv) per batch element, ~1.3e11 FLOP in all, against
-// ~0.2 GB of inputs, outputs and intermediates.
+// Lq = Lk = 900, n valid slots, H x 128 keys, 1024 values over the heads)
+// the work is 2*B*Lq*(n*Lk)*H*(3*128 + 2*dv) (dv a head's values): ~1.3e11
+// FLOP at one head and 4 slots, ~3.0e11 at two heads and 9 slots, against
+// ~0.2 to 0.6 GB of inputs, outputs and intermediates.
 //
 // Design. The TPU kernels keep a [TK, 1024] f32 dV accumulator in VMEM and
 // recompute p and ds in both the dq and the dkv kernel. On an SM a 64-key
@@ -22,13 +30,16 @@
 // full 1024-wide g = dout . v^T before it exists. So the work is split in
 // three kernels that each own an output tile small enough for registers:
 //   ds_kernel: one block per (64 queries, 64 keys of one valid slot)
-//     computes S = Q K^T and G = dOut V^T (dOut and V streamed in 128-wide
-//     chunks through a double buffer), and writes p in bf16 and ds as two
-//     bf16 planes, hi = bf16(ds) and lo = bf16(ds - hi), to [B, S, Lq, LkP]
-//     scratch (LkP = keys padded to 64, padding written 0);
-//   dq_kernel: one block per 64 queries sums ds K over the valid slots;
-//   dkv_kernel: one block per (64 keys of one slot, 128 output columns of
-//     [dk | dv]) sums ds^T Q or p^T dOut over the queries.
+//     of one head computes S = Q K^T and G = dOut V^T (dOut and V streamed
+//     in 128-wide chunks through a double buffer), and writes p in bf16 and
+//     ds as two bf16 planes, hi = bf16(ds) and lo = bf16(ds - hi), to
+//     [B, H, S, Lq, LkP] scratch (LkP = keys padded to 64, padding written
+//     0);
+//   dq_kernel: one block per (64 queries, head) sums ds K over the valid
+//     slots;
+//   dkv_kernel: one block per (64 keys of one slot and head, 128 output
+//     columns of the head's [dk | dv]) sums ds^T Q or p^T dOut over the
+//     queries.
 // The scratch costs ~0.1 GB of writes and reads per call, a few percent of
 // the time the products take, and nothing is computed twice. ds needs more
 // than bf16: each row of ds sums to zero (to the slot-mass term), so dq =
@@ -97,15 +108,16 @@ __device__ __forceinline__ void mma_abt(float (*acc)[4], const bf16* sA,
   }
 }
 
-// ---- ds: p and ds of one (query tile, key tile of a valid slot) ----
-// DS holds two planes of B*S*Lq*LkP values: hi, then lo.
+// ---- ds: p and ds of one (query tile, key tile of a valid slot, batch x
+// head) ----
+// DS holds two planes of B*H*S*Lq*LkP values: hi, then lo.
 __global__ void __launch_bounds__(kThreads)
 ds_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           const float* __restrict__ drec, const int* __restrict__ count_ptr,
-          bf16* __restrict__ P, bf16* __restrict__ DS, int B, int Lq, int S,
-          int Lk, int LkP, int dv, float scale) {
+          bf16* __restrict__ P, bf16* __restrict__ DS, int B, int H, int Lq,
+          int S, int Lk, int LkP, int dv, float scale) {
   extern __shared__ __align__(128) char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BQ * LD;
@@ -115,23 +127,26 @@ ds_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int cps = LkP / BK;
   const int s = blockIdx.y / cps, c = blockIdx.y % cps;
   if (s >= clamp_count(count_ptr, S)) return;
-  const int b = blockIdx.z, q0 = blockIdx.x * BQ, key0 = c * BK;
+  const int bh = blockIdx.z, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ, key0 = c * BK;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rt = warp & 3;    // 16-query tile
   const int kh = warp >> 2;   // 32-key half
   const int nq = Lq - q0, nk = Lk - key0;
-  const bf16* qb = q + ((size_t)b * Lq + q0) * D;
-  const bf16* kb = k + (((size_t)s * B + b) * Lk + key0) * D;
-  const bf16* ob = dout + ((size_t)b * Lq + q0) * dv;
-  const bf16* vb = v + (((size_t)s * B + b) * Lk + key0) * dv;
+  // row strides over the heads; this head's columns within a row
+  const size_t ldk = (size_t)H * D, ldv = (size_t)H * dv;
+  const bf16* qb = q + ((size_t)b * Lq + q0) * ldk + h * D;
+  const bf16* kb = k + (((size_t)s * B + b) * Lk + key0) * ldk + h * D;
+  const bf16* ob = dout + ((size_t)b * Lq + q0) * ldv + (size_t)h * dv;
+  const bf16* vb = v + (((size_t)s * B + b) * Lk + key0) * ldv + (size_t)h * dv;
 
-  load_tile<D, LD>(sQ, qb, D, nq);
-  load_tile<D, LD>(sK, kb, D, nk);
+  load_tile<D, LD>(sQ, qb, ldk, nq);
+  load_tile<D, LD>(sK, kb, ldk, nk);
   cp_commit();
   auto load_chunk = [&](int ch, int buf) {
-    load_tile<DC, LD>(sA + buf * BQ * LD, ob + ch * DC, dv, nq);
-    load_tile<DC, LD>(sB + buf * BK * LD, vb + ch * DC, dv, nk);
+    load_tile<DC, LD>(sA + buf * BQ * LD, ob + ch * DC, ldv, nq);
+    load_tile<DC, LD>(sB + buf * BK * LD, vb + ch * DC, ldv, nk);
   };
   load_chunk(0, 0);
   cp_commit();
@@ -156,17 +171,17 @@ ds_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qa = q0 + rt * 16 + g, qc = qa + 8;
   float la = 0.f, lc = 0.f, da = 0.f, dc = 0.f, ra = 0.f, rc = 0.f;
   if (qa < Lq) {
-    la = lse[(size_t)b * Lq + qa];
-    da = delta[(size_t)b * Lq + qa];
+    la = lse[(size_t)bh * Lq + qa];
+    da = delta[(size_t)bh * Lq + qa];
     ra = drec[((size_t)b * Lq + qa) * S + s];
   }
   if (qc < Lq) {
-    lc = lse[(size_t)b * Lq + qc];
-    dc = delta[(size_t)b * Lq + qc];
+    lc = lse[(size_t)bh * Lq + qc];
+    dc = delta[(size_t)bh * Lq + qc];
     rc = drec[((size_t)b * Lq + qc) * S + s];
   }
-  const size_t base = ((size_t)b * S + s) * Lq;
-  bf16* DSL = DS + (size_t)B * S * Lq * LkP;
+  const size_t base = ((size_t)bh * S + s) * Lq;
+  bf16* DSL = DS + (size_t)B * H * S * Lq * LkP;
   auto put = [&](size_t o, float p0, float p1, float d0, float d1) {
     const __nv_bfloat162 hi = __floats2bfloat162_rn(d0, d1);
     *reinterpret_cast<unsigned*>(P + o) = pack_bf16(p0, p1);
@@ -191,19 +206,21 @@ ds_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- dq = scale * sum over valid slots of (ds hi + ds lo) K ----
+// ---- dq = scale * sum over valid slots of (ds hi + ds lo) K, one head ----
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const bf16* __restrict__ k, const bf16* __restrict__ DS,
           const int* __restrict__ count_ptr, bf16* __restrict__ dq, int B,
-          int Lq, int S, int Lk, int LkP, float scale) {
+          int H, int Lq, int S, int Lk, int LkP, float scale) {
   extern __shared__ __align__(128) char smem[];
   bf16* sD = reinterpret_cast<bf16*>(smem);     // 2 x {hi, lo} x [BQ][LT]
   bf16* sK = sD + 4 * BQ * LT;                    // 2 x [BK][LD]
-  const size_t plane = (size_t)B * S * Lq * LkP;
+  const size_t plane = (size_t)B * H * S * Lq * LkP;
 
   const int cps = LkP / BK;
   const int nch = clamp_count(count_ptr, S) * cps;
-  const int b = blockIdx.z, q0 = blockIdx.x * BQ, nq = Lq - q0;
+  const int bh = blockIdx.z, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ, nq = Lq - q0;
+  const size_t ldk = (size_t)H * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rt = warp & 3;    // 16-query tile
@@ -211,12 +228,12 @@ dq_kernel(const bf16* __restrict__ k, const bf16* __restrict__ DS,
 
   auto load = [&](int i, int buf) {
     const int s = i / cps, key0 = (i % cps) * BK;
-    const bf16* src = DS + (((size_t)b * S + s) * Lq + q0) * LkP + key0;
+    const bf16* src = DS + (((size_t)bh * S + s) * Lq + q0) * LkP + key0;
     load_tile<BK, LT>(sD + 2 * buf * BQ * LT, src, LkP, nq);
     load_tile<BK, LT>(sD + (2 * buf + 1) * BQ * LT, src + plane, LkP, nq);
     load_tile<D, LD>(sK + buf * BK * LD,
-                     k + (((size_t)s * B + b) * Lk + key0) * D, D,
-                     Lk - key0);
+                     k + (((size_t)s * B + b) * Lk + key0) * ldk + h * D,
+                     ldk, Lk - key0);
   };
   if (nch > 0) load(0, 0);
   cp_commit();
@@ -258,21 +275,24 @@ dq_kernel(const bf16* __restrict__ k, const bf16* __restrict__ DS,
   for (int nt = 0; nt < 8; ++nt) {
     const int col = ch * 64 + nt * 8 + 2 * t;
     if (qa < Lq)
-      *reinterpret_cast<unsigned*>(dq + ((size_t)b * Lq + qa) * D + col) =
+      *reinterpret_cast<unsigned*>(dq + ((size_t)b * Lq + qa) * ldk + h * D +
+                                   col) =
           pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
     if (qc < Lq)
-      *reinterpret_cast<unsigned*>(dq + ((size_t)b * Lq + qc) * D + col) =
+      *reinterpret_cast<unsigned*>(dq + ((size_t)b * Lq + qc) * ldk + h * D +
+                                   col) =
           pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
   }
 }
 
-// ---- dk = scale * (ds hi + ds lo)^T Q (blockIdx.y 0), dv = p^T dOut ----
+// ---- dk = scale * (ds hi + ds lo)^T Q (blockIdx.y 0), dv = p^T dOut, of
+// one slot and head (blockIdx.z = s B H + b H + h) ----
 __global__ void __launch_bounds__(kThreads)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ dout,
            const bf16* __restrict__ P, const bf16* __restrict__ DS,
            const int* __restrict__ count_ptr, bf16* __restrict__ dk,
-           bf16* __restrict__ dvv, int B, int Lq, int S, int Lk, int LkP,
-           int dv, float scale) {
+           bf16* __restrict__ dvv, int B, int H, int Lq, int S, int Lk,
+           int LkP, int dv, float scale) {
   extern __shared__ __align__(128) char smem[];
   bf16* sA = reinterpret_cast<bf16*>(smem);   // 2 x {p | ds hi, ds lo} tiles
   bf16* sB = sA + 4 * BQ * LT;                  // 2 x [BQ][LD] of Q or dOut
@@ -280,8 +300,11 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ dout,
   const int key0 = blockIdx.x * BK, nk = Lk - key0;
   const bool is_k = blockIdx.y == 0;
   const int col0 = is_k ? 0 : (blockIdx.y - 1) * DC;
-  const int ld = is_k ? D : dv;
-  const int s = blockIdx.z / B, b = blockIdx.z % B;
+  const int wh = is_k ? D : dv;            // a head's columns
+  const size_t ld = (size_t)H * wh;        // the row stride over the heads
+  const int BH = B * H;
+  const int s = blockIdx.z / BH, bh = blockIdx.z % BH, b = bh / H,
+            h = bh % H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rt = warp & 3;    // 16-key tile
@@ -292,9 +315,10 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ dout,
   for (int i = 0; i < 8; ++i)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   if (s < clamp_count(count_ptr, S)) {
-    const bf16* A = (is_k ? DS : P) + ((size_t)b * S + s) * Lq * LkP + key0;
-    const size_t plane = (size_t)B * S * Lq * LkP;
-    const bf16* Bm = (is_k ? q : dout) + (size_t)b * Lq * ld + col0;
+    const bf16* A = (is_k ? DS : P) + ((size_t)bh * S + s) * Lq * LkP + key0;
+    const size_t plane = (size_t)BH * S * Lq * LkP;
+    const bf16* Bm = (is_k ? q : dout) + (size_t)b * Lq * ld +
+                     (size_t)h * wh + col0;
     const int nqc = (Lq + BQ - 1) / BQ;
     auto load = [&](int i, int buf) {
       const int q0 = i * BQ;
@@ -341,7 +365,8 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ dout,
   }
 
   const float mul = is_k ? scale : 1.f;
-  bf16* out = (is_k ? dk : dvv) + (((size_t)s * B + b) * Lk + key0) * ld + col0;
+  bf16* out = (is_k ? dk : dvv) + (((size_t)s * B + b) * Lk + key0) * ld +
+              (size_t)h * wh + col0;
   const int ra = rt * 16 + g, rc = ra + 8;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -364,58 +389,66 @@ static int set_smem(K kern, int bytes) {
 }  // namespace rmem_bwd
 
 // Each returns the cudaError_t of its launch (0 on success), -1 for shapes
-// the kernels do not take. Layouts: q [B, Lq, 128]; k [S, B, Lk, 128];
-// v [S, B, Lk, dv]; dout [B, Lq, dv] (all bf16); lse, delta [B, Lq] and
-// drec [B, Lq, S] f32; count an int32 on the device; P scratch
-// [B, S, Lq, LkP] and DS scratch [2, B, S, Lq, LkP] (hi, lo) bf16, with
-// LkP = Lk rounded up to 64.
+// the kernels do not take. Layouts, H heads of 128 (1 or 2) and dv a head's
+// values (a multiple of 128): q [B, Lq, H x 128]; k [S, B, Lk, H x 128];
+// v [S, B, Lk, H x dv]; dout [B, Lq, H x dv] (all bf16); lse, delta
+// [B, H, Lq] and drec [B, Lq, S] (the record's cotangent over H) f32;
+// count an int32 on the device; P scratch [B, H, S, Lq, LkP] and DS scratch
+// [2, B, H, S, Lq, LkP] (hi, lo) bf16, with LkP = Lk rounded up to 64.
+static bool bwd_shapes(int H, int Lk, int LkP, int dv) {
+  using namespace rmem_bwd;
+  return (H == 1 || H == 2) && dv % DC == 0 && LkP == (Lk + BK - 1) / BK * BK;
+}
+
 extern "C" int rmem_bank_attention_bwd_ds(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* drec, const void* count,
-    void* P, void* DS, int B, int Lq, int S, int Lk, int LkP, int dv,
+    void* P, void* DS, int B, int H, int Lq, int S, int Lk, int LkP, int dv,
     float scale, void* stream) {
   using namespace rmem_bwd;
-  if (dv % DC != 0 || LkP != (Lk + BK - 1) / BK * BK) return -1;
+  if (!bwd_shapes(H, Lk, LkP, dv)) return -1;
   const int smem = 6 * 64 * LD * 2;
   int err = set_smem(ds_kernel, smem);
   if (err) return err;
-  dim3 grid((Lq + BQ - 1) / BQ, S * (LkP / BK), B);
+  dim3 grid((Lq + BQ - 1) / BQ, S * (LkP / BK), B * H);
   ds_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (const float*)drec,
-      (const int*)count, (bf16*)P, (bf16*)DS, B, Lq, S, Lk, LkP, dv, scale);
+      (const int*)count, (bf16*)P, (bf16*)DS, B, H, Lq, S, Lk, LkP, dv,
+      scale);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rmem_bank_attention_bwd_dq(const void* k, const void* DS,
                                           const void* count, void* dq, int B,
-                                          int Lq, int S, int Lk, int LkP,
-                                          float scale, void* stream) {
+                                          int H, int Lq, int S, int Lk,
+                                          int LkP, float scale,
+                                          void* stream) {
   using namespace rmem_bwd;
-  if (LkP != (Lk + BK - 1) / BK * BK) return -1;
+  if (!bwd_shapes(H, Lk, LkP, DC)) return -1;
   const int smem = (4 * BQ * LT + 2 * BK * LD) * 2;
   int err = set_smem(dq_kernel, smem);
   if (err) return err;
-  dim3 grid((Lq + BQ - 1) / BQ, 1, B);
+  dim3 grid((Lq + BQ - 1) / BQ, 1, B * H);
   dq_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)k, (const bf16*)DS, (const int*)count, (bf16*)dq, B, Lq, S,
-      Lk, LkP, scale);
+      (const bf16*)k, (const bf16*)DS, (const int*)count, (bf16*)dq, B, H,
+      Lq, S, Lk, LkP, scale);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rmem_bank_attention_bwd_dkv(
     const void* q, const void* dout, const void* P, const void* DS,
-    const void* count, void* dk, void* dv_out, int B, int Lq, int S, int Lk,
-    int LkP, int dv, float scale, void* stream) {
+    const void* count, void* dk, void* dv_out, int B, int H, int Lq, int S,
+    int Lk, int LkP, int dv, float scale, void* stream) {
   using namespace rmem_bwd;
-  if (dv % DC != 0 || LkP != (Lk + BK - 1) / BK * BK) return -1;
+  if (!bwd_shapes(H, Lk, LkP, dv)) return -1;
   const int smem = (4 * BQ * LT + 2 * BQ * LD) * 2;
   int err = set_smem(dkv_kernel, smem);
   if (err) return err;
-  dim3 grid(LkP / BK, 1 + dv / DC, S * B);
+  dim3 grid(LkP / BK, 1 + dv / DC, S * B * H);
   dkv_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)dout, (const bf16*)P, (const bf16*)DS,
-      (const int*)count, (bf16*)dk, (bf16*)dv_out, B, Lq, S, Lk, LkP, dv,
+      (const int*)count, (bf16*)dk, (bf16*)dv_out, B, H, Lq, S, Lk, LkP, dv,
       scale);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,7 @@
 //   - K3: neither; the slot PE arrives added to the keys. Replaces
 //     pallas_bank_attention_qminor (_kernel_qminor, _forward_qminor);
 //   - K1', training's forward: as K3, with f32 partial outputs, an f32
-//     output and the per-row log-sum-exp for the backward
+//     output and each head's per-row log-sum-exp for the backward
 //     (csrc/bank_attention_bwd.cu). Replaces the forward of
 //     pallas_bank_attention's VJP (_forward with want_lse). The output stays
 //     f32 all the way: the backward's row term delta = rowsum(dout * out)
@@ -547,8 +547,8 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // One row of one head and 8 columns a thread: merges the slot groups of the
 // row. out [B, Lq, H DV] bf16, head h's columns at h DV (with kF32: f32,
-// and lse [B, Lq] f32 in natural units, one head); rec [B, H, Lq, S] f32,
-// each head's slot mass.
+// and lse [B, H, Lq] f32 in natural units, each head's); rec [B, H, Lq, S]
+// f32, each head's slot mass.
 template <bool kF32>
 __global__ void __launch_bounds__(kMergeThreads)
 merge_kernel(const float* __restrict__ part_m,
@@ -719,19 +719,20 @@ extern "C" int rmem_bank_attention_infer(
                                           st);
 }
 
-// K1', training's forward: one head of 128, every key valid, no bias, f32
-// partial outputs. Scratch as above with part_o f32; out [B, Lq, dv] f32,
-// rec [B, Lq, S] f32, lse [B, Lq] f32 (the natural log of each row's sum of
-// exp of the scaled logits over the valid slots). Returns as
-// rmem_bank_attention_infer.
+// K1', training's forward: 1 or 2 heads of 128 (DeAOT's, and its
+// no_memory_gap), every key valid, no bias, f32 partial outputs. Layouts
+// and scratch as above with part_o f32; out [B, Lq, H x dv] f32, rec
+// [B, H, Lq, S] f32 (each head's slot mass), lse [B, H, Lq] f32 (the
+// natural log of each head's row sum of exp of the scaled logits over the
+// valid slots). Returns as rmem_bank_attention_infer.
 extern "C" int rmem_bank_attention_lse(
     const void* q, const void* k, const void* v, const void* count,
     void* part_m, void* part_l, void* part_o, void* out, void* rec,
-    void* lse, int B, int Lq, int S, int Lk, int dh, int dv, float scale,
-    void* stream) {
-  if (dh != 128 || dv % 256 != 0 || Lk < 1) return -1;
+    void* lse, int B, int H, int Lq, int S, int Lk, int dh, int dv,
+    float scale, void* stream) {
+  if ((H != 1 && H != 2) || dh != 128 || dv % 256 != 0 || Lk < 1) return -1;
   return rmem_qminor::launch<false, true>(q, k, v, nullptr, count, part_m,
-                                          part_l, part_o, out, rec, lse, B, 1,
+                                          part_l, part_o, out, rec, lse, B, H,
                                           Lq, S, Lk, Lk, dv, scale,
                                           (cudaStream_t)stream);
 }

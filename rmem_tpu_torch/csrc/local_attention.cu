@@ -86,6 +86,13 @@
 // The recomputed logits and the dense halo (484 keys, ~1/3 of them in a
 // query's window) cost ~3x the pairs' operations on the tensor cores; the
 // scratch (3.2 MB) and the re-read G slices stay in L2.
+//   Heads (1 or 2 of 128, as the forward): both kernels' grids fold (image,
+// head) into one axis, (a)'s 64 blocks at the training shape becoming 128
+// at two heads; q, k, v, g, dq, dk and dv keep their [.., H x d] token rows
+// and a block reads and writes its head's columns in place. The bias comes
+// head-major, [B, H, HW, 225], as the forward takes it, and drel and the p
+// scratch are head-major too, [B, H, HW, 225] (the wrapper gives drel back
+// in the caller's [B, HW, H x 225] layout).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -173,7 +180,7 @@ struct LocalPolicy {
   const bf16* q;     // [B, HW, H*D]
   const bf16* k;     // [B, HW, H*D]
   const bf16* v;     // [B, HW, H*dv]
-  const bf16* rel;   // [B, HW, H*win*win]
+  const bf16* rel;   // head-major [B, H, HW, win*win]
   bf16* out;         // [B, HW, H*dv]
   int Hg, Wg, H, dv, m, win, halo;
   float scale;
@@ -223,7 +230,7 @@ struct LocalPolicy {
     int qi, qy, qx;
     const bool qok = query(row, qi, qy, qx);
     const bf16* rrow =
-        rel + (((size_t)b * Hg * Wg + qi) * H + h) * win * win;
+        rel + (((size_t)b * H + h) * Hg * Wg + qi) * win * win;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       int ky, kx;
@@ -648,8 +655,9 @@ __device__ __forceinline__ void store_rows(
   }
 }
 
-// (a) One 8 x 8 query tile: p to p_out and ds to drel ([B, HW, win^2] f32,
-// window layout), dq [B, HW, D] bf16.
+// (a) One 8 x 8 query tile of image b, head h (blockIdx.y = b H + h): p to
+// p_out and ds to drel ([B, H, HW, win^2] f32, window layout), dq
+// [B, HW, H x D] bf16.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 local_bwd_query_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -657,7 +665,7 @@ local_bwd_query_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ rel,
                        const bf16* __restrict__ g, float* __restrict__ p_out,
                        float* __restrict__ drel, bf16* __restrict__ dq,
-                       int Hg, int Wg, int dv, int m, float scale) {
+                       int Hg, int Wg, int H, int dv, int m, float scale) {
   using T = BwdSmem<D>;
   extern __shared__ __align__(128) char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + T::q_off);
@@ -672,15 +680,18 @@ local_bwd_query_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tiles_x = (Wg + TILE - 1) / TILE;
   LocalPolicy<D> pol;
   pol.q = q; pol.k = k; pol.v = v; pol.rel = rel; pol.out = nullptr;
-  pol.Hg = Hg; pol.Wg = Wg; pol.H = 1; pol.dv = dv; pol.m = m;
+  pol.Hg = Hg; pol.Wg = Wg; pol.H = H; pol.dv = dv; pol.m = m;
   pol.win = 2 * m + 1; pol.halo = TILE + 2 * m;
   pol.scale = scale;
-  pol.b = blockIdx.y; pol.h = 0;
+  pol.b = blockIdx.y / H; pol.h = blockIdx.y % H;
   pol.y0 = (blockIdx.x / tiles_x) * TILE;
   pol.x0 = (blockIdx.x % tiles_x) * TILE;
   pol.c0 = 0;
   const int win = pol.win, win2 = win * win;
   const size_t HW = (size_t)Hg * Wg;
+  // token strides over the heads, this head's columns within a token
+  const size_t ks = (size_t)H * D, vs = (size_t)H * dv;
+  const size_t kh = (size_t)pol.h * D, vh = (size_t)pol.h * dv;
   const int row = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int col0 = part * 16;
   const int warp = threadIdx.x >> 5;
@@ -688,8 +699,10 @@ local_bwd_query_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nch = pol.num_chunks();
   int qi, qy, qx;
   const bool qok = pol.query(row, qi, qy, qx);
-  float* prow = p_out + ((size_t)pol.b * HW + (qok ? qi : 0)) * win2;
-  float* drow = drel + ((size_t)pol.b * HW + (qok ? qi : 0)) * win2;
+  float* prow = p_out + (((size_t)pol.b * H + pol.h) * HW + (qok ? qi : 0)) *
+                            win2;
+  float* drow = drel + (((size_t)pol.b * H + pol.h) * HW + (qok ? qi : 0)) *
+                           win2;
   // this thread's 16 keys of a chunk: their window offset, -1 outside
   auto offsets = [&](int ch, int* w) {
 #pragma unroll
@@ -758,13 +771,13 @@ local_bwd_query_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_rows<D>(sG, T::LQ, BQ, [&](int r) -> const bf16* {
         int i, y, xx;
         return pol.query(r, i, y, xx)
-                   ? g + ((size_t)pol.b * HW + i) * dv + c0
+                   ? g + ((size_t)pol.b * HW + i) * vs + vh + c0
                    : nullptr;
       });
       load_rows<D>(sV, T::LQ, BK, [&](int j) -> const bf16* {
         int ky, kx;
         return pol.key(ch, j, ky, kx)
-                   ? v + ((size_t)pol.b * HW + ky * Wg + kx) * dv + c0
+                   ? v + ((size_t)pol.b * HW + ky * Wg + kx) * vs + vh + c0
                    : nullptr;
       });
       __syncthreads();
@@ -841,20 +854,21 @@ local_bwd_query_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   store_rows<D, NF>(smem, dacc, rt, cb, scale, [&](int r) -> bf16* {
     int i, y, xx;
-    return pol.query(r, i, y, xx) ? dq + ((size_t)pol.b * HW + i) * D
+    return pol.query(r, i, y, xx) ? dq + ((size_t)pol.b * HW + i) * ks + kh
                                   : nullptr;
   });
 }
 
-// (b) One 8 x 8 key tile and one 128-wide column slice: dv = P^T G for
-// slice blockIdx.y < dv / D, dk = scale ds^T Q for the last.
+// (b) One 8 x 8 key tile of image b, head h (blockIdx.z = b H + h) and one
+// 128-wide column slice of the head's: dv = P^T G for slice blockIdx.y <
+// dv / D, dk = scale ds^T Q for the last.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 local_bwd_key_kernel(const bf16* __restrict__ q, const bf16* __restrict__ g,
                      const float* __restrict__ p_in,
                      const float* __restrict__ ds_in, bf16* __restrict__ dk,
-                     bf16* __restrict__ dvo, int Hg, int Wg, int dv, int m,
-                     float scale) {
+                     bf16* __restrict__ dvo, int Hg, int Wg, int H, int dv,
+                     int m, float scale) {
   using T = KeySmem<D>;
   extern __shared__ __align__(128) char smem[];
   bf16* sHi = reinterpret_cast<bf16*>(smem + T::hi_off);
@@ -864,11 +878,14 @@ local_bwd_key_kernel(const bf16* __restrict__ q, const bf16* __restrict__ g,
   const int tiles_x = (Wg + TILE - 1) / TILE;
   const int y0 = (blockIdx.x / tiles_x) * TILE;
   const int x0 = (blockIdx.x % tiles_x) * TILE;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
   const bool is_dk = (int)blockIdx.y == dv / D;
   const int c0 = blockIdx.y * D;
   const int win = 2 * m + 1, win2 = win * win, halo = TILE + 2 * m;
   const size_t HW = (size_t)Hg * Wg;
+  const size_t qs = (size_t)H * D, vs = (size_t)H * dv;
+  // this head's rows of the window-layout p and ds
+  const size_t wbase = ((size_t)b * H + h) * HW;
   const int row = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int col0 = part * 16;
   const int warp = threadIdx.x >> 5;
@@ -894,8 +911,8 @@ local_bwd_key_kernel(const bf16* __restrict__ q, const bf16* __restrict__ g,
     load_rows<D>(sB, T::LQ, BK, [&](int c) -> const bf16* {
       int qi;
       if (!query(ch, c, qi)) return nullptr;
-      return is_dk ? q + ((size_t)b * HW + qi) * D
-                   : g + ((size_t)b * HW + qi) * dv + c0;
+      return is_dk ? q + ((size_t)b * HW + qi) * qs + (size_t)h * D
+                   : g + ((size_t)b * HW + qi) * vs + (size_t)h * dv + c0;
     });
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -907,7 +924,7 @@ local_bwd_key_kernel(const bf16* __restrict__ q, const bf16* __restrict__ g,
       if (qok && kok && dy >= -m && dy <= m && dx >= -m && dx <= m) {
         // the query at offset wk from the key sees the key at win2-1-wk
         const int wk = (dy + m) * win + (dx + m);
-        val = src[((size_t)b * HW + qi) * win2 + (win2 - 1 - wk)];
+        val = src[(wbase + qi) * win2 + (win2 - 1 - wk)];
       }
       bf16 hi, lo;
       split_bf16(val, hi, lo);
@@ -935,7 +952,8 @@ local_bwd_key_kernel(const bf16* __restrict__ q, const bf16* __restrict__ g,
     const int y = y0 + r / TILE, x = x0 + r % TILE;
     if (y >= Hg || x >= Wg) return nullptr;
     const size_t ki = (size_t)b * HW + y * Wg + x;
-    return is_dk ? dk + ki * D : dvo + ki * dv + c0;
+    return is_dk ? dk + ki * qs + (size_t)h * D
+                 : dvo + ki * vs + (size_t)h * dv + c0;
   });
 }
 
@@ -943,7 +961,7 @@ template <int D>
 static int launch_bwd(const void* q, const void* k, const void* v,
                       const void* rel, const void* g, void* dq, void* dk,
                       void* dv_out, void* drel, void* p_scratch, int B,
-                      int Hg, int Wg, int dv, int m, float scale,
+                      int Hg, int Wg, int H, int dv, int m, float scale,
                       cudaStream_t stream) {
   constexpr int smem_q = BwdSmem<D>::bytes, smem_k = KeySmem<D>::bytes;
   auto kq = local_bwd_query_kernel<D>;
@@ -955,24 +973,25 @@ static int launch_bwd(const void* q, const void* k, const void* v,
                              smem_k);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((Hg + TILE - 1) / TILE) * ((Wg + TILE - 1) / TILE);
-  kq<<<dim3(tiles, B), kThreads, smem_q, stream>>>(
+  kq<<<dim3(tiles, B * H), kThreads, smem_q, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rel,
-      (const bf16*)g, (float*)p_scratch, (float*)drel, (bf16*)dq, Hg, Wg, dv,
-      m, scale);
+      (const bf16*)g, (float*)p_scratch, (float*)drel, (bf16*)dq, Hg, Wg, H,
+      dv, m, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kk<<<dim3(tiles, dv / D + 1, B), kThreads, smem_k, stream>>>(
+  kk<<<dim3(tiles, dv / D + 1, B * H), kThreads, smem_k, stream>>>(
       (const bf16*)q, (const bf16*)g, (const float*)p_scratch,
-      (const float*)drel, (bf16*)dk, (bf16*)dv_out, Hg, Wg, dv, m, scale);
+      (const float*)drel, (bf16*)dk, (bf16*)dv_out, Hg, Wg, H, dv, m, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rmem
 
-// The backward: dq, dk [B, HW, 128] and dv [B, HW, dv] bf16, drel and the
-// p scratch [B, HW, (2m+1)^2] f32. Returns the cudaError_t of the launches
-// (0 on success); -1 for anything but one head of 128 and dv a multiple of
-// 128.
+// The backward: q, k, dq, dk [B, HW, H x 128] and v, g, dv [B, HW, H x dv]
+// bf16, rel head-major [B, H, HW, (2m+1)^2] bf16, drel and the p scratch
+// head-major [B, H, HW, (2m+1)^2] f32. Returns the cudaError_t of the
+// launches (0 on success); -1 for anything but 1 or 2 heads of 128 and dv
+// (a head's values) a multiple of 128.
 extern "C" int rmem_local_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* rel,
                                         const void* g, void* dq, void* dk,
@@ -981,9 +1000,9 @@ extern "C" int rmem_local_attention_bwd(const void* q, const void* k,
                                         int Wg, int H, int dh, int dv,
                                         int max_dis, float scale,
                                         void* stream) {
-  if (H != 1 || dh != 128 || dv % 128 != 0) return -1;
+  if ((H != 1 && H != 2) || dh != 128 || dv % 128 != 0) return -1;
   return rmem::launch_bwd<128>(q, k, v, rel, g, dq, dk, dv_out, drel,
-                               p_scratch, B, Hg, Wg, dv, max_dis, scale,
+                               p_scratch, B, Hg, Wg, H, dv, max_dis, scale,
                                (cudaStream_t)stream);
 }
 

@@ -27,20 +27,22 @@ rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor. Both split
 the slots among blocks, SLOTS_PER_BLOCK each, and merge on the card.
 
 Training: `bank_attention_train` is differentiable and routes by head
-shape (`train_route`; two heads of 128 raise on the card: K1' and K2 take
-one). At one head of 128 it is, on the card, an autograd
-Function whose forward is the same source's third instantiation, with f32
-partial outputs, an f32 output and the per-row log-sum-exp
-(`bank_attention_lse`, K1'; `bank_attention_lse_plain` is its plain
-version, in the kernel's partial + merge form), and whose backward is
-kernel K2 (`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq`
-and `_dkv`). At 8 heads of 32 (AOT's LSTT) the forward is K1'ʰ, the
-training instantiation of `csrc/bank_attention_mh.cu`
-(`bank_attention_lse_mh`: f32 output, each head's slot mass and lse), and
-the backward K2ʰ (`csrc/bank_attention_mh_bwd.cu`: `bank_attention_bwd_mh`,
-whose plain stages are `bank_attention_bwd_mh_dq_plain` and `_dkv_plain`).
-Both replace pallas_bank_attention and its custom VJP. On the CPU it is
-autograd through `bank_attention_plain`.
+shape (`train_route`, the same rule as `infer_route`). At one or two heads
+of 128 it is, on the card, an autograd Function whose forward is the same
+source's third instantiation, with f32 partial outputs, an f32 output and
+each head's per-row log-sum-exp (`bank_attention_lse`, K1';
+`bank_attention_lse_plain` is its plain version, in the kernel's partial +
+merge form, per head), and whose backward is kernel K2
+(`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq` and `_dkv`,
+the heads on their grids; each head's row term from `bwd_delta_mh`, and
+drec / h into each head, the record being the head mean). At 8 heads of 32
+(AOT's LSTT) the forward is K1'ʰ, the training instantiation of
+`csrc/bank_attention_mh.cu` (`bank_attention_lse_mh`: f32 output, each
+head's slot mass and lse), and the backward K2ʰ
+(`csrc/bank_attention_mh_bwd.cu`: `bank_attention_bwd_mh`). The head-generic
+plain stages `bank_attention_bwd_mh_dq_plain` and `_dkv_plain` are K2ʰ's
+and two-head K2's plain versions. Both replace pallas_bank_attention and
+its custom VJP. On the CPU it is autograd through `bank_attention_plain`.
 """
 
 from __future__ import annotations
@@ -108,6 +110,13 @@ def _check_count(count: torch.Tensor, q: torch.Tensor) -> None:
            and count.numel() == 1, "count must be an int32 scalar on q's card")
 
 
+def _head_shape(shape: Tuple[int, ...], num_heads: int,
+                axis: int) -> Tuple[int, ...]:
+    """A shape with its head axis at `axis`, dropped at one head: the
+    shapes one head's calls of K1' and K2 have always taken and given."""
+    return shape[:axis] + shape[axis + 1:] if num_heads == 1 else shape
+
+
 def _check_bank(q, bank_k, bank_v, count, num_heads) -> Tuple[int, ...]:
     """The kernels' common checks; returns (s, b, lq, lk, dh, dv), dv a
     head's values."""
@@ -158,7 +167,7 @@ def _lse_entry():
     """K1''s C entry in the same library."""
     _slots_entry()
     fn = build.load("bank_attention_infer").rmem_bank_attention_lse
-    fn.argtypes = [_P] * 10 + [_I] * 6 + [_F, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 7 + [_F, _P]
     fn.restype = _I
     return fn
 
@@ -212,15 +221,10 @@ def infer_route(num_heads: int, dh: int, dv: int) -> str:
 
 def train_route(num_heads: int, dh: int, dv: int) -> str:
     """The CUDA kernels that take a training call of this head shape on the
-    card: "slots" (K1' and K2: one head of 128, values a multiple of 256)
-    or "heads" (K1'ʰ and K2ʰ: 8 heads of 32). Any other shape raises, two
-    heads of 128 included."""
-    route = infer_route(num_heads, dh, dv)
-    if route == "slots" and num_heads != 1:
-        raise ValueError(f"bank_attention: {num_heads} heads of width {dh} "
-                         "in training (K1' and K2 are held to their plain "
-                         "versions for one head of 128)")
-    return route
+    card, by `infer_route`'s rule: "slots" (K1' and K2: one or two heads of
+    128, values a multiple of 256 a head) or "heads" (K1'ʰ and K2ʰ: 8 heads
+    of 32). Any other shape raises."""
+    return infer_route(num_heads, dh, dv)
 
 
 def _check_mh(q, bank_k, bank_v, count, num_heads: int = MH_HEADS
@@ -346,7 +350,7 @@ bank_attention_qminor.launches = 0
 
 def bank_attention_lse_plain(q: torch.Tensor, bank_k: torch.Tensor,
                              bank_v: torch.Tensor, count: torch.Tensor,
-                             scale: float
+                             scale: float, num_heads: int = 1
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """K1''s function in plain PyTorch (f32), in its kernel's partial + merge
@@ -355,8 +359,17 @@ def bank_attention_lse_plain(q: torch.Tensor, bank_k: torch.Tensor,
     relative to it and its output normalised by its own sum; then with
     w_g = 2^(m_g - M) sum_{s in g} l_s over the groups, out = sum_g w_g o_g
     / sum_g w_g, rec_s = 2^(m_g(s) - M) l_s / sum_g w_g and lse = (M +
-    log2 sum_g w_g) ln 2. One head, every key valid. Returns (out
-    [B, Lq, dv], rec [B, Lq, S], lse [B, Lq]), all f32."""
+    log2 sum_g w_g) ln 2. Every key valid. At one head returns (out
+    [B, Lq, dv], rec [B, Lq, S], lse [B, Lq]); at h heads each head's
+    columns take the one-head form: (out [B, Lq, h*dv], rec_h [B, h, Lq, S],
+    lse_h [B, h, Lq]). All f32."""
+    if num_heads > 1:
+        dh, dv = q.shape[-1] // num_heads, bank_v.shape[-1] // num_heads
+        outs, recs, lses = zip(*(bank_attention_lse_plain(
+            q[..., h * dh:(h + 1) * dh], bank_k[..., h * dh:(h + 1) * dh],
+            bank_v[..., h * dv:(h + 1) * dv], count, scale)
+            for h in range(num_heads)))
+        return torch.cat(outs, -1), torch.stack(recs, 1), torch.stack(lses, 1)
     n = int(count)
     s = bank_k.shape[0]
     logits = torch.einsum("bqd,sbkd->sbqk", q.float(),
@@ -387,25 +400,28 @@ def bank_attention_lse_plain(q: torch.Tensor, bank_k: torch.Tensor,
 
 def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
                        bank_v: torch.Tensor, count: torch.Tensor,
-                       scale: float
+                       scale: float, num_heads: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1' for training (card only, the f32 instantiation of
-    csrc/bank_attention_infer.cu): one head, no bias, every key valid.
-    Returns (out [B, Lq, dv] f32, rec [B, Lq, S] f32, lse [B, Lq] f32, the
-    log-sum-exp of each row's scaled logits over the valid slots). The
-    output stays f32 for the backward's row term."""
-    s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, 1)
+    csrc/bank_attention_infer.cu): one or two heads of 128, no bias, every
+    key valid. Returns (out [B, Lq, h*dv] f32, rec [B, h, Lq, S] f32 each
+    head's slot mass, lse [B, h, Lq] f32 the log-sum-exp of each head's row
+    of scaled logits over the valid slots), the head axis dropped at one
+    head, as `bank_attention_lse_plain` returns them. The output stays f32
+    for the backward's row term."""
+    s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, num_heads)
     _check(s <= 128, f"{s} slots (the merge takes up to 128)")
     fn = _lse_entry()
-    part_m, part_l, part_o = _scratch(s, b, lq, dv, torch.float32, q.device)
+    part_m, part_l, part_o = _scratch(s, b * num_heads, lq, dv,
+                                      torch.float32, q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.empty((b, lq, dv), **f32)
-    rec = torch.empty((b, lq, s), **f32)
-    lse = torch.empty((b, lq), **f32)
+    out = torch.empty((b, lq, num_heads * dv), **f32)
+    rec = torch.empty(_head_shape((b, num_heads, lq, s), num_heads, 1), **f32)
+    lse = torch.empty(_head_shape((b, num_heads, lq), num_heads, 1), **f32)
     err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
              count.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
              part_o.data_ptr(), out.data_ptr(), rec.data_ptr(),
-             lse.data_ptr(), b, lq, s, lk, dh, dv, float(scale),
+             lse.data_ptr(), b, num_heads, lq, s, lk, dh, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_lse")
     bank_attention_lse.launches += 1
@@ -452,13 +468,14 @@ def bank_attention_bwd_dkv_plain(p, ds, q, dout, scale):
     return dk, dv
 
 
-def bank_attention_bwd_plain(q, bank_k, bank_v, count, dout, drec, scale):
+def bank_attention_bwd_plain(q, bank_k, bank_v, count, dout, drec, scale,
+                             num_heads: int = 1):
     """The whole backward in plain PyTorch: autograd of
     bank_attention_plain, f32. Returns (dq, dk, dv)."""
     with torch.enable_grad():
         ins = [t.detach().float().requires_grad_() for t in (q, bank_k,
                                                              bank_v)]
-        out, rec = bank_attention_plain(*ins, count, 1, scale)
+        out, rec = bank_attention_plain(*ins, count, num_heads, scale)
         return torch.autograd.grad((out, rec), ins,
                                    (dout.float(), drec.float()))
 
@@ -467,37 +484,51 @@ def _scratch_cols(lk: int) -> int:
     return (lk + BLOCK_K - 1) // BLOCK_K * BLOCK_K
 
 
-def bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse, delta, drec,
-                          scale):
-    """Launch K2's ds kernel. Returns (p bf16 [B, S, Lq, LkP], ds bf16
-    [2, B, S, Lq, LkP]: ds = ds[0] + ds[1], a bf16 pair that carries ~16
-    bits), the keys padded to 64 (padding 0); slots >= count are left
-    unwritten."""
-    s, b, lk, dh = bank_k.shape
-    lq, dv = q.shape[1], bank_v.shape[-1]
+def _check_k2(q, bank_k, bank_v, dout, num_heads) -> Tuple[int, ...]:
+    """K2's kernels' common checks, one or two heads of 128 with values a
+    multiple of 128 a head; returns (s, b, lq, lk, dv), dv a head's."""
+    s, b, lk, ck = bank_k.shape
+    lq, dv = q.shape[1], bank_v.shape[-1] // num_heads
     _check_bf16(q, q=q, bank_k=bank_k, bank_v=bank_v, dout=dout)
-    _check(dh == 128 and q.shape == (b, lq, dh), f"q {tuple(q.shape)}, "
-           f"bank_k {tuple(bank_k.shape)} (one head of 128)")
-    _check(bank_v.shape[:3] == (s, b, lk) and dout.shape == (b, lq, dv)
-           and dv % 128 == 0, f"bank_v {tuple(bank_v.shape)}, dout "
-           f"{tuple(dout.shape)}")
-    for name, t, shape in (("lse", lse, (b, lq)), ("delta", delta, (b, lq)),
+    _check(num_heads in SLOT_HEADS and ck == num_heads * 128
+           and q.shape == (b, lq, ck), f"q {tuple(q.shape)}, bank_k "
+           f"{tuple(bank_k.shape)} at {num_heads} heads (one or two of 128)")
+    _check(bank_v.shape[:3] == (s, b, lk)
+           and dout.shape == (b, lq, num_heads * dv) and dv % 128 == 0,
+           f"bank_v {tuple(bank_v.shape)}, dout {tuple(dout.shape)}")
+    return s, b, lq, lk, dv
+
+
+def bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse, delta, drec,
+                          scale, num_heads: int = 1):
+    """Launch K2's ds kernel at one or two heads of 128: lse and delta
+    [B, h, Lq] f32, drec [B, Lq, S] f32 the record's cotangent (each head
+    takes drec / h: the record is the head mean). Returns (p bf16
+    [B, h, S, Lq, LkP], ds bf16 [2, B, h, S, Lq, LkP]: ds = ds[0] + ds[1],
+    a bf16 pair that carries ~16 bits), the keys padded to 64 (padding 0),
+    the head axes dropped at one head; slots >= count are left
+    unwritten."""
+    s, b, lq, lk, dv = _check_k2(q, bank_k, bank_v, dout, num_heads)
+    row = _head_shape((b, num_heads, lq), num_heads, 1)
+    for name, t, shape in (("lse", lse, row), ("delta", delta, row),
                            ("drec", drec, (b, lq, s))):
         _check(t.device == q.device and t.dtype == torch.float32
-               and t.is_contiguous() and t.shape == shape,
+               and t.is_contiguous() and tuple(t.shape) == shape,
                f"{name} must be contiguous f32 {shape}")
     _check_count(count, q)
+    drec_h = (drec / num_heads).contiguous()
     lkp = _scratch_cols(lk)
-    p = torch.empty((b, s, lq, lkp), dtype=torch.bfloat16, device=q.device)
-    ds = torch.empty((2, b, s, lq, lkp), dtype=torch.bfloat16,
-                     device=q.device)
+    bf = dict(dtype=torch.bfloat16, device=q.device)
+    p = torch.empty(_head_shape((b, num_heads, s, lq, lkp), num_heads, 1),
+                    **bf)
+    ds = torch.empty((2, *p.shape), **bf)
     fn = build.load("bank_attention_bwd").rmem_bank_attention_bwd_ds
-    fn.argtypes = [_P] * 10 + [_I] * 6 + [_F, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 7 + [_F, _P]
     fn.restype = _I
     err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             drec.data_ptr(), count.data_ptr(), p.data_ptr(), ds.data_ptr(),
-             b, lq, s, lk, lkp, dv, float(scale),
+             drec_h.data_ptr(), count.data_ptr(), p.data_ptr(), ds.data_ptr(),
+             b, num_heads, lq, s, lk, lkp, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_bwd_ds")
     bank_attention_bwd_ds.launches += 1
@@ -507,21 +538,24 @@ def bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse, delta, drec,
 bank_attention_bwd_ds.launches = 0
 
 
-def bank_attention_bwd_dq(bank_k, ds, count, scale):
-    """Launch K2's dq kernel: dq bf16 [B, Lq, 128]."""
-    s, b, lk, dh = bank_k.shape
-    lq = ds.shape[3]
+def bank_attention_bwd_dq(bank_k, ds, count, scale, num_heads: int = 1):
+    """Launch K2's dq kernel: dq bf16 [B, Lq, h*128]."""
+    s, b, lk, ck = bank_k.shape
+    lq = ds.shape[-2]
     _check_bf16(bank_k, bank_k=bank_k, ds=ds)
-    _check(ds.shape == (2, b, s, lq, _scratch_cols(lk)),
-           f"ds shape {tuple(ds.shape)}")
+    _check(num_heads in SLOT_HEADS and ck == num_heads * 128
+           and ds.shape == (2, *_head_shape(
+               (b, num_heads, s, lq, _scratch_cols(lk)), num_heads, 1)),
+           f"ds shape {tuple(ds.shape)}, bank_k {tuple(bank_k.shape)} at "
+           f"{num_heads} heads")
     _check_count(count, bank_k)
-    dq = torch.empty((b, lq, dh), dtype=torch.bfloat16, device=ds.device)
+    dq = torch.empty((b, lq, ck), dtype=torch.bfloat16, device=ds.device)
     fn = build.load("bank_attention_bwd").rmem_bank_attention_bwd_dq
-    fn.argtypes = [_P] * 4 + [_I] * 5 + [_F, _P]
+    fn.argtypes = [_P] * 4 + [_I] * 6 + [_F, _P]
     fn.restype = _I
     err = fn(bank_k.data_ptr(), ds.data_ptr(), count.data_ptr(),
-             dq.data_ptr(), b, lq, s, lk, ds.shape[-1], float(scale),
-             torch.cuda.current_stream(ds.device).cuda_stream)
+             dq.data_ptr(), b, num_heads, lq, s, lk, ds.shape[-1],
+             float(scale), torch.cuda.current_stream(ds.device).cuda_stream)
     build.check(err, "bank_attention_bwd_dq")
     bank_attention_bwd_dq.launches += 1
     return dq
@@ -530,25 +564,31 @@ def bank_attention_bwd_dq(bank_k, ds, count, scale):
 bank_attention_bwd_dq.launches = 0
 
 
-def bank_attention_bwd_dkv(q, dout, p, ds, count, scale, lk: int):
-    """Launch K2's dkv kernel: (dk bf16 [S, B, Lk, 128], dv bf16
-    [S, B, Lk, dv]), zero in slots >= count."""
-    b, s, lq, lkp = p.shape
-    dh, dv = q.shape[-1], dout.shape[-1]
+def bank_attention_bwd_dkv(q, dout, p, ds, count, scale, lk: int,
+                           num_heads: int = 1):
+    """Launch K2's dkv kernel: (dk bf16 [S, B, Lk, h*128], dv bf16
+    [S, B, Lk, h*dv]), zero in slots >= count."""
+    b, lq, ck = q.shape
+    s, lkp = p.shape[-3], p.shape[-1]
+    dv = dout.shape[-1] // num_heads
     _check_bf16(q, q=q, dout=dout, p=p, ds=ds)
-    _check(dh == 128 and q.shape == (b, lq, dh) and dout.shape == (b, lq, dv)
-           and dv % 128 == 0 and ds.shape == (2, *p.shape)
-           and lkp == _scratch_cols(lk), f"q {tuple(q.shape)}, dout "
-           f"{tuple(dout.shape)}, p {tuple(p.shape)} for {lk} keys")
+    _check(num_heads in SLOT_HEADS and ck == num_heads * 128
+           and dout.shape == (b, lq, num_heads * dv) and dv % 128 == 0
+           and p.shape == _head_shape((b, num_heads, s, lq, lkp), num_heads,
+                                      1)
+           and ds.shape == (2, *p.shape) and lkp == _scratch_cols(lk),
+           f"q {tuple(q.shape)}, dout {tuple(dout.shape)}, p "
+           f"{tuple(p.shape)} for {lk} keys at {num_heads} heads")
     _check_count(count, q)
-    dk = torch.empty((s, b, lk, dh), dtype=torch.bfloat16, device=q.device)
-    dvv = torch.empty((s, b, lk, dv), dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty((s, b, lk, ck), dtype=torch.bfloat16, device=q.device)
+    dvv = torch.empty((s, b, lk, num_heads * dv), dtype=torch.bfloat16,
+                      device=q.device)
     fn = build.load("bank_attention_bwd").rmem_bank_attention_bwd_dkv
-    fn.argtypes = [_P] * 7 + [_I] * 6 + [_F, _P]
+    fn.argtypes = [_P] * 7 + [_I] * 7 + [_F, _P]
     fn.restype = _I
     err = fn(q.data_ptr(), dout.data_ptr(), p.data_ptr(), ds.data_ptr(),
-             count.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, lq, s, lk,
-             lkp, dv, float(scale),
+             count.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, num_heads,
+             lq, s, lk, lkp, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_bwd_dkv")
     bank_attention_bwd_dkv.launches += 1
@@ -559,16 +599,20 @@ bank_attention_bwd_dkv.launches = 0
 
 
 def bank_attention_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec,
-                       scale):
+                       scale, num_heads: int = 1):
     """K2 on the card: (dq, dk, dv) in bf16 from the forward's inputs,
-    outputs (out f32) and lse and the cotangents dout (bf16) and drec
-    (f32)."""
-    delta = bwd_delta(dout, out, drec, rec)
+    outputs (out f32, each head's slot mass rec) and lse as
+    `bank_attention_lse` gives them, and the cotangents dout (bf16) and drec
+    (f32, of the head-mean record). Each head's row term is `bwd_delta_mh`'s,
+    over its own value columns."""
+    b, lq = q.shape[:2]
+    rec_h = rec.reshape(b, num_heads, lq, -1)
+    delta = bwd_delta_mh(dout, out, drec, rec_h).reshape(lse.shape)
     p, ds = bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse, delta,
-                                  drec, scale)
-    dq = bank_attention_bwd_dq(bank_k, ds, count, scale)
+                                  drec, scale, num_heads)
+    dq = bank_attention_bwd_dq(bank_k, ds, count, scale, num_heads)
     dk, dv = bank_attention_bwd_dkv(q, dout, p, ds, count, scale,
-                                    bank_k.shape[2])
+                                    bank_k.shape[2], num_heads)
     return dq, dk, dv
 
 
@@ -667,8 +711,9 @@ def _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale):
 
 def bank_attention_bwd_mh_dq_plain(q, bank_k, bank_v, count, dout, lse_h,
                                    delta_h, drec, scale):
-    """K2ʰ's dq kernel in plain PyTorch: dq = scale * sum over the valid
-    slots' keys of ds k, f32 [B, Lq, h*dh]."""
+    """K2ʰ's dq kernel in plain PyTorch, and two-head K2's dq (head-generic:
+    the heads are lse_h's): dq = scale * sum over the valid slots' keys of
+    ds k, f32 [B, Lq, h*dh]."""
     s, b, lk, ck = bank_k.shape
     heads = lse_h.shape[1]
     _, ds = _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
@@ -680,8 +725,9 @@ def bank_attention_bwd_mh_dq_plain(q, bank_k, bank_v, count, dout, lse_h,
 
 def bank_attention_bwd_mh_dkv_plain(q, bank_k, bank_v, count, dout, lse_h,
                                     delta_h, drec, scale):
-    """K2ʰ's dkv kernel in plain PyTorch: dk = scale * sum_i ds q, dv =
-    sum_i p dout, f32 [S, B, Lk, h*d], zero in slots >= count."""
+    """K2ʰ's dkv kernel in plain PyTorch, and two-head K2's dk and dv:
+    dk = scale * sum_i ds q, dv = sum_i p dout, f32 [S, B, Lk, h*d], zero in
+    slots >= count."""
     b, lq = q.shape[:2]
     heads = lse_h.shape[1]
     p, ds = _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
@@ -766,14 +812,16 @@ class _BankAttentionMH(torch.autograd.Function):
 
 
 class _BankAttention(torch.autograd.Function):
-    """K1 with lse forward, K2 backward (bf16 tensors on the card)."""
+    """K1' forward, K2 backward (bf16 tensors on the card, one or two heads
+    of 128); the record is the head mean of the slot mass."""
 
     @staticmethod
-    def forward(ctx, q, bank_k, bank_v, count, scale):
-        out, rec, lse = bank_attention_lse(q, bank_k, bank_v, count, scale)
+    def forward(ctx, q, bank_k, bank_v, count, scale, num_heads):
+        out, rec, lse = bank_attention_lse(q, bank_k, bank_v, count, scale,
+                                           num_heads)
         ctx.save_for_backward(q, bank_k, bank_v, count, out, rec, lse)
-        ctx.scale = scale
-        return out.to(q.dtype), rec
+        ctx.args = (scale, num_heads)
+        return out.to(q.dtype), rec if num_heads == 1 else rec.mean(dim=1)
 
     @staticmethod
     def backward(ctx, dout, drec):
@@ -781,11 +829,11 @@ class _BankAttention(torch.autograd.Function):
         # FIFO eviction reads no slot mass, so drec arrives as zeros
         dout = (out.new_zeros(out.shape, dtype=torch.bfloat16)
                 if dout is None else dout.to(torch.bfloat16).contiguous())
-        drec = (torch.zeros_like(rec) if drec is None
-                else drec.float().contiguous())
+        drec = (rec.new_zeros((*q.shape[:2], bank_k.shape[0]))
+                if drec is None else drec.float().contiguous())
         dq, dk, dv = bank_attention_bwd(q, bank_k, bank_v, count, out, rec,
-                                        lse, dout, drec, ctx.scale)
-        return dq, dk, dv, None, None
+                                        lse, dout, drec, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def bank_attention_train(q: torch.Tensor, bank_k: torch.Tensor,
@@ -797,15 +845,17 @@ def bank_attention_train(q: torch.Tensor, bank_k: torch.Tensor,
     (int32 on q's device). Returns (out [B, Lq, h*dv], rec [B, Lq, S], the
     head-mean slot mass). On the card the inputs are taken in bf16 (the
     kernels' type, as autocast takes a matmul's) and the head shape picks
-    the kernels (`train_route`: K1'/K2 at one head of 128, K1'ʰ/K2ʰ at 8
-    heads of 32, any other shape raises); on the CPU it is autograd through
-    the plain version."""
+    the kernels (`train_route`: K1'/K2 at one or two heads of 128, K1'ʰ/K2ʰ
+    at 8 heads of 32, any other shape raises); on the CPU it is autograd
+    through the plain version."""
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
                                     scale)
     route = train_route(num_heads, q.shape[-1] // num_heads,
                         bank_v.shape[-1] // num_heads)
-    fn = _BankAttentionMH if route == "heads" else _BankAttention
     bf = torch.bfloat16
-    return fn.apply(q.to(bf).contiguous(), bank_k.to(bf).contiguous(),
-                    bank_v.to(bf).contiguous(), count, scale)
+    ins = (q.to(bf).contiguous(), bank_k.to(bf).contiguous(),
+           bank_v.to(bf).contiguous(), count, scale)
+    if route == "heads":
+        return _BankAttentionMH.apply(*ins)
+    return _BankAttention.apply(*ins, num_heads)

@@ -10,7 +10,8 @@ it hands the kernel the bias head-major (`rel_head_major`), one copy of it.
 `local_attention_trainable` (K5) is its differentiable form, the
 counterpart of pallas_local_attention_trainable: on the card the forward is
 the kernel and the backward is `local_attention_bwd`, two more kernels of
-the same source (`local_attention_bwd_plain` is their plain version); on
+the same source (`local_attention_bwd_plain` is their plain version), at
+one or two heads of 128, the bias head-major as the forward takes it; on
 the CPU it is autograd through the plain forward.
 """
 
@@ -193,8 +194,10 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, ...]:
     """Gradients (dq, dk, dv, drel) of `local_attention` for the cotangent
     g [B, HW, h*dv]. On the card: the two backward kernels of
-    csrc/local_attention.cu, bf16 inputs as the forward takes them, g bf16;
-    dq, dk, dv come back bf16 and drel f32. On the CPU: the plain version."""
+    csrc/local_attention.cu at one or two heads of 128 (the bias handed to
+    them head-major, `rel_head_major`), bf16 inputs as the forward takes
+    them, g bf16; dq, dk, dv come back bf16 and drel f32 [B, HW, h*win^2].
+    On the CPU: the plain version."""
     if not q.is_cuda:
         return local_attention_bwd_plain(q, k, v, rel_emb, g, size_2d,
                                          num_heads, max_dis, scale)
@@ -214,26 +217,28 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            f"v shape {tuple(v.shape)}, g shape {tuple(g.shape)}")
     _check(rel_emb.shape == (b, hw, num_heads * win2),
            f"rel_emb shape {tuple(rel_emb.shape)}")
-    _check(num_heads == 1 and dh == 128,
+    _check(num_heads in FWD_HEADS and dh == 128,
            f"{num_heads} heads of width {dh} (the kernels are held to their "
-           "plain version for one head of 128, r50_deaotl's)")
+           "plain version for one or two heads of 128, r50_deaotl's)")
     _check(dv % 128 == 0, f"value width {dv} (multiple of 128)")
     fn = build.load("local_attention").rmem_local_attention_bwd
     fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
     fn.restype = _I
+    rel = rel_head_major(rel_emb, num_heads)
     dq, dk = torch.empty_like(q), torch.empty_like(k)
     dvv = torch.empty_like(v)
     f32 = dict(dtype=torch.float32, device=q.device)
-    drel = torch.empty((b, hw, win2), **f32)
-    p_scratch = torch.empty((b, hw, win2), **f32)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
+    # head-major, as the kernels read and write them
+    drel = torch.empty((b, num_heads, hw, win2), **f32)
+    p_scratch = torch.empty((b, num_heads, hw, win2), **f32)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(),
              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
              drel.data_ptr(), p_scratch.data_ptr(), b, h2d, w2d, num_heads,
              dh, dv, max_dis, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "local_attention_bwd")
     local_attention_bwd.launches += 1
-    return dq, dk, dvv, drel
+    return dq, dk, dvv, drel.transpose(1, 2).reshape(b, hw, num_heads * win2)
 
 
 local_attention_bwd.launches = 0
@@ -265,14 +270,11 @@ def local_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                               size_2d: Tuple[int, int], num_heads: int,
                               max_dis: int, scale: float) -> torch.Tensor:
     """Differentiable `local_attention`. On the card the inputs are taken in
-    bf16, the kernel's type, at one head of 128 (the backward kernels'
-    shape)."""
+    bf16, the kernels' type, at one or two heads of 128 (the forward raises
+    on any other shape)."""
     if not q.is_cuda:
         return local_attention_plain(q, k, v, rel_emb, size_2d, num_heads,
                                      max_dis, scale)
-    _check(num_heads == 1, f"{num_heads} heads of width "
-           f"{q.shape[-1] // num_heads} in training (the backward kernels "
-           "are held to their plain version for one head of 128)")
     bf = torch.bfloat16
     return _LocalAttention.apply(
         q.to(bf).contiguous(), k.to(bf).contiguous(), v.to(bf).contiguous(),

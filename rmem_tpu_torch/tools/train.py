@@ -18,12 +18,16 @@ import ast
 
 def _parse_opts(pairs):
     """KEY=VALUE config overrides, values read as Python literals where
-    they parse (ints, floats, bools, tuples) and as strings otherwise."""
+    they parse (ints, floats, bools, tuples), true and false in any case
+    as bools, and as strings otherwise."""
     over = {}
     for kv in pairs:
         if "=" not in kv:
             raise SystemExit(f"--opt expects KEY=VALUE, got {kv!r}")
         k, v = kv.split("=", 1)
+        if v.lower() in ("true", "false"):
+            over[k] = v.lower() == "true"
+            continue
         try:
             over[k] = ast.literal_eval(v)
         except (ValueError, SyntaxError):
