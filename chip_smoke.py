@@ -43,9 +43,13 @@ non-zero exit code:
    kernels against their plain stages and the whole against autograd of
    the plain forward, dk and dv exactly 0 past count; K5's backward at 2
    heads on the training grid and a ragged one; each beside SDPA over the
-   valid slots or with the dense bias, forward or backward). K4 and K8
-   take less device time than an eager call takes the host, so their
-   times are those of CUDA graphs;
+   valid slots or with the dense bias, forward or backward), and R50-AOTL
+   no_memory_gap's kernels at 2 heads of 128 with values 128 a head (K1x2v128
+   at K1's six calls, K1'x2v128 and K2x2v128 as K1'x2 and K2x2), and K3h,
+   K3 at AOT's 8 heads of 32 (K1h's calls with no bias and every key
+   valid, beside SDPA over the valid slots). K4 and K8 take less device
+   time than an eager call takes the host, so their times are those of
+   CUDA graphs;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
    objects, random weights from a seed, the reference frame with a
    long-term write every 5 frames, then N frames (default 130) at the
@@ -139,18 +143,37 @@ non-zero exit code:
    K1'x2, K2x2 (its three kernels against their plain stages on the
    call's own forward), K4x2 and K5x2-backward call held against its plain
    version, and one of the all-plain model on the same batch, weights and
-   shuffle: loss and global gradient norm.
+   shuffle: loss and global gradient norm;
+17. serve R50-AOTL + RMem with no_memory_gap (2 heads of 128 in the LSTT's
+   long- and short-term attention, values 128 a head) on phase 3's
+   traffic with the evaluator's gap of 1, as phase 13: K1x2v128 3 a frame
+   and K6 1 (every launch of K1's template at that head shape), K1h, K3
+   and K4 never; evictions counted on the device equal the schedule;
+   labels in [0, 10], finite logits; frames/s over three 30-frame windows
+   (`--profile`: busy time a frame, top ops);
+18. phase 4 for phase 17's engine: every K1x2v128 and K6 call held against
+   its plain version, and the all-plain engine teacher-forced with the
+   kernel engine's labels through frame 8, as phase 14;
+19. phase 5 for R50-AOTL with no_memory_gap: 6 steps, exact launches in
+   each (K1'x2v128 87, K2x2v128's three kernels 45, K7 1, the 8-head and
+   DeAOT kernels 0), 6 FIFO evictions a clip, finite losses, parameters
+   changed, the curriculum started; s/step, peak memory (`--profile`: busy
+   ms a step, top ops);
+20. phase 6 for phase 19's model: one step of the kernel model, every
+   K1'x2v128 and K2x2v128 call held against its plain version, and one of
+   the all-plain model: loss and global gradient norm.
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
 no CUDA device is available or the package is not beside this script.
 
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
-(held_k2; K1'x2 + K2x2 by held_k2h at 2 heads), K4 and K5's backward
-(held_k4, held_k5; each at one head and at two), K1, K3 and K1' (held_k1,
-held_k3, held_k2, held_k1ph; each at one head and at two), K1h and K1'h
-(held_k1h, held_k1ph), K2h (held_k2h) and K6 and K7 (held, held_k7): for
-each
+(held_k2; K1'x2 + K2x2 by held_k2h at 2 heads, values 512 and 128 a
+head), K4 and K5's backward (held_k4, held_k5; each at one head and at
+two), K1, K3 and K1' (held_k1, held_k3, held_k2, held_k1ph; each at one
+head and at two, K1 and K1' also at values 128 a head), K1h, K3h and K1'h
+(held_k1h, held_k3h, held_k1ph), K2h (held_k2h) and K6 and K7 (held,
+held_k7): for each
 mutant (MUTANTS), the package is copied into a temporary directory, one
 line of the kernel's source (or its wrapper) is changed there (K2: ds drops the slot-mass
 term, or dq the logit scale; K2x2: head 1 reads head 0's q and k
@@ -165,7 +188,9 @@ template: the keys past Lk go unmasked, or a quarter of the accumulator
 unrescaled; at 2 heads, head 1 reads head 0's keys, or the wrapper takes
 head 0's slot mass for the heads' mean; K1': the partial outputs pass
 through bf16, or the lse drops the log of the sum; K1'x2: only head 0's
-lse is written; K1h: the bias is
+lse is written; at 128 value columns a block, head 1 reads head 0's
+values, or the P.V product's V descriptor steps 8 keys a 16-key slice;
+K3h: the wrapper masks the keys a chunk short; K1h: the bias is
 dropped, a slot's sum is not rescaled as the row's maximum grows, or the
 keys are masked at Lk instead of true_lk; K1'h: the f32 output stored
 through bf16, or the lse without the log of the sum; K2h: ds drops the
@@ -605,12 +630,14 @@ K1_CASES = {"main": {}, "count_1": dict(count=1), "count_10": dict(count=10),
 
 
 def k1_inputs(dev, batch: int = 1, slots: int = 10, count: int = 9,
-              bias: bool = True, pad: int = 0, heads: int = 1):
+              bias: bool = True, pad: int = 0, heads: int = 1,
+              values: int = 1024):
     """K1's inputs at a serving call on the 31 x 54 grid (bf16, `heads`
-    heads of 128, values 1024 over the heads, Lq = true_lk = 1674 and Lk =
-    true_lk + pad): (q, bank_k, bank_v, count, heads, scale, true_lk,
-    qbias [B, heads, Lq, S] or None). Two heads are no_memory_gap's
-    (phase 13)."""
+    heads of 128, `values` value columns over the heads, Lq = true_lk =
+    1674 and Lk = true_lk + pad): (q, bank_k, bank_v, count, heads, scale,
+    true_lk, qbias [B, heads, Lq, S] or None). Two heads are
+    no_memory_gap's: R50-DeAOTL's with values 1024 (phase 13), R50-AOTL's
+    with 256 (phase 17)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -620,7 +647,7 @@ def k1_inputs(dev, batch: int = 1, slots: int = 10, count: int = 9,
     hw = ((IN_HW[0] - 1) // 16 + 1) * ((IN_HW[1] - 1) // 16 + 1)
     q = randn(batch, hw, 128 * heads, scale=2.0)
     bk = randn(slots, batch, hw + pad, 128 * heads)
-    bv = randn(slots, batch, hw + pad, 1024)
+    bv = randn(slots, batch, hw + pad, values)
     qbias = (randn(batch, heads, hw, slots, dtype=torch.float32, scale=0.5)
              if bias else None)
     return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev),
@@ -694,14 +721,22 @@ def held_k1h(*args):
 
 
 def k1x2_inputs(dev, **kw):
-    """K1's inputs at no_memory_gap's 2 heads of 128 (values 512 a head)."""
+    """K1's inputs at R50-DeAOTL no_memory_gap's 2 heads of 128 (values 512
+    a head)."""
     return k1_inputs(dev, heads=2, **kw)
 
 
+def k1x2v128_inputs(dev, **kw):
+    """K1's inputs at R50-AOTL no_memory_gap's 2 heads of 128 (values 128 a
+    head: the template's 128-wide instantiation)."""
+    return k1_inputs(dev, heads=2, values=256, **kw)
+
+
 # the multi-head rows of K1 in phase 2 (heads_entry): K1h, AOT's 8 heads
-# of 32 (csrc/bank_attention_mh.cu), and K1x2, no_memory_gap's 2 heads of
-# 128 with values 512 a head (K1's template, csrc/bank_attention_infer.cu);
-# `call` names the wrapper in kernels/bank_attention.py
+# of 32 (csrc/bank_attention_mh.cu), and K1x2 and K1x2v128, no_memory_gap's
+# 2 heads of 128 with values 512 a head (DeAOT) and 128 a head (AOT) (K1's
+# template, csrc/bank_attention_infer.cu); `call` names the wrapper in
+# kernels/bank_attention.py
 HEAD_ROWS = {
     "bank_attention_mh": dict(
         label="K1h", inputs=k1h_inputs, held=held_k1h,
@@ -709,6 +744,10 @@ HEAD_ROWS = {
         source="rmem_tpu_torch/csrc/bank_attention_mh.cu"),
     "bank_attention_h2": dict(
         label="K1x2", inputs=k1x2_inputs, held=held_k1,
+        call="bank_attention_infer",
+        source="rmem_tpu_torch/csrc/bank_attention_infer.cu"),
+    "bank_attention_h2v128": dict(
+        label="K1x2v128", inputs=k1x2v128_inputs, held=held_k1,
         call="bank_attention_infer",
         source="rmem_tpu_torch/csrc/bank_attention_infer.cu"),
 }
@@ -776,6 +815,96 @@ def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
           f"{entry['library_nobias_ms']:.4f} ms), bound {b_ms:.5f} ms "
           f"({b_by})")
     return entry
+
+
+# K3h in phase 2: K1h's calls with no bias and every key valid (K3's
+# contract): 9 valid slots of 10, one, all ten, the reference frame's
+# shape and two id groups
+K3H_CASES = {key: dict(kw, bias=False) for key, kw in K1_CASES.items()
+             if key != "padded"}
+
+
+def held_k3h(q, bank_k, bank_v, count, heads, scale, *_):
+    """One K3h call (bank_attention_qminor at 8 heads of 32) against its
+    plain version, held as K1h (see held); the empty slots' mass must be 0,
+    and with one slot every row's mass 1. Returns held's tuple."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    out, rec = kb.bank_attention_qminor(q, bank_k, bank_v, count, heads,
+                                        scale)
+    errs = held("bank_attention_qminor", (out, rec),
+                kb.bank_attention_qminor_plain(q, bank_k, bank_v, count,
+                                               heads, scale))
+    n = int(count)
+    check(bool(torch.all(rec[..., n:] == 0)), "K3h mass of empty slots")
+    if n == 1:
+        check(torch.allclose(rec[..., 0], torch.ones_like(rec[..., 0]),
+                             atol=1e-4), "K3h one-slot mass")
+    return errs
+
+
+def check_aot_nmg_serving_kernels(dev):
+    """Phase 2, the serving rows of R50-AOTL's no_memory_gap and AOT's
+    q-minor route: K1x2v128 (2 heads of 128, values 128 a head) at K1_CASES
+    beside SDPA over the valid slots (heads_entry), and K3h (K3 at 8 heads
+    of 32, K1h's kernel with no bias and every key valid) at K3H_CASES,
+    held as K1h, timed beside its plain version, its bound and SDPA over
+    the valid slots without a bias. Returns {name: entry} without launch
+    counts."""
+    import torch.nn.functional as F
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    entries = {"bank_attention_h2v128": heads_entry(dev,
+                                                    "bank_attention_h2v128")}
+    cases = {}
+    for key, kw in K3H_CASES.items():
+        args = k1h_inputs(dev, **kw)
+        q, bk, bv, cnt, heads, scale = args[:6]
+        cases[key] = dict(err=held_k3h(*args), ms=cuda_ms(
+            lambda: kb.bank_attention_qminor(q, bk, bv, cnt, heads, scale),
+            20))
+        print(f"K3h bank_attention_qminor {key} {kw}: "
+              f"{cases[key]['ms']:.4f} ms, max|out-plain| "
+              f"{cases[key]['err'][0]:.3e} (max|plain| "
+              f"{cases[key]['err'][1]:.3e}), max|rec-plain| "
+              f"{cases[key]['err'][2]:.3e}")
+    q, bk, bv, cnt, heads, scale = k1h_inputs(dev, bias=False)[:6]
+    count, b, lq, lk = int(cnt), q.shape[0], q.shape[1], bk.shape[2]
+    kv = count * lk
+
+    def heads_first(x, n):          # [B, n, 8*32] -> [B, 8, n, 32]
+        return x.reshape(b, n, heads, -1).transpose(1, 2).contiguous()
+
+    libs = [heads_first(q, lq)] + [
+        heads_first(t[:count].transpose(0, 1).reshape(b, kv, t.shape[-1]),
+                    kv) for t in (bk, bv)]
+    # every head's (q.k, p.v) over the valid keys; q and the valid keys and
+    # values read once, the output and the head-mean mass written
+    b_ms, b_by = bound(2.0 * b * lq * kv * (2 * q.shape[-1]),
+                       (q.numel() * 2 + b * kv * 2 * q.shape[-1]) * 2
+                       + b * lq * bk.shape[0] * 4)
+    entries["bank_attention_qminor_mh"] = dict(
+        name="bank_attention_qminor_mh", route="cuda", heads=heads,
+        source="rmem_tpu_torch/csrc/bank_attention_mh.cu",
+        replaces="rmem_tpu/kernels/bank_attention.py:540",
+        max_abs_err=max(c["err"][0] for c in cases.values()),
+        max_abs_err_rec=max(c["err"][2] for c in cases.values()),
+        ms=cases["main"]["ms"],
+        plain_ms=cuda_ms(lambda: kb.bank_attention_qminor_plain(
+            q, bk, bv, cnt, heads, scale), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            *libs, scale=scale), 20),
+        cases={key: dict(ms=c["ms"], rel_err=c["err"][0] / c["err"][1],
+                         mass_err=c["err"][2]) for key, c in cases.items()})
+    e = entries["bank_attention_qminor_mh"]
+    print(f"K3h at the main path's call {e['ms']:.4f} ms, plain "
+          f"{e['plain_ms']:.4f} ms, SDPA over the 9 valid slots "
+          f"{e['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    for e in entries.values():
+        e["kernel_ms"] = e["ms"]
+    return entries
 
 
 # K4 in phase 2: the main path's call and phase 7's two (batch 2, the grids
@@ -1527,10 +1656,11 @@ K1PX2_CASES = {"nine_slots": dict(count=9), "four_slots": dict(count=4),
                "reference": dict(slots=1, count=1)}
 
 
-def k2x2_inputs(dev, slots: int = 10, count: int = 9):
+def k2x2_inputs(dev, slots: int = 10, count: int = 9, values: int = 1024):
     """K1'x2's and K2x2's phase-2 inputs at no_memory_gap's training call
-    (B 4, a 30 x 30 grid, 2 heads of 128, values 1024 over the heads, bf16)
-    with a nonzero drec: (q, bank_k, bank_v, count, dout, drec, scale)."""
+    (B 4, a 30 x 30 grid, 2 heads of 128, `values` value columns over the
+    heads: 1024 for R50-DeAOTL, 256 for R50-AOTL; bf16) with a nonzero
+    drec: (q, bank_k, bank_v, count, dout, drec, scale)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(6)
 
@@ -1539,19 +1669,20 @@ def k2x2_inputs(dev, slots: int = 10, count: int = 9):
 
     b, hw = TRAIN_B, TRAIN_GRID[0] * TRAIN_GRID[1]
     q = randn(b, hw, 256, scale=2.0)
-    bk, bv = randn(slots, b, hw, 256), randn(slots, b, hw, 1024)
+    bk, bv = randn(slots, b, hw, 256), randn(slots, b, hw, values)
     return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev),
-            randn(b, hw, 1024, scale=0.1),
+            randn(b, hw, values, scale=0.1),
             randn(b, hw, slots, dtype=torch.float32), 128 ** -0.5)
 
 
-def k2x2_case(args) -> dict:
+def k2x2_case(args, suffix: str = "_h2") -> dict:
     """One K1'x2 + K2x2 call shape: each stage timed (CUDA events) beside
     its plain version, its bound and, where one exists, the library's call
     (SDPA over the valid slots' keys flattened to [B, 2, Lq, count * Lk];
     its backward as forward + backward less forward). Returns {stage:
     {ms, plain_ms, bound_ms, bound_by, library_ms}}, the stages
-    K2x2's rows' names and "whole" (the row term and the three kernels)."""
+    K2x2's rows' names (ending in `suffix`) and "whole" (the row term and
+    the three kernels)."""
     import torch
     import torch.nn.functional as F
 
@@ -1559,7 +1690,7 @@ def k2x2_case(args) -> dict:
     q, bk, bv, cnt, dout, drec, scale = args
     (S, b, lk, _), lq, count = bk.shape, q.shape[1], int(cnt)
     kv, lkp = count * lk, (lk + 63) // 64 * 64
-    dh, dv = 256, 1024                      # widths over the two heads
+    dh, dv = 256, bv.shape[-1]              # widths over the two heads
     out, rec_h, lse_h = kb.bank_attention_lse(q, bk, bv, cnt, scale, 2)
     delta_h = kb.bwd_delta_mh(dout, out, drec, rec_h)
     p, ds = kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout, lse_h, delta_h,
@@ -1587,28 +1718,28 @@ def k2x2_case(args) -> dict:
     ob, sb = b * lq * dv * 2, b * 2 * lq * 4
     pb = b * 2 * count * lq * lkp * 2
     stages = {
-        "bank_attention_lse_h2": dict(
+        "bank_attention_lse" + suffix: dict(
             fn=lambda: kb.bank_attention_lse(q, bk, bv, cnt, scale, 2),
             plain=lambda: kb.bank_attention_lse_plain(q, bk, bv, cnt, scale,
                                                       2),
             flops=2.0 * b * lq * kv * (dh + dv),
             nbytes=qb + kb_ + vb + 2 * ob + b * 2 * lq * S * 4 + sb,
             library=sdpa_fwd_ms),
-        "bank_attention_bwd_ds_h2": dict(
+        "bank_attention_bwd_ds" + suffix: dict(
             fn=lambda: kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout, lse_h,
                                                 delta_h, drec, scale, 2),
             plain=lambda: kb._mh_p_ds(*sargs),
             flops=2.0 * b * lq * kv * (dh + dv),
             nbytes=qb + kb_ + vb + ob + 2 * sb + b * lq * S * 4 + 3 * pb,
             library=None),
-        "bank_attention_bwd_dq_h2": dict(
+        "bank_attention_bwd_dq" + suffix: dict(
             fn=lambda: kb.bank_attention_bwd_dq(bk, ds, cnt, scale, 2),
             plain=lambda: kb.bank_attention_bwd_mh_dq_plain(*sargs),
             flops=2 * 2.0 * b * lq * kv * dh, nbytes=2 * pb + kb_ + qb,
             library=cuda_ms(lambda: torch.einsum(
                 "xbhsqk,sbkhd->bqhd", ds[..., :count, :, :lk],
                 bk[:count].unflatten(-1, (2, 128))), 10)),
-        "bank_attention_bwd_dkv_h2": dict(
+        "bank_attention_bwd_dkv" + suffix: dict(
             fn=lambda: kb.bank_attention_bwd_dkv(q, dout, p, ds, cnt, scale,
                                                  lk, 2),
             plain=lambda: kb.bank_attention_bwd_mh_dkv_plain(*sargs),
@@ -1637,35 +1768,35 @@ def k2x2_case(args) -> dict:
     return rows
 
 
-def check_nmg_train_kernels(dev):
-    """Phase 2, no_memory_gap's training rows (2 heads of 128, values 512 a
-    head): K1'x2 at K1PX2_CASES and K2x2 after each, held (held_k2h with
-    heads=2: K1'x2's output, each head's slot mass and lse, K2x2's three
-    kernels against their plain stages, the whole backward against
-    autograd of the plain forward, with a nonzero drec) and timed
-    (k2x2_case) at 9 and 4 valid slots; K5's backward at 2 heads on the
-    training grid and a ragged one (held_k5), timed beside its plain
-    version and SDPA's backward with the dense bias. Returns ({name: entry}
-    without launch counts, whole-K2x2 timings)."""
+def nmg_bank_train_rows(dev, values: int = 1024, suffix: str = "_h2"):
+    """Phase 2, the bank attention's training rows at no_memory_gap's 2
+    heads of 128 with `values` value columns over the heads (1024, R50-
+    DeAOTL's; 256, R50-AOTL's): K1'x2 at K1PX2_CASES and K2x2 after each,
+    held (held_k2h with heads=2: K1'x2's output, each head's slot mass and
+    lse, K2x2's three kernels against their plain stages, the whole
+    backward against autograd of the plain forward, with a nonzero drec)
+    and timed (k2x2_case) at 9 and 4 valid slots. Returns ({name: entry}
+    without launch counts, names ending in `suffix`; whole-K2x2
+    timings)."""
     from rmem_tpu_torch.kernels import bank_attention as kb
-    from rmem_tpu_torch.kernels import local_attention as kl
+    label = {"_h2": "K1'x2 + K2x2", "_h2v128": "K1'x2v128 + K2x2v128"}[suffix]
     held_errs, timed = {}, {}
     for key, kw in K1PX2_CASES.items():
-        args = k2x2_inputs(dev, **kw)
+        args = k2x2_inputs(dev, values=values, **kw)
         held_errs[key] = held_k2h(*args, heads=2)
-        print(f"K1'x2 + K2x2 {key} {kw}: max|kernel - plain| / max|plain| "
+        print(f"{label} {key} {kw}: max|kernel - plain| / max|plain| "
               "(rec, lse absolute; the share of out on the bf16 grid): "
               + ", ".join(f"{k} {v:.3e}"
                           for k, v in held_errs[key].items()))
         if key != "reference":
-            timed[key] = k2x2_case(args)
+            timed[key] = k2x2_case(args, suffix)
         else:
             q, bk, bv, cnt, _, _, scale = args
-            timed[key] = {"bank_attention_lse_h2": dict(ms=cuda_ms(
+            timed[key] = {"bank_attention_lse" + suffix: dict(ms=cuda_ms(
                 lambda: kb.bank_attention_lse(q, bk, bv, cnt, scale, 2),
                 20))}
     for key, rows in timed.items():
-        print(f"K1'x2 + K2x2 {key}: " + "; ".join(
+        print(f"{label} {key}: " + "; ".join(
             f"{name} {r['ms']:.4f} ms" + (
                 f" (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
                 f"{r['bound_by']}, library "
@@ -1677,32 +1808,47 @@ def check_nmg_train_kernels(dev):
     def worst(*keys):
         return max(e[k] for e in held_errs.values() for k in keys)
 
-    errs = {"bank_attention_lse_h2": worst("out", "lse"),
-            "bank_attention_bwd_ds_h2": worst("p", "ds"),
-            "bank_attention_bwd_dq_h2": worst("dq"),
-            "bank_attention_bwd_dkv_h2": worst("dk", "dv")}
-    sources = {"bank_attention_lse_h2": (
+    errs = {"bank_attention_lse": worst("out", "lse"),
+            "bank_attention_bwd_ds": worst("p", "ds"),
+            "bank_attention_bwd_dq": worst("dq"),
+            "bank_attention_bwd_dkv": worst("dk", "dv")}
+    sources = {"bank_attention_lse": (
         "rmem_tpu_torch/csrc/bank_attention_infer.cu",
         "rmem_tpu/kernels/bank_attention.py:687"),
-        "bank_attention_bwd_ds_h2": (
+        "bank_attention_bwd_ds": (
             "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
             "rmem_tpu/kernels/bank_attention.py:581"),
-        "bank_attention_bwd_dq_h2": (
+        "bank_attention_bwd_dq": (
             "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
             "rmem_tpu/kernels/bank_attention.py:113"),
-        "bank_attention_bwd_dkv_h2": (
+        "bank_attention_bwd_dkv": (
             "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
             "rmem_tpu/kernels/bank_attention.py:155")}
     entries = {}
-    for name, (source, replaces) in sources.items():
+    for stage, (source, replaces) in sources.items():
+        name = stage + suffix
         main = timed["nine_slots"][name]
         entries[name] = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            heads=2, valid_slots=9, max_abs_err=errs[name], **main,
+            heads=2, values_per_head=values // 2, valid_slots=9,
+            max_abs_err=errs[stage], **main,
             cases={key: rows[name] for key, rows in timed.items()
                    if name in rows})
     whole = {key: dict(rows["whole"], held=held_errs[key])
              for key, rows in timed.items() if "whole" in rows}
+    for e in entries.values():
+        e["kernel_ms"] = e["ms"]
+    return entries, whole
+
+
+def check_nmg_train_kernels(dev):
+    """Phase 2, R50-DeAOTL no_memory_gap's training rows (2 heads of 128,
+    values 512 a head): K1'x2 and K2x2 (nmg_bank_train_rows); K5's backward
+    at 2 heads on the training grid and a ragged one (held_k5), timed
+    beside its plain version and SDPA's backward with the dense bias.
+    Returns ({name: entry} without launch counts, whole-K2x2 timings)."""
+    from rmem_tpu_torch.kernels import local_attention as kl
+    entries, whole = nmg_bank_train_rows(dev)
 
     # ---- K5's backward at 2 heads: the training grid, then a ragged one ----
     k5 = k5_inputs(dev, heads=2)
@@ -2072,11 +2218,14 @@ def reference_inputs(dev):
     return img0, mask, g
 
 
-# the served configurations: phase 3's and 4's, phase 9's and 10's, and
-# phase 13's and 14's (R50-DeAOTL with no_memory_gap: 2 heads of 128)
+# the served configurations: phase 3's and 4's, phase 9's and 10's, phase
+# 13's and 14's (R50-DeAOTL with no_memory_gap: 2 heads of 128, values 512
+# a head) and phase 17's and 18's (R50-AOTL with no_memory_gap: 2 heads of
+# 128 in the long- and short-term attention, values 128 a head)
 SERVED = {"r50_deaotl": dict(model="r50_deaotl"),
           "r50_aotl": dict(model="r50_aotl"),
-          "r50_deaotl_nmg": dict(model="r50_deaotl", no_memory_gap=True)}
+          "r50_deaotl_nmg": dict(model="r50_deaotl", no_memory_gap=True),
+          "r50_aotl_nmg": dict(model="r50_aotl", no_memory_gap=True)}
 
 
 def build_engine(dev, model: str = "r50_deaotl"):
@@ -2155,16 +2304,27 @@ SERVED_LAUNCHES = {
     "r50_deaotl_nmg": dict(bank_attention_infer=3, local_attention=3, stem=1,
                            bank_attention_infer_mh=0,
                            bank_attention_qminor=0),
+    "r50_aotl_nmg": dict(bank_attention_infer=3, stem=1,
+                         bank_attention_infer_mh=0, local_attention=0,
+                         bank_attention_qminor=0),
 }
+# the head shape (heads, key width, value width a head) of every launch of
+# K1's template on each served path: the wrapper's one counter covers the
+# template's instantiations, so the shape tells K1x2v128 from K1 and K1x2
+SERVED_SHAPES = {"r50_deaotl": (1, 128, 1024), "r50_aotl": None,
+                 "r50_deaotl_nmg": (2, 128, 512),
+                 "r50_aotl_nmg": (2, 128, 128)}
 PHASE_LABEL = {"r50_deaotl": "main path", "r50_aotl": "phase 9 (AOT)",
-               "r50_deaotl_nmg": "phase 13 (no_memory_gap)"}
+               "r50_deaotl_nmg": "phase 13 (no_memory_gap)",
+               "r50_aotl_nmg": "phase 17 (AOT no_memory_gap)"}
 
 
 def main_path(dev, frames: int, card: str, profile: bool,
               model: str = "r50_deaotl"):
-    """Phase 3 (R50-DeAOTL), phase 9 (R50-AOTL) or phase 13 (R50-DeAOTL with
-    no_memory_gap, the evaluator's gap of 1): returns (launch counts,
-    per-window frames/s)."""
+    """Phase 3 (R50-DeAOTL), phase 9 (R50-AOTL), phase 13 (R50-DeAOTL with
+    no_memory_gap, the evaluator's gap of 1) or phase 17 (R50-AOTL with
+    no_memory_gap, the same gap): returns (launch counts, per-window
+    frames/s)."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
@@ -2186,6 +2346,17 @@ def main_path(dev, frames: int, card: str, profile: bool,
     for fn in wrappers:
         fn.launches = 0
     gap = served_gap(cfg, frames + 1)
+    # the head shape of each launch of K1's template, by a spy on the
+    # wrapper's launch helper (the counters stay the wrappers' own)
+    shapes, slots_call = [], kb._slots_call
+
+    def spied_slots_call(q, bank_k, bank_v, count, num_heads, *a, **kw):
+        shapes.append((num_heads, q.shape[-1] // num_heads,
+                       bank_v.shape[-1] // num_heads))
+        return slots_call(q, bank_k, bank_v, count, num_heads, *a, **kw)
+
+    spy = mock.patch.object(kb, "_slots_call", spied_slots_call)
+    spy.start()
     state, logits = engine.add_reference(img0, mask, [NUM_OBJECTS], gap=gap)
     labels = []
     windows = max(1, (frames - BANK_FULL) // WINDOW)
@@ -2205,6 +2376,7 @@ def main_path(dev, frames: int, card: str, profile: bool,
         labels.append(label)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
+    spy.stop()
     counts = {fn.__name__: fn.launches for fn in wrappers}
     window_fps = [WINDOW / (b - a) for a, b in zip(marks, marks[1:])]
     fps = statistics.median(window_fps)
@@ -2221,6 +2393,11 @@ def main_path(dev, frames: int, card: str, profile: bool,
                 for name, n in SERVED_LAUNCHES[model].items()}
     check(counts == expected, f"{phase} launches {counts}, expected "
           f"{expected}")
+    shape = SERVED_SHAPES[model]
+    check(set(shapes) == ({shape} if shape else set()) and len(shapes)
+          == counts["bank_attention_infer"], f"{phase}: K1's template "
+          f"launched at head shapes {sorted(set(shapes))} ({len(shapes)} "
+          f"launches), expected only {shape}")
     check(int(state.bank.count) == slots, "bank not full")
     check(evictions >= 1 and evictions == scheduled,
           f"{evictions} evictions, {scheduled} scheduled")
@@ -2249,17 +2426,17 @@ def main_path(dev, frames: int, card: str, profile: bool,
     return counts, window_fps
 
 
-# phases 4, 10 and 14: the frames through which the kernel and plain
+# phases 4, 10, 14 and 18: the frames through which the kernel and plain
 # engines are held frame by frame. With a write every 5 frames the bank
 # fills at frame 40 and AGREE_FRAMES stops before the first eviction; with
 # no_memory_gap's write every frame it fills at frame 8, whose write is the
-# first eviction, so phase 14 holds frames 0 to 8 (the eviction's victim
-# may follow a near tie in the slot mass, which the bf16 rounding inside
-# the kernels can flip)
+# first eviction, so phases 14 and 18 hold frames 0 to 8 (the eviction's
+# victim may follow a near tie in the slot mass, which the bf16 rounding
+# inside the kernels can flip)
 PLAIN_FRAMES = {"r50_deaotl": AGREE_FRAMES, "r50_aotl": AGREE_FRAMES,
-                "r50_deaotl_nmg": 9}
+                "r50_deaotl_nmg": 9, "r50_aotl_nmg": 9}
 AGREE_PHASE = {"r50_deaotl": "phase 4", "r50_aotl": "phase 10",
-               "r50_deaotl_nmg": "phase 14"}
+               "r50_deaotl_nmg": "phase 14", "r50_aotl_nmg": "phase 18"}
 
 
 def holding(calls: dict, name: str, kernel, plain_fn):
@@ -2276,8 +2453,10 @@ def holding(calls: dict, name: str, kernel, plain_fn):
 
 
 def plain_agreement(dev, model: str = "r50_deaotl"):
-    """Phase 4 (R50-DeAOTL), phase 10 (R50-AOTL) or phase 14 (R50-DeAOTL
-    with no_memory_gap): the same weights and frames through the kernel
+    """Phase 4 (R50-DeAOTL), phase 10 (R50-AOTL), phase 14 (R50-DeAOTL
+    with no_memory_gap) or phase 18 (R50-AOTL with no_memory_gap, K1's
+    template at values 128 a head): the same weights and frames through the
+    kernel
     engine, each of whose kernel calls is held against its plain version on
     the same inputs, and through an engine whose kernels are their plain
     versions. The plain engine is teacher-forced with the kernel engine's
@@ -2293,17 +2472,18 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
     from rmem_tpu_torch.ops.resize import resize_nearest, upsample_argmax
 
     phase = AGREE_PHASE[model]
-    if model != "r50_aotl":
-        kernels = (("bank_attention", kb, "bank_attention_infer",
-                    kb.bank_attention_plain),
-                   ("local_attention", kl, "local_attention",
-                    kl.local_attention_plain),
-                   ("stem", ks, "stem", ks.stem_plain))
-    else:
+    bank = ("bank_attention", kb, "bank_attention_infer",
+            kb.bank_attention_plain)
+    stem = ("stem", ks, "stem", ks.stem_plain)
+    local = ("local_attention", kl, "local_attention",
+             kl.local_attention_plain)
+    kernels = {
+        "r50_deaotl": (bank, local, stem),
         # the LSTT calls bank_attention_infer, which routes 8 heads to K1h
-        kernels = (("bank_attention_mh", kb, "bank_attention_infer",
-                    kb.bank_attention_plain),
-                   ("stem", ks, "stem", ks.stem_plain))
+        "r50_aotl": (("bank_attention_mh",) + bank[1:], stem),
+        "r50_deaotl_nmg": (bank, local, stem),
+        "r50_aotl_nmg": (bank, stem),
+    }[model]
     calls = {name: [] for name, *_ in kernels}
     kb.bank_attention_infer_mh.launches = 0
 
@@ -2348,6 +2528,9 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
               == len(calls["bank_attention_mh"]) > 0,
               f"{phase}: {kb.bank_attention_infer_mh.launches} K1h launches "
               f"for {len(calls['bank_attention_mh'])} held calls")
+    else:
+        check(kb.bank_attention_infer_mh.launches == 0,
+              f"{phase}: {kb.bank_attention_infer_mh.launches} K1h launches")
     (lk, yk, count), (lp, yp, count_p) = runs
     # zip stops at the plain run's last frame
     errs = [((a - b).abs().max() / b.abs().max()).item()
@@ -2685,8 +2868,8 @@ TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
 # each training wrapper's launches in every step of the training phases: 3
 # layers' bank (and DeAOT's local) attention forward over 15 frames and
 # again over the 14 checkpointed ones, its backward over 15, the stem once
-# over the clip's 60 frames; no_memory_gap's (phase 15) at 2 heads of 128
-# through the same wrappers
+# over the clip's 60 frames; no_memory_gap's (phases 15 and 19) at 2 heads
+# of 128 through the same wrappers
 _FWD, _BWD = 3 * (2 * TRAIN_T - 1), 3 * TRAIN_T
 TRAIN_LAUNCHES = {
     "r50_deaotl": dict(bank_attention_lse=_FWD, bank_attention_bwd_ds=_BWD,
@@ -2701,13 +2884,17 @@ TRAIN_LAUNCHES = {
                      bank_attention_bwd_mh=_BWD),
 }
 TRAIN_LAUNCHES["r50_deaotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"])
+TRAIN_LAUNCHES["r50_aotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"],
+                                      local_attention=0,
+                                      local_attention_bwd=0)
 TRAIN_PHASE = {"r50_deaotl": ("phase 5", "R50-DeAOTL"),
                "r50_aotl": ("phase 11", "R50-AOTL"),
                "r50_deaotl_nmg": ("phase 15",
-                                  "R50-DeAOTL with no_memory_gap")}
+                                  "R50-DeAOTL with no_memory_gap"),
+               "r50_aotl_nmg": ("phase 19", "R50-AOTL with no_memory_gap")}
 # the held kernel step against the all-plain step of each trained model
 HELD_PHASE = {"r50_deaotl": "phase 6", "r50_aotl": "phase 12",
-              "r50_deaotl_nmg": "phase 16"}
+              "r50_deaotl_nmg": "phase 16", "r50_aotl_nmg": "phase 20"}
 
 
 def route_turns(dev, card: str):
@@ -2795,10 +2982,10 @@ def route_turns(dev, card: str):
 
 
 def train_config(model: str = "r50_deaotl"):
-    """pre_vost `model` (a key of SERVED: r50_deaotl_nmg is R50-DeAOTL with
-    no_memory_gap) at the card's batch, with train_total_steps set so that
-    the use_prev_pred curriculum (from half the total) starts inside a run
-    of TRAIN_STEPS steps."""
+    """pre_vost `model` (a key of SERVED: r50_deaotl_nmg and r50_aotl_nmg
+    are R50-DeAOTL and R50-AOTL with no_memory_gap) at the card's batch,
+    with train_total_steps set so that the use_prev_pred curriculum (from
+    half the total) starts inside a run of TRAIN_STEPS steps."""
     from rmem_tpu_torch.config import get_config
     return get_config("pre_vost", **SERVED[model], train_batch_size=TRAIN_B,
                       train_total_steps=TRAIN_STEPS + 2)
@@ -2813,16 +3000,17 @@ def fifo_evictions(cfg) -> int:
 
 
 def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
-    """Phase 5 (R50-DeAOTL), phase 11 (R50-AOTL) or phase 15 (R50-DeAOTL
-    with no_memory_gap: 2 heads of 128, a long-term write every frame):
+    """Phase 5 (R50-DeAOTL), phase 11 (R50-AOTL), phase 15 (R50-DeAOTL
+    with no_memory_gap: 2 heads of 128, a long-term write every frame) or
+    phase 19 (R50-AOTL with no_memory_gap, the same, values 128 a head):
     TRAIN_STEPS training steps on synthetic clips (465 x 465, 15 frames, 4
     clips), random weights from a seed. Launch counts are zeroed just
     before and read just after, and each step's must equal
     TRAIN_LAUNCHES[model]; the FIFO evictions each step makes (counted on
     the host at the bank's out-of-place compaction) must equal the
-    schedule's (fifo_evictions: phase 15's 6 a clip). With `profile`, one
-    more step runs under torch.profiler. Returns (launch counts by wrapper,
-    per-step seconds, peak GiB)."""
+    schedule's (fifo_evictions: phases 15's and 19's 6 a clip). With
+    `profile`, one more step runs under torch.profiler. Returns (launch
+    counts by wrapper, per-step seconds, peak GiB)."""
     import importlib
 
     import torch
@@ -2835,7 +3023,7 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
     cfg = train_config(model)
     check(cfg.data_seq_len == TRAIN_T
           and tuple(cfg.data_randomcrop) == TRAIN_HW, "pre_vost's shapes")
-    check(model != "r50_deaotl_nmg" or (
+    check(not cfg.no_memory_gap or (
         cfg.model_att_heads, cfg.train_long_term_mem_gap) == (2, 1),
         f"{phase}: {cfg.model_att_heads} heads, a write every "
         f"{cfg.train_long_term_mem_gap}")
@@ -2912,11 +3100,13 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
 
 
 def held_train_step(dev, model: str = "r50_deaotl"):
-    """Phase 6 (R50-DeAOTL), phase 12 (R50-AOTL) or phase 16 (R50-DeAOTL
-    with no_memory_gap): one step of the kernel model, every K2 call and
-    every K5 forward (K4) call (R50-DeAOTL), every K2h call (R50-AOTL) or
-    every K1'x2, K2x2, K5x2 forward and K5x2 backward call (no_memory_gap)
-    of which is held against its plain version on the same inputs, and one
+    """Phase 6 (R50-DeAOTL), phase 12 (R50-AOTL), phase 16 (R50-DeAOTL
+    with no_memory_gap) or phase 20 (R50-AOTL with no_memory_gap): one step
+    of the kernel model, every K2 call and every K5 forward (K4) call
+    (R50-DeAOTL), every K2h call (R50-AOTL), every K1'x2, K2x2, K5x2
+    forward and K5x2 backward call (R50-DeAOTL with no_memory_gap) or
+    every K1'x2v128 and K2x2v128 call (R50-AOTL with no_memory_gap) of
+    which is held against its plain version on the same inputs, and one
     step of a model whose kernels are all their plain versions (computed in
     f32 from the same bf16 inputs), on the same batch, weights and shuffle.
     Holds the loss and the global gradient norm of the two. Returns a
@@ -2993,6 +3183,8 @@ def held_train_step(dev, model: str = "r50_deaotl"):
                            ((kb, "bank_attention_bwd"), held_bwd),
                            ((kl, "local_attention"), held_fwd),
                            ((kl, "local_attention_bwd"), held_bwd_la)],
+        "r50_aotl_nmg": [((kb, "bank_attention_lse"), held_lse),
+                         ((kb, "bank_attention_bwd"), held_bwd)],
     }[model]
 
     # the plain versions take the inputs in bf16, as the kernels do
@@ -3021,7 +3213,7 @@ def held_train_step(dev, model: str = "r50_deaotl"):
             del trainer
     (loss_k, gn_k), (loss_p, gn_p) = runs
     k2 = {"r50_deaotl": "K2", "r50_aotl": "K2h",
-          "r50_deaotl_nmg": "K2x2"}[model]
+          "r50_deaotl_nmg": "K2x2", "r50_aotl_nmg": "K2x2v128"}[model]
 
     def worst_of(held_calls):
         return {key: max(c[key] for c in held_calls)
@@ -3046,12 +3238,13 @@ def held_train_step(dev, model: str = "r50_deaotl"):
                          for k, v in worst_of(k5_calls).items())
              if k5_calls else ""))
     layers_frames = cfg.model_lstt_num * TRAIN_T
+    deaot = cfg.model_vos == "deaot"
     check(len(calls) == layers_frames, f"{len(calls)} {k2} calls on the path")
-    check(model == "r50_aotl" or len(fwd_calls) >= layers_frames,
+    check(not deaot or len(fwd_calls) >= layers_frames,
           f"{len(fwd_calls)} K5 forward calls on the path")
-    check(model != "r50_deaotl_nmg" or (
+    check(not cfg.no_memory_gap or (
         len(lse_calls) == TRAIN_LAUNCHES[model]["bank_attention_lse"]
-        and len(k5_calls) == layers_frames),
+        and len(k5_calls) == (layers_frames if deaot else 0)),
         f"{len(lse_calls)} K1'x2 and {len(k5_calls)} K5x2 backward calls on "
         "the path")
     check(loss_err <= STEP_LOSS_TOL, f"step loss {loss_err}")
@@ -3155,7 +3348,21 @@ MUTANTS = {
         # K1'x2: the merge writes head 0's lse only
         "k1px2_lse_head0_only": [
             ("if (kF32 && blockIdx.y == 0 && threadIdx.x == 0)",
-             "if (kF32 && h == 0 && blockIdx.y == 0 && threadIdx.x == 0)")]}),
+             "if (kF32 && h == 0 && blockIdx.y == 0 && threadIdx.x == 0)")],
+        # K1x2v128 and K1'x2v128: at 128 value columns a block, head 1
+        # reads head 0's values
+        "k1v128_head0_values": [
+            ("tma_load(sv + a * ATOM, &tm_v, &full[st], c0 + a * 64, h, key0, "
+             "z);",
+             "tma_load(sv + a * ATOM, &tm_v, &full[st], c0 + a * 64, "
+             "DVB == 128 ? 0 : h, key0, z);")],
+        # K1x2v128 and K1'x2v128: the P.V product's V descriptor steps 8
+        # keys a 16-key slice of P, so slices read the wrong keys' values
+        "k1v128_v_desc_half_step": [
+            ("wgmma_rs_m64n128(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, "
+             "1024));",
+             "wgmma_rs_m64n128(o, pa[kk], desc_sw128(sv + kk * 1024, 8192, "
+             "1024));")]}),
     "bank_attention_mh": ("k1h", {
         # K1h: the slot-PE bias is dropped
         "k1h_no_bias": [("if (!kTrain && qbias != nullptr) {",
@@ -3177,7 +3384,13 @@ MUTANTS = {
              "__bfloat162float(__float2bfloat16_rn(b)));")],
         # K1'h: the lse without the log of the sum
         "k1ph_lse_no_sum": [("(m0 + log2f(L0)) * LN2", "m0 * LN2"),
-                            ("(m1 + log2f(L1)) * LN2", "m1 * LN2")]}),
+                            ("(m1 + log2f(L1)) * LN2", "m1 * LN2")],
+        # K3h: the keys masked a chunk short of Lk (the wrapper's line)
+        "k3h_true_lk_short": [
+            ("out = _mh_call(q, bank_k, bank_v, count, num_heads, scale)\n",
+             "out = _mh_call(q, bank_k, bank_v, count, num_heads, scale,\n"
+             "                       bank_k.shape[2] - 64)\n",
+             "rmem_tpu_torch/kernels/bank_attention.py")]}),
     "bank_attention_mh_bwd": ("k2h", {
         # K2h: ds drops the slot-mass term, in both kernels
         "no_drec": [("ok ? drec_h[((size_t)b * Lq + qi) * S + s] - "
@@ -3204,18 +3417,25 @@ MUTANTS = {
 
 
 def k1_k3_k1p_check(dev):
-    """The template's three instantiations: K1's phase-2 calls with the bias
-    and with padded keys, at one head and at two, K3's at one head and at
-    two, then K1' (with K2) at 2 and 4 valid slots, and K1'x2 at 4."""
+    """The template's instantiations: K1's phase-2 calls with the bias and
+    with padded keys, at one head, at two and at two with values 128 a
+    head, K3's at one head and at two, then K1' (with K2) at 2 and 4 valid
+    slots, and K1'x2 at 4, with values 512 and 128 a head."""
     errs = {f"{key}_h{heads}": held_k1(*k1_inputs(dev, heads=heads,
                                                  **K1_CASES[key]))
             for key in ("main", "padded") for heads in (1, 2)}
+    for key in ("main", "padded"):
+        errs[f"{key}_h2v128"] = held_k1(*k1x2v128_inputs(dev,
+                                                         **K1_CASES[key]))
     errs["k3"] = held_k3(*k3_inputs(dev))
     errs["k3_h2"] = held_k3(*k3_inputs(dev, heads=2))
     for count in (2, 4):
         errs[f"k1p_{count}"] = held_k2(*k2_inputs(dev, count)[1])
-    q, bk, bv, cnt, _, _, scale = k2x2_inputs(dev, count=4)
-    errs["k1px2_4"] = held_k1ph(q, bk, bv, cnt, scale, 2)[1]
+    for values in (1024, 256):
+        q, bk, bv, cnt, _, _, scale = k2x2_inputs(dev, count=4,
+                                                  values=values)
+        errs[f"k1px2_4_v{values // 2}"] = held_k1ph(q, bk, bv, cnt, scale,
+                                                    2)[1]
     return errs
 
 
@@ -3248,9 +3468,12 @@ def k4_k5_check(dev):
 
 def k1h_check(dev):
     """K1h at phase 2's main call, one slot, the reference frame's shape
-    and with keys padded past true_lk; K1'h at K1PH_CASES."""
+    and with keys padded past true_lk; K3h at its main call, one slot and
+    the reference frame's shape; K1'h at K1PH_CASES."""
     errs = {key: held_k1h(*k1h_inputs(dev, **K1_CASES[key]))
             for key in ("main", "count_1", "reference", "padded")}
+    for key in ("main", "count_1", "reference"):
+        errs[f"k3h_{key}"] = held_k3h(*k1h_inputs(dev, **K3H_CASES[key]))
     for key, kw in K1PH_CASES.items():
         q, bk, bv, cnt, _, _, scale = k1ph_inputs(dev, **kw)
         errs[f"k1ph_{key}"] = held_k1ph(q, bk, bv, cnt, scale)[1]
@@ -3258,9 +3481,12 @@ def k1h_check(dev):
 
 
 MUTANT_CHECKS = {
-    # K2 at one head, then K1'x2 + K2x2 at 4 valid slots
-    "k2": lambda dev: dict(h1=held_k2(*k2_inputs(dev)[1]),
-                           h2=held_k2h(*k2x2_inputs(dev, count=4), heads=2)),
+    # K2 at one head, then K1'x2 + K2x2 at 4 valid slots, with values 512
+    # and 128 a head
+    "k2": lambda dev: dict(
+        h1=held_k2(*k2_inputs(dev)[1]),
+        h2=held_k2h(*k2x2_inputs(dev, count=4), heads=2),
+        h2v128=held_k2h(*k2x2_inputs(dev, count=4, values=256), heads=2)),
     "k1h": k1h_check,
     "k2h": lambda dev: held_k2h(*k1ph_inputs(dev)),
     "k1_k3_k1p": k1_k3_k1p_check,
@@ -3329,13 +3555,14 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=BANK_FULL + 3 * WINDOW)
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 steady frames "
-                         "of phases 3, 7, 9 and 13 and of one training step "
-                         "of phases 5, 11 and 15")
+                         "of phases 3, 7, 9, 13 and 17 and of one training "
+                         "step of phases 5, 11, 15 and 19")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
-                         "K5, K1, K3, K1', K1h, K1'h, K2h, K6 and K7 "
+                         "K5, K1, K3, K1', K1h, K3h, K1'h, K2h, K6 and K7 "
                          "checks (K1, K3, K4, K1', K2 and K5's backward at "
-                         "one head and at two); prints no result line")
+                         "one head and at two, K1, K1' and K2 also at "
+                         "values 128 a head); prints no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")
@@ -3373,6 +3600,9 @@ def main() -> int:
     train_entries, k2_whole, k5_whole = check_train_kernels(dev)
     aot_train_entries = check_aot_train_kernels(dev)
     nmg_train_entries, k2x2_whole = check_nmg_train_kernels(dev)
+    entries.update(check_aot_nmg_serving_kernels(dev))
+    aot_nmg_train_entries, k2x2v128_whole = nmg_bank_train_rows(
+        dev, values=256, suffix="_h2v128")
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, window_fps = main_path(dev, args.frames, card, args.profile)
@@ -3441,6 +3671,30 @@ def main() -> int:
     entries.update(nmg_train_entries)
     nmg_held_step = held_train_step(dev, "r50_deaotl_nmg")
     print(f"phases 15 and 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    aot_nmg_counts, aot_nmg_fps = main_path(dev, args.frames, card,
+                                            args.profile,
+                                            model="r50_aotl_nmg")
+    aot_nmg_worst, aot_nmg_logit_errs, aot_nmg_agree = plain_agreement(
+        dev, "r50_aotl_nmg")
+    print(f"phases 17 and 18: {time.perf_counter() - t0:.1f} s")
+    entries["bank_attention_h2v128"].update(
+        launches=aot_nmg_counts["bank_attention_infer"],
+        phase18_launches=aot_nmg_worst["bank_attention"]["calls"])
+    # no engine path reaches K3 at 8 heads (neither package sends AOT to
+    # the q-minor route): phase 17's count, 0, and phase 2's direct calls
+    entries["bank_attention_qminor_mh"].update(
+        launches=aot_nmg_counts["bank_attention_qminor"],
+        launches_from="phase 17; no path reaches K3h, held by direct calls "
+        "in phase 2")
+    t0 = time.perf_counter()
+    aot_nmg_train_counts, aot_nmg_step_times, aot_nmg_peak = train_phase(
+        dev, card, args.profile, model="r50_aotl_nmg")
+    for key, e in aot_nmg_train_entries.items():
+        e["launches"] = aot_nmg_train_counts[key.removesuffix("_h2v128")]
+    entries.update(aot_nmg_train_entries)
+    aot_nmg_held_step = held_train_step(dev, "r50_aotl_nmg")
+    print(f"phases 19 and 20: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -3485,6 +3739,19 @@ def main() -> int:
                       "nmg_train_peak_gib": nmg_peak,
                       "nmg_train_launches": nmg_train_counts,
                       "nmg_held_step": nmg_held_step,
+                      "aot_nmg_fps_windows": aot_nmg_fps,
+                      "aot_nmg_fps_median": statistics.median(aot_nmg_fps),
+                      "aot_nmg_launches": aot_nmg_counts,
+                      "aot_nmg_on_path": aot_nmg_worst,
+                      "aot_nmg_logit_rel_err": aot_nmg_logit_errs,
+                      "aot_nmg_label_agreement": aot_nmg_agree,
+                      "k2x2v128_whole": k2x2v128_whole,
+                      "aot_nmg_train_step_s": aot_nmg_step_times,
+                      "aot_nmg_train_step_s_median": statistics.median(
+                          aot_nmg_step_times[1:]),
+                      "aot_nmg_train_peak_gib": aot_nmg_peak,
+                      "aot_nmg_train_launches": aot_nmg_train_counts,
+                      "aot_nmg_held_step": aot_nmg_held_step,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

@@ -168,6 +168,14 @@ STAGE_PRESETS: Dict[str, Dict[str, Any]] = {
     "pre_vost": dict(train_total_steps=20_000, data_seq_len=15,
                      train_long_term_mem_gap=4, model_linear_q=False,
                      model_ignore_token=True),
+    # pre_vost with clips of 17 frames: the training CLI's default stage
+    "pre_vost_2": dict(train_total_steps=20_000, data_seq_len=17,
+                       train_long_term_mem_gap=4, model_linear_q=False,
+                       model_ignore_token=True),
+    # pre_vost with clips of 25 frames
+    "pre_vost_25q": dict(train_total_steps=20_000, data_seq_len=25,
+                         train_long_term_mem_gap=4, model_linear_q=False,
+                         model_ignore_token=True),
     # synthetic smoke stage: small crops, short clips
     "test": dict(train_total_steps=100, data_seq_len=3, train_batch_size=2,
                  data_randomcrop=(129, 129)),

@@ -31,17 +31,20 @@
 // tensor-core rate needs wgmma fed by TMA, so the kernel is built on them.
 //
 // Design. A block owns 128 queries (two consumer warpgroups of 64 rows) of
-// one head, a 256-wide slice of that head's dv and a group of G slots; the
+// one head, a DVB-wide slice of that head's dv and a group of G slots; the
 // grid is (query tile, dv slice, (batch x head) x slot group), the heads
 // folded in as rmem_tpu/kernels/bank_attention.py:_layout folds them but
 // without its transposes: every tensor keeps its [.., H x d] rows and the
 // tensor maps pick a head's columns out of them. Blocks whose group starts
 // at or beyond the slot count, read on the device, return before any
 // barrier or copy, so a frame never waits for the host. Heads: 1 or 2, of
-// 128 (DeAOT's, and DeAOT's no_memory_gap with 512 values a head).
+// 128 (DeAOT's, DeAOT's no_memory_gap with 512 values a head, and AOT's
+// no_memory_gap with 128). DVB is 256 for values a multiple of 256 a head
+// and 128 for values 128 a head (one block covers them: no Q K^T is
+// recomputed, and each stage is 16 KB smaller).
 //   - A producer warpgroup (one thread, its registers given back with
 //     setmaxnreg) loads the two Q tiles once and then keeps the block's K
-//     and V chunks (64 keys: K [64 x 128], V [64 x 256]) in flight by TMA
+//     and V chunks (64 keys: K [64 x 128], V [64 x DVB]) in flight by TMA
 //     into a ring of 3 stages, each with a full and an empty mbarrier. The
 //     tensor maps are 4-D, [slot x batch, key, head, column], so a chunk
 //     never runs across two slots, a box holds one head's columns, and the
@@ -54,13 +57,14 @@
 //     and a key in [true_lk, Lk) is padding), the bias of the chunk's slot
 //     (K1: each row loads its G values once a block, in log2 units), the
 //     online softmax in registers (exp2, four threads a row), and O += P V as
-//     wgmma m64n256k16 with P in registers (the accumulator's layout is
-//     the A operand's, so P needs no shuffle) and V from shared memory
-//     (MN-major). O is 64 x 256 f32: 128 registers a thread.
+//     wgmma m64n256k16 (m64n128k16 at DVB 128) with P in registers (the
+//     accumulator's layout is the A operand's, so P needs no shuffle) and V
+//     from shared memory (MN-major). O is 64 x DVB f32: DVB / 2 registers a
+//     thread.
 //   - The two warpgroups share every K/V chunk, so the bank is read from L2
-//     once per 128 queries and 256 columns. Q K^T is recomputed for each
-//     of the four dv slices: 1.33x the minimal work, in exchange for no
-//     exchange of P between blocks.
+//     once per 128 queries and DVB columns. Q K^T is recomputed for each
+//     dv slice (at one head of 1024 values, four: 1.33x the minimal work),
+//     in exchange for no exchange of P between blocks.
 // Each block writes its partial state: the row maximum m over its group
 // (log2 units), the per-slot row sums l_s (relative to m) and its output
 // normalised by its own sum, in bf16 (ceil(S / G) x B x H x Lq x dv x 2
@@ -94,19 +98,26 @@ constexpr int D = 128;        // head width: two 64-wide K-major atoms
 constexpr int BQ = 64;        // query rows of one consumer warpgroup
 constexpr int NCONS = 2;      // consumer warpgroups: 128 queries a block
 constexpr int BK = 64;        // keys a chunk
-constexpr int DVB = 256;      // value columns a block
 constexpr int STAGES = 3;     // K/V chunks in flight
 constexpr int kThreads = 128 * (1 + NCONS);
 constexpr int G = 2;          // slots a block walks
 constexpr int ATOM = 64 * 128;              // one [64 x 64] bf16 TMA box
 constexpr int Q_BYTES = NCONS * 2 * ATOM;
 constexpr int K_BYTES = 2 * ATOM;
-constexpr int V_BYTES = (DVB / 64) * ATOM;
-constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
-constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+// The value columns a block (DVB, a template parameter: 256, or 128 for
+// heads whose values are 128 wide) set the V tile, one 64-wide TMA box per
+// 64 columns, and with it the stage and the shared memory.
+__host__ __device__ constexpr int stage_bytes(int dvb) {
+  return K_BYTES + (dvb / 64) * ATOM;
+}
+__host__ __device__ constexpr int bar_off(int dvb) {
+  return Q_BYTES + STAGES * stage_bytes(dvb);
+}
 // + 1024: the dynamic shared memory is aligned up to 1024 bytes by hand,
 // the period of the 128-byte swizzle that TMA and wgmma must agree on
-constexpr int SMEM_BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+__host__ __device__ constexpr int smem_bytes(int dvb) {
+  return bar_off(dvb) + (2 * STAGES + 1) * 8 + 1024;
+}
 constexpr int kMergeThreads = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -308,14 +319,51 @@ __device__ __forceinline__ void wgmma_rs_m64n256(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 128] += A[64 x 16] B[16 x 128], as wgmma_rs_m64n256 over half the
+// columns: two 64-wide V boxes, 64 accumulator floats a thread.
+__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-// One (128-query tile, 256-wide slice of a head's DV columns, (batch x
+
+// One (128-query tile, DVB-wide slice of a head's DV columns, (batch x
 // head) x slot group), bh = b H + h: part_m [NG, B H, Lq] and part_l
 // [S, B H, Lq] f32, part_o [NG, B H, Lq, DV] bf16 (f32 with kF32). With
 // kBias, qbias [B, H, Lq, S] f32 (natural units, or null for none) is added
 // to the scaled logits and keys >= true_lk are masked; without, true_lk =
 // Lk.
-template <bool kBias, bool kF32>
+template <bool kBias, bool kF32, int DVB>
 __global__ void __launch_bounds__(kThreads, 1)
 partial_kernel(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
@@ -326,10 +374,12 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
                std::conditional_t<kF32, float, bf16>* __restrict__ part_o,
                int B, int H, int Lq, int S, int true_lk, int DV,
                float scale_log2) {
+  static_assert(DVB == 128 || DVB == 256, "a block takes 128 or 256 values");
+  constexpr int STAGE_BYTES = stage_bytes(DVB);
   extern __shared__ __align__(1024) char smem_raw[];
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bar_off(DVB));
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
 
@@ -496,10 +546,16 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
         pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
         pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
+      // V's 64-wide boxes lie 8 KB apart (the leading offset), its 8-key
+      // groups 1024 bytes (the stride): the same descriptor at either width
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_m64n256(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, 1024));
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (DVB == 256)
+          wgmma_rs_m64n256(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, 1024));
+        else
+          wgmma_rs_m64n128(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, 1024));
+      }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<DVB / 2>(o);
@@ -650,7 +706,7 @@ static int map4d(CUtensorMap* map, const void* base, uint64_t cols,
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-template <bool kBias, bool kF32>
+template <bool kBias, bool kF32, int DVB>
 static int launch(const void* q, const void* k, const void* v,
                   const void* qbias, const void* count, void* part_m,
                   void* part_l, void* part_o, void* out, void* rec, void* lse,
@@ -662,7 +718,8 @@ static int launch(const void* q, const void* k, const void* v,
   if (e == 0) e = map4d(&tk, k, D, H, Lk, (uint64_t)S * B);
   if (e == 0) e = map4d(&tv, v, DV, H, Lk, (uint64_t)S * B);
   if (e != 0) return e;
-  auto kern = partial_kernel<kBias, kF32>;
+  auto kern = partial_kernel<kBias, kF32, DVB>;
+  constexpr int SMEM_BYTES = smem_bytes(DVB);
   static bool configured = false;     // once per process and instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -686,15 +743,28 @@ static int launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// The instantiation for DV values a head: one 128-wide block at DV 128,
+// 256-wide slices for a multiple of 256.
+template <bool kBias, bool kF32>
+static int launch_dv(const void* q, const void* k, const void* v,
+                     const void* qbias, const void* count, void* part_m,
+                     void* part_l, void* part_o, void* out, void* rec,
+                     void* lse, int B, int H, int Lq, int S, int Lk,
+                     int true_lk, int DV, float scale, cudaStream_t stream) {
+  auto* fn = DV == 128 ? launch<kBias, kF32, 128> : launch<kBias, kF32, 256>;
+  return fn(q, k, v, qbias, count, part_m, part_l, part_o, out, rec, lse, B,
+            H, Lq, S, Lk, true_lk, DV, scale, stream);
+}
+
 }  // namespace rmem_qminor
 
 // Returns the cudaError_t of the launches (0 on success); -1 for anything
-// but 1 or 2 heads of 128 with dv (a head's values) a multiple of 256 and
-// true_lk in 1..Lk, -2 or -3 if a tensor map cannot be made. q [B, Lq,
-// H x 128], k [S, B, Lk, H x 128], v [S, B, Lk, H x dv]; qbias [B, H, Lq,
-// S] f32 (scaled logit units) or null; keys >= true_lk masked. With a bias
-// or padded keys (K1) the kernel's kBias instantiation runs, with neither
-// (K3, and K1's reference-frame call) the other. Scratch, with G =
+// but 1 or 2 heads of 128 with dv (a head's values) 128 or a multiple of
+// 256 and true_lk in 1..Lk, -2 or -3 if a tensor map cannot be made.
+// q [B, Lq, H x 128], k [S, B, Lk, H x 128], v [S, B, Lk, H x dv]; qbias
+// [B, H, Lq, S] f32 (scaled logit units) or null; keys >= true_lk masked.
+// With a bias or padded keys (K1) the kernel's kBias instantiation runs,
+// with neither (K3, and K1's reference-frame call) the other. Scratch, with G =
 // rmem_bank_attention_infer_slots(): part_m [ceil(S/G), B H, Lq] and part_l
 // [S, B H, Lq] f32, part_o [ceil(S/G), B H, Lq, dv] bf16. q, k, v 16-byte
 // aligned; out [B, Lq, H x dv] bf16, rec [B, H, Lq, S] f32 (each head's
@@ -704,37 +774,36 @@ extern "C" int rmem_bank_attention_infer(
     const void* count, void* part_m, void* part_l, void* part_o, void* out,
     void* rec, int B, int H, int Lq, int S, int Lk, int true_lk, int dh,
     int dv, float scale, void* stream) {
-  if ((H != 1 && H != 2) || dh != 128 || dv % 256 != 0 || true_lk < 1 ||
-      true_lk > Lk)
+  if ((H != 1 && H != 2) || dh != 128 || (dv != 128 && dv % 256 != 0) ||
+      true_lk < 1 || true_lk > Lk)
     return -1;
   cudaStream_t st = (cudaStream_t)stream;
   if (qbias == nullptr && true_lk == Lk)
-    return rmem_qminor::launch<false, false>(q, k, v, nullptr, count, part_m,
-                                             part_l, part_o, out, rec, nullptr,
-                                             B, H, Lq, S, Lk, Lk, dv, scale,
-                                             st);
-  return rmem_qminor::launch<true, false>(q, k, v, qbias, count, part_m,
-                                          part_l, part_o, out, rec, nullptr,
-                                          B, H, Lq, S, Lk, true_lk, dv, scale,
-                                          st);
+    return rmem_qminor::launch_dv<false, false>(
+        q, k, v, nullptr, count, part_m, part_l, part_o, out, rec, nullptr, B,
+        H, Lq, S, Lk, Lk, dv, scale, st);
+  return rmem_qminor::launch_dv<true, false>(
+      q, k, v, qbias, count, part_m, part_l, part_o, out, rec, nullptr, B, H,
+      Lq, S, Lk, true_lk, dv, scale, st);
 }
 
-// K1', training's forward: 1 or 2 heads of 128 (DeAOT's, and its
-// no_memory_gap), every key valid, no bias, f32 partial outputs. Layouts
-// and scratch as above with part_o f32; out [B, Lq, H x dv] f32, rec
-// [B, H, Lq, S] f32 (each head's slot mass), lse [B, H, Lq] f32 (the
-// natural log of each head's row sum of exp of the scaled logits over the
+// K1', training's forward: 1 or 2 heads of 128 (DeAOT's, and the
+// no_memory_gap of DeAOT and AOT), every key valid, no bias, f32 partial
+// outputs. Layouts and scratch as above with part_o f32; out [B, Lq,
+// H x dv] f32, rec [B, H, Lq, S] f32 (each head's slot mass), lse
+// [B, H, Lq] f32 (the natural log of each head's row sum of exp of the scaled logits over the
 // valid slots). Returns as rmem_bank_attention_infer.
 extern "C" int rmem_bank_attention_lse(
     const void* q, const void* k, const void* v, const void* count,
     void* part_m, void* part_l, void* part_o, void* out, void* rec,
     void* lse, int B, int H, int Lq, int S, int Lk, int dh, int dv,
     float scale, void* stream) {
-  if ((H != 1 && H != 2) || dh != 128 || dv % 256 != 0 || Lk < 1) return -1;
-  return rmem_qminor::launch<false, true>(q, k, v, nullptr, count, part_m,
-                                          part_l, part_o, out, rec, lse, B, H,
-                                          Lq, S, Lk, Lk, dv, scale,
-                                          (cudaStream_t)stream);
+  if ((H != 1 && H != 2) || dh != 128 || (dv != 128 && dv % 256 != 0) ||
+      Lk < 1)
+    return -1;
+  return rmem_qminor::launch_dv<false, true>(
+      q, k, v, nullptr, count, part_m, part_l, part_o, out, rec, lse, B, H,
+      Lq, S, Lk, Lk, dv, scale, (cudaStream_t)stream);
 }
 
 // The slots a block walks.

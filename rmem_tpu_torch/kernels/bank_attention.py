@@ -9,8 +9,9 @@ pallas_bank_attention_infer and the forward of pallas_bank_attention (the
 reference frame's S = 1 self-memory call).
 
 The template takes one head of 128 or two (DeAOT's `no_memory_gap`: 2
-heads of 128, values 512 a head), the heads on its grid; at two it returns
-each head's slot mass and the wrapper averages them, as
+heads of 128, values 512 a head; AOT's: 2 heads of 128, values 128 a head,
+its instantiation with 128 value columns a block), the heads on its grid;
+at two it returns each head's slot mass and the wrapper averages them, as
 rmem_tpu/kernels/bank_attention.py:_unlayout_out does.
 
 At 8 heads of 32 (AOT's LSTT, kernel K1ʰ) `bank_attention_infer` routes
@@ -24,7 +25,9 @@ Inference with the slot PE in the keys (kernel K3, opt-in):
 bias, no key padding) for tensors on the card and runs
 `bank_attention_qminor_plain` for tensors on the CPU; it replaces
 rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_qminor. Both split
-the slots among blocks, SLOTS_PER_BLOCK each, and merge on the card.
+the slots among blocks, SLOTS_PER_BLOCK each, and merge on the card. At 8
+heads of 32 (K3ʰ) it launches K1ʰ's kernel with no bias and every key
+valid, counted on `bank_attention_qminor.launches`.
 
 Training: `bank_attention_train` is differentiable and routes by head
 shape (`train_route`, the same rule as `infer_route`). At one or two heads
@@ -65,8 +68,11 @@ BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
 # csrc/bank_attention_infer.cu (G, checked against the library when it
 # loads; PERF.md has the sweep of 1, 2, 3 and 9 that chose it)
 SLOTS_PER_BLOCK = 2
-# K1 and K3: the head counts of 128 that the template takes on its grid
+# K1 and K3: the head counts of 128 that the template takes on its grid;
+# values 128 a head (its 128-wide instantiation) only at AOT's
+# no_memory_gap shape, the one it is held at
 SLOT_HEADS = (1, 2)
+NARROW_VALUES = (2, 128, 128)
 # K1ʰ: the head shape csrc/bank_attention_mh.cu is written for, and the
 # slots whose mass a block keeps in shared memory
 MH_HEADS, MH_WIDTH, MH_MAX_SLOTS = 8, 32, 16
@@ -128,10 +134,9 @@ def _check_bank(q, bank_k, bank_v, count, num_heads) -> Tuple[int, ...]:
     _check(q.shape == (b, lq, num_heads * dh), f"q shape {tuple(q.shape)}")
     _check(bank_v.shape[:3] == (s, b, lk),
            f"bank_v shape {tuple(bank_v.shape)}")
-    _check(num_heads in SLOT_HEADS and dh == 128,
-           f"{num_heads} heads of width {dh} (the kernel is held to its "
-           "plain version for one or two heads of 128, r50_deaotl's)")
-    _check(dv % 256 == 0, f"value width {dv} (multiple of 256)")
+    _check(infer_route(num_heads, dh, dv) == "slots",
+           f"{num_heads} heads of width {dh} (the template takes one or two "
+           "heads of 128)")
     _check_count(count, q)
     return s, b, lq, lk, dh, dv
 
@@ -207,23 +212,27 @@ def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
 def infer_route(num_heads: int, dh: int, dv: int) -> str:
     """The CUDA kernel that takes an inference call of this head shape on
     the card: "slots" (K1's template: one or two heads of 128, values a
-    multiple of 256 a head) or "heads" (K1ʰ: 8 heads of 32, values 32 a
-    head). Any other shape raises."""
+    multiple of 256 a head, or 2 heads of 128 with values 128 a head) or
+    "heads" (K1ʰ: 8 heads of 32, values 32 a head). Any other shape
+    raises."""
     if num_heads in SLOT_HEADS and dh == 128 and dv % 256 == 0:
+        return "slots"
+    if (num_heads, dh, dv) == NARROW_VALUES:
         return "slots"
     if (num_heads, dh, dv) == (MH_HEADS, MH_WIDTH, MH_WIDTH):
         return "heads"
     raise ValueError(f"bank_attention: {num_heads} heads of width {dh}, "
                      f"values {dv} a head (the kernels are held to their "
-                     "plain version for one or two heads of 128 and for 8 "
-                     "heads of 32)")
+                     "plain version for one or two heads of 128, two of "
+                     "128 with values 128, and 8 heads of 32)")
 
 
 def train_route(num_heads: int, dh: int, dv: int) -> str:
     """The CUDA kernels that take a training call of this head shape on the
     card, by `infer_route`'s rule: "slots" (K1' and K2: one or two heads of
-    128, values a multiple of 256 a head) or "heads" (K1'ʰ and K2ʰ: 8 heads
-    of 32). Any other shape raises."""
+    128, values a multiple of 256 a head, or 2 heads of 128 with values 128
+    a head) or "heads" (K1'ʰ and K2ʰ: 8 heads of 32). Any other shape
+    raises."""
     return infer_route(num_heads, dh, dv)
 
 
@@ -266,6 +275,21 @@ def bank_attention_infer_mh(q: torch.Tensor, bank_k: torch.Tensor,
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
                                     scale, true_lk, qbias)
+    out = _mh_call(q, bank_k, bank_v, count, num_heads, scale, true_lk,
+                   qbias)
+    bank_attention_infer_mh.launches += 1
+    return out
+
+
+bank_attention_infer_mh.launches = 0
+
+
+def _mh_call(q, bank_k, bank_v, count, num_heads, scale,
+             true_lk: Optional[int] = None,
+             qbias: Optional[torch.Tensor] = None):
+    """Launch csrc/bank_attention_mh.cu, K1ʰ's and K3ʰ's kernel. Returns
+    (out [B, Lq, 256] bf16, rec [B, Lq, S] f32, the head mean of the
+    kernel's per-head slot mass)."""
     s, b, lq, lk = _check_mh(q, bank_k, bank_v, count, num_heads)
     true_lk = lk if true_lk is None else true_lk
     _check(0 < true_lk <= lk, f"true_lk {true_lk} for {lk} keys")
@@ -283,11 +307,7 @@ def bank_attention_infer_mh(q: torch.Tensor, bank_k: torch.Tensor,
         out.data_ptr(), rec_h.data_ptr(), b, num_heads, lq, s, lk, true_lk,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_mh")
-    bank_attention_infer_mh.launches += 1
     return out, rec_h.mean(dim=1)
-
-
-bank_attention_infer_mh.launches = 0
 
 
 def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
@@ -301,8 +321,9 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
     >= true_lk masked; qbias [B, h, Lq, S] f32 or None. Returns (out
     [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32). On the card: bf16
     q/k/v, all contiguous, at a head shape `infer_route` takes: one or two
-    heads of 128 with dv a multiple of 256 a head launch K1 (counted here),
-    8 heads of 32 go to `bank_attention_infer_mh` (K1ʰ, counted there)."""
+    heads of 128 with dv a multiple of 256 a head, or two with dv 128,
+    launch K1 (counted here), 8 heads of 32 go to `bank_attention_infer_mh`
+    (K1ʰ, counted there)."""
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
                                     scale, true_lk, qbias)
@@ -335,12 +356,18 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
     """q [B, Lq, h*dh]; bank_k [S, B, Lk, h*dh]; bank_v [S, B, Lk, h*dv];
     count: int32 scalar tensor of valid slots, read on the device. Returns
     (out [B, Lq, h*dv] in q's dtype, rec [B, Lq, S] f32, the head mean). On
-    the card: bf16 q/k/v, one or two heads of 128, dv a multiple of 256 a
-    head, all contiguous; each block walks SLOTS_PER_BLOCK slots."""
+    the card: bf16 q/k/v, all contiguous, at a head shape `infer_route`
+    takes: K1's template walking SLOTS_PER_BLOCK slots a block, or at 8
+    heads of 32 (K3ʰ) K1ʰ's kernel with no bias and every key valid, both
+    counted here."""
     if not q.is_cuda:
         return bank_attention_qminor_plain(q, bank_k, bank_v, count,
                                            num_heads, scale)
-    out = _slots_call(q, bank_k, bank_v, count, num_heads, scale)
+    if infer_route(num_heads, q.shape[-1] // num_heads,
+                   bank_v.shape[-1] // num_heads) == "heads":
+        out = _mh_call(q, bank_k, bank_v, count, num_heads, scale)
+    else:
+        out = _slots_call(q, bank_k, bank_v, count, num_heads, scale)
     bank_attention_qminor.launches += 1
     return out
 
@@ -403,8 +430,9 @@ def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
                        scale: float, num_heads: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1' for training (card only, the f32 instantiation of
-    csrc/bank_attention_infer.cu): one or two heads of 128, no bias, every
-    key valid. Returns (out [B, Lq, h*dv] f32, rec [B, h, Lq, S] f32 each
+    csrc/bank_attention_infer.cu): one or two heads of 128 (values a
+    multiple of 256 a head, or 128 at two heads), no bias, every key
+    valid. Returns (out [B, Lq, h*dv] f32, rec [B, h, Lq, S] f32 each
     head's slot mass, lse [B, h, Lq] f32 the log-sum-exp of each head's row
     of scaled logits over the valid slots), the head axis dropped at one
     head, as `bank_attention_lse_plain` returns them. The output stays f32

@@ -37,7 +37,7 @@ def _parse_opts(pairs):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="rmem_tpu_torch training")
-    p.add_argument("--stage", default="pre_vost")
+    p.add_argument("--stage", default="pre_vost_2")
     p.add_argument("--model", default="r50_deaotl")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")

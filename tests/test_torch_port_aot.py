@@ -370,13 +370,15 @@ def test_engine_matches_jax_teacher_forced():
 
 def test_bank_attention_route_by_head_shape():
     """The rule the card's bank-attention wrapper dispatches on: one or two
-    heads of 128 (values a multiple of 256 a head) to K1's template, 8
-    heads of 32 to K1ʰ, any other head shape raises."""
+    heads of 128 (values a multiple of 256 a head, or 128 a head at two:
+    AOT's no_memory_gap) to K1's template, 8 heads of 32 to K1ʰ, any other
+    head shape raises."""
     assert kb.infer_route(1, 128, 1024) == "slots"
     assert kb.infer_route(1, 128, 256) == "slots"
     assert kb.infer_route(2, 128, 512) == "slots"
+    assert kb.infer_route(2, 128, 128) == "slots"
     assert kb.infer_route(8, 32, 32) == "heads"
-    for shape in ((1, 128, 128), (2, 128, 128), (8, 32, 64), (8, 8, 8),
+    for shape in ((1, 128, 128), (8, 32, 64), (8, 8, 8),
                   (4, 64, 64), (1, 64, 256)):
         with pytest.raises(ValueError, match="heads of width"):
             kb.infer_route(*shape)

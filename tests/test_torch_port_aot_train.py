@@ -184,12 +184,13 @@ def test_k2h_plain_stages_compose_to_autograd():
 def test_bank_attention_train_route_by_head_shape():
     """The rule the card's training bank attention dispatches on: one head
     of 128 (values a multiple of 256) to K1' and K2, as two heads of 128
-    (no_memory_gap), 8 heads of 32 to K1'ʰ and K2ʰ, any other head shape
-    raises."""
+    (no_memory_gap, values 512 or 128 a head), 8 heads of 32 to K1'ʰ and
+    K2ʰ, any other head shape raises."""
     assert kb.train_route(1, 128, 1024) == "slots"
     assert kb.train_route(2, 128, 512) == "slots"
+    assert kb.train_route(2, 128, 128) == "slots"
     assert kb.train_route(8, 32, 32) == "heads"
-    for shape in ((1, 128, 128), (2, 128, 128), (8, 32, 64), (8, 8, 8),
+    for shape in ((1, 128, 128), (8, 32, 64), (8, 8, 8),
                   (4, 64, 64)):
         with pytest.raises(ValueError, match="heads of width"):
             kb.train_route(*shape)

@@ -265,18 +265,21 @@ def test_rel_head_major_is_what_each_head_reads():
 
 def test_routes_at_two_heads():
     """On the card, serving and training at 2 heads of 128 with values a
-    multiple of 256 a head take K1's template (and K2 in training); AOT's
-    no_memory_gap shape (values 128 a head) raises in both."""
+    multiple of 256 a head take K1's template (and K2 in training), as does
+    AOT's no_memory_gap shape (values 128 a head, the template's 128-wide
+    instantiation); any other 2-head shape raises in both."""
     assert kb.infer_route(2, 128, 512) == "slots"
     assert kb.infer_route(2, 128, 256) == "slots"
     assert kb.infer_route(1, 128, 1024) == "slots"
+    assert kb.infer_route(2, 128, 128) == "slots"
     assert kb.train_route(1, 128, 1024) == "slots"
     assert kb.train_route(2, 128, 512) == "slots"
-    for shape in ((2, 128, 128), (2, 64, 512), (3, 128, 512), (4, 128, 256)):
+    assert kb.train_route(2, 128, 128) == "slots"
+    for shape in ((2, 64, 512), (3, 128, 512), (4, 128, 256)):
         with pytest.raises(ValueError, match="heads of width"):
             kb.infer_route(*shape)
     with pytest.raises(ValueError, match="heads of width"):
-        kb.train_route(2, 128, 128)
+        kb.train_route(2, 64, 512)
 
 
 def _jax_tree(**over):

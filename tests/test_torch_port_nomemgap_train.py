@@ -182,11 +182,12 @@ def test_local_attention_bwd_plain_two_heads_matches_jax_vjp(size):
 
 def test_train_routes_at_two_heads():
     """On the card a training call at 2 heads of 128 with values a multiple
-    of 256 a head takes K1' and K2 (the "slots" route); values 128 a head
-    (AOT's no_memory_gap) and any other 2-head shape still raise."""
+    of 256 a head, or 128 a head (AOT's no_memory_gap), takes K1' and K2
+    (the "slots" route); any other 2-head shape still raises."""
     assert kb.train_route(2, 128, 512) == "slots"
     assert kb.train_route(2, 128, 256) == "slots"
-    for shape in ((2, 128, 128), (2, 64, 512), (3, 128, 512)):
+    assert kb.train_route(2, 128, 128) == "slots"
+    for shape in ((2, 64, 512), (3, 128, 512)):
         with pytest.raises(ValueError, match="heads of width"):
             kb.train_route(*shape)
 
