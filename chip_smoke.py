@@ -45,9 +45,16 @@ non-zero exit code:
    heads on the training grid and a ragged one; each beside SDPA over the
    valid slots or with the dense bias, forward or backward), and R50-AOTL
    no_memory_gap's kernels at 2 heads of 128 with values 128 a head (K1x2v128
-   at K1's six calls, K1'x2v128 and K2x2v128 as K1'x2 and K2x2), and K3h,
-   K3 at AOT's 8 heads of 32 (K1h's calls with no bias and every key
-   valid, beside SDPA over the valid slots). K4 and K8 take less device
+   at K1's six calls, K1'x2v128 as K1'x2, and K2x2v128, the fused pair of
+   csrc/bank_attention_bwd_fused.cu: its dkv kernel and its dq kernel with
+   the sum of the slot groups' partials, each against the plain version,
+   the whole against autograd, also on keys that nearly cancel in ds K,
+   there fed the plain forward's output and lse, its device time split by
+   kernel), and K3h, K3 at AOT's 8 heads of 32 (K1h's calls with no bias
+   and every key valid, beside SDPA over the valid slots). K1h, K3h and
+   K1'h (one slot-group kernel and its merge) print the device time of
+   each by the profiler, and at each call the host's time to issue it
+   and the device time of a CUDA graph of it. K4 and K8 take less device
    time than an eager call takes the host, so their times are those of
    CUDA graphs;
 3. drive the serving path: R50-DeAOTL + RMem inference at 481x849, 10
@@ -155,10 +162,11 @@ non-zero exit code:
    its plain version, and the all-plain engine teacher-forced with the
    kernel engine's labels through frame 8, as phase 14;
 19. phase 5 for R50-AOTL with no_memory_gap: 6 steps, exact launches in
-   each (K1'x2v128 87, K2x2v128's three kernels 45, K7 1, the 8-head and
-   DeAOT kernels 0), 6 FIFO evictions a clip, finite losses, parameters
-   changed, the curriculum started; s/step, peak memory (`--profile`: busy
-   ms a step, top ops);
+   each (K1'x2v128 87, K2x2v128's fused pair 45: one wrapper call each, the
+   dkv kernel, the dq kernel and its sum; K2's scratch kernels, the 8-head
+   and DeAOT kernels 0, K7 1), 6 FIFO evictions a clip, finite losses,
+   parameters changed, the curriculum started; s/step, peak memory
+   (`--profile`: busy ms a step, top ops);
 20. phase 6 for phase 19's model: one step of the kernel model, every
    K1'x2v128 and K2x2v128 call held against its plain version, and one of
    the all-plain model: loss and global gradient norm.
@@ -168,12 +176,12 @@ Prints the `kernels` JSON line, then the card line, then the result line
 no CUDA device is available or the package is not beside this script.
 
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
-(held_k2; K1'x2 + K2x2 by held_k2h at 2 heads, values 512 and 128 a
-head), K4 and K5's backward (held_k4, held_k5; each at one head and at
-two), K1, K3 and K1' (held_k1, held_k3, held_k2, held_k1ph; each at one
+(held_k2; K1'x2 + K2x2 by held_k2h at 2 heads, values 512 a head), K4
+and K5's backward (held_k4, held_k5; each at one head and at two), K1, K3 and K1' (held_k1, held_k3, held_k2, held_k1ph; each at one
 head and at two, K1 and K1' also at values 128 a head), K1h, K3h and K1'h
-(held_k1h, held_k3h, held_k1ph), K2h (held_k2h) and K6 and K7 (held,
-held_k7): for each
+(held_k1h, held_k3h, held_k1ph), K2x2v128's fused pair (held_k2h at 2
+heads, values 128 a head, at 4 valid slots and on keys that cancel), K2h
+(held_k2h) and K6 and K7 (held, held_k7): for each
 mutant (MUTANTS), the package is copied into a temporary directory, one
 line of the kernel's source (or its wrapper) is changed there (K2: ds drops the slot-mass
 term, or dq the logit scale; K2x2: head 1 reads head 0's q and k
@@ -191,9 +199,15 @@ through bf16, or the lse drops the log of the sum; K1'x2: only head 0's
 lse is written; at 128 value columns a block, head 1 reads head 0's
 values, or the P.V product's V descriptor steps 8 keys a 16-key slice;
 K3h: the wrapper masks the keys a chunk short; K1h: the bias is
-dropped, a slot's sum is not rescaled as the row's maximum grows, or the
-keys are masked at Lk instead of true_lk; K1'h: the f32 output stored
-through bf16, or the lse without the log of the sum; K2h: ds drops the
+dropped, a slot's sum is not rescaled as the row's maximum grows, the
+zero keys past true_lk go unmasked, ldmatrix reads the tiles unswizzled,
+the merge weighs every group by the first group's maximum, or takes a
+slot's mass against the next group's; K1'h: the f32 partials and output
+stored through bf16, or the lse without the log of the sum; K2x2v128's
+fused pair: dq drops ds's lo plane, the invalid slots' dk and dv are
+computed instead of zeroed, the sum of dq's partials drops a last group
+of one slot, head 1's dk and dv read head 0's queries, or the wrapper's
+row term drops the slot mass's share; K2h: ds drops the
 slot-mass term, dq the logit scale, or the invalid slots' dk is left
 unwritten; K6/K7: conv positions
 outside the conv grid enter the pool, or the pad taps carry weights), the
@@ -330,7 +344,9 @@ def ptxas_lines(log: str):
                 k = n.end() + int(n.group())
                 parts.append(s[n.end():k])
                 s = s[k:]
-            entry = "::".join(parts) or m.group(1)
+            args = re.findall(r"L[bij](\d+)E", s)
+            entry = ("::".join(parts) or m.group(1)) + (
+                f"<{','.join(args)}>" if args else "")
         elif "registers" in line or "spill" in line:
             yield f"{entry}: {line.split(':', 1)[-1].strip()}"
 
@@ -392,6 +408,33 @@ def graph_ms(fn, reps: int) -> float:
     ms = start.elapsed_time(end) / reps
     del graph
     return ms
+
+
+def issue_ms(fn, reps: int = 50) -> dict:
+    """An eager call's two costs, for a kernel near the host's issue rate:
+    `host_ms`, the host's time to issue one call of fn (reps calls back to
+    back, the clock read before the device is waited on; their launches
+    stay within the launch queue), and `graph_ms`, its device time in a
+    CUDA graph (graph_ms). cuda_ms of an eager call is about the larger."""
+    import time
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dict(host_ms=host, graph_ms=graph_ms(fn, 20))
+
+
+def issue_text(case: dict) -> str:
+    """issue_ms's two costs, printed after a case's event time."""
+    if "host_ms" not in case:
+        return ""
+    return (f"; the host issues a call in {case['host_ms']:.4f} ms, a CUDA "
+            f"graph of it runs {case['graph_ms']:.4f} ms")
 
 
 def bound(flops: float, nbytes: float):
@@ -771,10 +814,12 @@ def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
         args = inputs(dev, **kw)
         cases[key] = dict(err=held_fn(*args),
                           ms=cuda_ms(lambda: call(*args), 20))
+        if name == "bank_attention_mh":
+            cases[key].update(issue_ms(lambda: call(*args)))
         print(f"{row['label']} {name} {key} {kw}: {cases[key]['ms']:.4f} ms, "
               f"max|out-plain| {cases[key]['err'][0]:.3e} (max|plain| "
               f"{cases[key]['err'][1]:.3e}), max|rec-plain| "
-              f"{cases[key]['err'][2]:.3e}")
+              f"{cases[key]['err'][2]:.3e}" + issue_text(cases[key]))
     args = inputs(dev)
     q, bk, bvv, cnt, heads, scale, lk, qbias = args
     count, b, lq = int(cnt), q.shape[0], q.shape[1]
@@ -808,13 +853,26 @@ def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
         library_nobias_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q_lib, k_lib, v_lib, scale=scale), 20),
         cases={key: dict(ms=c["ms"], rel_err=c["err"][0] / c["err"][1],
-                         mass_err=c["err"][2]) for key, c in cases.items()})
+                         mass_err=c["err"][2],
+                         **{k: c[k] for k in ("host_ms", "graph_ms")
+                            if k in c}) for key, c in cases.items()})
     print(f"{row['label']} at the main path {main['ms']:.4f} ms, plain "
           f"{entry['plain_ms']:.4f} ms, SDPA over the 9 valid slots with the "
           f"bias as a mask {entry['library_ms']:.4f} ms (without it "
           f"{entry['library_nobias_ms']:.4f} ms), bound {b_ms:.5f} ms "
           f"({b_by})")
+    if name == "bank_attention_mh":
+        split_row(entry, lambda: call(*args), row["label"])
     return entry
+
+
+def split_row(entry: dict, fn, label: str) -> None:
+    """Add the device time a call of fn spends in each kernel (profiler, ms
+    a call: a partial kernel and its merge) to a kernels-line entry, and
+    print it."""
+    entry["split_ms"] = kernel_split_ms(fn)
+    print(f"{label} by kernel (profiler, ms a call): " + ", ".join(
+        f"{k[:48]} {x:.4f}" for k, x in entry["split_ms"].items()))
 
 
 # K3h in phase 2: K1h's calls with no bias and every key valid (K3's
@@ -861,14 +919,14 @@ def check_aot_nmg_serving_kernels(dev):
     for key, kw in K3H_CASES.items():
         args = k1h_inputs(dev, **kw)
         q, bk, bv, cnt, heads, scale = args[:6]
-        cases[key] = dict(err=held_k3h(*args), ms=cuda_ms(
-            lambda: kb.bank_attention_qminor(q, bk, bv, cnt, heads, scale),
-            20))
+        k3h = lambda: kb.bank_attention_qminor(q, bk, bv, cnt, heads, scale)
+        cases[key] = dict(err=held_k3h(*args), ms=cuda_ms(k3h, 20),
+                          **issue_ms(k3h))
         print(f"K3h bank_attention_qminor {key} {kw}: "
               f"{cases[key]['ms']:.4f} ms, max|out-plain| "
               f"{cases[key]['err'][0]:.3e} (max|plain| "
               f"{cases[key]['err'][1]:.3e}), max|rec-plain| "
-              f"{cases[key]['err'][2]:.3e}")
+              f"{cases[key]['err'][2]:.3e}" + issue_text(cases[key]))
     q, bk, bv, cnt, heads, scale = k1h_inputs(dev, bias=False)[:6]
     count, b, lq, lk = int(cnt), q.shape[0], q.shape[1], bk.shape[2]
     kv = count * lk
@@ -897,11 +955,15 @@ def check_aot_nmg_serving_kernels(dev):
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             *libs, scale=scale), 20),
         cases={key: dict(ms=c["ms"], rel_err=c["err"][0] / c["err"][1],
-                         mass_err=c["err"][2]) for key, c in cases.items()})
+                         mass_err=c["err"][2], host_ms=c["host_ms"],
+                         graph_ms=c["graph_ms"])
+               for key, c in cases.items()})
     e = entries["bank_attention_qminor_mh"]
     print(f"K3h at the main path's call {e['ms']:.4f} ms, plain "
           f"{e['plain_ms']:.4f} ms, SDPA over the 9 valid slots "
           f"{e['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    split_row(e, lambda: kb.bank_attention_qminor(q, bk, bv, cnt, heads,
+                                                  scale), "K3h")
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
     return entries
@@ -1486,6 +1548,38 @@ def held_k2h_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
     return (dq, dk, dv), errs
 
 
+def held_k2x2v128_call(q, bank_k, bank_v, count, dout, lse_h, delta_h,
+                       drec, scale):
+    """One K2x2v128 call (the fused pair at 2 heads of 128 with values 128
+    a head, the wrapper `bank_attention_bwd_fused`: the dkv kernel, the dq
+    kernel and the sum of its slot groups' partials) against its plain
+    version on the valid slots, fed the same lse_h and delta_h: dq, dk and
+    dv against `bank_attention_bwd_fused_plain` (GRAD_TOL of each one's
+    max), and dk and dv exactly 0 in slots >= count. The blocks the call
+    allocates dk and dv from are filled with NaN first, so a slot the
+    kernel leaves unwritten shows. Returns ((dq, dk, dv), {check:
+    error})."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    n = int(count)
+    poison = [torch.full_like(t, float("nan")) for t in (bank_k, bank_v)]
+    del poison
+    dq, dk, dv = kb.bank_attention_bwd_fused(q, bank_k, bank_v, count, dout,
+                                             lse_h, delta_h, drec, scale)
+    rdq, rdk, rdv = kb.bank_attention_bwd_fused_plain(
+        q, bank_k[:n], bank_v[:n], count, dout, lse_h, delta_h,
+        drec[..., :n].contiguous(), scale)
+    errs = {"dq": rel_err(dq, rdq), "dk": rel_err(dk[:n], rdk),
+            "dv": rel_err(dv[:n], rdv)}
+    for key, err in errs.items():
+        check(err <= GRAD_TOL,
+              f"K2x2v128 {key}: {err} (tolerance {GRAD_TOL})")
+    check(bool((dk[n:] == 0).all() and (dv[n:] == 0).all()),
+          "K2x2v128 gradients of invalid slots are not 0")
+    return (dq, dk, dv), errs
+
+
 def held_k2x2_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
                    scale):
     """One K2x2 call (K2's three kernels at no_memory_gap's 2 heads of 128,
@@ -1493,11 +1587,15 @@ def held_k2x2_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
     stages on the valid slots, fed the same lse_h and delta_h: p and ds
     (the hi + lo pair) against the head-generic plain p and ds, dq, dk and
     dv against `bank_attention_bwd_mh_dq_plain` and `_dkv_plain` (GRAD_TOL
-    of each one's max), and dk and dv exactly 0 in slots >= count. Returns
+    of each one's max), and dk and dv exactly 0 in slots >= count. At
+    values 128 a head, the fused route's call (held_k2x2v128_call). Returns
     ((dq, dk, dv), {check: error})."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
+    if kb.bwd_route(2, 128, bank_v.shape[-1] // 2) == "fused":
+        return held_k2x2v128_call(q, bank_k, bank_v, count, dout, lse_h,
+                                  delta_h, drec, scale)
     n, lk = int(count), bank_k.shape[2]
     p, ds = kb.bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse_h,
                                      delta_h, drec, scale, 2)
@@ -1520,11 +1618,20 @@ def held_k2x2_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
     return (dq, dk, dv), errs
 
 
-def held_k2h(q, bank_k, bank_v, count, dout, drec, scale, heads: int = 8):
+def held_k2h(q, bank_k, bank_v, count, dout, drec, scale, heads: int = 8,
+             plain_forward: bool = False):
     """K1'h then K2h on one call's inputs (held_k1ph, held_k2h_call), or
     with heads=2 K1'x2 then K2x2 (held_k2x2_call), and the backward's
     outputs against autograd of the plain forward on the valid slots
-    (GRAD_TOL). Returns {check: error}."""
+    (GRAD_TOL). With `plain_forward` (keys that nearly cancel), the
+    backward is held a second time, fed the plain forward's f32 output,
+    slot mass and lse (bank_attention_lse_plain), and that call's outputs
+    are the ones held against autograd; the first call's dq against
+    autograd (`kfwd_whole_dq`) and the move of the row term between the
+    two forwards (`kfwd_delta`) are readings, not held: there the kernel
+    forward's bf16 P.V moves delta, and dq with it, past GRAD_TOL (the
+    CPU test test_cancelling_keys_dq_follows_the_forwards_rounding
+    reproduces it). Returns {check: error}."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
@@ -1542,6 +1649,15 @@ def held_k2h(q, bank_k, bank_v, count, dout, drec, scale, heads: int = 8):
     o, r = kb.bank_attention_plain(*ins, count, heads, scale)
     auto = torch.autograd.grad((o, r), ins,
                                (dout.float(), drec[..., :n].float()))
+    if plain_forward:
+        errs["kfwd_whole_dq"] = rel_err(dq, auto[0])
+        out, rec_h, lse_h = kb.bank_attention_lse_plain(q, bank_k, bank_v,
+                                                        count, scale, heads)
+        plain_delta = kb.bwd_delta_mh(dout, out, drec, rec_h)
+        errs["kfwd_delta"] = rel_err(delta_h, plain_delta)
+        (dq, dk, dv), call_errs = call(q, bank_k, bank_v, count, dout, lse_h,
+                                       plain_delta, drec, scale)
+        errs.update({key + "_pfwd": e for key, e in call_errs.items()})
     for key, got, ref in (("whole_dq", dq, auto[0]),
                           ("whole_dk", dk[:n], auto[1]),
                           ("whole_dv", dv[:n], auto[2])):
@@ -1565,13 +1681,13 @@ def check_aot_train_kernels(dev):
     for key, kw in K1PH_CASES.items():
         args = k1ph_inputs(dev, **kw)
         q, bk, bv, cnt, dout, drec, scale = args
-        cases[key] = dict(
-            errs=held_k2h(*args),
-            ms=cuda_ms(lambda: kb.bank_attention_lse_mh(q, bk, bv, cnt,
-                                                        scale), 20))
-        print(f"K1'h + K2h {key} {kw}: K1'h {cases[key]['ms']:.4f} ms; "
-              "max|kernel - plain| / max|plain| (rec, lse absolute; the "
-              "share of out on the bf16 grid): " + ", ".join(
+        k1ph = lambda: kb.bank_attention_lse_mh(q, bk, bv, cnt, scale)
+        cases[key] = dict(errs=held_k2h(*args), ms=cuda_ms(k1ph, 20),
+                          **issue_ms(k1ph))
+        print(f"K1'h + K2h {key} {kw}: K1'h {cases[key]['ms']:.4f} ms"
+              + issue_text(cases[key]) + "; max|kernel - plain| / "
+              "max|plain| (rec, lse absolute; the share of out on the bf16 "
+              "grid): " + ", ".join(
                   f"{k} {v:.3e}" for k, v in cases[key]["errs"].items()))
     q, bk, bv, cnt, dout, drec, scale = k1ph_inputs(dev)
     count, (S, b, lk, _), lq = int(cnt), bk.shape, q.shape[1]
@@ -1636,7 +1752,12 @@ def check_aot_train_kernels(dev):
     exps = b * 8 * lq * kv
     entries["bank_attention_lse_mh"].update(
         exponentials=exps, sfu_ms=exps / PEAK_SFU_OPS * 1e3,
-        cases={key: c["ms"] for key, c in cases.items()})
+        cases={key: dict(ms=c["ms"], host_ms=c["host_ms"],
+                         graph_ms=c["graph_ms"])
+               for key, c in cases.items()})
+    split_row(entries["bank_attention_lse_mh"],
+              lambda: kb.bank_attention_lse_mh(q, bk, bv, cnt, scale),
+              "K1'h at 4 valid slots")
     entries["bank_attention_bwd_mh"].update(
         exponentials=2 * exps, sfu_ms=2 * exps / PEAK_SFU_OPS * 1e3)
     for name, e in entries.items():
@@ -1656,11 +1777,17 @@ K1PX2_CASES = {"nine_slots": dict(count=9), "four_slots": dict(count=4),
                "reference": dict(slots=1, count=1)}
 
 
-def k2x2_inputs(dev, slots: int = 10, count: int = 9, values: int = 1024):
+def k2x2_inputs(dev, slots: int = 10, count: int = 9, values: int = 1024,
+                cancel: bool = False):
     """K1'x2's and K2x2's phase-2 inputs at no_memory_gap's training call
     (B 4, a 30 x 30 grid, 2 heads of 128, `values` value columns over the
     heads: 1024 for R50-DeAOTL, 256 for R50-AOTL; bf16) with a nonzero
-    drec: (q, bank_k, bank_v, count, dout, drec, scale)."""
+    drec: (q, bank_k, bank_v, count, dout, drec, scale). With `cancel`,
+    every key is one shared row plus 0.03 of noise (as the slot PE adds one
+    row to a slot's keys): ds's rows nearly cancel against it, so dq = ds K
+    is a small difference of large terms, and ds in bf16 without its lo
+    plane misses dq by ~0.1 of its max (the hi + lo pair by ~2e-4; CPU
+    emulation at batch 1)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(6)
 
@@ -1669,7 +1796,13 @@ def k2x2_inputs(dev, slots: int = 10, count: int = 9, values: int = 1024):
 
     b, hw = TRAIN_B, TRAIN_GRID[0] * TRAIN_GRID[1]
     q = randn(b, hw, 256, scale=2.0)
-    bk, bv = randn(slots, b, hw, 256), randn(slots, b, hw, values)
+    if cancel:
+        bk = (randn(1, 1, 1, 256, dtype=torch.float32)
+              + randn(slots, b, hw, 256, dtype=torch.float32, scale=0.03)
+              ).to(torch.bfloat16)
+        bv = randn(slots, b, hw, values)
+    else:
+        bk, bv = randn(slots, b, hw, 256), randn(slots, b, hw, values)
     return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev),
             randn(b, hw, values, scale=0.1),
             randn(b, hw, slots, dtype=torch.float32), 128 ** -0.5)
@@ -1680,9 +1813,12 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
     its plain version, its bound and, where one exists, the library's call
     (SDPA over the valid slots' keys flattened to [B, 2, Lq, count * Lk];
     its backward as forward + backward less forward). Returns {stage:
-    {ms, plain_ms, bound_ms, bound_by, library_ms}}, the stages
-    K2x2's rows' names (ending in `suffix`) and "whole" (the row term and
-    the three kernels)."""
+    {ms, plain_ms, bound_ms, bound_by, library_ms}}, the stages K2x2's rows'
+    names (ending in `suffix`) and "whole" (the row term and the kernels):
+    at values 512 a head K2's three scratch kernels (ds, dq, dkv), at values
+    128 a head the fused pair (dkv; dq with the sum of its slot groups'
+    partials), each fused stage also beside SDPA's whole backward
+    (`sdpa_bwd_ms`), the whole with its device time by kernel (profiler)."""
     import torch
     import torch.nn.functional as F
 
@@ -1691,10 +1827,9 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
     (S, b, lk, _), lq, count = bk.shape, q.shape[1], int(cnt)
     kv, lkp = count * lk, (lk + 63) // 64 * 64
     dh, dv = 256, bv.shape[-1]              # widths over the two heads
+    fused = kb.bwd_route(2, 128, dv // 2) == "fused"
     out, rec_h, lse_h = kb.bank_attention_lse(q, bk, bv, cnt, scale, 2)
     delta_h = kb.bwd_delta_mh(dout, out, drec, rec_h)
-    p, ds = kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout, lse_h, delta_h,
-                                     drec, scale, 2)
     sargs = (q, bk[:count], bv[:count], cnt, dout, lse_h, delta_h,
              drec[..., :count].contiguous(), scale)
 
@@ -1713,6 +1848,7 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
             torch.autograd.grad(o, lib_grad, dout_lib)
 
     sdpa_fwd_ms = cuda_ms(lambda: sdpa(False), 10)
+    sdpa_bwd_ms = cuda_ms(lambda: sdpa(True), 10) - sdpa_fwd_ms
     # bytes: inputs read once (valid slots only), outputs written once
     qb, kb_, vb = b * lq * dh * 2, kv * b * dh * 2, kv * b * dv * 2
     ob, sb = b * lq * dv * 2, b * 2 * lq * 4
@@ -1724,47 +1860,84 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
                                                       2),
             flops=2.0 * b * lq * kv * (dh + dv),
             nbytes=qb + kb_ + vb + 2 * ob + b * 2 * lq * S * 4 + sb,
-            library=sdpa_fwd_ms),
-        "bank_attention_bwd_ds" + suffix: dict(
-            fn=lambda: kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout, lse_h,
-                                                delta_h, drec, scale, 2),
-            plain=lambda: kb._mh_p_ds(*sargs),
-            flops=2.0 * b * lq * kv * (dh + dv),
-            nbytes=qb + kb_ + vb + ob + 2 * sb + b * lq * S * 4 + 3 * pb,
-            library=None),
-        "bank_attention_bwd_dq" + suffix: dict(
-            fn=lambda: kb.bank_attention_bwd_dq(bk, ds, cnt, scale, 2),
-            plain=lambda: kb.bank_attention_bwd_mh_dq_plain(*sargs),
-            flops=2 * 2.0 * b * lq * kv * dh, nbytes=2 * pb + kb_ + qb,
-            library=cuda_ms(lambda: torch.einsum(
-                "xbhsqk,sbkhd->bqhd", ds[..., :count, :, :lk],
-                bk[:count].unflatten(-1, (2, 128))), 10)),
-        "bank_attention_bwd_dkv" + suffix: dict(
-            fn=lambda: kb.bank_attention_bwd_dkv(q, dout, p, ds, cnt, scale,
-                                                 lk, 2),
-            plain=lambda: kb.bank_attention_bwd_mh_dkv_plain(*sargs),
-            flops=2.0 * b * lq * kv * (2 * dh + dv),
-            nbytes=3 * pb + qb + ob + S * b * lk * (dh + dv) * 2,
-            library=None),
-        "whole": dict(
-            fn=lambda: kb.bank_attention_bwd(q, bk, bv, cnt, out, rec_h,
-                                             lse_h, dout, drec, scale, 2),
-            plain=lambda: kb.bank_attention_bwd_plain(q, bk, bv, cnt, dout,
-                                                      drec, scale, 2),
-            # S.T recomputed and g = dout.v^T once each, then dq, dk and
-            # dv; reads q, k, v, dout, out (f32), lse, drec, rec; writes dq
-            # and every slot's dk, dv
-            flops=2.0 * b * lq * kv * (3 * dh + 2 * dv),
-            nbytes=(2 * qb + kb_ + vb + 3 * ob + sb + b * lq * S * 4
-                    + b * 2 * lq * S * 4 + S * b * lk * (dh + dv) * 2),
-            library=cuda_ms(lambda: sdpa(True), 10) - sdpa_fwd_ms),
-    }
+            library=sdpa_fwd_ms)}
+    if fused:
+        lse2, rterm = kb.fused_rows(lse_h, delta_h, drec)
+        fargs = (q, bk, bv, cnt, dout, lse2, rterm, scale)
+        # the row arrays: lse2 and each valid slot's rterm, f32
+        rows_b = (b * 2 * lse2.shape[-1] * (1 + count)) * 4
+        stages.update({
+            # the bound counts the function's products (dkv: S^T, G^T, dV,
+            # dK; dq: S, G, dQ); `design_flops` adds the design's own, ds's
+            # lo plane in dK or dQ
+            "bank_attention_bwd_fused_dkv" + suffix: dict(
+                fn=lambda: kb._fused_call("dkv", *fargs),
+                plain=lambda: kb.bank_attention_bwd_mh_dkv_plain(*sargs),
+                flops=2.0 * b * lq * kv * (2 * dh + 2 * dv),
+                design_flops=2.0 * b * lq * kv * (3 * dh + 2 * dv),
+                nbytes=qb + ob + kb_ + vb + rows_b
+                + S * b * lk * (dh + dv) * 2,
+                library=None, sdpa_bwd_ms=sdpa_bwd_ms),
+            "bank_attention_bwd_fused_dq" + suffix: dict(
+                fn=lambda: kb._fused_call("dq", *fargs),
+                plain=lambda: kb.bank_attention_bwd_fused_plain(*sargs)[0],
+                flops=2.0 * b * lq * kv * (2 * dh + dv),
+                design_flops=2.0 * b * lq * kv * (3 * dh + dv),
+                nbytes=qb + ob + kb_ + vb + rows_b + qb,
+                library=None, sdpa_bwd_ms=sdpa_bwd_ms)})
+        whole_fn = lambda: kb.bank_attention_bwd(
+            q, bk, bv, cnt, out, rec_h, lse_h, dout, drec, scale, 2)
+    else:
+        p, ds = kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout, lse_h,
+                                         delta_h, drec, scale, 2)
+        stages.update({
+            "bank_attention_bwd_ds" + suffix: dict(
+                fn=lambda: kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout,
+                                                    lse_h, delta_h, drec,
+                                                    scale, 2),
+                plain=lambda: kb._mh_p_ds(*sargs),
+                flops=2.0 * b * lq * kv * (dh + dv),
+                nbytes=qb + kb_ + vb + ob + 2 * sb + b * lq * S * 4 + 3 * pb,
+                library=None),
+            "bank_attention_bwd_dq" + suffix: dict(
+                fn=lambda: kb.bank_attention_bwd_dq(bk, ds, cnt, scale, 2),
+                plain=lambda: kb.bank_attention_bwd_mh_dq_plain(*sargs),
+                flops=2 * 2.0 * b * lq * kv * dh, nbytes=2 * pb + kb_ + qb,
+                library=cuda_ms(lambda: torch.einsum(
+                    "xbhsqk,sbkhd->bqhd", ds[..., :count, :, :lk],
+                    bk[:count].unflatten(-1, (2, 128))), 10)),
+            "bank_attention_bwd_dkv" + suffix: dict(
+                fn=lambda: kb.bank_attention_bwd_dkv(q, dout, p, ds, cnt,
+                                                     scale, lk, 2),
+                plain=lambda: kb.bank_attention_bwd_mh_dkv_plain(*sargs),
+                flops=2.0 * b * lq * kv * (2 * dh + dv),
+                nbytes=3 * pb + qb + ob + S * b * lk * (dh + dv) * 2,
+                library=None)})
+        whole_fn = lambda: kb.bank_attention_bwd(
+            q, bk, bv, cnt, out, rec_h, lse_h, dout, drec, scale, 2)
+    stages["whole"] = dict(
+        fn=whole_fn,
+        plain=lambda: kb.bank_attention_bwd_plain(q, bk, bv, cnt, dout, drec,
+                                                  scale, 2),
+        # S.T recomputed and g = dout.v^T once each, then dq, dk and dv;
+        # reads q, k, v, dout, out (f32), lse, drec, rec; writes dq and every
+        # slot's dk, dv
+        flops=2.0 * b * lq * kv * (3 * dh + 2 * dv),
+        nbytes=(2 * qb + kb_ + vb + 3 * ob + sb + b * lq * S * 4
+                + b * 2 * lq * S * 4 + S * b * lk * (dh + dv) * 2),
+        library=sdpa_bwd_ms)
     rows = {}
     for name, r in stages.items():
         b_ms, b_by = bound(r["flops"], r["nbytes"])
         rows[name] = dict(ms=cuda_ms(r["fn"], 20 if name != "whole" else 10),
                           plain_ms=cuda_ms(r["plain"], 3), bound_ms=b_ms,
                           bound_by=b_by, library_ms=r["library"])
+        if "sdpa_bwd_ms" in r:
+            rows[name]["sdpa_bwd_ms"] = r["sdpa_bwd_ms"]
+        if "design_flops" in r:
+            rows[name]["design_ms"] = r["design_flops"] / PEAK_BF16_FLOPS * 1e3
+    if fused:
+        rows["whole"]["split_ms"] = kernel_split_ms(whole_fn)
     return rows
 
 
@@ -1773,11 +1946,10 @@ def nmg_bank_train_rows(dev, values: int = 1024, suffix: str = "_h2"):
     heads of 128 with `values` value columns over the heads (1024, R50-
     DeAOTL's; 256, R50-AOTL's): K1'x2 at K1PX2_CASES and K2x2 after each,
     held (held_k2h with heads=2: K1'x2's output, each head's slot mass and
-    lse, K2x2's three kernels against their plain stages, the whole
-    backward against autograd of the plain forward, with a nonzero drec)
-    and timed (k2x2_case) at 9 and 4 valid slots. Returns ({name: entry}
-    without launch counts, names ending in `suffix`; whole-K2x2
-    timings)."""
+    lse, K2x2's kernels against their plain stages, the whole backward
+    against autograd of the plain forward, with a nonzero drec) and timed
+    (k2x2_case) at 9 and 4 valid slots. Returns ({name: entry} without
+    launch counts, names ending in `suffix`; whole-K2x2 timings)."""
     from rmem_tpu_torch.kernels import bank_attention as kb
     label = {"_h2": "K1'x2 + K2x2", "_h2v128": "K1'x2v128 + K2x2v128"}[suffix]
     held_errs, timed = {}, {}
@@ -1795,43 +1967,71 @@ def nmg_bank_train_rows(dev, values: int = 1024, suffix: str = "_h2"):
             timed[key] = {"bank_attention_lse" + suffix: dict(ms=cuda_ms(
                 lambda: kb.bank_attention_lse(q, bk, bv, cnt, scale, 2),
                 20))}
+    # keys that nearly cancel in ds K, where ds's lo plane must show: the
+    # backward's kernels against their plain stages fed the same lse and
+    # row term, and the whole against autograd when fed the plain
+    # forward's (held_k2h with plain_forward: through K1'x2's own output
+    # dq misses by ~0.13 there, a reading)
+    held_errs["cancelling"] = held_k2h(*k2x2_inputs(dev, values=values,
+                                                    cancel=True), heads=2,
+                                       plain_forward=True)
+    print(f"{label} on keys that cancel (k2x2_inputs cancel=True), 9 valid "
+          "slots: " + ", ".join(f"{k} {v:.3e}"
+                                for k, v in held_errs["cancelling"].items()))
     for key, rows in timed.items():
         print(f"{label} {key}: " + "; ".join(
             f"{name} {r['ms']:.4f} ms" + (
                 f" (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
                 f"{r['bound_by']}, library "
                 + ("none" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f}") + ")"
+                   else f"{r['library_ms']:.4f}")
+                + (f", SDPA backward {r['sdpa_bwd_ms']:.4f}"
+                   if "sdpa_bwd_ms" in r else "")
+                + (f", the design's products with ds's lo plane "
+                   f"{r['design_ms']:.4f} at the peak rate"
+                   if "design_ms" in r else "") + ")"
                 if "bound_ms" in r else "")
             for name, r in rows.items()))
+        if "split_ms" in rows.get("whole", {}):
+            print(f"{label} {key}: the whole backward by kernel (profiler, "
+                  "ms a call): " + ", ".join(
+                      f"{k[:48]} {x:.4f}"
+                      for k, x in rows["whole"]["split_ms"].items()))
 
     def worst(*keys):
         return max(e[k] for e in held_errs.values() for k in keys)
 
-    errs = {"bank_attention_lse": worst("out", "lse"),
-            "bank_attention_bwd_ds": worst("p", "ds"),
-            "bank_attention_bwd_dq": worst("dq"),
-            "bank_attention_bwd_dkv": worst("dk", "dv")}
-    sources = {"bank_attention_lse": (
-        "rmem_tpu_torch/csrc/bank_attention_infer.cu",
-        "rmem_tpu/kernels/bank_attention.py:687"),
-        "bank_attention_bwd_ds": (
-            "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
-            "rmem_tpu/kernels/bank_attention.py:581"),
-        "bank_attention_bwd_dq": (
-            "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
-            "rmem_tpu/kernels/bank_attention.py:113"),
-        "bank_attention_bwd_dkv": (
-            "rmem_tpu_torch/csrc/bank_attention_bwd.cu",
-            "rmem_tpu/kernels/bank_attention.py:155")}
+    bwd = "rmem_tpu_torch/csrc/bank_attention_bwd.cu"
+    fused = "rmem_tpu_torch/csrc/bank_attention_bwd_fused.cu"
+    stages = {"bank_attention_lse": (
+        worst("out", "lse"), "rmem_tpu_torch/csrc/bank_attention_infer.cu",
+        "rmem_tpu/kernels/bank_attention.py:687")}
+    if kb.bwd_route(2, 128, values // 2) == "fused":
+        stages.update({
+            "bank_attention_bwd_fused_dkv": (
+                worst("dk", "dv"), fused,
+                "rmem_tpu/kernels/bank_attention.py:155"),
+            "bank_attention_bwd_fused_dq": (
+                worst("dq"), fused,
+                "rmem_tpu/kernels/bank_attention.py:113")})
+    else:
+        stages.update({
+            "bank_attention_bwd_ds": (
+                worst("p", "ds"), bwd,
+                "rmem_tpu/kernels/bank_attention.py:581"),
+            "bank_attention_bwd_dq": (
+                worst("dq"), bwd, "rmem_tpu/kernels/bank_attention.py:113"),
+            "bank_attention_bwd_dkv": (
+                worst("dk", "dv"), bwd,
+                "rmem_tpu/kernels/bank_attention.py:155")})
     entries = {}
-    for stage, (source, replaces) in sources.items():
+    for stage, (err, source, replaces) in stages.items():
         name = stage + suffix
         main = timed["nine_slots"][name]
         entries[name] = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             heads=2, values_per_head=values // 2, valid_slots=9,
-            max_abs_err=errs[stage], **main,
+            max_abs_err=err, **main,
             cases={key: rows[name] for key, rows in timed.items()
                    if name in rows})
     whole = {key: dict(rows["whole"], held=held_errs[key])
@@ -2864,29 +3064,36 @@ TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
                  ("local_attention", "local_attention_bwd"),
                  ("stem", "stem"),
                  ("bank_attention", "bank_attention_lse_mh"),
-                 ("bank_attention", "bank_attention_bwd_mh"))
+                 ("bank_attention", "bank_attention_bwd_mh"),
+                 ("bank_attention", "bank_attention_bwd_fused"))
 # each training wrapper's launches in every step of the training phases: 3
 # layers' bank (and DeAOT's local) attention forward over 15 frames and
 # again over the 14 checkpointed ones, its backward over 15, the stem once
 # over the clip's 60 frames; no_memory_gap's (phases 15 and 19) at 2 heads
-# of 128 through the same wrappers
+# of 128 through the same wrappers, R50-AOTL's backward (values 128 a head)
+# through the fused pair (one wrapper call: the dkv kernel, the dq kernel
+# and its sum) instead of K2's three scratch kernels
 _FWD, _BWD = 3 * (2 * TRAIN_T - 1), 3 * TRAIN_T
 TRAIN_LAUNCHES = {
     "r50_deaotl": dict(bank_attention_lse=_FWD, bank_attention_bwd_ds=_BWD,
                        bank_attention_bwd_dq=_BWD, bank_attention_bwd_dkv=_BWD,
                        local_attention=_FWD, local_attention_bwd=_BWD,
                        stem=1, bank_attention_lse_mh=0,
-                       bank_attention_bwd_mh=0),
+                       bank_attention_bwd_mh=0, bank_attention_bwd_fused=0),
     "r50_aotl": dict(bank_attention_lse=0, bank_attention_bwd_ds=0,
                      bank_attention_bwd_dq=0, bank_attention_bwd_dkv=0,
                      local_attention=0, local_attention_bwd=0, stem=1,
                      bank_attention_lse_mh=_FWD,
-                     bank_attention_bwd_mh=_BWD),
+                     bank_attention_bwd_mh=_BWD, bank_attention_bwd_fused=0),
 }
 TRAIN_LAUNCHES["r50_deaotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"])
 TRAIN_LAUNCHES["r50_aotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"],
                                       local_attention=0,
-                                      local_attention_bwd=0)
+                                      local_attention_bwd=0,
+                                      bank_attention_bwd_ds=0,
+                                      bank_attention_bwd_dq=0,
+                                      bank_attention_bwd_dkv=0,
+                                      bank_attention_bwd_fused=_BWD)
 TRAIN_PHASE = {"r50_deaotl": ("phase 5", "R50-DeAOTL"),
                "r50_aotl": ("phase 11", "R50-AOTL"),
                "r50_deaotl_nmg": ("phase 15",
@@ -3365,31 +3572,69 @@ MUTANTS = {
              "1024));")]}),
     "bank_attention_mh": ("k1h", {
         # K1h: the slot-PE bias is dropped
-        "k1h_no_bias": [("if (!kTrain && qbias != nullptr) {",
+        "k1h_no_bias": [("if (!kTrain && qbias != nullptr && key0 == 0) {",
                          "if (false) {")],
         # K1h: a slot's sum is not rescaled when the row's maximum grows
-        "k1h_slot_sum_unrescaled": [("ls0 = ls0 * a0 + ps0;",
-                                     "ls0 = ls0 + ps0;"),
-                                    ("ls1 = ls1 * a1 + ps1;",
-                                     "ls1 = ls1 + ps1;")],
-        # K1h: the keys are masked at Lk, not at true_lk
-        "k1h_mask_at_lk": [
+        "k1h_slot_sum_unrescaled": [
+            ("la[j] = la[j] * a0 + (j == js ? ps0 : 0.f);",
+             "la[j] = la[j] + (j == js ? ps0 : 0.f);"),
+            ("lb[j] = lb[j] * a1 + (j == js ? ps1 : 0.f);",
+             "lb[j] = lb[j] + (j == js ? ps1 : 0.f);")],
+        # K1h: the zero keys TMA fills past true_lk are not masked
+        "k1h_no_key_mask": [
             ("const bool ok = key0 + n * 8 + 2 * t + e < true_lk;",
-             "const bool ok = key0 + n * 8 + 2 * t + e < Lk;")],
-        # K1'h: the f32 output is stored through bf16
+             "const bool ok = true;")],
+        # K1h, K3h, K1'h: ldmatrix reads the tiles unswizzled
+        "k1h_swizzle_off": [
+            ("return tile + r * ROW + ((ch ^ ((r >> 1) & 3)) << 4);",
+             "return tile + r * ROW + (ch << 4);")],
+        # the merge weighs every group by the first group's maximum
+        "k1h_merge_wrong_group_max": [
+            ("exp2f(part_m[((size_t)gi * BH + bh) * Lq + qi] - M) * lg;",
+             "exp2f(part_m[((size_t)0 * BH + bh) * Lq + qi] - M) * lg;")],
+        # the merge takes a slot's mass relative to the next group's maximum
+        "k1h_mass_wrong_group": [
+            ("r = exp2f(part_m[((size_t)(s / G) * BH + bh) * Lq + qi] - M) *",
+             "r = exp2f(part_m[((size_t)((s / G + 1) % ng) * BH + bh) * Lq "
+             "+ qi] - M) *")],
+        # K1'h: the f32 partial outputs and output stored through bf16
         "k1ph_out_bf16": [
             ("*reinterpret_cast<float2*>(p) = make_float2(a, b);",
              "*reinterpret_cast<float2*>(p) = make_float2("
              "__bfloat162float(__float2bfloat16_rn(a)), "
              "__bfloat162float(__float2bfloat16_rn(b)));")],
         # K1'h: the lse without the log of the sum
-        "k1ph_lse_no_sum": [("(m0 + log2f(L0)) * LN2", "m0 * LN2"),
-                            ("(m1 + log2f(L1)) * LN2", "m1 * LN2")],
+        "k1ph_lse_no_sum": [
+            ("if (kTrain && seg == 0) lse[row] = (M + log2f(Lsum)) * LN2;",
+             "if (kTrain && seg == 0) lse[row] = M * LN2;")],
         # K3h: the keys masked a chunk short of Lk (the wrapper's line)
         "k3h_true_lk_short": [
             ("out = _mh_call(q, bank_k, bank_v, count, num_heads, scale)\n",
              "out = _mh_call(q, bank_k, bank_v, count, num_heads, scale,\n"
              "                       bank_k.shape[2] - 64)\n",
+             "rmem_tpu_torch/kernels/bank_attention.py")]}),
+    "bank_attention_bwd_fused": ("k2_fused", {
+        # dq without the lo plane of ds
+        "fused_dq_no_lo": [("      mul_ab(dqa, la, sk);\n", "")],
+        # the invalid slots' dk and dv are computed, not zeroed
+        "fused_invalid_slots_written": [
+            ("  if (s >= clamp_count(count_ptr, S)) {   // an invalid slot: "
+             "exact zeros", "  if (s >= S) {")],
+        # the sum of dq's partials drops a last group of one slot
+        "fused_sum_drops_a_group": [
+            ("  const int ng = (clamp_count(count_ptr, S) + G - 1) / G;",
+             "  const int ng = clamp_count(count_ptr, S) / G;")],
+        # head 1's dk and dv read head 0's queries
+        "fused_dkv_head0_q": [
+            ("          tma_load(sq + a * ATOM, &tm_q, &full[st], a * 64, h, "
+             "i * BW, b);",
+             "          tma_load(sq + a * ATOM, &tm_q, &full[st], a * 64, 0, "
+             "i * BW, b);")],
+        # the row term without the slot mass's share (the wrapper's line)
+        "fused_rterm_no_drec": [
+            ("    rterm[..., :lq] = (drec.transpose(1, 2)[:, None] / heads\n"
+             "                       - delta_h[:, :, None])\n",
+             "    rterm[..., :lq] = -delta_h[:, :, None]\n",
              "rmem_tpu_torch/kernels/bank_attention.py")]}),
     "bank_attention_mh_bwd": ("k2h", {
         # K2h: ds drops the slot-mass term, in both kernels
@@ -3481,13 +3726,17 @@ def k1h_check(dev):
 
 
 MUTANT_CHECKS = {
-    # K2 at one head, then K1'x2 + K2x2 at 4 valid slots, with values 512
-    # and 128 a head
+    # K2 at one head, then K1'x2 + K2x2 at 4 valid slots, values 512 a
+    # head (the scratch route's shapes)
     "k2": lambda dev: dict(
         h1=held_k2(*k2_inputs(dev)[1]),
-        h2=held_k2h(*k2x2_inputs(dev, count=4), heads=2),
-        h2v128=held_k2h(*k2x2_inputs(dev, count=4, values=256), heads=2)),
+        h2=held_k2h(*k2x2_inputs(dev, count=4), heads=2)),
     "k1h": k1h_check,
+    # K1'x2v128 + K2x2v128 at 4 valid slots, and at 9 on keys that cancel
+    "k2_fused": lambda dev: dict(
+        four=held_k2h(*k2x2_inputs(dev, count=4, values=256), heads=2),
+        cancelling=held_k2h(*k2x2_inputs(dev, values=256, cancel=True),
+                            heads=2, plain_forward=True)),
     "k2h": lambda dev: held_k2h(*k1ph_inputs(dev)),
     "k1_k3_k1p": k1_k3_k1p_check,
     "stem": stem_check,
@@ -3559,10 +3808,10 @@ def main() -> int:
                          "step of phases 5, 11, 15 and 19")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
-                         "K5, K1, K3, K1', K1h, K3h, K1'h, K2h, K6 and K7 "
-                         "checks (K1, K3, K4, K1', K2 and K5's backward at "
-                         "one head and at two, K1, K1' and K2 also at "
-                         "values 128 a head); prints no result line")
+                         "K5, K1, K3, K1', K1h, K3h, K1'h, K2h, K2x2v128, "
+                         "K6 and K7 checks (K1, K3, K4, K1', K2 and K5's "
+                         "backward at one head and at two, K1 and K1' also "
+                         "at values 128 a head); prints no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")
@@ -3691,7 +3940,11 @@ def main() -> int:
     aot_nmg_train_counts, aot_nmg_step_times, aot_nmg_peak = train_phase(
         dev, card, args.profile, model="r50_aotl_nmg")
     for key, e in aot_nmg_train_entries.items():
-        e["launches"] = aot_nmg_train_counts[key.removesuffix("_h2v128")]
+        fn_name = key.removesuffix("_h2v128")
+        # the fused pair's two kernels launch in one wrapper call
+        if fn_name.startswith("bank_attention_bwd_fused"):
+            fn_name = "bank_attention_bwd_fused"
+        e["launches"] = aot_nmg_train_counts[fn_name]
     entries.update(aot_nmg_train_entries)
     aot_nmg_held_step = held_train_step(dev, "r50_aotl_nmg")
     print(f"phases 19 and 20: {time.perf_counter() - t0:.1f} s")

@@ -16,9 +16,12 @@ rmem_tpu/kernels/bank_attention.py:_unlayout_out does.
 
 At 8 heads of 32 (AOT's LSTT, kernel K1ʰ) `bank_attention_infer` routes
 to `bank_attention_infer_mh`, which launches `csrc/bank_attention_mh.cu`
-(its own launch count) and averages the per-head slot mass over the heads;
-`infer_route` is the shape rule. `bank_attention_plain` is the plain version
-of both.
+(its own launch count: a kernel over slot groups of MH_SLOTS_PER_BLOCK and
+the merge of their partial state, as K1's template splits the slots) and
+averages the per-head slot mass over the heads; `infer_route` is the shape
+rule. `bank_attention_plain` is the plain version of both, and
+`bank_attention_lse_plain` (with `true_lk` and `qbias`) the kernels' own
+partial + merge form.
 
 Inference with the slot PE in the keys (kernel K3, opt-in):
 `bank_attention_qminor` launches the same source's other instantiation (no
@@ -38,7 +41,12 @@ each head's per-row log-sum-exp (`bank_attention_lse`, K1';
 merge form, per head), and whose backward is kernel K2
 (`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq` and `_dkv`,
 the heads on their grids; each head's row term from `bwd_delta_mh`, and
-drec / h into each head, the record being the head mean). At 8 heads of 32
+drec / h into each head, the record being the head mean), except at 2
+heads of 128 with values 128 a head, where it is K2×2ᵛ¹²⁸
+(`csrc/bank_attention_bwd_fused.cu`: `bank_attention_bwd_fused`, a dkv and a
+dq kernel that recompute p and ds from the lse, no scratch;
+`bank_attention_bwd_fused_plain` is its plain version); `bwd_route` is the
+backward's shape rule. At 8 heads of 32
 (AOT's LSTT) the forward is K1'ʰ, the training instantiation of
 `csrc/bank_attention_mh.cu` (`bank_attention_lse_mh`: f32 output, each
 head's slot mass and lse), and the backward K2ʰ
@@ -73,9 +81,21 @@ SLOTS_PER_BLOCK = 2
 # no_memory_gap shape, the one it is held at
 SLOT_HEADS = (1, 2)
 NARROW_VALUES = (2, 128, 128)
-# K1ʰ: the head shape csrc/bank_attention_mh.cu is written for, and the
-# slots whose mass a block keeps in shared memory
+# K1ʰ: the head shape csrc/bank_attention_mh.cu is written for, the slots
+# a call takes, and the slots a block walks (G in the source, checked
+# against the library when it loads)
 MH_HEADS, MH_WIDTH, MH_MAX_SLOTS = 8, 32, 16
+MH_SLOTS_PER_BLOCK = SLOTS_PER_BLOCK    # so one plain form is both kernels'
+# K2×2ᵛ¹²⁸ (csrc/bank_attention_bwd_fused.cu): the slots a dq block walks,
+# checked the same way
+FUSED_DQ_SLOTS = 2
+_LOG2E = 1.0 / math.log(2.0)
+# the slot-group kernels' partial state (K1ʰ, K3ʰ, K1'ʰ; K2×2ᵛ¹²⁸'s dq):
+# one buffer a (device, stream), grown as needed and reused by every call
+# on that stream, so a call allocates none (stream order keeps a call from
+# writing it before the last call's merge has read it)
+_WORKSPACE = {}
+_ALIGN = 256
 
 
 def bank_attention_plain(q: torch.Tensor, bank_k: torch.Tensor,
@@ -94,6 +114,20 @@ def bank_attention_plain(q: torch.Tensor, bank_k: torch.Tensor,
         need_record=True, scale=scale, true_lk=true_lk,
         logit_bias=None if qbias is None else qbias.float())
     return out.to(q.dtype), rec
+
+
+def _workspace(nbytes: int, device: torch.device, stream: int) -> int:
+    """The address of `nbytes` of scratch on `device` for kernels launched
+    on `stream`, the current stream."""
+    buf = _WORKSPACE.get((device, stream))
+    if buf is None or buf.numel() < nbytes:
+        buf = _WORKSPACE[(device, stream)] = torch.empty(
+            nbytes, dtype=torch.uint8, device=device)
+    return buf.data_ptr()
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // _ALIGN) * _ALIGN
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -253,11 +287,37 @@ def _check_mh(q, bank_k, bank_v, count, num_heads: int = MH_HEADS
 
 
 @functools.lru_cache(maxsize=None)
+def _mh_lib():
+    """csrc/bank_attention_mh.cu, its slots a block held to
+    MH_SLOTS_PER_BLOCK once."""
+    lib = build.load("bank_attention_mh")
+    lib.rmem_bank_attention_mh_slots.argtypes = []
+    lib.rmem_bank_attention_mh_slots.restype = _I
+    groups_of = lib.rmem_bank_attention_mh_slots()
+    _check(groups_of == MH_SLOTS_PER_BLOCK, f"the library walks {groups_of} "
+           f"slots a block, the wrapper expects {MH_SLOTS_PER_BLOCK}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _mh_entry():
-    fn = build.load("bank_attention_mh").rmem_bank_attention_mh
-    fn.argtypes = [_P] * 7 + [_I] * 6 + [_F, _P]
+    fn = _mh_lib().rmem_bank_attention_mh
+    fn.argtypes = [_P] * 10 + [_I] * 6 + [_F, _P]
     fn.restype = _I
     return fn
+
+
+def _mh_parts(s: int, b: int, lq: int, itemsize: int, device,
+              stream: int) -> Tuple[int, int, int]:
+    """K1ʰ's partial state for s slots and b rows of (batch, head), in the
+    workspace: the addresses of part_m [groups, b, Lq] f32, part_l
+    [s, b, Lq] f32 and part_o [groups, b, Lq, 32] (`itemsize` bytes a
+    value), each 256-byte aligned."""
+    groups = -(-s // MH_SLOTS_PER_BLOCK)
+    m_bytes, l_bytes = _aligned(groups * b * lq * 4), _aligned(s * b * lq * 4)
+    base = _workspace(m_bytes + l_bytes + groups * b * lq * MH_WIDTH
+                      * itemsize, device, stream)
+    return base, base + m_bytes, base + m_bytes + l_bytes
 
 
 def bank_attention_infer_mh(q: torch.Tensor, bank_k: torch.Tensor,
@@ -298,14 +358,16 @@ def _mh_call(q, bank_k, bank_v, count, num_heads, scale,
                and qbias.is_contiguous()
                and qbias.shape == (b, num_heads, lq, s),
                "qbias must be contiguous f32 [B, h, Lq, S]")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    parts = _mh_parts(s, b * num_heads, lq, 2, q.device, stream)
     out = torch.empty_like(q)
     rec_h = torch.empty((b, num_heads, lq, s), dtype=torch.float32,
                         device=q.device)
     err = _mh_entry()(
         q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
         None if qbias is None else qbias.data_ptr(), count.data_ptr(),
-        out.data_ptr(), rec_h.data_ptr(), b, num_heads, lq, s, lk, true_lk,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        *parts, out.data_ptr(), rec_h.data_ptr(), b, num_heads, lq, s, lk,
+        true_lk, float(scale), stream)
     build.check(err, "bank_attention_mh")
     return out, rec_h.mean(dim=1)
 
@@ -377,30 +439,39 @@ bank_attention_qminor.launches = 0
 
 def bank_attention_lse_plain(q: torch.Tensor, bank_k: torch.Tensor,
                              bank_v: torch.Tensor, count: torch.Tensor,
-                             scale: float, num_heads: int = 1
+                             scale: float, num_heads: int = 1,
+                             true_lk: Optional[int] = None,
+                             qbias: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """K1''s function in plain PyTorch (f32), in its kernel's partial + merge
-    form: the valid slots in groups of SLOTS_PER_BLOCK; each group's row
-    maximum m_g of the scaled logits in log2 units, per-slot sums l_s
-    relative to it and its output normalised by its own sum; then with
-    w_g = 2^(m_g - M) sum_{s in g} l_s over the groups, out = sum_g w_g o_g
-    / sum_g w_g, rec_s = 2^(m_g(s) - M) l_s / sum_g w_g and lse = (M +
-    log2 sum_g w_g) ln 2. Every key valid. At one head returns (out
-    [B, Lq, dv], rec [B, Lq, S], lse [B, Lq]); at h heads each head's
-    columns take the one-head form: (out [B, Lq, h*dv], rec_h [B, h, Lq, S],
-    lse_h [B, h, Lq]). All f32."""
+    form, which K1ʰ's and K1'ʰ's kernel shares: the valid slots in groups
+    of SLOTS_PER_BLOCK (= MH_SLOTS_PER_BLOCK); each
+    group's row maximum m_g of the scaled logits in log2 units, per-slot
+    sums l_s relative to it and its output normalised by its own sum; then
+    with w_g = 2^(m_g - M) sum_{s in g} l_s over the groups, out = sum_g w_g
+    o_g / sum_g w_g, rec_s = 2^(m_g(s) - M) l_s / sum_g w_g and lse = (M +
+    log2 sum_g w_g) ln 2. Keys >= true_lk masked (every key valid by
+    default); qbias [B, h, Lq, S] (K1ʰ's slot-PE bias) added to the scaled
+    logits. At one head returns (out [B, Lq, dv], rec [B, Lq, S], lse
+    [B, Lq]); at h heads each head's columns take the one-head form: (out
+    [B, Lq, h*dv], rec_h [B, h, Lq, S], lse_h [B, h, Lq]). All f32."""
     if num_heads > 1:
         dh, dv = q.shape[-1] // num_heads, bank_v.shape[-1] // num_heads
         outs, recs, lses = zip(*(bank_attention_lse_plain(
             q[..., h * dh:(h + 1) * dh], bank_k[..., h * dh:(h + 1) * dh],
-            bank_v[..., h * dv:(h + 1) * dv], count, scale)
+            bank_v[..., h * dv:(h + 1) * dv], count, scale, 1, true_lk,
+            None if qbias is None else qbias[:, h:h + 1])
             for h in range(num_heads)))
         return torch.cat(outs, -1), torch.stack(recs, 1), torch.stack(lses, 1)
     n = int(count)
     s = bank_k.shape[0]
+    lk = bank_k.shape[2] if true_lk is None else true_lk
     logits = torch.einsum("bqd,sbkd->sbqk", q.float(),
-                          bank_k[:n].float()) * (scale / math.log(2.0))
+                          bank_k[:n, :, :lk].float()) * (scale / math.log(2.0))
+    if qbias is not None:                  # [B, 1, Lq, S], natural units
+        logits = logits + (qbias[:, 0, :, :n].float().permute(2, 0, 1)
+                           * _LOG2E)[..., None]
     ms, ls, os_ = [], [], []
     group = SLOTS_PER_BLOCK
     for g0 in range(0, n, group):
@@ -409,7 +480,7 @@ def bank_attention_lse_plain(q: torch.Tensor, bank_k: torch.Tensor,
         p = torch.exp2(lg - m[None, :, :, None])
         l = p.sum(-1)                                    # [G, B, Lq]
         o = torch.einsum("sbqk,sbkv->bqv", p,
-                         bank_v[g0:min(g0 + group, n)].float())
+                         bank_v[g0:min(g0 + group, n), :, :lk].float())
         ms.append(m)
         ls.append(l)
         os_.append(o / l.sum(0)[..., None])
@@ -537,6 +608,9 @@ def bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse, delta, drec,
     the head axes dropped at one head; slots >= count are left
     unwritten."""
     s, b, lq, lk, dv = _check_k2(q, bank_k, bank_v, dout, num_heads)
+    _check(bwd_route(num_heads, 128, dv) == "scratch",
+           f"values {dv} a head (the scratch kernels take a multiple of "
+           "256; 128 at two heads is the fused pair's)")
     row = _head_shape((b, num_heads, lq), num_heads, 1)
     for name, t, shape in (("lse", lse, row), ("delta", delta, row),
                            ("drec", drec, (b, lq, s))):
@@ -632,16 +706,155 @@ def bank_attention_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec,
     outputs (out f32, each head's slot mass rec) and lse as
     `bank_attention_lse` gives them, and the cotangents dout (bf16) and drec
     (f32, of the head-mean record). Each head's row term is `bwd_delta_mh`'s,
-    over its own value columns."""
+    over its own value columns. The head shape picks the kernels
+    (`bwd_route`): K2×2ᵛ¹²⁸'s fused pair at 2 heads of 128 with values 128
+    a head, else K2's three kernels over the p/ds scratch."""
     b, lq = q.shape[:2]
     rec_h = rec.reshape(b, num_heads, lq, -1)
     delta = bwd_delta_mh(dout, out, drec, rec_h).reshape(lse.shape)
+    if bwd_route(num_heads, q.shape[-1] // num_heads,
+                 bank_v.shape[-1] // num_heads) == "fused":
+        return bank_attention_bwd_fused(q, bank_k, bank_v, count, dout, lse,
+                                        delta, drec, scale)
     p, ds = bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse, delta,
                                   drec, scale, num_heads)
     dq = bank_attention_bwd_dq(bank_k, ds, count, scale, num_heads)
     dk, dv = bank_attention_bwd_dkv(q, dout, p, ds, count, scale,
                                     bank_k.shape[2], num_heads)
     return dq, dk, dv
+
+
+def bwd_route(num_heads: int, dh: int, dv: int) -> str:
+    """The CUDA kernels that take the bank attention's backward of this
+    head shape on the card: `train_route`'s rule with its "slots" split in
+    two, "fused" (K2×2ᵛ¹²⁸, csrc/bank_attention_bwd_fused.cu: NARROW_VALUES,
+    no scratch) and "scratch" (K2's three kernels over the p/ds scratch,
+    csrc/bank_attention_bwd.cu), and "heads" (K2ʰ,
+    csrc/bank_attention_mh_bwd.cu). Any other shape raises."""
+    route = train_route(num_heads, dh, dv)
+    if route == "heads":
+        return route
+    return "fused" if (num_heads, dh, dv) == NARROW_VALUES else "scratch"
+
+
+def bank_attention_bwd_fused_plain(q, bank_k, bank_v, count, dout, lse_h,
+                                   delta_h, drec, scale):
+    """K2×2ᵛ¹²⁸'s kernels in plain PyTorch (f32), in their own form, each
+    recomputing p and ds from the lse (`_mh_p_ds`): dk = scale sum_i ds q
+    and dv = sum_i p dout (the dkv kernel's, zero in slots >= count), and dq
+    as the dq kernel's partials, scale x the sum over the valid slots'
+    groups of FUSED_DQ_SLOTS, in group order, of each group's ds K. Returns
+    (dq [B, Lq, h*dh], dk, dv [S, B, Lk, h*d])."""
+    b, lq = q.shape[:2]
+    s, heads, n = bank_k.shape[0], lse_h.shape[1], int(count)
+    dq = torch.zeros(b, lq, q.shape[-1], device=q.device)
+    for g0 in range(0, n, FUSED_DQ_SLOTS):
+        slots = slice(g0, min(g0 + FUSED_DQ_SLOTS, n))
+        _, ds = _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h,
+                         drec, scale, slots)
+        part = torch.einsum("bhqsk,sbkhd->bqhd", ds, bank_k[slots].float()
+                            .unflatten(-1, (heads, -1)))
+        dq = dq + part.flatten(-2)
+    dk, dv = bank_attention_bwd_mh_dkv_plain(q, bank_k, bank_v, count, dout,
+                                             lse_h, delta_h, drec, scale)
+    return dq * scale, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_lib():
+    """csrc/bank_attention_bwd_fused.cu, its slots a dq block walks held to
+    FUSED_DQ_SLOTS once."""
+    lib = build.load("bank_attention_bwd_fused")
+    lib.rmem_bank_attention_bwd_fused_slots.argtypes = []
+    lib.rmem_bank_attention_bwd_fused_slots.restype = _I
+    groups_of = lib.rmem_bank_attention_bwd_fused_slots()
+    _check(groups_of == FUSED_DQ_SLOTS, f"the library's dq walks {groups_of} "
+           f"slots a block, the wrapper expects {FUSED_DQ_SLOTS}")
+    for name, n_ptr in (("rmem_bank_attention_bwd_fused_dkv", 9),
+                        ("rmem_bank_attention_bwd_fused_dq", 9)):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_F, _P]
+        fn.restype = _I
+    return lib
+
+
+def fused_rows(lse_h: torch.Tensor, delta_h: torch.Tensor,
+               drec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2×2ᵛ¹²⁸'s two row arrays from lse_h, delta_h [B, h, Lq] and drec
+    [B, Lq, S] (f32), the queries padded to 64: lse2 = lse_h log2(e)
+    [B, h, LqP] (+inf past Lq, so a padded query's p is 0) and rterm =
+    drec / h - delta_h [B, h, S, LqP] (0 past Lq)."""
+    b, heads, lq = lse_h.shape
+    lqp = _scratch_cols(lq)
+    lse2 = torch.full((b, heads, lqp), float("inf"), dtype=torch.float32,
+                      device=lse_h.device)
+    lse2[..., :lq] = lse_h * _LOG2E
+    rterm = torch.zeros((b, heads, drec.shape[-1], lqp), dtype=torch.float32,
+                        device=lse_h.device)
+    rterm[..., :lq] = (drec.transpose(1, 2)[:, None] / heads
+                       - delta_h[:, :, None])
+    return lse2, rterm
+
+
+def _fused_call(stage: str, q, bank_k, bank_v, count, dout, lse2, rterm,
+                scale):
+    """Launch one kernel of K2×2ᵛ¹²⁸ ("dkv": dk, dv; "dq": the dq kernel and
+    the sum of its partials) on checked inputs."""
+    s, b, lk, _ = bank_k.shape
+    lq, lqp = q.shape[1], lse2.shape[-1]
+    lib = _fused_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (q, bank_k, bank_v, dout, lse2, rterm,
+                                   count)]
+    dims = (b, NARROW_VALUES[0], lq, s, lk, lqp, float(scale), stream)
+    if stage == "dkv":
+        dk, dv = torch.empty_like(bank_k), torch.empty_like(bank_v)
+        err = lib.rmem_bank_attention_bwd_fused_dkv(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
+        build.check(err, "bank_attention_bwd_fused_dkv")
+        return dk, dv
+    # dq's f32 partials [groups, B, Lq, 256]
+    part = _workspace(-(-s // FUSED_DQ_SLOTS) * b * lq * q.shape[-1] * 4,
+                      q.device, stream)
+    dq = torch.empty_like(q)
+    err = lib.rmem_bank_attention_bwd_fused_dq(*ptrs, part, dq.data_ptr(),
+                                               *dims)
+    build.check(err, "bank_attention_bwd_fused_dq")
+    return dq
+
+
+def bank_attention_bwd_fused(q, bank_k, bank_v, count, dout, lse_h, delta_h,
+                             drec, scale):
+    """K2×2ᵛ¹²⁸: (dq, dk, dv) at 2 heads of 128 with values 128 a head,
+    from the forward's inputs, each head's lse_h and row term delta_h
+    (`bwd_delta_mh`) [B, 2, Lq] and the cotangents dout [B, Lq, 256] (bf16
+    on the card) and drec [B, Lq, S] (f32, of the head-mean record): the
+    dkv kernel, the dq kernel and the sum of its slot groups' partials, no
+    p/ds scratch. bf16 on the card, dk and dv exactly 0 in slots >= count;
+    CPU tensors take the plain version (f32)."""
+    if not q.is_cuda:
+        return bank_attention_bwd_fused_plain(q, bank_k, bank_v, count, dout,
+                                              lse_h, delta_h, drec, scale)
+    s, b, lq, lk, dv = _check_k2(q, bank_k, bank_v, dout, NARROW_VALUES[0])
+    _check(bwd_route(NARROW_VALUES[0], 128, dv) == "fused",
+           f"values {dv} a head (the fused backward takes 128)")
+    _check(s <= 128, f"{s} slots (the kernels take up to 128)")
+    for name, t, shape in (("lse_h", lse_h, (b, 2, lq)),
+                           ("delta_h", delta_h, (b, 2, lq)),
+                           ("drec", drec, (b, lq, s))):
+        _check(t.device == q.device and t.dtype == torch.float32
+               and t.is_contiguous() and tuple(t.shape) == shape,
+               f"{name} must be contiguous f32 {shape}")
+    _check_count(count, q)
+    lse2, rterm = fused_rows(lse_h, delta_h, drec)
+    args = (q, bank_k, bank_v, count, dout, lse2, rterm, scale)
+    dk, dv = _fused_call("dkv", *args)
+    dq = _fused_call("dq", *args)
+    bank_attention_bwd_fused.launches += 1
+    return dq, dk, dv
+
+
+bank_attention_bwd_fused.launches = 0
 
 
 # ---- training at 8 heads of 32 (kernels K1'ʰ and K2ʰ) --------------------
@@ -672,8 +885,8 @@ def bank_attention_lse_mh_plain(q: torch.Tensor, bank_k: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _mh_lse_entry():
-    fn = build.load("bank_attention_mh").rmem_bank_attention_mh_lse
-    fn.argtypes = [_P] * 7 + [_I] * 5 + [_F, _P]
+    fn = _mh_lib().rmem_bank_attention_mh_lse
+    fn.argtypes = [_P] * 10 + [_I] * 5 + [_F, _P]
     fn.restype = _I
     return fn
 
@@ -691,14 +904,16 @@ def bank_attention_lse_mh(q: torch.Tensor, bank_k: torch.Tensor,
     if not q.is_cuda:
         return bank_attention_lse_mh_plain(q, bank_k, bank_v, count, scale)
     s, b, lq, lk = _check_mh(q, bank_k, bank_v, count)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    parts = _mh_parts(s, b * MH_HEADS, lq, 4, q.device, stream)
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((b, lq, MH_HEADS * MH_WIDTH), **f32)
     rec_h = torch.empty((b, MH_HEADS, lq, s), **f32)
     lse_h = torch.empty((b, MH_HEADS, lq), **f32)
     err = _mh_lse_entry()(
         q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(), count.data_ptr(),
-        out.data_ptr(), rec_h.data_ptr(), lse_h.data_ptr(), b, MH_HEADS, lq,
-        s, lk, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        *parts, out.data_ptr(), rec_h.data_ptr(), lse_h.data_ptr(), b,
+        MH_HEADS, lq, s, lk, float(scale), stream)
     build.check(err, "bank_attention_mh_lse")
     bank_attention_lse_mh.launches += 1
     return out, rec_h, lse_h
@@ -718,22 +933,28 @@ def bwd_delta_mh(dout: torch.Tensor, out: torch.Tensor, drec: torch.Tensor,
     return (do.transpose(1, 2) + dr).contiguous()
 
 
-def _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale):
-    """K2ʰ's p and ds, f32 [B, h, Lq, S, Lk], zero in slots >= count, each
-    recomputed from the lse as both kernels do."""
+def _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale,
+             slots: slice = slice(None)):
+    """The backward's p and ds at any head shape (the heads are lse_h's,
+    [B, h, Lq]: K2ʰ's 8, K2×2's and K2×2ᵛ¹²⁸'s 2), f32 [B, h, Lq, S', Lk]
+    over the bank's slots `slots` (all by default), zero in slots >= count,
+    each recomputed from the lse as the kernels do: p = exp(q.k scale -
+    lse), ds = p (dout.v + drec / h - delta)."""
+    bank_k, bank_v = bank_k[slots], bank_v[slots]
     s, b, lk, ck = bank_k.shape
     heads, lq = lse_h.shape[1], q.shape[1]
     dh, dv = ck // heads, bank_v.shape[-1] // heads
     logits = torch.einsum(
         "bqhd,sbkhd->bhqsk", q.float().reshape(b, lq, heads, dh),
         bank_k.float().reshape(s, b, lk, heads, dh)) * scale
-    valid = torch.arange(s, device=q.device) < count
+    index = torch.arange(drec.shape[-1], device=q.device)[slots]
+    valid = index < count
     p = torch.where(valid[:, None],
                     torch.exp(logits - lse_h.float()[..., None, None]), 0.0)
     g = torch.einsum("bqhd,sbkhd->bhqsk",
                      dout.float().reshape(b, lq, heads, dv),
                      bank_v.float().reshape(s, b, lk, heads, dv))
-    r = (drec.float() / heads)[:, None, :, :, None]         # [B, 1, Lq, S, 1]
+    r = (drec.float()[..., slots] / heads)[:, None, :, :, None]
     return p, p * (g + r - delta_h.float()[..., None, None])
 
 
