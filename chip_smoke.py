@@ -30,9 +30,14 @@ non-zero exit code:
    chain through autograd) at the training shapes, and AOT's training
    kernels at 8 heads of 32 (K1'h, the forward with lse, at 4 valid slots
    of 10, at 2 and at the reference frame's one, beside SDPA over the
-   valid slots; K2h, its backward, after each, with a nonzero drec, against
-   its plain stages and autograd of the plain forward, its invalid slots'
-   dk and dv exactly 0), and the serving kernels at no_memory_gap's 2 heads
+   valid slots; K2h, its backward (csrc/bank_attention_mh_bwd.cu: the rows
+   kernel computing each head's row term from the forward's output and
+   slot mass, the dkv kernel, the dq kernel and the sum of its slot
+   groups' partials, in one wrapper call), after each, with a nonzero
+   drec, against its plain stages and autograd of the plain forward, its
+   invalid slots' dk and dv exactly 0, also on keys that nearly cancel in
+   ds K, fed the plain forward's output and lse; its whole time with the
+   row term, split by kernel), and the serving kernels at no_memory_gap's 2 heads
    of 128 (K1 at K1's six calls beside SDPA over the valid slots with the
    bias as a mask; K3 at the main path's call and phase 7's two batch-2
    grids; K4 at the main path's call and phase 7's grids beside SDPA with
@@ -45,7 +50,8 @@ non-zero exit code:
    heads on the training grid and a ragged one; each beside SDPA over the
    valid slots or with the dense bias, forward or backward), and R50-AOTL
    no_memory_gap's kernels at 2 heads of 128 with values 128 a head (K1x2v128
-   at K1's six calls, K1'x2v128 as K1'x2, and K2x2v128, the fused pair of
+   at K1's six calls, K1'x2v128 as K1'x2, its own kernel,
+   csrc/bank_attention_lse_v128.cu, split by kernel, and K2x2v128, the fused pair of
    csrc/bank_attention_bwd_fused.cu: its dkv kernel and its dq kernel with
    the sum of the slot groups' partials, each against the plain version,
    the whole against autograd, also on keys that nearly cancel in ds K,
@@ -181,7 +187,9 @@ and K5's backward (held_k4, held_k5; each at one head and at two), K1, K3 and K1
 head and at two, K1 and K1' also at values 128 a head), K1h, K3h and K1'h
 (held_k1h, held_k3h, held_k1ph), K2x2v128's fused pair (held_k2h at 2
 heads, values 128 a head, at 4 valid slots and on keys that cancel), K2h
-(held_k2h) and K6 and K7 (held, held_k7): for each
+(held_k2h at 4 valid slots, at the reference frame's one, and on keys
+that cancel), K1'x2v128 (held_k1ph at 9, 4 and 1 valid slots) and K6 and
+K7 (held, held_k7): for each
 mutant (MUTANTS), the package is copied into a temporary directory, one
 line of the kernel's source (or its wrapper) is changed there (K2: ds drops the slot-mass
 term, or dq the logit scale; K2x2: head 1 reads head 0's q and k
@@ -207,9 +215,16 @@ stored through bf16, or the lse without the log of the sum; K2x2v128's
 fused pair: dq drops ds's lo plane, the invalid slots' dk and dv are
 computed instead of zeroed, the sum of dq's partials drops a last group
 of one slot, head 1's dk and dv read head 0's queries, or the wrapper's
-row term drops the slot mass's share; K2h: ds drops the
-slot-mass term, dq the logit scale, or the invalid slots' dk is left
-unwritten; K6/K7: conv positions
+row term drops the slot mass's share; K2h: the rows kernel's rterm
+drops the slot-mass term or its delta the slot mass's share, dq drops the
+logit scale or ds's lo plane, the sum of dq's partials drops a last group
+of one slot, the dkv kernel reads the other head's queries or the dq
+kernel the other head's keys, the invalid slots' dk and dv are computed,
+or their dk is left unwritten; K1'x2v128: the zero keys past Lk go
+unmasked, a quarter of the accumulator unrescaled, a slot's mass is
+booked to its neighbour, the merge drops the second consumer's output,
+the lse drops the log of the sum, or head 1 reads head 0's values;
+K6/K7: conv positions
 outside the conv grid enter the pool, or the pad taps carry weights), the
 copy's kernels are built, and the source's checks run on phase 2's
 inputs. Each mutant must fail a check and each unmutated copy pass them
@@ -1467,10 +1482,12 @@ K1PH_CASES = {"four_slots": dict(count=4), "two_slots": dict(count=2),
 PEAK_SFU_OPS = 16 * 132 * 1.98e9
 
 
-def k1ph_inputs(dev, slots: int = 10, count: int = 4):
+def k1ph_inputs(dev, slots: int = 10, count: int = 4, cancel: bool = False):
     """K1'h's and K2h's phase-2 inputs at AOT's training call (B 4, a 30 x
     30 grid, 8 heads of 32, bf16) with a nonzero drec: (q, bank_k, bank_v,
-    count, dout, drec, scale)."""
+    count, dout, drec, scale). With `cancel`, every key is one shared row
+    plus 0.03 of noise, as k2x2_inputs gives them: ds K nearly cancels, so
+    dq shows ds's lo plane."""
     import torch
     g = torch.Generator(device=dev).manual_seed(5)
 
@@ -1479,7 +1496,13 @@ def k1ph_inputs(dev, slots: int = 10, count: int = 4):
 
     b, hw = TRAIN_B, TRAIN_GRID[0] * TRAIN_GRID[1]
     q = randn(b, hw, 256, scale=2.0)
-    bk, bv = randn(slots, b, hw, 256), randn(slots, b, hw, 256)
+    if cancel:
+        bk = (randn(1, 1, 1, 256, dtype=torch.float32)
+              + randn(slots, b, hw, 256, dtype=torch.float32, scale=0.03)
+              ).to(torch.bfloat16)
+        bv = randn(slots, b, hw, 256)
+    else:
+        bk, bv = randn(slots, b, hw, 256), randn(slots, b, hw, 256)
     return (q, bk, bv, torch.tensor(count, dtype=torch.int32, device=dev),
             randn(b, hw, 256, scale=0.1),
             randn(b, hw, slots, dtype=torch.float32), 32 ** -0.5)
@@ -1520,14 +1543,15 @@ def held_k1ph(q, bank_k, bank_v, count, scale, heads: int = 8,
     return (out, rec_h, lse_h), errs
 
 
-def held_k2h_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
+def held_k2h_call(q, bank_k, bank_v, count, out, rec_h, lse_h, dout, drec,
                   scale, kernel=None):
     """One K2h call (`kernel`, by default the wrapper) against its two plain
-    stages on the valid slots, fed the same lse_h and delta_h (GRAD_TOL of
-    each output's max), and its dk and dv exactly 0 in slots >= count. The
-    blocks the call allocates dk and dv from are filled with NaN first, so
-    a slot the kernel leaves unwritten shows. Returns ((dq, dk, dv),
-    {check: error})."""
+    stages on the valid slots (GRAD_TOL of each output's max), and its dk
+    and dv exactly 0 in slots >= count. The kernel computes the row term
+    from the forward's f32 `out` and `rec_h`; the plain stages take the same
+    lse_h and bwd_delta_mh's. The blocks the call allocates dk and dv from
+    are filled with NaN first, so a slot the kernel leaves unwritten shows.
+    Returns ((dq, dk, dv), {check: error})."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
@@ -1535,8 +1559,9 @@ def held_k2h_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
     poison = [torch.full_like(bank_k, float("nan")) for _ in range(2)]
     del poison
     dq, dk, dv = (kernel or kb.bank_attention_bwd_mh)(
-        q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale)
-    args = (q, bank_k[:n], bank_v[:n], count, dout, lse_h, delta_h,
+        q, bank_k, bank_v, count, out, rec_h, lse_h, dout, drec, scale)
+    args = (q, bank_k[:n], bank_v[:n], count, dout, lse_h,
+            kb.bwd_delta_mh(dout, out, drec, rec_h),
             drec[..., :n].contiguous(), scale)
     rdk, rdv = kb.bank_attention_bwd_mh_dkv_plain(*args)
     errs = {"dq": rel_err(dq, kb.bank_attention_bwd_mh_dq_plain(*args)),
@@ -1640,9 +1665,16 @@ def held_k2h(q, bank_k, bank_v, count, dout, drec, scale, heads: int = 8,
     (out, rec_h, lse_h), errs = held_k1ph(q, bank_k, bank_v, count, scale,
                                           heads)
     delta_h = kb.bwd_delta_mh(dout, out, drec, rec_h)
-    call = held_k2h_call if heads == 8 else held_k2x2_call
-    (dq, dk, dv), call_errs = call(q, bank_k, bank_v, count, dout, lse_h,
-                                   delta_h, drec, scale)
+
+    def call(out, rec_h, lse_h, delta_h):
+        # at 8 heads training's call: the kernel computes the row term from
+        # the forward's output and slot mass
+        if heads == 8:
+            return held_k2h_call(q, bank_k, bank_v, count, out, rec_h, lse_h,
+                                 dout, drec, scale)
+        return held_k2x2_call(q, bank_k, bank_v, count, dout, lse_h, delta_h,
+                              drec, scale)
+    (dq, dk, dv), call_errs = call(out, rec_h, lse_h, delta_h)
     errs.update(call_errs)
     ins = [t.detach().float().requires_grad_()
            for t in (q, bank_k[:n], bank_v[:n])]
@@ -1655,8 +1687,7 @@ def held_k2h(q, bank_k, bank_v, count, dout, drec, scale, heads: int = 8,
                                                         count, scale, heads)
         plain_delta = kb.bwd_delta_mh(dout, out, drec, rec_h)
         errs["kfwd_delta"] = rel_err(delta_h, plain_delta)
-        (dq, dk, dv), call_errs = call(q, bank_k, bank_v, count, dout, lse_h,
-                                       plain_delta, drec, scale)
+        (dq, dk, dv), call_errs = call(out, rec_h, lse_h, plain_delta)
         errs.update({key + "_pfwd": e for key, e in call_errs.items()})
     for key, got, ref in (("whole_dq", dq, auto[0]),
                           ("whole_dk", dk[:n], auto[1]),
@@ -1668,11 +1699,15 @@ def held_k2h(q, bank_k, bank_v, count, dout, drec, scale, heads: int = 8,
 
 
 def check_aot_train_kernels(dev):
-    """Phase 2, AOT's training rows: K1'h at K1PH_CASES and K2h after it at
-    4 valid slots, held (held_k2h) and timed beside their plain versions,
+    """Phase 2, AOT's training rows: K1'h at K1PH_CASES and K2h after each,
+    held (held_k2h; K2h also on keys that nearly cancel, fed the plain
+    forward), and timed at 4 valid slots beside their plain versions,
     bounds and SDPA over the valid slots' keys flattened to [B, 8, Lq,
-    count * Lk] (the backward's: forward + backward less forward). Returns
-    {name: entry} without launch counts."""
+    count * Lk] (the backward's: forward + backward less forward). K2h's
+    time is the whole backward as training calls it, the row term
+    included, with its device time by kernel (profiler), and its time
+    handed the row term beside it. Returns {name: entry} without launch
+    counts."""
     import torch
     import torch.nn.functional as F
 
@@ -1689,12 +1724,21 @@ def check_aot_train_kernels(dev):
               "max|plain| (rec, lse absolute; the share of out on the bf16 "
               "grid): " + ", ".join(
                   f"{k} {v:.3e}" for k, v in cases[key]["errs"].items()))
+    # keys that nearly cancel in ds K, where ds's lo plane must show
+    cancelling = held_k2h(*k1ph_inputs(dev, cancel=True), plain_forward=True)
+    print("K1'h + K2h on keys that cancel (k1ph_inputs cancel=True), 4 "
+          "valid slots: " + ", ".join(f"{k} {v:.3e}"
+                                      for k, v in cancelling.items()))
     q, bk, bv, cnt, dout, drec, scale = k1ph_inputs(dev)
     count, (S, b, lk, _), lq = int(cnt), bk.shape, q.shape[1]
     kv = count * lk
     out, rec_h, lse_h = kb.bank_attention_lse_mh(q, bk, bv, cnt, scale)
     delta_h = kb.bwd_delta_mh(dout, out, drec, rec_h)
     bargs = (q, bk, bv, cnt, dout, lse_h, delta_h, drec, scale)
+    # the whole backward as _BankAttentionMH calls it: the rows kernel
+    # computes the row term from the forward's output and slot mass
+    whole_k2h = lambda: kb.bank_attention_bwd_mh(
+        q, bk, bv, cnt, out, rec_h, lse_h, dout, drec, scale)
 
     def heads_first(x, n):          # [B, n, 256] -> [B, 8, n, 32]
         return x.reshape(b, n, 8, 32).transpose(1, 2).contiguous()
@@ -1730,14 +1774,20 @@ def check_aot_train_kernels(dev):
         "bank_attention_bwd_mh": dict(
             replaces="rmem_tpu/kernels/bank_attention.py:581",
             source="rmem_tpu_torch/csrc/bank_attention_mh_bwd.cu",
-            ms=cuda_ms(lambda: kb.bank_attention_bwd_mh(*bargs), 20),
+            ms=cuda_ms(whole_k2h, 20),
             plain=lambda: (kb.bank_attention_bwd_mh_dq_plain(*bargs),
                            kb.bank_attention_bwd_mh_dkv_plain(*bargs)),
             flops=2.0 * b * lq * kv * 32 * 5 * 8,
-            nbytes=(2 * qb + kvb + b * 8 * lq * 2 * 4 + b * lq * S * 4
+            # q, dout, the valid keys and values, the f32 output, lse,
+            # slot mass and drec read once; dq and every slot's dk, dv
+            # written once
+            nbytes=(2 * qb + kvb + b * lq * 256 * 4 + b * 8 * lq * 4
+                    + b * 8 * lq * S * 4 + b * lq * S * 4
                     + qb + 2 * S * b * lk * 256 * 2),
-            err=max(v for c in cases.values() for k, v in c["errs"].items()
-                    if k.startswith(("d", "whole"))),
+            err=max(v for c in [*cases.values(), dict(errs=cancelling)]
+                    for k, v in c["errs"].items()
+                    if k.startswith(("d", "whole"))
+                    and not k.startswith("kfwd")),
             library_ms=cuda_ms(lambda: sdpa(True), 20) - sdpa_fwd_ms),
     }
     entries = {}
@@ -1760,6 +1810,8 @@ def check_aot_train_kernels(dev):
               "K1'h at 4 valid slots")
     entries["bank_attention_bwd_mh"].update(
         exponentials=2 * exps, sfu_ms=2 * exps / PEAK_SFU_OPS * 1e3)
+    split_row(entries["bank_attention_bwd_mh"], whole_k2h,
+              "K2h's whole backward at 4 valid slots")
     for name, e in entries.items():
         print(f"{name}: {e['ms']:.4f} ms at 4 valid slots, plain "
               f"{e['plain_ms']:.4f} ms, SDPA over the valid slots "
@@ -1938,6 +1990,9 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
             rows[name]["design_ms"] = r["design_flops"] / PEAK_BF16_FLOPS * 1e3
     if fused:
         rows["whole"]["split_ms"] = kernel_split_ms(whole_fn)
+        lse_row = rows["bank_attention_lse" + suffix]
+        lse_row["split_ms"] = kernel_split_ms(
+            stages["bank_attention_lse" + suffix]["fn"])
     return rows
 
 
@@ -1992,21 +2047,26 @@ def nmg_bank_train_rows(dev, values: int = 1024, suffix: str = "_h2"):
                    if "design_ms" in r else "") + ")"
                 if "bound_ms" in r else "")
             for name, r in rows.items()))
-        if "split_ms" in rows.get("whole", {}):
-            print(f"{label} {key}: the whole backward by kernel (profiler, "
-                  "ms a call): " + ", ".join(
-                      f"{k[:48]} {x:.4f}"
-                      for k, x in rows["whole"]["split_ms"].items()))
+        for name, what in (("whole", "the whole backward"),
+                           ("bank_attention_lse" + suffix, "the forward")):
+            if "split_ms" in rows.get(name, {}):
+                print(f"{label} {key}: {what} by kernel (profiler, ms a "
+                      "call): " + ", ".join(
+                          f"{k[:48]} {x:.4f}"
+                          for k, x in rows[name]["split_ms"].items()))
 
     def worst(*keys):
         return max(e[k] for e in held_errs.values() for k in keys)
 
     bwd = "rmem_tpu_torch/csrc/bank_attention_bwd.cu"
     fused = "rmem_tpu_torch/csrc/bank_attention_bwd_fused.cu"
+    narrow = kb.bwd_route(2, 128, values // 2) == "fused"
     stages = {"bank_attention_lse": (
-        worst("out", "lse"), "rmem_tpu_torch/csrc/bank_attention_infer.cu",
+        worst("out", "lse"),
+        "rmem_tpu_torch/csrc/bank_attention_lse_v128.cu" if narrow
+        else "rmem_tpu_torch/csrc/bank_attention_infer.cu",
         "rmem_tpu/kernels/bank_attention.py:687")}
-    if kb.bwd_route(2, 128, values // 2) == "fused":
+    if narrow:
         stages.update({
             "bank_attention_bwd_fused_dkv": (
                 worst("dk", "dv"), fused,
@@ -3637,19 +3697,63 @@ MUTANTS = {
              "    rterm[..., :lq] = -delta_h[:, :, None]\n",
              "rmem_tpu_torch/kernels/bank_attention.py")]}),
     "bank_attention_mh_bwd": ("k2h", {
-        # K2h: ds drops the slot-mass term, in both kernels
-        "no_drec": [("ok ? drec_h[((size_t)b * Lq + qi) * S + s] - "
-                     "delta_bh[qi] : 0.f;", "ok ? -delta_bh[qi] : 0.f;"),
-                    ("ra = qa < Lq ? dr[(size_t)qa * S] - da : 0.f;",
-                     "ra = qa < Lq ? -da : 0.f;"),
-                    ("rb = qb < Lq ? dr[(size_t)qb * S] - db : 0.f;",
-                     "rb = qb < Lq ? -db : 0.f;")],
+        # K2h: the rows kernel's rterm drops the slot-mass term
+        "no_drec": [("rt[(size_t)s * LqP] = dr[s] * (1.f / H) - delta;",
+                     "rt[(size_t)s * LqP] = -delta;")],
+        # K2h: the row term the rows kernel computes drops the slot mass's
+        # share
+        "delta_no_mass": [
+            ("  for (int s = 0; s < S; ++s) delta += dr[s] * (1.f / H) * "
+             "rc[s];\n", "")],
         # K2h: dq is not multiplied by the logit scale
-        "dq_scale": [("dqa, scale, q0, Lq,", "dqa, 1.f, q0, Lq,")],
+        "dq_scale": [("(const float*)part, (const int*)count, (bf16*)dq, "
+                      "n8, S, scale);",
+                      "(const float*)part, (const int*)count, (bf16*)dq, "
+                      "n8, S, 1.f);")],
+        # K2h: dq without the lo plane of ds
+        "dq_no_lo": [("      mul_ab(dqa, la[kk], sk, kk, hoff);\n", "")],
+        # K2h: the sum of dq's partials drops a last group of one slot
+        "dq_sum_drops_a_group": [
+            ("  const int ng = (clamp_count(count_ptr, S) + G - 1) / G;",
+             "  const int ng = clamp_count(count_ptr, S) / G;")],
+        # K2h: the dkv kernel's S^T reads the other head's queries
+        "dkv_other_head_q": [("    mul_abt(sc, smem, sq, hoff);",
+                              "    mul_abt(sc, smem, sq, 2 * D - hoff);")],
+        # K2h: dq's product reads the other head's keys
+        "dq_other_head_k": [("      mul_ab(dqa, ha[kk], sk, kk, hoff);",
+                             "      mul_ab(dqa, ha[kk], sk, kk, 2 * D - hoff);")],
+        # K2h: the invalid slots' dk and dv are computed, not zeroed
+        "invalid_slots_written": [
+            ("  if (s >= clamp_count(count_ptr, S)) {   // an invalid slot: "
+             "exact zeros", "  if (s >= S) {")],
         # K2h: the invalid slots' dk is left unwritten
         "invalid_dk_unwritten": [
             ("      *reinterpret_cast<uint4*>(dk + off) = "
              "make_uint4(0, 0, 0, 0);\n", "")]}),
+    "bank_attention_lse_v128": ("k1pv128", {
+        # the zero keys TMA fills past Lk are not masked
+        "no_key_mask": [("const bool ok = key0 + n * 8 + 2 * t4 + e < Lk;",
+                         "const bool ok = true;")],
+        # a quarter of the accumulator is not rescaled as the max grows
+        "no_rescale": [("      o[4 * n] *= a0;\n", "")],
+        # a slot's mass is booked to its neighbour
+        "mass_to_neighbour": [
+            ("      my_l[slot * BQ + ra] = a;",
+             "      my_l[((slot + 1) % S) * BQ + ra] = a;")],
+        # the merge drops the second consumer's output
+        "merge_drops_second": [
+            ("          (w0 * o[4 * n] + v0 * xo[(4 * n) * 128 + tid]) * i0,",
+             "          (w0 * o[4 * n]) * i0,")],
+        # the lse without the log of the sum
+        "lse_no_sum": [
+            ("    if (qa < Lq) lse[row_a] = (M0 + log2f(T0)) * LN2;",
+             "    if (qa < Lq) lse[row_a] = M0 * LN2;")],
+        # head 1 reads head 0's values
+        "head0_values": [
+            ("          tma_load(sk + TILE + a * ATOM, &tm_v, &full[st], "
+             "a * 64, h, key0,",
+             "          tma_load(sk + TILE + a * ATOM, &tm_v, &full[st], "
+             "a * 64, 0, key0,")]}),
     "stem": ("stem", {
         # conv positions outside the conv grid enter the pool
         "pool_out_of_grid": [
@@ -3665,7 +3769,7 @@ def k1_k3_k1p_check(dev):
     """The template's instantiations: K1's phase-2 calls with the bias and
     with padded keys, at one head, at two and at two with values 128 a
     head, K3's at one head and at two, then K1' (with K2) at 2 and 4 valid
-    slots, and K1'x2 at 4, with values 512 and 128 a head."""
+    slots, and K1'x2 at 4 with values 512 a head."""
     errs = {f"{key}_h{heads}": held_k1(*k1_inputs(dev, heads=heads,
                                                  **K1_CASES[key]))
             for key in ("main", "padded") for heads in (1, 2)}
@@ -3676,11 +3780,18 @@ def k1_k3_k1p_check(dev):
     errs["k3_h2"] = held_k3(*k3_inputs(dev, heads=2))
     for count in (2, 4):
         errs[f"k1p_{count}"] = held_k2(*k2_inputs(dev, count)[1])
-    for values in (1024, 256):
-        q, bk, bv, cnt, _, _, scale = k2x2_inputs(dev, count=4,
-                                                  values=values)
-        errs[f"k1px2_4_v{values // 2}"] = held_k1ph(q, bk, bv, cnt, scale,
-                                                    2)[1]
+    q, bk, bv, cnt, _, _, scale = k2x2_inputs(dev, count=4)
+    errs["k1px2_4_v512"] = held_k1ph(q, bk, bv, cnt, scale, 2)[1]
+    return errs
+
+
+def k1pv128_check(dev):
+    """K1'x2v128 (csrc/bank_attention_lse_v128.cu) at phase 2's calls: 9
+    valid slots of 10, 4, and the reference frame's one."""
+    errs = {}
+    for key, kw in K1PX2_CASES.items():
+        q, bk, bv, cnt, _, _, scale = k2x2_inputs(dev, values=256, **kw)
+        errs[key] = held_k1ph(q, bk, bv, cnt, scale, 2)[1]
     return errs
 
 
@@ -3737,7 +3848,14 @@ MUTANT_CHECKS = {
         four=held_k2h(*k2x2_inputs(dev, count=4, values=256), heads=2),
         cancelling=held_k2h(*k2x2_inputs(dev, values=256, cancel=True),
                             heads=2, plain_forward=True)),
-    "k2h": lambda dev: held_k2h(*k1ph_inputs(dev)),
+    # K1'h + K2h at 4 valid slots and at the reference frame's one, and
+    # on keys that cancel fed the plain forward
+    "k2h": lambda dev: dict(
+        four=held_k2h(*k1ph_inputs(dev)),
+        reference=held_k2h(*k1ph_inputs(dev, slots=1, count=1)),
+        cancelling=held_k2h(*k1ph_inputs(dev, cancel=True),
+                            plain_forward=True)),
+    "k1pv128": k1pv128_check,
     "k1_k3_k1p": k1_k3_k1p_check,
     "stem": stem_check,
     "k4_k5": k4_k5_check,
@@ -3809,8 +3927,8 @@ def main() -> int:
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
                          "K5, K1, K3, K1', K1h, K3h, K1'h, K2h, K2x2v128, "
-                         "K6 and K7 checks (K1, K3, K4, K1', K2 and K5's "
-                         "backward at one head and at two, K1 and K1' also "
+                         "K1'x2v128, K6 and K7 checks (K1, K3, K4, K1', K2 "
+                         "and K5's backward at one head and at two, K1 also "
                          "at values 128 a head); prints no result line")
     args = ap.parse_args()
     if args.frames < 60:

@@ -99,11 +99,6 @@ constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * ROW_BYTES;
 constexpr int SMEM_BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ int clamp_count(const int* count_ptr, int S) {
-  const int c = *count_ptr;
-  return c < 0 ? 0 : (c > S ? S : c);
-}
-
 // Eight f32 values.
 __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -151,11 +146,6 @@ __device__ __forceinline__ void mul_ab(float* acc, const uint32_t (*x)[4],
 #pragma unroll
   for (int kk = 0; kk < BW / 16; ++kk)
     wgmma_rs_m64n128(acc, x[kk], desc_sw128(t + kk * 2048, 8192, 1024));
-}
-
-__device__ __forceinline__ char* aligned_smem(char* raw) {
-  return reinterpret_cast<char*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
 }
 
 // dk, dv [S, B, Lk, 256] bf16. Block (128 keys, slot, batch x head).

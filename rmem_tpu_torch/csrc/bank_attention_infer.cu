@@ -1,7 +1,7 @@
 // Bank attention with the slots split among blocks: the queries attend into
 // the valid slots of the long-term memory bank, and each slot's share of
 // the softmax mass is returned beside the output (RMem's eviction signal).
-// One kernel template, instantiated three times:
+// One kernel template, instantiated for three uses:
 //   - K1: with a per-(query, slot) logit bias (the factored slot temporal
 //     PE) and the keys masked past true_lk. Replaces
 //     rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer
@@ -11,7 +11,8 @@
 //     pallas_bank_attention_qminor (_kernel_qminor, _forward_qminor);
 //   - K1', training's forward: as K3, with f32 partial outputs, an f32
 //     output and each head's per-row log-sum-exp for the backward
-//     (csrc/bank_attention_bwd.cu). Replaces the forward of
+//     (csrc/bank_attention_bwd.cu), at values a multiple of 256 a head
+//     (csrc/bank_attention_lse_v128.cu takes 128). Replaces the forward of
 //     pallas_bank_attention's VJP (_forward with want_lse). The output stays
 //     f32 all the way: the backward's row term delta = rowsum(dout * out)
 //     is a small difference of large terms, and an output carrying bf16
@@ -531,21 +532,21 @@ extern "C" int rmem_bank_attention_infer(
       Lq, S, Lk, true_lk, dv, scale, st);
 }
 
-// K1', training's forward: 1 or 2 heads of 128 (DeAOT's, and the
-// no_memory_gap of DeAOT and AOT), every key valid, no bias, f32 partial
-// outputs. Layouts and scratch as above with part_o f32; out [B, Lq,
-// H x dv] f32, rec [B, H, Lq, S] f32 (each head's slot mass), lse
-// [B, H, Lq] f32 (the natural log of each head's row sum of exp of the scaled logits over the
-// valid slots). Returns as rmem_bank_attention_infer.
+// K1', training's forward: 1 or 2 heads of 128 with values a multiple of
+// 256 a head (DeAOT's, and DeAOT's no_memory_gap; AOT's no_memory_gap, with
+// values 128 a head, has its own kernel, csrc/bank_attention_lse_v128.cu),
+// every key valid, no bias, f32 partial outputs. Layouts and scratch as
+// above with part_o f32; out [B, Lq, H x dv] f32, rec [B, H, Lq, S] f32
+// (each head's slot mass), lse [B, H, Lq] f32 (the natural log of each
+// head's row sum of exp of the scaled logits over the valid slots). Returns
+// as rmem_bank_attention_infer.
 extern "C" int rmem_bank_attention_lse(
     const void* q, const void* k, const void* v, const void* count,
     void* part_m, void* part_l, void* part_o, void* out, void* rec,
     void* lse, int B, int H, int Lq, int S, int Lk, int dh, int dv,
     float scale, void* stream) {
-  if ((H != 1 && H != 2) || dh != 128 || (dv != 128 && dv % 256 != 0) ||
-      Lk < 1)
-    return -1;
-  return rmem_qminor::launch_dv<false, true>(
+  if ((H != 1 && H != 2) || dh != 128 || dv % 256 != 0 || Lk < 1) return -1;
+  return rmem_qminor::launch<false, true, 256>(
       q, k, v, nullptr, count, part_m, part_l, part_o, out, rec, lse, B, H,
       Lq, S, Lk, Lk, dv, scale, (cudaStream_t)stream);
 }

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the TMA + wgmma kernels
-// (csrc/bank_attention_infer.cu, csrc/bank_attention_bwd_fused.cu) and the
+// (csrc/bank_attention_infer.cu, csrc/bank_attention_bwd_fused.cu,
+// csrc/bank_attention_mh_bwd.cu, csrc/bank_attention_lse_v128.cu) and the
 // TMA ring of csrc/bank_attention_mh.cu: mbarriers, TMA tensor and bulk
 // copies into shared memory, the wgmma products (bf16 in, f32 sums) with
 // their shared-memory descriptors, and the run-time lookup of
@@ -81,6 +82,19 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup's wgmma are
+// pending (they complete in order, so every older group is done).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep a register-A operand live, and unmoved, until this point: an
+// asynchronous product reads it until the wait that precedes the fence.
+template <int N>
+__device__ __forceinline__ void fence_operand(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 // Keep the compiler from moving reads or writes of wgmma accumulators
 // across the asynchronous product's issue and wait.
@@ -243,6 +257,38 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] B[16 x 32], as wgmma_rs_m64n256 over 32 columns:
+// one head of 32 read MN-major out of a 128-byte-swizzled tile that holds two
+// (csrc/bank_attention_mh_bwd.cu), 16 accumulator floats a thread.
+__device__ __forceinline__ void wgmma_rs_m64n32(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Dynamic shared memory aligned up to 1024 bytes, the period of the 128-byte
+// swizzle that TMA and wgmma must agree on.
+__device__ __forceinline__ char* aligned_smem(char* raw) {
+  return reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ int clamp_count(const int* count_ptr, int S) {
+  const int c = *count_ptr;
+  return c < 0 ? 0 : (c > S ? S : c);
 }
 
 // cuTensorMapEncodeTiled, looked up at run time by cudaGetDriverEntryPoint

@@ -38,7 +38,11 @@ of 128 it is, on the card, an autograd Function whose forward is the same
 source's third instantiation, with f32 partial outputs, an f32 output and
 each head's per-row log-sum-exp (`bank_attention_lse`, K1';
 `bank_attention_lse_plain` is its plain version, in the kernel's partial +
-merge form, per head), and whose backward is kernel K2
+merge form, per head) or, at 2 heads of 128 with values 128 a head,
+K1'×2ᵛ¹²⁸ (`csrc/bank_attention_lse_v128.cu`: one kernel, 64-query blocks
+whose two consumers take the 64-key chunks in turn and merge in shared
+memory; `bank_attention_lse_v128_plain` is its form), and whose backward
+is kernel K2
 (`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq` and `_dkv`,
 the heads on their grids; each head's row term from `bwd_delta_mh`, and
 drec / h into each head, the record being the head mean), except at 2
@@ -50,9 +54,12 @@ backward's shape rule. At 8 heads of 32
 (AOT's LSTT) the forward is K1'ʰ, the training instantiation of
 `csrc/bank_attention_mh.cu` (`bank_attention_lse_mh`: f32 output, each
 head's slot mass and lse), and the backward K2ʰ
-(`csrc/bank_attention_mh_bwd.cu`: `bank_attention_bwd_mh`). The head-generic
-plain stages `bank_attention_bwd_mh_dq_plain` and `_dkv_plain` are K2ʰ's
-and two-head K2's plain versions. Both replace pallas_bank_attention and
+(`csrc/bank_attention_mh_bwd.cu`: `bank_attention_bwd_mh`, one call of a
+rows kernel, which computes each head's row term on the card, a dkv and a
+dq kernel and the sum of dq's slot groups;
+`bank_attention_bwd_mh_form_plain` is its form). The head-generic plain
+stages `bank_attention_bwd_mh_dq_plain` and `_dkv_plain` are K2ʰ's and
+two-head K2's plain versions. Both replace pallas_bank_attention and
 its custom VJP. On the CPU it is autograd through `bank_attention_plain`.
 """
 
@@ -89,6 +96,13 @@ MH_SLOTS_PER_BLOCK = SLOTS_PER_BLOCK    # so one plain form is both kernels'
 # K2×2ᵛ¹²⁸ (csrc/bank_attention_bwd_fused.cu): the slots a dq block walks,
 # checked the same way
 FUSED_DQ_SLOTS = 2
+# K1'×2ᵛ¹²⁸ (csrc/bank_attention_lse_v128.cu): keys a chunk, the consumer
+# warpgroups that take the chunks in turn, and the slots a call takes
+# (BK, NCONS and MAX_SLOTS in the source)
+V128_CHUNK, V128_CONSUMERS, V128_MAX_SLOTS = 64, 2, 16
+# K2ʰ (csrc/bank_attention_mh_bwd.cu): the slots a dq block walks (G in the
+# source), which sizes its partials
+MH_BWD_DQ_SLOTS = 2
 _LOG2E = 1.0 / math.log(2.0)
 # the slot-group kernels' partial state (K1ʰ, K3ʰ, K1'ʰ; K2×2ᵛ¹²⁸'s dq):
 # one buffer a (device, stream), grown as needed and reused by every call
@@ -500,15 +514,20 @@ def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
                        bank_v: torch.Tensor, count: torch.Tensor,
                        scale: float, num_heads: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1' for training (card only, the f32 instantiation of
-    csrc/bank_attention_infer.cu): one or two heads of 128 (values a
-    multiple of 256 a head, or 128 at two heads), no bias, every key
-    valid. Returns (out [B, Lq, h*dv] f32, rec [B, h, Lq, S] f32 each
-    head's slot mass, lse [B, h, Lq] f32 the log-sum-exp of each head's row
-    of scaled logits over the valid slots), the head axis dropped at one
-    head, as `bank_attention_lse_plain` returns them. The output stays f32
-    for the backward's row term."""
+    """K1' for training (card only): one or two heads of 128 with values a
+    multiple of 256 a head (the f32 instantiation of
+    csrc/bank_attention_infer.cu), or two heads of 128 with values 128 a
+    head (K1'×2ᵛ¹²⁸, csrc/bank_attention_lse_v128.cu: one kernel, no
+    partials); no bias, every key valid. Returns (out [B, Lq, h*dv] f32, rec
+    [B, h, Lq, S] f32 each head's slot mass, lse [B, h, Lq] f32 the
+    log-sum-exp of each head's row of scaled logits over the valid slots),
+    the head axis dropped at one head, as `bank_attention_lse_plain` returns
+    them. The output stays f32 for the backward's row term."""
     s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, num_heads)
+    if (num_heads, dh, dv) == NARROW_VALUES:
+        out = _lse_v128_call(q, bank_k, bank_v, count, scale)
+        bank_attention_lse.launches += 1
+        return out
     _check(s <= 128, f"{s} slots (the merge takes up to 128)")
     fn = _lse_entry()
     part_m, part_l, part_o = _scratch(s, b * num_heads, lq, dv,
@@ -528,6 +547,78 @@ def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
 
 
 bank_attention_lse.launches = 0
+
+
+def bank_attention_lse_v128_plain(q: torch.Tensor, bank_k: torch.Tensor,
+                                  bank_v: torch.Tensor, count: torch.Tensor,
+                                  scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """K1'×2ᵛ¹²⁸'s function in plain PyTorch (f32), in its kernel's form:
+    per head, the valid slots' keys in chunks of V128_CHUNK (slot major,
+    each slot's last chunk short at Lk), chunk j walked by consumer j %
+    V128_CONSUMERS; each consumer's maximum m_c of its scaled logits (log2
+    units), its per-slot sums l_c(s) and output O_c relative to it; then with
+    M the larger maximum and w_c = 2^(m_c - M), out = sum_c w_c O_c /
+    sum_c w_c L_c, rec_s = sum_c w_c l_c(s) / that sum and lse = (M + log2
+    of it) ln 2. Returns (out [B, Lq, 256], rec_h [B, 2, Lq, S], lse_h
+    [B, 2, Lq]), all f32."""
+    heads = NARROW_VALUES[0]
+    s, b, lk, _ = bank_k.shape
+    lq, n = q.shape[1], int(count)
+    qh = q.float().unflatten(-1, (heads, -1))             # [B, Lq, h, d]
+    kh = bank_k[:n].float().unflatten(-1, (heads, -1))    # [n, B, Lk, h, d]
+    vh = bank_v[:n].float().unflatten(-1, (heads, -1))
+    logits = torch.einsum("bqhd,sbkhd->bhqsk", qh, kh) * (scale * _LOG2E)
+    chunk = (torch.arange(n)[:, None] * -(-lk // V128_CHUNK)
+             + torch.arange(lk) // V128_CHUNK)                  # [n, Lk]
+    ms, ls, os_ = [], [], []
+    for c in range(V128_CONSUMERS):
+        mine = (chunk % V128_CONSUMERS == c).to(q.device)       # [n, Lk]
+        x = torch.where(mine, logits, float("-inf"))
+        m = x.flatten(-2).amax(-1)                               # [B, h, Lq]
+        p = torch.exp2(x - torch.where(torch.isinf(m), 0.0, m)[..., None,
+                                                                None])
+        ls.append(p.sum(-1))                                     # [B,h,Lq,n]
+        os_.append(torch.einsum("bhqsk,sbkhd->bhqd", p, vh))
+        ms.append(m)
+    big_m = torch.stack(ms).amax(0)
+    w = [torch.where(torch.isinf(m), 0.0, torch.exp2(m - big_m)) for m in ms]
+    total = sum(wc * lc.sum(-1) for wc, lc in zip(w, ls))
+    out = sum(wc[..., None] * oc for wc, oc in zip(w, os_)) / total[..., None]
+    rec = torch.zeros(b, heads, lq, s, device=q.device)
+    rec[..., :n] = sum(wc[..., None] * lc for wc, lc in zip(w, ls)) / total[
+        ..., None]
+    lse = (big_m + torch.log2(total)) * math.log(2.0)
+    return out.permute(0, 2, 1, 3).reshape(b, lq, -1), rec, lse
+
+
+@functools.lru_cache(maxsize=None)
+def _lse_v128_entry():
+    """csrc/bank_attention_lse_v128.cu's C entry."""
+    fn = build.load("bank_attention_lse_v128").rmem_bank_attention_lse_v128
+    fn.argtypes = [_P] * 7 + [_I] * 5 + [_F, _P]
+    fn.restype = _I
+    return fn
+
+
+def _lse_v128_call(q, bank_k, bank_v, count, scale):
+    """Launch K1'×2ᵛ¹²⁸ on checked inputs: (out [B, Lq, 256] f32, rec_h
+    [B, 2, Lq, S] f32, lse_h [B, 2, Lq] f32)."""
+    s, b, lk, _ = bank_k.shape
+    lq, heads = q.shape[1], NARROW_VALUES[0]
+    _check(s <= V128_MAX_SLOTS, f"{s} slots (the kernel takes up to "
+           f"{V128_MAX_SLOTS})")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty((b, lq, q.shape[-1]), **f32)
+    rec = torch.empty((b, heads, lq, s), **f32)
+    lse = torch.empty((b, heads, lq), **f32)
+    err = _lse_v128_entry()(
+        q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(), count.data_ptr(),
+        out.data_ptr(), rec.data_ptr(), lse.data_ptr(), b, heads, lq, s, lk,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "bank_attention_lse_v128")
+    return out, rec, lse
 
 
 # ---- the backward (kernel K2) --------------------------------------------
@@ -988,43 +1079,82 @@ def bank_attention_bwd_mh_dkv_plain(q, bank_k, bank_v, count, dout, lse_h,
     return dk.flatten(-2), dv.flatten(-2)
 
 
+def bank_attention_bwd_mh_form_plain(q, bank_k, bank_v, count, dout, lse2,
+                                     rterm, scale):
+    """K2ʰ's dkv, dq and dq-sum kernels in plain PyTorch (f32), in their own
+    form, from the rows kernel's arrays (`fused_rows`: lse2 [B, 8, LqP],
+    rterm [B, 8, S, LqP]): p = 2^(q.k scale log2(e) - lse2), ds = p (dout.v
+    + rterm), dk = scale sum_i ds q and dv = sum_i p dout (zero in slots >=
+    count), and dq as the dq kernel's partials, scale x the sum over the
+    valid slots' groups of MH_BWD_DQ_SLOTS, in group order, of each group's
+    ds K. Returns (dq [B, Lq, 256], dk, dv [S, B, Lk, 256])."""
+    s, b, lk, _ = bank_k.shape
+    lq, heads, n = q.shape[1], lse2.shape[1], int(count)
+    qh, oh = (t.float().unflatten(-1, (heads, -1)) for t in (q, dout))
+    kh, vh = (t.float().unflatten(-1, (heads, -1)) for t in (bank_k, bank_v))
+    dq = torch.zeros(b, lq, heads, qh.shape[-1], device=q.device)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for g0 in range(0, n, MH_BWD_DQ_SLOTS):
+        part = torch.zeros_like(dq)
+        for sl in range(g0, min(g0 + MH_BWD_DQ_SLOTS, n)):
+            x = torch.einsum("bqhd,bkhd->bhqk", qh, kh[sl]) * (scale * _LOG2E)
+            p = torch.exp2(x - lse2[..., :lq, None])
+            ds = p * (torch.einsum("bqhd,bkhd->bhqk", oh, vh[sl])
+                      + rterm[:, :, sl, :lq, None])
+            part = part + torch.einsum("bhqk,bkhd->bqhd", ds, kh[sl])
+            dk[sl] = torch.einsum("bhqk,bqhd->bkhd", ds, qh) * scale
+            dv[sl] = torch.einsum("bhqk,bqhd->bkhd", p, oh)
+        dq = dq + part
+    return (dq * scale).flatten(-2), dk.flatten(-2), dv.flatten(-2)
+
+
 @functools.lru_cache(maxsize=None)
 def _mh_bwd_entry():
+    """csrc/bank_attention_mh_bwd.cu's C entry."""
     fn = build.load("bank_attention_mh_bwd").rmem_bank_attention_mh_bwd
-    fn.argtypes = [_P] * 11 + [_I] * 5 + [_F, _P]
+    fn.argtypes = [_P] * 15 + [_I] * 5 + [_F, _P]
     fn.restype = _I
     return fn
 
 
-def bank_attention_bwd_mh(q, bank_k, bank_v, count, dout, lse_h, delta_h,
+def bank_attention_bwd_mh(q, bank_k, bank_v, count, out, rec_h, lse_h, dout,
                           drec, scale):
-    """K2ʰ: (dq, dk, dv) at 8 heads of 32 from the forward's inputs, its
-    lse_h, the row term delta_h (`bwd_delta_mh`) and the cotangents dout
-    [B, Lq, 256] (bf16 on the card) and drec [B, Lq, S] (f32, of the head
-    mean). bf16 on the card, dk and dv exactly 0 in slots >= count; CPU
-    tensors take the plain stages (f32)."""
+    """K2ʰ: (dq, dk, dv) at 8 heads of 32 from the forward's inputs, its f32
+    output `out` [B, Lq, 256], slot mass `rec_h` [B, 8, Lq, S] and lse_h
+    [B, 8, Lq], and the cotangents dout [B, Lq, 256] (bf16 on the card) and
+    drec [B, Lq, S] (f32, of the head mean). On the card one call launches
+    the rows kernel (each head's row terms, delta_h among them), the dkv
+    kernel, the dq kernel and the sum of its slot groups' partials (taken
+    from the workspace); bf16 out, dk and dv exactly 0 in slots >= count.
+    CPU tensors take the plain stages (f32), delta_h from `bwd_delta_mh`."""
     if not q.is_cuda:
-        args = (q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale)
+        args = (q, bank_k, bank_v, count, dout, lse_h,
+                bwd_delta_mh(dout, out, drec, rec_h), drec, scale)
         return (bank_attention_bwd_mh_dq_plain(*args),
                 *bank_attention_bwd_mh_dkv_plain(*args))
     s, b, lq, lk = _check_mh(q, bank_k, bank_v, count)
     _check_bf16(q, dout=dout)
     _check(dout.shape == q.shape, f"dout shape {tuple(dout.shape)}")
-    for name, t, shape in (("lse_h", lse_h, (b, MH_HEADS, lq)),
-                           ("delta_h", delta_h, (b, MH_HEADS, lq)),
-                           ("drec", drec, (b, lq, s))):
+    rows = (b, MH_HEADS, lq)
+    for name, t, shape in (("out", out, q.shape), ("rec_h", rec_h, (*rows, s)),
+                           ("lse_h", lse_h, rows), ("drec", drec, (b, lq, s))):
         _check(t.device == q.device and t.dtype == torch.float32
-               and t.is_contiguous() and tuple(t.shape) == shape,
-               f"{name} must be contiguous f32 {shape}")
-    drec_h = (drec / MH_HEADS).contiguous()
+               and t.is_contiguous() and tuple(t.shape) == tuple(shape),
+               f"{name} must be contiguous f32 {tuple(shape)}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lqp = _scratch_cols(lq)
+    lse2_b = _aligned(b * MH_HEADS * lqp * 4)
+    rterm_b = _aligned(b * MH_HEADS * s * lqp * 4)
+    base = _workspace(lse2_b + rterm_b + -(-s // MH_BWD_DQ_SLOTS) * b * lq
+                      * q.shape[-1] * 4, q.device, stream)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(bank_k), torch.empty_like(bank_v)
     err = _mh_bwd_entry()(
         q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(), dout.data_ptr(),
-        lse_h.data_ptr(), delta_h.data_ptr(), drec_h.data_ptr(),
-        count.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        MH_HEADS, lq, s, lk, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), rec_h.data_ptr(), lse_h.data_ptr(),
+        drec.data_ptr(), count.data_ptr(), base,
+        base + lse2_b, base + lse2_b + rterm_b, dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, MH_HEADS, lq, s, lk, float(scale), stream)
     build.check(err, "bank_attention_mh_bwd")
     bank_attention_bwd_mh.launches += 1
     return dq, dk, dv
@@ -1054,9 +1184,9 @@ class _BankAttentionMH(torch.autograd.Function):
                 else dout.to(q.dtype).contiguous())
         drec = (rec_h.new_zeros(rec_h[:, 0].shape) if drec is None
                 else drec.float().contiguous())
-        delta_h = bwd_delta_mh(dout, out, drec, rec_h)
-        dq, dk, dv = bank_attention_bwd_mh(q, bank_k, bank_v, count, dout,
-                                           lse_h, delta_h, drec, ctx.scale)
+        dq, dk, dv = bank_attention_bwd_mh(q, bank_k, bank_v, count, out,
+                                           rec_h, lse_h, dout, drec,
+                                           ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -176,8 +176,9 @@ def test_k2h_plain_stages_compose_to_autograd():
         np.testing.assert_allclose(got.numpy(), ref.numpy(), **KERNEL_TOL,
                                    err_msg=name)
     assert torch.all(dk[count:] == 0) and torch.all(dv[count:] == 0)
-    # the wrapper takes the stages for CPU tensors
-    got = kb.bank_attention_bwd_mh(*args)
+    # the wrapper takes the stages for CPU tensors, delta_h from out, rec_h
+    got = kb.bank_attention_bwd_mh(_t(q), _t(bk), _t(bv), cnt, out, rec_h,
+                                   lse_h, _t(dout), _t(drec), scale)
     assert all(torch.equal(a, r) for a, r in zip(got, (dq, dk, dv)))
 
 
