@@ -24,7 +24,10 @@ non-zero exit code:
    phase 7's two batch-2 grids, from HBM and L2-resident; K8) at 481x849,
    and the training kernels (K1' with its lse output, beside SDPA, at 4
    valid slots and at 2, where its output must not lie on the bf16 grid;
-   K2's three backward kernels with a nonzero drec, K5's forward and
+   K2's split backward (csrc/bank_attention_bwd.cu: its dq kernel with the
+   sum of the slot groups' partials, its dk and its dv kernel, held each
+   against its plain form, timed each and by kernel) with a nonzero drec,
+   K5's forward and
    backward kernels, each backward output against its plain version and
    autograd of the plain forward, K7 forward and backward beside cuDNN's
    chain through autograd) at the training shapes, and AOT's training
@@ -82,7 +85,9 @@ non-zero exit code:
    465x465, 15 frames, 4 clips of seeded synthetic blobs, with the
    use_prev_pred curriculum starting inside the run. Launch counts are
    zeroed just before and read just after, and each step's are exact
-   (TRAIN_LAUNCHES: K1' and K4 87, K2's three kernels and K5's backward
+   (TRAIN_LAUNCHES: K1' and K4 87, K2's split backward (one wrapper
+   call: the dq kernel and its sum, the dk and the dv kernel) and K5's
+   backward
    45, K7 1, K1'h and K2h 0); losses finite, parameters changed;
    seconds per step (median and each) and peak memory beside the card and
    the host;
@@ -153,7 +158,7 @@ non-zero exit code:
    counted on the host, finite losses, parameters changed, the curriculum
    started; s/step, peak memory (`--profile`: busy ms a step, top ops);
 16. phase 6 for phase 15's model: one step of the kernel model, every
-   K1'x2, K2x2 (its three kernels against their plain stages on the
+   K1'x2, K2x2 (its dq, dk and dv against their plain form on the
    call's own forward), K4x2 and K5x2-backward call held against its plain
    version, and one of the all-plain model on the same batch, weights and
    shuffle: loss and global gradient norm;
@@ -169,7 +174,7 @@ non-zero exit code:
    kernel engine's labels through frame 8, as phase 14;
 19. phase 5 for R50-AOTL with no_memory_gap: 6 steps, exact launches in
    each (K1'x2v128 87, K2x2v128's fused pair 45: one wrapper call each, the
-   dkv kernel, the dq kernel and its sum; K2's scratch kernels, the 8-head
+   dkv kernel, the dq kernel and its sum; K2's split kernels, the 8-head
    and DeAOT kernels 0, K7 1), 6 FIFO evictions a clip, finite losses,
    parameters changed, the curriculum started; s/step, peak memory
    (`--profile`: busy ms a step, top ops);
@@ -182,7 +187,8 @@ Prints the `kernels` JSON line, then the card line, then the result line
 no CUDA device is available or the package is not beside this script.
 
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
-(held_k2; K1'x2 + K2x2 by held_k2h at 2 heads, values 512 a head), K4
+(held_k2; K1'x2 + K2x2 by held_k2h at 2 heads, values 512 a head, at 9
+valid slots and on keys that cancel), K4
 and K5's backward (held_k4, held_k5; each at one head and at two), K1, K3 and K1' (held_k1, held_k3, held_k2, held_k1ph; each at one
 head and at two, K1 and K1' also at values 128 a head), K1h, K3h and K1'h
 (held_k1h, held_k3h, held_k1ph), K2x2v128's fused pair (held_k2h at 2
@@ -191,10 +197,13 @@ heads, values 128 a head, at 4 valid slots and on keys that cancel), K2h
 that cancel), K1'x2v128 (held_k1ph at 9, 4 and 1 valid slots) and K6 and
 K7 (held, held_k7): for each
 mutant (MUTANTS), the package is copied into a temporary directory, one
-line of the kernel's source (or its wrapper) is changed there (K2: ds drops the slot-mass
-term, or dq the logit scale; K2x2: head 1 reads head 0's q and k
-columns, or the wrapper hands each head drec undivided by the head
-count; K4: the accumulator is not rescaled when a
+line of the kernel's source (or its wrapper) is changed there (K2 and
+K2x2's split kernels: the dk kernel's ds drops the row term, the
+wrapper's row term the slot mass's share, dq the logit scale, dq and dk
+the lo plane of ds, head 1 reads head 0's resident values or rows, every
+value group of the dv kernel the first group's dO, the sum of dq's
+partials drops a last group of one slot, or the invalid slots' dk or dv
+is computed, not zeroed; K4: the accumulator is not rescaled when a
 row's maximum grows, or the bias is read at the transposed offset; K5: dq
 drops the scale, the key side reads p and ds unmirrored, or ds drops
 delta; K4 at 2 heads: head 1 reads head 0's bias; K5 at 2 heads: head
@@ -1357,16 +1366,16 @@ def rel_err(got, ref) -> float:
 
 
 def held_k2(q, bank_k, bank_v, count, dout, drec, scale):
-    """K2 on one call's inputs: the forward (K1 with lse) and each of the
-    three backward kernels against its plain version on the same inputs,
-    and the whole backward against autograd of the plain forward. Returns
-    {check: max |kernel - plain| / max |plain|}, failing the run past
-    GRAD_TOL (K1's outputs past OUT_TOL, lse past LSE_TOL absolute)."""
+    """K2 on one call's inputs: the forward (K1 with lse), the split
+    backward's dq, dk and dv kernels against their plain form on the same
+    inputs (held_split_call), and the whole backward against autograd of
+    the plain forward. Returns {check: max |kernel - plain| / max |plain|},
+    failing the run past GRAD_TOL (K1's outputs past OUT_TOL, lse past
+    LSE_TOL absolute)."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
     n = int(count)
-    lk = bank_k.shape[2]
     out, rec, lse = kb.bank_attention_lse(q, bank_k, bank_v, count, scale)
     ref_out, ref_rec = kb.bank_attention_plain(q.float(), bank_k, bank_v,
                                                count, 1, scale)
@@ -1379,25 +1388,11 @@ def held_k2(q, bank_k, bank_v, count, dout, drec, scale):
             "rec": (rec - ref_rec).abs().max().item(),
             "lse": (lse - ref_lse).abs().max().item(),
             "out_on_bf16_grid": on_grid[out != 0].float().mean().item()}
-    delta = kb.bwd_delta(dout, out, drec, rec)
-    p, ds = kb.bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse,
-                                     delta, drec, scale)
-    rp, rds = kb.bank_attention_bwd_ds_plain(q, bank_k, bank_v, count, dout,
-                                             lse, delta, drec, scale)
-    ds32 = ds.float().sum(0)          # the hi + lo pair
-    errs["p"] = rel_err(p[:, :n, :, :lk], rp[:, :n])
-    errs["ds"] = rel_err(ds32[:, :n, :, :lk], rds[:, :n])
-    dq = kb.bank_attention_bwd_dq(bank_k, ds, count, scale)
-    errs["dq"] = rel_err(dq, kb.bank_attention_bwd_dq_plain(
-        ds32[:, :n, :, :lk], bank_k[:n], scale))
-    dk, dv = kb.bank_attention_bwd_dkv(q, dout, p, ds, count, scale, lk)
-    rdk, rdv = kb.bank_attention_bwd_dkv_plain(p[:, :n, :, :lk],
-                                               ds32[:, :n, :, :lk], q, dout,
-                                               scale)
-    errs["dk"] = rel_err(dk[:n], rdk)
-    errs["dv"] = rel_err(dv[:n], rdv)
-    check(bool((dk[n:] == 0).all() and (dv[n:] == 0).all()),
-          "K2 gradients of invalid slots are not 0")
+    delta_h = kb.bwd_delta_mh(dout, out, drec, rec[:, None])
+    (dq, dk, dv), call_errs = held_split_call(
+        q, bank_k, bank_v, count, dout, lse[:, None], delta_h, drec, scale,
+        "K2")
+    errs.update(call_errs)
     gq, gk, gv = kb.bank_attention_bwd_plain(q, bank_k, bank_v, count, dout,
                                              drec, scale)
     errs["whole_dq"] = rel_err(dq, gq)
@@ -1605,42 +1600,49 @@ def held_k2x2v128_call(q, bank_k, bank_v, count, dout, lse_h, delta_h,
     return (dq, dk, dv), errs
 
 
-def held_k2x2_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
-                   scale):
-    """One K2x2 call (K2's three kernels at no_memory_gap's 2 heads of 128,
-    the wrappers `bank_attention_bwd_ds`, `_dq`, `_dkv`) against its plain
-    stages on the valid slots, fed the same lse_h and delta_h: p and ds
-    (the hi + lo pair) against the head-generic plain p and ds, dq, dk and
-    dv against `bank_attention_bwd_mh_dq_plain` and `_dkv_plain` (GRAD_TOL
-    of each one's max), and dk and dv exactly 0 in slots >= count. At
-    values 128 a head, the fused route's call (held_k2x2v128_call). Returns
-    ((dq, dk, dv), {check: error})."""
+def held_split_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
+                    scale, label: str):
+    """One call of K2's split backward (the wrapper
+    `bank_attention_bwd_split`: the dq kernel with the sum of its slot
+    groups' partials, the dk kernel and the dv kernel) against its plain
+    form on the valid slots, fed the same lse_h and delta_h [B, h, Lq]: dq,
+    dk and dv against `bank_attention_bwd_split_plain` (GRAD_TOL of each
+    one's max), and dk and dv exactly 0 in slots >= count. The blocks the
+    call allocates dk and dv from are filled with NaN first, so a slot or a
+    value group the kernels leave unwritten shows. Returns ((dq, dk, dv),
+    {check: error})."""
     import torch
 
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    n = int(count)
+    poison = [torch.full_like(t, float("nan")) for t in (bank_k, bank_v)]
+    del poison
+    dq, dk, dv = kb.bank_attention_bwd_split(q, bank_k, bank_v, count, dout,
+                                             lse_h, delta_h, drec, scale)
+    rdq, rdk, rdv = kb.bank_attention_bwd_split_plain(
+        q, bank_k[:n], bank_v[:n], count, dout, lse_h, delta_h,
+        drec[..., :n].contiguous(), scale)
+    errs = {"dq": rel_err(dq, rdq), "dk": rel_err(dk[:n], rdk),
+            "dv": rel_err(dv[:n], rdv)}
+    for key, err in errs.items():
+        check(err <= GRAD_TOL, f"{label} {key}: {err} (tolerance {GRAD_TOL})")
+    check(bool((dk[n:] == 0).all() and (dv[n:] == 0).all()),
+          f"{label} gradients of invalid slots are not 0")
+    return (dq, dk, dv), errs
+
+
+def held_k2x2_call(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec,
+                   scale):
+    """One K2x2 call at no_memory_gap's 2 heads of 128 against its plain
+    form (held_split_call: K2's split kernels at values 512 a head), or at
+    values 128 a head the fused route's call (held_k2x2v128_call). Returns
+    ((dq, dk, dv), {check: error})."""
     from rmem_tpu_torch.kernels import bank_attention as kb
     if kb.bwd_route(2, 128, bank_v.shape[-1] // 2) == "fused":
         return held_k2x2v128_call(q, bank_k, bank_v, count, dout, lse_h,
                                   delta_h, drec, scale)
-    n, lk = int(count), bank_k.shape[2]
-    p, ds = kb.bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse_h,
-                                     delta_h, drec, scale, 2)
-    dq = kb.bank_attention_bwd_dq(bank_k, ds, count, scale, 2)
-    dk, dv = kb.bank_attention_bwd_dkv(q, dout, p, ds, count, scale, lk, 2)
-    args = (q, bank_k[:n], bank_v[:n], count, dout, lse_h, delta_h,
-            drec[..., :n].contiguous(), scale)
-    rp, rds = kb._mh_p_ds(*args)                     # [B, h, Lq, n, Lk]
-    errs = {"p": rel_err(p[:, :, :n, :, :lk], rp.transpose(2, 3)),
-            "ds": rel_err(ds.float().sum(0)[:, :, :n, :, :lk],
-                          rds.transpose(2, 3))}
-    del rp, rds
-    rdk, rdv = kb.bank_attention_bwd_mh_dkv_plain(*args)
-    errs.update(dq=rel_err(dq, kb.bank_attention_bwd_mh_dq_plain(*args)),
-                dk=rel_err(dk[:n], rdk), dv=rel_err(dv[:n], rdv))
-    for key, err in errs.items():
-        check(err <= GRAD_TOL, f"K2x2 {key}: {err} (tolerance {GRAD_TOL})")
-    check(bool((dk[n:] == 0).all() and (dv[n:] == 0).all()),
-          "K2x2 gradients of invalid slots are not 0")
-    return (dq, dk, dv), errs
+    return held_split_call(q, bank_k, bank_v, count, dout, lse_h, delta_h,
+                           drec, scale, "K2x2")
 
 
 def held_k2h(q, bank_k, bank_v, count, dout, drec, scale, heads: int = 8,
@@ -1860,6 +1862,42 @@ def k2x2_inputs(dev, slots: int = 10, count: int = 9, values: int = 1024,
             randn(b, hw, slots, dtype=torch.float32), 128 ** -0.5)
 
 
+def split_stages(fargs, pargs, suffix, b, lq, lk, S, count, dh, dv, rows_b,
+                 sdpa_bwd_ms) -> dict:
+    """K2's split kernels as k2x2_case's stages (and check_train_kernels'
+    rows at one head): "bank_attention_bwd_split_dq" (the dq kernel and the
+    sum of its slot groups' partials), "_dk" and "_dv", each + `suffix`,
+    timed through `_split_call` on `fargs` (q, bank_k, bank_v, count, dout,
+    lse2, rterm, scale) beside its output of the plain form on `pargs` (the
+    valid slots); dh and dv the widths over the heads. The bound counts the
+    function's products of each role (dq: S, G, dQ; dk: S, G, dK; dv: S,
+    dV); `design_flops` the design's own (ds's lo plane in dQ and dK, S
+    recomputed by each value group), the bytes each role must move."""
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    kv = count * lk
+    qb, kb_, vb = b * lq * dh * 2, kv * b * dh * 2, kv * b * dv * 2
+    ob = b * lq * dv * 2
+    groups = dv // (kb.SPLIT_DV_COLUMNS * (dh // 128))
+    plain = lambda i: (lambda: kb.bank_attention_bwd_split_plain(*pargs)[i])
+    pairs = 2.0 * b * lq * kv
+    return {
+        "bank_attention_bwd_split_dq" + suffix: dict(
+            fn=lambda: kb._split_call("dq", *fargs), plain=plain(0),
+            flops=pairs * (2 * dh + dv), design_flops=pairs * (3 * dh + dv),
+            nbytes=qb + ob + kb_ + vb + rows_b + qb, library=None,
+            sdpa_bwd_ms=sdpa_bwd_ms),
+        "bank_attention_bwd_split_dk" + suffix: dict(
+            fn=lambda: kb._split_call("dk", *fargs), plain=plain(1),
+            flops=pairs * (2 * dh + dv), design_flops=pairs * (3 * dh + dv),
+            nbytes=qb + ob + kb_ + vb + rows_b + S * b * lk * dh * 2,
+            library=None, sdpa_bwd_ms=sdpa_bwd_ms),
+        "bank_attention_bwd_split_dv" + suffix: dict(
+            fn=lambda: kb._split_call("dv", *fargs), plain=plain(2),
+            flops=pairs * (dh + dv), design_flops=pairs * (groups * dh + dv),
+            nbytes=qb + ob + kb_ + rows_b + S * b * lk * dv * 2,
+            library=None, sdpa_bwd_ms=sdpa_bwd_ms)}
+
+
 def k2x2_case(args, suffix: str = "_h2") -> dict:
     """One K1'x2 + K2x2 call shape: each stage timed (CUDA events) beside
     its plain version, its bound and, where one exists, the library's call
@@ -1867,17 +1905,18 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
     its backward as forward + backward less forward). Returns {stage:
     {ms, plain_ms, bound_ms, bound_by, library_ms}}, the stages K2x2's rows'
     names (ending in `suffix`) and "whole" (the row term and the kernels):
-    at values 512 a head K2's three scratch kernels (ds, dq, dkv), at values
-    128 a head the fused pair (dkv; dq with the sum of its slot groups'
-    partials), each fused stage also beside SDPA's whole backward
-    (`sdpa_bwd_ms`), the whole with its device time by kernel (profiler)."""
+    at values 512 a head K2's split kernels (dq with the sum of its slot
+    groups' partials, dk, dv), at values 128 a head the fused pair (dkv; dq
+    with the sum), each backward stage also beside SDPA's whole backward
+    (`sdpa_bwd_ms`) and the design's own products at the peak rate
+    (`design_ms`), the whole with its device time by kernel (profiler)."""
     import torch
     import torch.nn.functional as F
 
     from rmem_tpu_torch.kernels import bank_attention as kb
     q, bk, bv, cnt, dout, drec, scale = args
     (S, b, lk, _), lq, count = bk.shape, q.shape[1], int(cnt)
-    kv, lkp = count * lk, (lk + 63) // 64 * 64
+    kv = count * lk
     dh, dv = 256, bv.shape[-1]              # widths over the two heads
     fused = kb.bwd_route(2, 128, dv // 2) == "fused"
     out, rec_h, lse_h = kb.bank_attention_lse(q, bk, bv, cnt, scale, 2)
@@ -1904,7 +1943,6 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
     # bytes: inputs read once (valid slots only), outputs written once
     qb, kb_, vb = b * lq * dh * 2, kv * b * dh * 2, kv * b * dv * 2
     ob, sb = b * lq * dv * 2, b * 2 * lq * 4
-    pb = b * 2 * count * lq * lkp * 2
     stages = {
         "bank_attention_lse" + suffix: dict(
             fn=lambda: kb.bank_attention_lse(q, bk, bv, cnt, scale, 2),
@@ -1913,11 +1951,11 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
             flops=2.0 * b * lq * kv * (dh + dv),
             nbytes=qb + kb_ + vb + 2 * ob + b * 2 * lq * S * 4 + sb,
             library=sdpa_fwd_ms)}
+    lse2, rterm = kb.fused_rows(lse_h, delta_h, drec)
+    fargs = (q, bk, bv, cnt, dout, lse2, rterm, scale)
+    # the row arrays: lse2 and each valid slot's rterm, f32
+    rows_b = (b * 2 * lse2.shape[-1] * (1 + count)) * 4
     if fused:
-        lse2, rterm = kb.fused_rows(lse_h, delta_h, drec)
-        fargs = (q, bk, bv, cnt, dout, lse2, rterm, scale)
-        # the row arrays: lse2 and each valid slot's rterm, f32
-        rows_b = (b * 2 * lse2.shape[-1] * (1 + count)) * 4
         stages.update({
             # the bound counts the function's products (dkv: S^T, G^T, dV,
             # dK; dq: S, G, dQ); `design_flops` adds the design's own, ds's
@@ -1937,36 +1975,11 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
                 design_flops=2.0 * b * lq * kv * (3 * dh + dv),
                 nbytes=qb + ob + kb_ + vb + rows_b + qb,
                 library=None, sdpa_bwd_ms=sdpa_bwd_ms)})
-        whole_fn = lambda: kb.bank_attention_bwd(
-            q, bk, bv, cnt, out, rec_h, lse_h, dout, drec, scale, 2)
     else:
-        p, ds = kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout, lse_h,
-                                         delta_h, drec, scale, 2)
-        stages.update({
-            "bank_attention_bwd_ds" + suffix: dict(
-                fn=lambda: kb.bank_attention_bwd_ds(q, bk, bv, cnt, dout,
-                                                    lse_h, delta_h, drec,
-                                                    scale, 2),
-                plain=lambda: kb._mh_p_ds(*sargs),
-                flops=2.0 * b * lq * kv * (dh + dv),
-                nbytes=qb + kb_ + vb + ob + 2 * sb + b * lq * S * 4 + 3 * pb,
-                library=None),
-            "bank_attention_bwd_dq" + suffix: dict(
-                fn=lambda: kb.bank_attention_bwd_dq(bk, ds, cnt, scale, 2),
-                plain=lambda: kb.bank_attention_bwd_mh_dq_plain(*sargs),
-                flops=2 * 2.0 * b * lq * kv * dh, nbytes=2 * pb + kb_ + qb,
-                library=cuda_ms(lambda: torch.einsum(
-                    "xbhsqk,sbkhd->bqhd", ds[..., :count, :, :lk],
-                    bk[:count].unflatten(-1, (2, 128))), 10)),
-            "bank_attention_bwd_dkv" + suffix: dict(
-                fn=lambda: kb.bank_attention_bwd_dkv(q, dout, p, ds, cnt,
-                                                     scale, lk, 2),
-                plain=lambda: kb.bank_attention_bwd_mh_dkv_plain(*sargs),
-                flops=2.0 * b * lq * kv * (2 * dh + dv),
-                nbytes=3 * pb + qb + ob + S * b * lk * (dh + dv) * 2,
-                library=None)})
-        whole_fn = lambda: kb.bank_attention_bwd(
-            q, bk, bv, cnt, out, rec_h, lse_h, dout, drec, scale, 2)
+        stages.update(split_stages(fargs, sargs, suffix, b, lq, lk, S,
+                                   count, dh, dv, rows_b, sdpa_bwd_ms))
+    whole_fn = lambda: kb.bank_attention_bwd(
+        q, bk, bv, cnt, out, rec_h, lse_h, dout, drec, scale, 2)
     stages["whole"] = dict(
         fn=whole_fn,
         plain=lambda: kb.bank_attention_bwd_plain(q, bk, bv, cnt, dout, drec,
@@ -1988,8 +2001,8 @@ def k2x2_case(args, suffix: str = "_h2") -> dict:
             rows[name]["sdpa_bwd_ms"] = r["sdpa_bwd_ms"]
         if "design_flops" in r:
             rows[name]["design_ms"] = r["design_flops"] / PEAK_BF16_FLOPS * 1e3
+    rows["whole"]["split_ms"] = kernel_split_ms(whole_fn)
     if fused:
-        rows["whole"]["split_ms"] = kernel_split_ms(whole_fn)
         lse_row = rows["bank_attention_lse" + suffix]
         lse_row["split_ms"] = kernel_split_ms(
             stages["bank_attention_lse" + suffix]["fn"])
@@ -2042,7 +2055,7 @@ def nmg_bank_train_rows(dev, values: int = 1024, suffix: str = "_h2"):
                    else f"{r['library_ms']:.4f}")
                 + (f", SDPA backward {r['sdpa_bwd_ms']:.4f}"
                    if "sdpa_bwd_ms" in r else "")
-                + (f", the design's products with ds's lo plane "
+                + (f", the design's own products "
                    f"{r['design_ms']:.4f} at the peak rate"
                    if "design_ms" in r else "") + ")"
                 if "bound_ms" in r else "")
@@ -2076,13 +2089,12 @@ def nmg_bank_train_rows(dev, values: int = 1024, suffix: str = "_h2"):
                 "rmem_tpu/kernels/bank_attention.py:113")})
     else:
         stages.update({
-            "bank_attention_bwd_ds": (
-                worst("p", "ds"), bwd,
-                "rmem_tpu/kernels/bank_attention.py:581"),
-            "bank_attention_bwd_dq": (
+            "bank_attention_bwd_split_dq": (
                 worst("dq"), bwd, "rmem_tpu/kernels/bank_attention.py:113"),
-            "bank_attention_bwd_dkv": (
-                worst("dk", "dv"), bwd,
+            "bank_attention_bwd_split_dk": (
+                worst("dk"), bwd, "rmem_tpu/kernels/bank_attention.py:155"),
+            "bank_attention_bwd_split_dv": (
+                worst("dv"), bwd,
                 "rmem_tpu/kernels/bank_attention.py:155")})
     entries = {}
     for stage, (err, source, replaces) in stages.items():
@@ -2152,7 +2164,7 @@ def check_nmg_train_kernels(dev):
 
 
 def check_train_kernels(dev):
-    """Phase 2, training rows: K1 with lse and the three K2 kernels at the
+    """Phase 2, training rows: K1 with lse and K2's split kernels at the
     training shapes (B 4, a 30 x 30 grid, 4 valid slots of 10), K5's
     forward (K4) and backward kernels (each backward output against its
     plain version and autograd of the plain forward), and K7 (kernel
@@ -2183,16 +2195,13 @@ def check_train_kernels(dev):
               + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
     entries = {}
     kv = count * hw
-    lkp = (hw + 63) // 64 * 64
     out, rec, lse = kb.bank_attention_lse(q, bk, bvv, cnt, scale)
-    delta = kb.bwd_delta(dout, out, drec, rec)
-    p, ds = kb.bank_attention_bwd_ds(q, bk, bvv, cnt, dout, lse, delta, drec,
-                                     scale)
-    ds32 = ds.float().sum(0)
+    lse_h = lse[:, None]
+    delta_h = kb.bwd_delta_mh(dout, out, drec, rec[:, None])
+    lse2, rterm = kb.fused_rows(lse_h, delta_h, drec)
     # bytes: inputs read once (valid slots only), outputs written once
     qb, kb_, vb = b * hw * dh * 2, kv * b * dh * 2, kv * b * dv * 2
     ob, sb = b * hw * dv * 2, b * hw * 4
-    pb = b * count * hw * lkp * 2
     # the library's attention, no slot mass: over the valid slots only (the
     # kernels' work), and over all S slots with the invalid ones masked by
     # an additive mask (2.5x the keys at 4 of 10)
@@ -2215,39 +2224,20 @@ def check_train_kernels(dev):
             err=max(errs["out"], errs["lse"]),
             library=lambda: F.scaled_dot_product_attention(
                 q[:, None], *lib_valid, scale=scale)),
-        "bank_attention_bwd_ds": dict(
-            replaces="rmem_tpu/kernels/bank_attention.py:581",
-            source="rmem_tpu_torch/csrc/bank_attention_bwd.cu",
-            fn=lambda: kb.bank_attention_bwd_ds(q, bk, bvv, cnt, dout, lse,
-                                                delta, drec, scale),
-            plain=lambda: kb.bank_attention_bwd_ds_plain(
-                q, bk, bvv, cnt, dout, lse, delta, drec, scale),
-            flops=2.0 * b * hw * kv * (dh + dv),
-            nbytes=qb + kb_ + vb + ob + 2 * sb + b * hw * S * 4 + 3 * pb,
-            err=max(errs["p"], errs["ds"]), library=None),
-        "bank_attention_bwd_dq": dict(
-            replaces="rmem_tpu/kernels/bank_attention.py:113",
-            source="rmem_tpu_torch/csrc/bank_attention_bwd.cu",
-            fn=lambda: kb.bank_attention_bwd_dq(bk, ds, cnt, scale),
-            plain=lambda: kb.bank_attention_bwd_dq_plain(
-                ds32[:, :count, :, :hw], bk[:count], scale),
-            flops=2 * 2.0 * b * hw * kv * dh, nbytes=2 * pb + kb_ + qb,
-            err=errs["dq"],
-            library=lambda: torch.einsum("xbsqk,sbkd->bqd",
-                                         ds[:, :, :count, :, :hw],
-                                         bk[:count])),
-        "bank_attention_bwd_dkv": dict(
-            replaces="rmem_tpu/kernels/bank_attention.py:155",
-            source="rmem_tpu_torch/csrc/bank_attention_bwd.cu",
-            fn=lambda: kb.bank_attention_bwd_dkv(q, dout, p, ds, cnt, scale,
-                                                 hw),
-            plain=lambda: kb.bank_attention_bwd_dkv_plain(
-                p[:, :count, :, :hw], ds32[:, :count, :, :hw], q, dout,
-                scale),
-            flops=2.0 * b * hw * kv * (2 * dh + dv),
-            nbytes=3 * pb + qb + ob + S * b * hw * (dh + dv) * 2,
-            err=max(errs["dk"], errs["dv"]), library=None),
     }
+    # K2's split kernels, dq with the sum of its slot groups' partials
+    split = split_stages(
+        (q, bk, bvv, cnt, dout, lse2, rterm, scale),
+        (q, bk[:count], bvv[:count], cnt, dout, lse_h, delta_h,
+         drec[..., :count].contiguous(), scale),
+        "", b, hw, hw, S, count, dh, dv, b * lse2.shape[-1] * (1 + count) * 4,
+        None)
+    for name, r in split.items():
+        role = name.rsplit("_", 1)[1]
+        r.update(source="rmem_tpu_torch/csrc/bank_attention_bwd.cu",
+                 replaces="rmem_tpu/kernels/bank_attention.py:"
+                 + ("113" if role == "dq" else "155"), err=errs[role])
+    rows.update(split)
     for name, r in rows.items():
         b_ms, b_by = bound(r["flops"], r["nbytes"])
         entries[name] = dict(
@@ -2257,6 +2247,9 @@ def check_train_kernels(dev):
             bound_ms=b_ms, bound_by=b_by,
             library_ms=(None if r["library"] is None
                         else cuda_ms(r["library"], 10)))
+        if "design_flops" in r:
+            entries[name]["design_ms"] = (r["design_flops"] / PEAK_BF16_FLOPS
+                                          * 1e3)
 
     entries["bank_attention_lse"]["library_masked_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(q[:, None], *lib_all,
@@ -2294,12 +2287,19 @@ def check_train_kernels(dev):
         bound_ms=bound(2.0 * b * hw * kv * (3 * dh + 2 * dv),
                        2 * qb + kb_ + vb + 3 * ob + sb + 2 * b * hw * S * 4
                        + S * b * hw * (dh + dv) * 2)[0],
-        held=errs)
+        split_ms=kernel_split_ms(k2), held=errs)
+    for name in split:
+        entries[name]["sdpa_bwd_ms"] = whole["library_bwd_ms"]
     print(f"K2 whole backward: {whole['ms']:.3f} ms (plain autograd "
           f"{whole['plain_ms']:.3f} ms, library attention backward over the "
           f"{count} valid slots {whole['library_bwd_ms']:.3f} ms, over all "
           f"{S} with a mask {whole['library_bwd_masked_ms']:.3f} ms, bound "
-          f"{whole['bound_ms']:.3f} ms)")
+          f"{whole['bound_ms']:.3f} ms); by kernel (profiler, ms a call): "
+          + ", ".join(f"{k[:48]} {x:.4f}"
+                      for k, x in whole["split_ms"].items())
+          + "; by role: " + ", ".join(
+              f"{name} {entries[name]['ms']:.4f} (design at the peak rate "
+              f"{entries[name]['design_ms']:.4f})" for name in split))
 
     # ---- K5: the local attention's forward (K4) and backward kernels ----
     k5_args = k5_inputs(dev)
@@ -3117,9 +3117,7 @@ def optin_agreement(dev):
 
 
 TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
-                 ("bank_attention", "bank_attention_bwd_ds"),
-                 ("bank_attention", "bank_attention_bwd_dq"),
-                 ("bank_attention", "bank_attention_bwd_dkv"),
+                 ("bank_attention", "bank_attention_bwd_split"),
                  ("local_attention", "local_attention"),
                  ("local_attention", "local_attention_bwd"),
                  ("stem", "stem"),
@@ -3130,18 +3128,17 @@ TRAIN_KERNELS = (("bank_attention", "bank_attention_lse"),
 # layers' bank (and DeAOT's local) attention forward over 15 frames and
 # again over the 14 checkpointed ones, its backward over 15, the stem once
 # over the clip's 60 frames; no_memory_gap's (phases 15 and 19) at 2 heads
-# of 128 through the same wrappers, R50-AOTL's backward (values 128 a head)
-# through the fused pair (one wrapper call: the dkv kernel, the dq kernel
-# and its sum) instead of K2's three scratch kernels
+# of 128 through the same wrappers; K2's backward is one wrapper call (the
+# split route: the dq kernel and its sum, the dk and the dv kernel), and
+# R50-AOTL's backward (values 128 a head) goes through the fused pair (one
+# wrapper call: the dkv kernel, the dq kernel and its sum) instead
 _FWD, _BWD = 3 * (2 * TRAIN_T - 1), 3 * TRAIN_T
 TRAIN_LAUNCHES = {
-    "r50_deaotl": dict(bank_attention_lse=_FWD, bank_attention_bwd_ds=_BWD,
-                       bank_attention_bwd_dq=_BWD, bank_attention_bwd_dkv=_BWD,
+    "r50_deaotl": dict(bank_attention_lse=_FWD, bank_attention_bwd_split=_BWD,
                        local_attention=_FWD, local_attention_bwd=_BWD,
                        stem=1, bank_attention_lse_mh=0,
                        bank_attention_bwd_mh=0, bank_attention_bwd_fused=0),
-    "r50_aotl": dict(bank_attention_lse=0, bank_attention_bwd_ds=0,
-                     bank_attention_bwd_dq=0, bank_attention_bwd_dkv=0,
+    "r50_aotl": dict(bank_attention_lse=0, bank_attention_bwd_split=0,
                      local_attention=0, local_attention_bwd=0, stem=1,
                      bank_attention_lse_mh=_FWD,
                      bank_attention_bwd_mh=_BWD, bank_attention_bwd_fused=0),
@@ -3150,9 +3147,7 @@ TRAIN_LAUNCHES["r50_deaotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"])
 TRAIN_LAUNCHES["r50_aotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"],
                                       local_attention=0,
                                       local_attention_bwd=0,
-                                      bank_attention_bwd_ds=0,
-                                      bank_attention_bwd_dq=0,
-                                      bank_attention_bwd_dkv=0,
+                                      bank_attention_bwd_split=0,
                                       bank_attention_bwd_fused=_BWD)
 TRAIN_PHASE = {"r50_deaotl": ("phase 5", "R50-DeAOTL"),
                "r50_aotl": ("phase 11", "R50-AOTL"),
@@ -3402,8 +3397,8 @@ def held_train_step(dev, model: str = "r50_deaotl"):
                                  scale))
             return kernel_bwd(q, bank_k, bank_v, count, out, rec, lse, dout,
                               drec, scale)
-        # K2x2 on this call's own forward: its three kernels against their
-        # plain stages
+        # K2x2 on this call's own forward: its split kernels against their
+        # plain form
         delta_h = kb.bwd_delta_mh(dout, out, drec, rec)
         got, errs = held_k2x2_call(q, bank_k, bank_v, count, dout, lse,
                                    delta_h, drec, scale)
@@ -3530,29 +3525,48 @@ def held_train_step(dev, model: str = "r50_deaotl"):
 # Python wrapper)
 MUTANTS = {
     "bank_attention_bwd": ("k2", {
-        # ds drops the slot-mass term
-        "no_drec": [("d[e] = p[e] * (gg[nt][e] + ra - da);",
-                     "d[e] = p[e] * (gg[nt][e] - da);"),
-                    ("d[e + 2] = p[e + 2] * (gg[nt][e + 2] + rc - dc);",
-                     "d[e + 2] = p[e + 2] * (gg[nt][e + 2] - dc);")],
+        # the dk kernel's ds drops the row term (delta and the slot mass)
+        "dk_no_rterm": [("gg[4 * j + q] = p0 * (gg[4 * j + q] + r);",
+                         "gg[4 * j + q] = p0 * gg[4 * j + q];"),
+                        ("gg[4 * j + 2 + q] = p1 * (gg[4 * j + 2 + q] + r);",
+                         "gg[4 * j + 2 + q] = p1 * gg[4 * j + 2 + q];")],
+        # the row term without the slot mass's share (the wrapper's line)
+        "rterm_no_drec": [
+            ("    rterm[..., :lq] = (drec.transpose(1, 2)[:, None] / heads\n"
+             "                       - delta_h[:, :, None])\n",
+             "    rterm[..., :lq] = -delta_h[:, :, None]\n",
+             "rmem_tpu_torch/kernels/bank_attention.py")],
         # dq is not multiplied by the logit scale
-        "dq_scale": [("pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);",
-                      "pack_bf16(acc[nt][0], acc[nt][1]);"),
-                     ("pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);",
-                      "pack_bf16(acc[nt][2], acc[nt][3]);")],
-        # K2x2: head 1's ds reads head 0's q and k columns
-        "k2x2_head0_qk": [
-            ("const bf16* qb = q + ((size_t)b * Lq + q0) * ldk + h * D;",
-             "const bf16* qb = q + ((size_t)b * Lq + q0) * ldk;"),
-            ("const bf16* kb = k + (((size_t)s * B + b) * Lk + key0) * ldk "
-             "+ h * D;",
-             "const bf16* kb = k + (((size_t)s * B + b) * Lk + key0) * ldk;")],
-        # K2x2: drec reaches each head undivided by the head count (the
-        # wrapper's line)
-        "k2x2_drec_undivided": [
-            ("drec_h = (drec / num_heads).contiguous()",
-             "drec_h = drec.contiguous()",
-             "rmem_tpu_torch/kernels/bank_attention.py")]}),
+        "dq_scale": [("      (const float*)part, (const int*)count, "
+                      "(bf16*)dq, n8, S, scale);",
+                      "      (const float*)part, (const int*)count, "
+                      "(bf16*)dq, n8, S, 1.f);")],
+        # dq and dk without the lo plane of ds
+        "no_lo": [("      mul_ab(acc, la, xw);\n", "")],
+        # head 1 reads head 0's resident values (dq: dO; dk: V)
+        "head0_resident_values": [
+            ("tma_load(x + TILE + a * ATOM, my, resbar, a * 64, h, r, zr);",
+             "tma_load(x + TILE + a * ATOM, my, resbar, a * 64, 0, r, zr);")],
+        # head 1 reads head 0's resident queries (dq) or keys (dk)
+        "head0_resident_rows": [
+            ("tma_load(x + a * ATOM, mx, resbar, a * 64, h, r, zr);",
+             "tma_load(x + a * ATOM, mx, resbar, a * 64, 0, r, zr);")],
+        # every value group of the dv kernel reads the first group's dO
+        "dv_group_offset": [("                   grp * NV + a * 64, h, i * BW, "
+                             "b);",
+                             "                   a * 64, h, i * BW, b);")],
+        # the sum of dq's partials drops a last group of one slot
+        "dq_sum_drops_a_group": [
+            ("  const int ng = (clamp_count(count_ptr, S) + G - 1) / G;",
+             "  const int ng = clamp_count(count_ptr, S) / G;")],
+        # the invalid slots' dk is computed, not zeroed
+        "dk_invalid_slots_written": [
+            ("    if (s0 >= count) {   // an invalid slot: exact zeros",
+             "    if (false) {")],
+        # the invalid slots' dv is computed, not zeroed
+        "dv_invalid_slots_written": [
+            ("  if (s >= clamp_count(count_ptr, S)) {   // an invalid slot: "
+             "exact zeros", "  if (s >= S) {")]}),
     "local_attention": ("k4_k5", {
         # K4: the accumulator is not rescaled when a row's maximum grows
         "k4_no_rescale": [
@@ -3837,11 +3851,14 @@ def k1h_check(dev):
 
 
 MUTANT_CHECKS = {
-    # K2 at one head, then K1'x2 + K2x2 at 4 valid slots, values 512 a
-    # head (the scratch route's shapes)
+    # K2 at one head (4 valid slots), then K1'x2 + K2x2 at values 512 a
+    # head (the split route's shapes) at 9 valid slots (a last dq group of
+    # one slot), and at 9 on keys that cancel, fed the plain forward
     "k2": lambda dev: dict(
         h1=held_k2(*k2_inputs(dev)[1]),
-        h2=held_k2h(*k2x2_inputs(dev, count=4), heads=2)),
+        h2=held_k2h(*k2x2_inputs(dev), heads=2),
+        cancelling=held_k2h(*k2x2_inputs(dev, cancel=True), heads=2,
+                            plain_forward=True)),
     "k1h": k1h_check,
     # K1'x2v128 + K2x2v128 at 4 valid slots, and at 9 on keys that cancel
     "k2_fused": lambda dev: dict(
@@ -3981,10 +3998,13 @@ def main() -> int:
     print(f"phases 3 and 4: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train_counts, step_times, peak = train_phase(dev, card, args.profile)
-    # the trainable wrappers launch K4 and K6 forwards
+    # the trainable wrappers launch K4 and K6 forwards; K2's split kernels
+    # launch in one wrapper call
     for key in train_entries:
         fn_name = {"local_attention_fwd_train": "local_attention",
                    "stem_trainable": "stem"}.get(key, key)
+        if fn_name.startswith("bank_attention_bwd_split"):
+            fn_name = "bank_attention_bwd_split"
         train_entries[key]["launches"] = train_counts[fn_name]
     held_step = held_train_step(dev)
     entries.update(train_entries)
@@ -4034,7 +4054,10 @@ def main() -> int:
     nmg_train_counts, nmg_step_times, nmg_peak = train_phase(
         dev, card, args.profile, model="r50_deaotl_nmg")
     for key, e in nmg_train_entries.items():
-        e["launches"] = nmg_train_counts[key.removesuffix("_h2")]
+        fn_name = key.removesuffix("_h2")
+        if fn_name.startswith("bank_attention_bwd_split"):
+            fn_name = "bank_attention_bwd_split"
+        e["launches"] = nmg_train_counts[fn_name]
     entries.update(nmg_train_entries)
     nmg_held_step = held_train_step(dev, "r50_deaotl_nmg")
     print(f"phases 15 and 16: {time.perf_counter() - t0:.1f} s")

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the TMA + wgmma kernels
-// (csrc/bank_attention_infer.cu, csrc/bank_attention_bwd_fused.cu,
-// csrc/bank_attention_mh_bwd.cu, csrc/bank_attention_lse_v128.cu) and the
+// (csrc/bank_attention_infer.cu, csrc/bank_attention_bwd.cu,
+// csrc/bank_attention_bwd_fused.cu, csrc/bank_attention_mh_bwd.cu,
+// csrc/bank_attention_lse_v128.cu) and the
 // TMA ring of csrc/bank_attention_mh.cu: mbarriers, TMA tensor and bulk
 // copies into shared memory, the wgmma products (bf16 in, f32 sums) with
 // their shared-memory descriptors, and the run-time lookup of

@@ -43,9 +43,11 @@ K1'×2ᵛ¹²⁸ (`csrc/bank_attention_lse_v128.cu`: one kernel, 64-query blocks
 whose two consumers take the 64-key chunks in turn and merge in shared
 memory; `bank_attention_lse_v128_plain` is its form), and whose backward
 is kernel K2
-(`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_ds`, `_dq` and `_dkv`,
-the heads on their grids; each head's row term from `bwd_delta_mh`, and
-drec / h into each head, the record being the head mean), except at 2
+(`csrc/bank_attention_bwd.cu`: `bank_attention_bwd_split`, a dq, a dk and
+a dv kernel that recompute p and ds from the lse, no scratch, dV split
+across blocks by value columns; each head's row term from `bwd_delta_mh`,
+and drec / h into each head, the record being the head mean;
+`bank_attention_bwd_split_plain` is its plain form), except at 2
 heads of 128 with values 128 a head, where it is K2×2ᵛ¹²⁸
 (`csrc/bank_attention_bwd_fused.cu`: `bank_attention_bwd_fused`, a dkv and a
 dq kernel that recompute p and ds from the lse, no scratch;
@@ -58,8 +60,8 @@ head's slot mass and lse), and the backward K2ʰ
 rows kernel, which computes each head's row term on the card, a dkv and a
 dq kernel and the sum of dq's slot groups;
 `bank_attention_bwd_mh_form_plain` is its form). The head-generic plain
-stages `bank_attention_bwd_mh_dq_plain` and `_dkv_plain` are K2ʰ's and
-two-head K2's plain versions. Both replace pallas_bank_attention and
+stages `bank_attention_bwd_mh_dq_plain` and `_dkv_plain` are K2ʰ's plain
+versions. Both replace pallas_bank_attention and
 its custom VJP. On the CPU it is autograd through `bank_attention_plain`.
 """
 
@@ -78,7 +80,7 @@ from rmem_tpu_torch.ops.attention import bank_attention
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-BLOCK_K = 64      # key tile of the backward kernels: the scratch pads Lk to it
+BLOCK_K = 64      # row tile of the backward kernels: their rows pad Lq to it
 # K1, K3 and K1': slots walked by one block, fixed in
 # csrc/bank_attention_infer.cu (G, checked against the library when it
 # loads; PERF.md has the sweep of 1, 2, 3 and 9 that chose it)
@@ -103,8 +105,13 @@ V128_CHUNK, V128_CONSUMERS, V128_MAX_SLOTS = 64, 2, 16
 # K2ʰ (csrc/bank_attention_mh_bwd.cu): the slots a dq block walks (G in the
 # source), which sizes its partials
 MH_BWD_DQ_SLOTS = 2
+# K2 and K2×2 (csrc/bank_attention_bwd.cu): the value columns a dv block
+# takes and the slots a dq block walks (NV and G in the source, checked
+# against the library when it loads), and a head's values at most
+SPLIT_DV_COLUMNS, SPLIT_DQ_SLOTS, SPLIT_MAX_VALUES = 256, 2, 1024
 _LOG2E = 1.0 / math.log(2.0)
-# the slot-group kernels' partial state (K1ʰ, K3ʰ, K1'ʰ; K2×2ᵛ¹²⁸'s dq):
+# the slot-group kernels' partial state (K1ʰ, K3ʰ, K1'ʰ; the dq of K2,
+# K2×2 and K2×2ᵛ¹²⁸):
 # one buffer a (device, stream), grown as needed and reused by every call
 # on that stream, so a call allocates none (stream order keeps a call from
 # writing it before the last call's merge has read it)
@@ -623,41 +630,6 @@ def _lse_v128_call(q, bank_k, bank_v, count, scale):
 
 # ---- the backward (kernel K2) --------------------------------------------
 
-def bwd_delta(dout: torch.Tensor, out: torch.Tensor, drec: torch.Tensor,
-              rec: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(dout * out) + rowsum(drec * rec), f32 [B, Lq]: the
-    softmax backward's row term, with the slot mass's share."""
-    return ((dout.float() * out.float()).sum(-1)
-            + (drec.float() * rec.float()).sum(-1)).contiguous()
-
-
-def bank_attention_bwd_ds_plain(q, bank_k, bank_v, count, dout, lse, delta,
-                                drec, scale):
-    """K2's first kernel in plain PyTorch (f32): p = exp(q.k*scale - lse)
-    and ds = p * (dout.v + drec[slot] - delta), [B, S, Lq, Lk], zero in
-    slots >= count."""
-    valid = (torch.arange(bank_k.shape[0], device=q.device) < count)
-    logits = torch.einsum("bqd,sbkd->bsqk", q.float(), bank_k.float()) * scale
-    p = torch.exp(logits - lse.float()[:, None, :, None])
-    p = torch.where(valid[None, :, None, None], p, 0.0)
-    g = torch.einsum("bqd,sbkd->bsqk", dout.float(), bank_v.float())
-    r = drec.float().permute(0, 2, 1)[..., None]            # [B, S, Lq, 1]
-    ds = p * (g + r - delta.float()[:, None, :, None])
-    return p, ds
-
-
-def bank_attention_bwd_dq_plain(ds, bank_k, scale):
-    """dq = scale * sum over slots of ds K, f32 [B, Lq, dh]."""
-    return torch.einsum("bsqk,sbkd->bqd", ds.float(), bank_k.float()) * scale
-
-
-def bank_attention_bwd_dkv_plain(p, ds, q, dout, scale):
-    """dk = scale * ds^T Q, dv = p^T dOut, f32 [S, B, Lk, *]."""
-    dk = torch.einsum("bsqk,bqd->sbkd", ds.float(), q.float()) * scale
-    dv = torch.einsum("bsqk,bqd->sbkd", p.float(), dout.float())
-    return dk, dv
-
-
 def bank_attention_bwd_plain(q, bank_k, bank_v, count, dout, drec, scale,
                              num_heads: int = 1):
     """The whole backward in plain PyTorch: autograd of
@@ -670,13 +642,14 @@ def bank_attention_bwd_plain(q, bank_k, bank_v, count, dout, drec, scale,
                                    (dout.float(), drec.float()))
 
 
-def _scratch_cols(lk: int) -> int:
-    return (lk + BLOCK_K - 1) // BLOCK_K * BLOCK_K
+def _padded_rows(n: int) -> int:
+    return (n + BLOCK_K - 1) // BLOCK_K * BLOCK_K
 
 
 def _check_k2(q, bank_k, bank_v, dout, num_heads) -> Tuple[int, ...]:
-    """K2's kernels' common checks, one or two heads of 128 with values a
-    multiple of 128 a head; returns (s, b, lq, lk, dv), dv a head's."""
+    """The backward kernels' common checks at one or two heads of 128
+    (K2, K2×2 and K2×2ᵛ¹²⁸), values a multiple of 128 a head; returns (s,
+    b, lq, lk, dv), dv a head's."""
     s, b, lk, ck = bank_k.shape
     lq, dv = q.shape[1], bank_v.shape[-1] // num_heads
     _check_bf16(q, q=q, bank_k=bank_k, bank_v=bank_v, dout=dout)
@@ -689,108 +662,6 @@ def _check_k2(q, bank_k, bank_v, dout, num_heads) -> Tuple[int, ...]:
     return s, b, lq, lk, dv
 
 
-def bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse, delta, drec,
-                          scale, num_heads: int = 1):
-    """Launch K2's ds kernel at one or two heads of 128: lse and delta
-    [B, h, Lq] f32, drec [B, Lq, S] f32 the record's cotangent (each head
-    takes drec / h: the record is the head mean). Returns (p bf16
-    [B, h, S, Lq, LkP], ds bf16 [2, B, h, S, Lq, LkP]: ds = ds[0] + ds[1],
-    a bf16 pair that carries ~16 bits), the keys padded to 64 (padding 0),
-    the head axes dropped at one head; slots >= count are left
-    unwritten."""
-    s, b, lq, lk, dv = _check_k2(q, bank_k, bank_v, dout, num_heads)
-    _check(bwd_route(num_heads, 128, dv) == "scratch",
-           f"values {dv} a head (the scratch kernels take a multiple of "
-           "256; 128 at two heads is the fused pair's)")
-    row = _head_shape((b, num_heads, lq), num_heads, 1)
-    for name, t, shape in (("lse", lse, row), ("delta", delta, row),
-                           ("drec", drec, (b, lq, s))):
-        _check(t.device == q.device and t.dtype == torch.float32
-               and t.is_contiguous() and tuple(t.shape) == shape,
-               f"{name} must be contiguous f32 {shape}")
-    _check_count(count, q)
-    drec_h = (drec / num_heads).contiguous()
-    lkp = _scratch_cols(lk)
-    bf = dict(dtype=torch.bfloat16, device=q.device)
-    p = torch.empty(_head_shape((b, num_heads, s, lq, lkp), num_heads, 1),
-                    **bf)
-    ds = torch.empty((2, *p.shape), **bf)
-    fn = build.load("bank_attention_bwd").rmem_bank_attention_bwd_ds
-    fn.argtypes = [_P] * 10 + [_I] * 7 + [_F, _P]
-    fn.restype = _I
-    err = fn(q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             drec_h.data_ptr(), count.data_ptr(), p.data_ptr(), ds.data_ptr(),
-             b, num_heads, lq, s, lk, lkp, dv, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "bank_attention_bwd_ds")
-    bank_attention_bwd_ds.launches += 1
-    return p, ds
-
-
-bank_attention_bwd_ds.launches = 0
-
-
-def bank_attention_bwd_dq(bank_k, ds, count, scale, num_heads: int = 1):
-    """Launch K2's dq kernel: dq bf16 [B, Lq, h*128]."""
-    s, b, lk, ck = bank_k.shape
-    lq = ds.shape[-2]
-    _check_bf16(bank_k, bank_k=bank_k, ds=ds)
-    _check(num_heads in SLOT_HEADS and ck == num_heads * 128
-           and ds.shape == (2, *_head_shape(
-               (b, num_heads, s, lq, _scratch_cols(lk)), num_heads, 1)),
-           f"ds shape {tuple(ds.shape)}, bank_k {tuple(bank_k.shape)} at "
-           f"{num_heads} heads")
-    _check_count(count, bank_k)
-    dq = torch.empty((b, lq, ck), dtype=torch.bfloat16, device=ds.device)
-    fn = build.load("bank_attention_bwd").rmem_bank_attention_bwd_dq
-    fn.argtypes = [_P] * 4 + [_I] * 6 + [_F, _P]
-    fn.restype = _I
-    err = fn(bank_k.data_ptr(), ds.data_ptr(), count.data_ptr(),
-             dq.data_ptr(), b, num_heads, lq, s, lk, ds.shape[-1],
-             float(scale), torch.cuda.current_stream(ds.device).cuda_stream)
-    build.check(err, "bank_attention_bwd_dq")
-    bank_attention_bwd_dq.launches += 1
-    return dq
-
-
-bank_attention_bwd_dq.launches = 0
-
-
-def bank_attention_bwd_dkv(q, dout, p, ds, count, scale, lk: int,
-                           num_heads: int = 1):
-    """Launch K2's dkv kernel: (dk bf16 [S, B, Lk, h*128], dv bf16
-    [S, B, Lk, h*dv]), zero in slots >= count."""
-    b, lq, ck = q.shape
-    s, lkp = p.shape[-3], p.shape[-1]
-    dv = dout.shape[-1] // num_heads
-    _check_bf16(q, q=q, dout=dout, p=p, ds=ds)
-    _check(num_heads in SLOT_HEADS and ck == num_heads * 128
-           and dout.shape == (b, lq, num_heads * dv) and dv % 128 == 0
-           and p.shape == _head_shape((b, num_heads, s, lq, lkp), num_heads,
-                                      1)
-           and ds.shape == (2, *p.shape) and lkp == _scratch_cols(lk),
-           f"q {tuple(q.shape)}, dout {tuple(dout.shape)}, p "
-           f"{tuple(p.shape)} for {lk} keys at {num_heads} heads")
-    _check_count(count, q)
-    dk = torch.empty((s, b, lk, ck), dtype=torch.bfloat16, device=q.device)
-    dvv = torch.empty((s, b, lk, num_heads * dv), dtype=torch.bfloat16,
-                      device=q.device)
-    fn = build.load("bank_attention_bwd").rmem_bank_attention_bwd_dkv
-    fn.argtypes = [_P] * 7 + [_I] * 7 + [_F, _P]
-    fn.restype = _I
-    err = fn(q.data_ptr(), dout.data_ptr(), p.data_ptr(), ds.data_ptr(),
-             count.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, num_heads,
-             lq, s, lk, lkp, dv, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "bank_attention_bwd_dkv")
-    bank_attention_bwd_dkv.launches += 1
-    return dk, dvv
-
-
-bank_attention_bwd_dkv.launches = 0
-
-
 def bank_attention_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec,
                        scale, num_heads: int = 1):
     """K2 on the card: (dq, dk, dv) in bf16 from the forward's inputs,
@@ -799,33 +670,34 @@ def bank_attention_bwd(q, bank_k, bank_v, count, out, rec, lse, dout, drec,
     (f32, of the head-mean record). Each head's row term is `bwd_delta_mh`'s,
     over its own value columns. The head shape picks the kernels
     (`bwd_route`): K2×2ᵛ¹²⁸'s fused pair at 2 heads of 128 with values 128
-    a head, else K2's three kernels over the p/ds scratch."""
+    a head, else K2's dq, dk and dv kernels with dV split by value columns
+    (`bank_attention_bwd_split`). CPU tensors take the route's plain form
+    (f32)."""
     b, lq = q.shape[:2]
     rec_h = rec.reshape(b, num_heads, lq, -1)
-    delta = bwd_delta_mh(dout, out, drec, rec_h).reshape(lse.shape)
+    lse_h = lse.reshape(b, num_heads, lq)
+    delta_h = bwd_delta_mh(dout, out, drec, rec_h)
     if bwd_route(num_heads, q.shape[-1] // num_heads,
                  bank_v.shape[-1] // num_heads) == "fused":
-        return bank_attention_bwd_fused(q, bank_k, bank_v, count, dout, lse,
-                                        delta, drec, scale)
-    p, ds = bank_attention_bwd_ds(q, bank_k, bank_v, count, dout, lse, delta,
-                                  drec, scale, num_heads)
-    dq = bank_attention_bwd_dq(bank_k, ds, count, scale, num_heads)
-    dk, dv = bank_attention_bwd_dkv(q, dout, p, ds, count, scale,
-                                    bank_k.shape[2], num_heads)
-    return dq, dk, dv
+        return bank_attention_bwd_fused(q, bank_k, bank_v, count, dout,
+                                        lse_h, delta_h, drec, scale)
+    return bank_attention_bwd_split(q, bank_k, bank_v, count, dout, lse_h,
+                                    delta_h, drec, scale)
 
 
 def bwd_route(num_heads: int, dh: int, dv: int) -> str:
     """The CUDA kernels that take the bank attention's backward of this
     head shape on the card: `train_route`'s rule with its "slots" split in
     two, "fused" (K2×2ᵛ¹²⁸, csrc/bank_attention_bwd_fused.cu: NARROW_VALUES,
-    no scratch) and "scratch" (K2's three kernels over the p/ds scratch,
-    csrc/bank_attention_bwd.cu), and "heads" (K2ʰ,
-    csrc/bank_attention_mh_bwd.cu). Any other shape raises."""
+    each kernel holding a whole head's dV) and "split" (K2 and K2×2,
+    csrc/bank_attention_bwd.cu: one or two heads of 128 with values a
+    multiple of 256 a head, dV split across blocks by value columns), and
+    "heads" (K2ʰ, csrc/bank_attention_mh_bwd.cu). None writes p or ds to
+    device memory. Any other shape raises."""
     route = train_route(num_heads, dh, dv)
     if route == "heads":
         return route
-    return "fused" if (num_heads, dh, dv) == NARROW_VALUES else "scratch"
+    return "fused" if (num_heads, dh, dv) == NARROW_VALUES else "split"
 
 
 def bank_attention_bwd_fused_plain(q, bank_k, bank_v, count, dout, lse_h,
@@ -876,7 +748,7 @@ def fused_rows(lse_h: torch.Tensor, delta_h: torch.Tensor,
     [B, h, LqP] (+inf past Lq, so a padded query's p is 0) and rterm =
     drec / h - delta_h [B, h, S, LqP] (0 past Lq)."""
     b, heads, lq = lse_h.shape
-    lqp = _scratch_cols(lq)
+    lqp = _padded_rows(lq)
     lse2 = torch.full((b, heads, lqp), float("inf"), dtype=torch.float32,
                       device=lse_h.device)
     lse2[..., :lq] = lse_h * _LOG2E
@@ -946,6 +818,136 @@ def bank_attention_bwd_fused(q, bank_k, bank_v, count, dout, lse_h, delta_h,
 
 
 bank_attention_bwd_fused.launches = 0
+
+
+def bank_attention_bwd_split_plain(q, bank_k, bank_v, count, dout, lse_h,
+                                   delta_h, drec, scale):
+    """K2's kernels in plain PyTorch (f32), in their own form, from the
+    same row arrays (`fused_rows`: lse2 [B, h, LqP], rterm [B, h, S, LqP]),
+    each role recomputing p = 2^(q.k scale log2(e) - lse2) and ds = p
+    (dout.v + rterm) per slot: dk = scale sum_i ds q (the dk kernel's), dv
+    per group of SPLIT_DV_COLUMNS value columns, each with its own p (the dv
+    kernel's), both zero in slots >= count, and dq as the dq kernel's
+    partials, scale x the sum over the valid slots' groups of
+    SPLIT_DQ_SLOTS, in group order, of each group's ds K. lse_h, delta_h
+    [B, h, Lq], drec [B, Lq, S] over the bank's S slots. Returns (dq
+    [B, Lq, h*dh], dk [S, B, Lk, h*dh], dv [S, B, Lk, h*dv])."""
+    lse2, rterm = fused_rows(lse_h.float(), delta_h.float(), drec.float())
+    lq, heads, n = q.shape[1], lse2.shape[1], int(count)
+    lse2, rterm = lse2[..., :lq], rterm[..., :lq]
+    qh, oh = (t.float().unflatten(-1, (heads, -1)) for t in (q, dout))
+    kh, vh = (t.float().unflatten(-1, (heads, -1)) for t in (bank_k, bank_v))
+
+    def p_of(sl):
+        x = torch.einsum("bqhd,bkhd->bhqk", qh, kh[sl]) * (scale * _LOG2E)
+        return torch.exp2(x - lse2[..., None])
+
+    def ds_of(sl):
+        return p_of(sl) * (torch.einsum("bqhd,bkhd->bhqk", oh, vh[sl])
+                           + rterm[:, :, sl, :, None])
+
+    dq = torch.zeros_like(qh)
+    for g0 in range(0, n, SPLIT_DQ_SLOTS):
+        part = torch.zeros_like(dq)
+        for sl in range(g0, min(g0 + SPLIT_DQ_SLOTS, n)):
+            part = part + torch.einsum("bhqk,bkhd->bqhd", ds_of(sl), kh[sl])
+        dq = dq + part
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for sl in range(n):
+        dk[sl] = torch.einsum("bhqk,bqhd->bkhd", ds_of(sl), qh) * scale
+        for c0 in range(0, vh.shape[-1], SPLIT_DV_COLUMNS):
+            cols = slice(c0, c0 + SPLIT_DV_COLUMNS)
+            dv[sl, ..., cols] = torch.einsum("bhqk,bqhd->bkhd", p_of(sl),
+                                             oh[..., cols])
+    return (dq * scale).flatten(-2), dk.flatten(-2), dv.flatten(-2)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_lib():
+    """csrc/bank_attention_bwd.cu, its slot group and value group held to
+    SPLIT_DQ_SLOTS and SPLIT_DV_COLUMNS once."""
+    lib = build.load("bank_attention_bwd")
+    for name, want in (("rmem_bank_attention_bwd_split_slots",
+                        SPLIT_DQ_SLOTS),
+                       ("rmem_bank_attention_bwd_split_columns",
+                        SPLIT_DV_COLUMNS)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], _I
+        _check(fn() == want, f"{name}: the library's {fn()}, the wrapper "
+               f"expects {want}")
+    for stage, n_ptr in (("dq", 9), ("dk", 8), ("dv", 8)):
+        fn = getattr(lib, f"rmem_bank_attention_bwd_split_{stage}")
+        fn.argtypes = [_P] * n_ptr + [_I] * 7 + [_F, _P]
+        fn.restype = _I
+    return lib
+
+
+def _split_call(stage: str, q, bank_k, bank_v, count, dout, lse2, rterm,
+                scale):
+    """Launch one role of K2 on checked inputs: "dq" (the dq kernel and the
+    sum of its slot groups' partials, taken from the workspace), "dk" or
+    "dv"."""
+    s, b, lk, ck = bank_k.shape
+    lq, lqp = q.shape[1], lse2.shape[-1]
+    heads = lse2.shape[1]
+    lib = _split_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (q, bank_k, bank_v, dout, lse2, rterm,
+                                   count)]
+    dims = (b, heads, lq, s, lk, lqp, bank_v.shape[-1] // heads, float(scale),
+            stream)
+    if stage == "dq":
+        # the f32 partials [groups, B, Lq, h*128]
+        part = _workspace(-(-s // SPLIT_DQ_SLOTS) * b * lq * ck * 4,
+                          q.device, stream)
+        out = torch.empty_like(q)
+        err = lib.rmem_bank_attention_bwd_split_dq(*ptrs, part,
+                                                   out.data_ptr(), *dims)
+    else:
+        out = torch.empty_like(bank_k if stage == "dk" else bank_v)
+        err = getattr(lib, f"rmem_bank_attention_bwd_split_{stage}")(
+            *ptrs, out.data_ptr(), *dims)
+    build.check(err, f"bank_attention_bwd_split_{stage}")
+    return out
+
+
+def bank_attention_bwd_split(q, bank_k, bank_v, count, dout, lse_h, delta_h,
+                             drec, scale):
+    """K2 and K2×2: (dq, dk, dv) at one or two heads of 128 with values a
+    multiple of 256 a head (up to SPLIT_MAX_VALUES), from the forward's
+    inputs, each head's lse_h and row term delta_h (`bwd_delta_mh`)
+    [B, h, Lq] and the cotangents dout [B, Lq, h*dv] (bf16 on the card) and
+    drec [B, Lq, S] (f32, of the head-mean record). On the card: the dq
+    kernel and the sum of its slot groups' partials, the dk kernel and the
+    dv kernel (dV split across blocks by SPLIT_DV_COLUMNS value columns),
+    no p/ds scratch; bf16, dk and dv exactly 0 in slots >= count. CPU
+    tensors take the plain form (f32)."""
+    if not q.is_cuda:
+        return bank_attention_bwd_split_plain(q, bank_k, bank_v, count, dout,
+                                              lse_h, delta_h, drec, scale)
+    heads = lse_h.shape[1]
+    s, b, lq, lk, dv = _check_k2(q, bank_k, bank_v, dout, heads)
+    _check(bwd_route(heads, 128, dv) == "split" and dv <= SPLIT_MAX_VALUES,
+           f"values {dv} a head (the split backward takes a multiple of 256 "
+           f"up to {SPLIT_MAX_VALUES}; 128 at two heads is the fused pair's)")
+    _check(s <= 128, f"{s} slots (the kernels take up to 128)")
+    for name, t, shape in (("lse_h", lse_h, (b, heads, lq)),
+                           ("delta_h", delta_h, (b, heads, lq)),
+                           ("drec", drec, (b, lq, s))):
+        _check(t.device == q.device and t.dtype == torch.float32
+               and t.is_contiguous() and tuple(t.shape) == shape,
+               f"{name} must be contiguous f32 {shape}")
+    _check_count(count, q)
+    lse2, rterm = fused_rows(lse_h, delta_h, drec)
+    args = (q, bank_k, bank_v, count, dout, lse2, rterm, scale)
+    dq = _split_call("dq", *args)
+    dk = _split_call("dk", *args)
+    dv = _split_call("dv", *args)
+    bank_attention_bwd_split.launches += 1
+    return dq, dk, dv
+
+
+bank_attention_bwd_split.launches = 0
 
 
 # ---- training at 8 heads of 32 (kernels K1'ʰ and K2ʰ) --------------------
@@ -1027,7 +1029,7 @@ def bwd_delta_mh(dout: torch.Tensor, out: torch.Tensor, drec: torch.Tensor,
 def _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale,
              slots: slice = slice(None)):
     """The backward's p and ds at any head shape (the heads are lse_h's,
-    [B, h, Lq]: K2ʰ's 8, K2×2's and K2×2ᵛ¹²⁸'s 2), f32 [B, h, Lq, S', Lk]
+    [B, h, Lq]: K2ʰ's 8, K2×2ᵛ¹²⁸'s 2), f32 [B, h, Lq, S', Lk]
     over the bank's slots `slots` (all by default), zero in slots >= count,
     each recomputed from the lse as the kernels do: p = exp(q.k scale -
     lse), ds = p (dout.v + drec / h - delta)."""
@@ -1051,8 +1053,8 @@ def _mh_p_ds(q, bank_k, bank_v, count, dout, lse_h, delta_h, drec, scale,
 
 def bank_attention_bwd_mh_dq_plain(q, bank_k, bank_v, count, dout, lse_h,
                                    delta_h, drec, scale):
-    """K2ʰ's dq kernel in plain PyTorch, and two-head K2's dq (head-generic:
-    the heads are lse_h's): dq = scale * sum over the valid slots' keys of
+    """K2ʰ's dq kernel in plain PyTorch (head-generic: the heads are
+    lse_h's): dq = scale * sum over the valid slots' keys of
     ds k, f32 [B, Lq, h*dh]."""
     s, b, lk, ck = bank_k.shape
     heads = lse_h.shape[1]
@@ -1065,7 +1067,7 @@ def bank_attention_bwd_mh_dq_plain(q, bank_k, bank_v, count, dout, lse_h,
 
 def bank_attention_bwd_mh_dkv_plain(q, bank_k, bank_v, count, dout, lse_h,
                                     delta_h, drec, scale):
-    """K2ʰ's dkv kernel in plain PyTorch, and two-head K2's dk and dv:
+    """K2ʰ's dkv kernel in plain PyTorch (head-generic, as the dq stage):
     dk = scale * sum_i ds q, dv = sum_i p dout, f32 [S, B, Lk, h*d], zero in
     slots >= count."""
     b, lq = q.shape[:2]
@@ -1142,7 +1144,7 @@ def bank_attention_bwd_mh(q, bank_k, bank_v, count, out, rec_h, lse_h, dout,
                and t.is_contiguous() and tuple(t.shape) == tuple(shape),
                f"{name} must be contiguous f32 {tuple(shape)}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    lqp = _scratch_cols(lq)
+    lqp = _padded_rows(lq)
     lse2_b = _aligned(b * MH_HEADS * lqp * 4)
     rterm_b = _aligned(b * MH_HEADS * s * lqp * 4)
     base = _workspace(lse2_b + rterm_b + -(-s // MH_BWD_DQ_SLOTS) * b * lq

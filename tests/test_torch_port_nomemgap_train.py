@@ -132,8 +132,8 @@ def test_lse_plain_two_heads_matches_pallas_forward(count):
 
 def test_k2_plain_stages_two_heads_match_pallas_vjp():
     """K2 at 2 heads: K1''s plain version, each head's row term from
-    `bwd_delta_mh` and the head-generic plain stages (the card's dq and
-    dk/dv kernels' plain versions) against jax.vjp of pallas_bank_attention
+    `bwd_delta_mh` and the split route's plain form (the card's dq, dk and
+    dv kernels' form) against jax.vjp of pallas_bank_attention
     (interpret mode) with nonzero cotangents of the output and of the
     head-mean record, 3 of 5 slots valid: dq, dk, dv, and dk, dv exactly 0
     in the invalid slots."""
@@ -152,8 +152,7 @@ def test_k2_plain_stages_two_heads_match_pallas_vjp():
                                                     num_heads=HEADS)
     delta_h = kb.bwd_delta_mh(_t(dout), out, _t(drec), rec_h)
     args = (*ins, _t(dout), lse_h, delta_h, _t(drec), scale)
-    got = (kb.bank_attention_bwd_mh_dq_plain(*args),
-           *kb.bank_attention_bwd_mh_dkv_plain(*args))
+    got = kb.bank_attention_bwd_split_plain(*args)
     for name, g, r in zip(("dq", "dk", "dv"), got, refs):
         _close(g, r, GRAD_TOL)
     assert torch.all(got[1][count:] == 0) and torch.all(got[2][count:] == 0)
@@ -194,12 +193,11 @@ def test_train_routes_at_two_heads():
 
 def test_trainable_wrappers_at_two_heads_on_cpu():
     """At 2 heads, CPU tensors take the plain versions and launch nothing:
-    the differentiable bank and local attentions and K5's backward; the
-    card-only wrappers of K1' and K2 refuse them instead of falling
-    back."""
+    the differentiable bank and local attentions, K2's split backward (its
+    plain form) and K5's backward; the card-only wrapper of K1' refuses
+    them instead of falling back."""
     rng = np.random.RandomState(40)
-    counters = (kb.bank_attention_lse, kb.bank_attention_bwd_ds,
-                kb.bank_attention_bwd_dq, kb.bank_attention_bwd_dkv,
+    counters = (kb.bank_attention_lse, kb.bank_attention_bwd_split,
                 kl.local_attention, kl.local_attention_bwd)
     before = [fn.launches for fn in counters]
     q, bk = _t(_rand(rng, 1, 16, 256)), _t(_rand(rng, 3, 1, 16, 256))
@@ -215,15 +213,16 @@ def test_trainable_wrappers_at_two_heads_on_cpu():
     assert all(torch.equal(a, r) for a, r in zip(
         kl.local_attention_bwd(q, q, bv[0], rel, g, *largs),
         kl.local_attention_bwd_plain(q, q, bv[0], rel, g, *largs)))
+    lse, delta = torch.zeros(1, HEADS, 16), _t(_rand(rng, 1, HEADS, 16))
+    drec = _t(_rand(rng, 1, 16, 3))
+    assert all(torch.equal(a, r) for a, r in zip(
+        kb.bank_attention_bwd_split(q, bk, bv, cnt, g, lse, delta, drec, 0.1),
+        kb.bank_attention_bwd_split_plain(q, bk, bv, cnt, g, lse, delta,
+                                          drec, 0.1)))
     assert [fn.launches for fn in counters] == before
     bf = [t.bfloat16() for t in (q, bk, bv)]
-    lse = torch.zeros(1, HEADS, 16)
     with pytest.raises(ValueError, match="not on"):
         kb.bank_attention_lse(*bf, cnt, 0.1, num_heads=HEADS)
-    with pytest.raises(ValueError, match="not on"):
-        kb.bank_attention_bwd_ds(*bf, cnt, bf[0].new_zeros(1, 16, 1024), lse,
-                                 lse, torch.zeros(1, 16, 3), 0.1,
-                                 num_heads=HEADS)
 
 
 def _jax_params(jmodel, rng):

@@ -251,12 +251,13 @@ def test_cancelling_keys_dq_follows_the_forwards_rounding():
 def test_bwd_route_by_head_shape():
     """The backward's kernels by head shape: 2 heads of 128 with values 128
     a head to the fused pair, one or two heads of 128 with values 512 or
-    1024 a head to K2's three kernels over the scratch, 8 heads of 32 to
-    K2ʰ; any other shape raises. The forward's rule is unchanged."""
+    1024 a head to K2's split kernels (dV split by value columns), 8 heads
+    of 32 to K2ʰ; any other shape raises. The forward's rule is
+    unchanged."""
     assert kb.bwd_route(2, 128, 128) == "fused"
     for shape in ((1, 128, 512), (1, 128, 1024), (2, 128, 512),
                   (2, 128, 1024)):
-        assert kb.bwd_route(*shape) == "scratch"
+        assert kb.bwd_route(*shape) == "split"
     assert kb.bwd_route(8, 32, 32) == "heads"
     for shape in ((1, 128, 128), (8, 32, 64), (2, 64, 64), (4, 64, 64),
                   (2, 128, 384)):

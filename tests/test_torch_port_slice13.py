@@ -186,14 +186,14 @@ def test_training_routes_by_head_shape():
     """The training kernels by head shape: 8 heads of 32 to K1'ʰ and K2ʰ
     ("heads"), 2 heads of 128 with values 128 a head to K1'×2ᵛ¹²⁸ and the
     fused backward, one or two heads of 128 with values 512 or 1024 a head
-    to K1''s template and K2's scratch kernels; any other shape raises."""
+    to K1''s template and K2's split kernels; any other shape raises."""
     assert kb.train_route(8, 32, 32) == kb.bwd_route(8, 32, 32) == "heads"
     assert kb.train_route(2, 128, 128) == "slots"
     assert kb.NARROW_VALUES == (2, 128, 128)
     assert kb.bwd_route(2, 128, 128) == "fused"
     for shape in ((1, 128, 1024), (2, 128, 512)):
         assert kb.train_route(*shape) == "slots"
-        assert kb.bwd_route(*shape) == "scratch"
+        assert kb.bwd_route(*shape) == "split"
     for shape in ((1, 128, 128), (8, 32, 64), (4, 64, 64)):
         with pytest.raises(ValueError, match="heads of width"):
             kb.bwd_route(*shape)

@@ -75,11 +75,13 @@ def test_bank_attention_grad_matches_pallas_vjp():
 
 
 def test_k2_plain_stages_compose_to_autograd():
-    """The three plain stages the CUDA kernels are held to on the card
-    (p and ds; dq; dk and dv) give autograd's gradients of the plain
-    forward, with a nonzero drec and 2 of 4 slots valid."""
+    """The plain form the CUDA kernels are held to on the card (the split
+    route's dq, dk and dv roles, each recomputing p and ds from the lse and
+    the row term; dv in two groups of value columns, dq summed over slot
+    groups) gives autograd's gradients of the plain forward, with a nonzero
+    drec and 2 of 4 slots valid."""
     rng = np.random.RandomState(1)
-    s, b, lq, lk, dh, dv, count = 4, 2, 30, 27, 16, 32, 2
+    s, b, lq, lk, dh, dv, count = 4, 2, 30, 27, 16, 512, 2
     q, bk, bv = _t(_rand(rng, b, lq, dh)), _t(_rand(rng, s, b, lk, dh)), \
         _t(_rand(rng, s, b, lk, dv))
     dout, drec = _t(_rand(rng, b, lq, dv)), _t(_rand(rng, b, lq, s))
@@ -89,11 +91,10 @@ def test_k2_plain_stages_compose_to_autograd():
     out, rec = kbank.bank_attention_plain(q, bk, bv, cnt, 1, scale)
     logits = torch.einsum("bqd,sbkd->bqsk", q, bk[:count]) * scale
     lse = logits.reshape(b, lq, -1).logsumexp(-1)
-    p, ds = kbank.bank_attention_bwd_ds_plain(
-        q, bk, bv, cnt, dout, lse, kbank.bwd_delta(dout, out, drec, rec),
-        drec, scale)
-    got = (kbank.bank_attention_bwd_dq_plain(ds, bk, scale),
-           *kbank.bank_attention_bwd_dkv_plain(p, ds, q, dout, scale))
+    delta_h = kbank.bwd_delta_mh(dout, out, drec, rec[:, None])
+    got = kbank.bank_attention_bwd_split_plain(q, bk, bv, cnt, dout,
+                                               lse[:, None], delta_h, drec,
+                                               scale)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5,
                                    atol=1e-5, err_msg=name)
@@ -162,8 +163,7 @@ def test_trainable_wrappers_on_cpu_take_the_plain_version():
     tensors instead of falling back."""
     rng = np.random.RandomState(4)
     counters = (kbank.bank_attention_infer, kbank.bank_attention_lse,
-                kbank.bank_attention_bwd_ds, kbank.bank_attention_bwd_dq,
-                kbank.bank_attention_bwd_dkv, klocal.local_attention,
+                kbank.bank_attention_bwd_split, klocal.local_attention,
                 kstem.stem)
     before = [fn.launches for fn in counters]
     q, bk, bv = _t(_rand(rng, 1, 16, 128)), _t(_rand(rng, 3, 1, 16, 128)), \
