@@ -29,7 +29,9 @@ non-zero exit code:
    against its plain form, timed each and by kernel) with a nonzero drec,
    K5's forward and
    backward kernels, each backward output against its plain version and
-   autograd of the plain forward, K7 forward and backward beside cuDNN's
+   autograd of the plain forward, on the training grid and a ragged one,
+   the backward's time split by kernel beside each kernel's bound and its
+   design's products at the peak rate, K7 forward and backward beside cuDNN's
    chain through autograd) at the training shapes, and AOT's training
    kernels at 8 heads of 32 (K1'h, the forward with lse, at 4 valid slots
    of 10, at 2 and at the reference frame's one, beside SDPA over the
@@ -91,9 +93,10 @@ non-zero exit code:
    45, K7 1, K1'h and K2h 0); losses finite, parameters changed;
    seconds per step (median and each) and peak memory beside the card and
    the host;
-6. one step of the kernel model, every K2 call and K5 forward call of
-   which is held against its plain version on the same inputs, and one
-   step of a model whose
+6. one step of the kernel model, every K2 call, K5 forward call and K5
+   backward call of which is held against its plain version on the same
+   inputs (the backward also against autograd of the plain forward), and
+   one step of a model whose
    kernels are all plain, on the same batch, weights and shuffle: hold the
    loss and the global gradient norm against each other;
 7. drive the opt-in inference path, with RMEM_BANK_QMINOR set for this
@@ -205,9 +208,11 @@ value group of the dv kernel the first group's dO, the sum of dq's
 partials drops a last group of one slot, or the invalid slots' dk or dv
 is computed, not zeroed; K4: the accumulator is not rescaled when a
 row's maximum grows, or the bias is read at the transposed offset; K5: dq
-drops the scale, the key side reads p and ds unmirrored, or ds drops
-delta; K4 at 2 heads: head 1 reads head 0's bias; K5 at 2 heads: head
-1's drel is written into head 0's; K1: the bias is
+drops the scale, the key side reads the bias and ds unmirrored, ds drops
+delta, the lse drops the row maximum, or the dk role re-indexes its drel
+sub-rows reversed; K4 at 2 heads: head 1 reads head 0's bias; K5 at 2
+heads: head 1's drel is written into head 0's columns, or the key side
+reads head 0's drel columns for head 1; K1: the bias is
 dropped, or the keys are masked at Lk instead of true_lk; the K1/K3/K1'
 template: the keys past Lk go unmasked, or a quarter of the accumulator
 unrescaled; at 2 heads, head 1 reads head 0's keys, or the wrapper takes
@@ -1443,20 +1448,26 @@ def k5_inputs(dev, heads: int = 1, batch: int = TRAIN_B, grid=TRAIN_GRID):
             tuple(grid), heads, 7, 128 ** -0.5)
 
 
-def held_k5(q, k, v, rel, g, size_2d, num_heads, max_dis, scale):
-    """K5's backward kernels on one call's inputs against their plain
-    version (`local_attention_bwd_plain`) and against autograd of the plain
+def held_k5(q, k, v, rel, g, size_2d, num_heads, max_dis, scale,
+            kernel=None):
+    """K5's backward kernels on one call's inputs (through `kernel`, by
+    default `local_attention_bwd`) against their plain version
+    (`local_attention_bwd_plain`) and against autograd of the plain
     forward, on each of dq, dk, dv and drel. Returns {check: max |kernel -
-    reference| / max |reference|}, failing the run past GRAD_TOL."""
+    reference| / max |reference|}, failing the run past GRAD_TOL; with a
+    `kernel`, (its outputs, that dict)."""
     import torch
 
     from rmem_tpu_torch.kernels import local_attention as kl
     args = (size_2d, num_heads, max_dis, scale)
-    got = kl.local_attention_bwd(q, k, v, rel, g, *args)
+    got = (kernel or kl.local_attention_bwd)(q, k, v, rel, g, *args)
     plain = kl.local_attention_bwd_plain(q, k, v, rel, g, *args)
     ins = [t.detach().float().requires_grad_() for t in (q, k, v, rel)]
-    auto = torch.autograd.grad(kl.local_attention_plain(*ins, *args), ins,
-                               g.float())
+    # a held call inside a training step's backward runs with grad mode off
+    # and may sit under its bf16 autocast: the plain forward needs neither
+    with torch.enable_grad(), torch.autocast(q.device.type, enabled=False):
+        auto = torch.autograd.grad(kl.local_attention_plain(*ins, *args),
+                                   ins, g.float())
     errs = {}
     for name, a, p, r in zip(("dq", "dk", "dv", "drel"), got, plain, auto):
         errs[f"{name}_plain"] = rel_err(a, p)
@@ -1464,7 +1475,64 @@ def held_k5(q, k, v, rel, g, size_2d, num_heads, max_dis, scale):
     for key, err in errs.items():
         check(err <= GRAD_TOL, f"K5 backward {key}: {err} (tolerance "
               f"{GRAD_TOL})")
-    return errs
+    return errs if kernel is None else (got, errs)
+
+
+# K5's backward: the key side's value columns a dv block
+# (csrc/local_attention.cu's BWD_NVK)
+K5_DV_BLOCK = 512
+
+
+def k5_kernel_rows(q, k, v, rel, g, size_2d, heads, max_dis, scale,
+                   split_ms: dict) -> dict:
+    """K5's backward by kernel: each kernel's device time a call (from
+    `split_ms`, the profiler's) beside its bound (each tensor it reads
+    read once, each it writes written once, and the window pairs' products
+    at the peak rate) and `design_ms`, its own products at the peak rate:
+    each 8 x 8 tile's halo cells inside the image, in 64-cell chunks, as
+    the kernels count them (S, dp and dq's hi/lo pair on the query side;
+    S^T and P^T G for each dv block of K5_DV_BLOCK columns and dk's pair on
+    the key side)."""
+    b, hw = q.shape[:2]
+    dh, dv = q.shape[-1] // heads, v.shape[-1] // heads
+    gh, gw = size_2d
+    chunks = 0
+    for y0 in range(0, gh, 8):
+        for x0 in range(0, gw, 8):
+            ny = min(21, gh - 1 - y0 + 7) - max(0, 7 - y0) + 1
+            nx = min(21, gw - 1 - x0 + 7) - max(0, 7 - x0) + 1
+            chunks += -(-ny * nx // 64)
+    spans = 2.0 * 64 * 64 * chunks * b * heads
+    nbq, nbk, nbv, nbr = (t.numel() * 2 for t in (q, k, v, rel))
+    lse = b * heads * hw * 4
+    design = {"query": spans * (dh + dv + 2 * dh),
+              "key": spans * ((dv // K5_DV_BLOCK) * (dh + K5_DV_BLOCK)
+                              + 2 * dh)}
+    # q, k, v, g, rel in; dq, drel (f32), lse out | q, k, g, rel, lse,
+    # drel in; dk, dv out. The window pairs' products: S, dp, dq | dv, dk
+    pairs = 2.0 * b * heads * sum(
+        (min(gh - 1, y + max_dis) - max(0, y - max_dis) + 1)
+        * (min(gw - 1, x + max_dis) - max(0, x - max_dis) + 1)
+        for y in range(gh) for x in range(gw))
+    work = {"query": (pairs * (2 * dh + dv), 2 * nbq + nbk + 2 * nbv + nbr
+                      + 2 * nbr + lse),
+            "key": (pairs * (dv + dh), nbq + 2 * nbk + 2 * nbv + nbr + lse
+                    + 2 * nbr)}
+    rows = {}
+    for side, (flops, nbytes) in work.items():
+        name = next((n for n in split_ms if f"bwd_{side}_kernel" in n), None)
+        b_ms, b_by = bound(flops, nbytes)
+        rows[side] = dict(kernel=name, ms=split_ms.get(name), bound_ms=b_ms,
+                          bound_by=b_by,
+                          design_ms=design[side] / PEAK_BF16_FLOPS * 1e3)
+    return rows
+
+
+def k5_rows_text(rows: dict) -> str:
+    return "; ".join(
+        f"{side} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f}, {r['bound_by']};"
+        f" design {r['design_ms']:.4f} at the peak rate)"
+        for side, r in rows.items() if r["ms"] is not None)
 
 
 # K1'h and K2h in phase 2: AOT's training calls (B 4, a 30 x 30 grid, 8
@@ -2153,11 +2221,14 @@ def check_nmg_train_kernels(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
         split_ms=kernel_split_ms(call))
     e = entries["local_attention_bwd_h2"]
+    e["split"] = k5_kernel_rows(*k5, e["split_ms"])
+    e["design_ms"] = sum(r["design_ms"] for r in e["split"].values())
     print(f"K5x2 backward: {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
           f"SDPA backward with the dense bias {e['library_ms']:.4f} ms "
           f"(forward {lib_fwd_ms:.4f}), bound {b_ms:.5f} ms ({b_by}); by "
           "kernel (profiler, ms a call): " + ", ".join(
-              f"{k[:40]} {x:.4f}" for k, x in e["split_ms"].items()))
+              f"{k[:40]} {x:.4f}" for k, x in e["split_ms"].items())
+          + "; " + k5_rows_text(e["split"]))
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
     return entries, whole
@@ -2305,9 +2376,12 @@ def check_train_kernels(dev):
     k5_args = k5_inputs(dev)
     (lq_, lk_, lv, rel, gl), largs = k5_args[:5], k5_args[5:]
     k5_errs = held_k5(*k5_args)
+    k5_ragged = held_k5(*k5_inputs(dev, batch=2, grid=(13, 21)))
     print("K5 local_attention_bwd at the training shapes, max|kernel - "
           "plain| / max|plain|: " + ", ".join(f"{k} {v:.3e}"
-                                               for k, v in k5_errs.items()))
+                                               for k, v in k5_errs.items())
+          + "; on a ragged 13 x 21 grid (B 2): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in k5_ragged.items()))
 
     def fwd_bwd(fn):
         ins = [t.detach().requires_grad_() for t in (lq_, lk_, lv, rel)]
@@ -2356,7 +2430,7 @@ def check_train_kernels(dev):
             flops=2.0 * pairs * (3 * dh + 2 * dv),
             nbytes=(reads + b * hw * dv * 2 + (2 * dh + dv) * b * hw * 2
                     + b * hw * 225 * 4),
-            err=max(k5_errs.values()),
+            err=max([*k5_errs.values(), *k5_ragged.values()]),
             # the library's backward: forward + backward less forward
             library_ms=lib_fwd_bwd_ms - lib_fwd_ms),
     }
@@ -2379,8 +2453,13 @@ def check_train_kernels(dev):
     k5_whole["library_ratio"] = k5_whole["ms"] / lib_fwd_bwd_ms
     k5_whole["backward_split_ms"] = kernel_split_ms(
         lambda: kl.local_attention_bwd(lq_, lk_, lv, rel, gl, *largs))
+    k5_whole["backward_split"] = k5_kernel_rows(
+        *k5_args, k5_whole["backward_split_ms"])
+    entries["local_attention_bwd"]["design_ms"] = sum(
+        r["design_ms"] for r in k5_whole["backward_split"].values())
     print("K5 backward by kernel (profiler, ms a call): " + ", ".join(
-        f"{k[:40]} {v:.4f}" for k, v in k5_whole["backward_split_ms"].items()))
+        f"{k[:40]} {v:.4f}" for k, v in k5_whole["backward_split_ms"].items())
+        + "; " + k5_rows_text(k5_whole["backward_split"]))
     print(f"K5 forward + backward through autograd: {k5_whole['ms']:.3f} ms "
           f"(forward {entries['local_attention_fwd_train']['ms']:.3f}, "
           f"backward {entries['local_attention_bwd']['ms']:.3f}); SDPA "
@@ -3415,11 +3494,8 @@ def held_train_step(dev, model: str = "r50_deaotl"):
         return got
 
     def held_bwd_la(*args):
-        got = kernel_bwd_la(*args)
-        plain = kl.local_attention_bwd_plain(*args)
-        errs = {name: rel_err(a, r) for name, a, r in
-                zip(("dq", "dk", "dv", "drel"), got, plain)}
-        check(max(errs.values()) <= GRAD_TOL, f"K5x2 backward {errs}")
+        # against the plain version and autograd of the plain forward
+        got, errs = held_k5(*args, kernel=kernel_bwd_la)
         k5_calls.append(errs)
         return got
 
@@ -3439,7 +3515,8 @@ def held_train_step(dev, model: str = "r50_deaotl"):
     held_lse.launches = held_bwd_la.launches = 0
     held_patches = {
         "r50_deaotl": [((kb, "bank_attention_bwd"), held_bwd),
-                       ((kl, "local_attention"), held_fwd)],
+                       ((kl, "local_attention"), held_fwd),
+                       ((kl, "local_attention_bwd"), held_bwd_la)],
         "r50_aotl": [((kb, "bank_attention_bwd_mh"), held_bwd_mh)],
         "r50_deaotl_nmg": [((kb, "bank_attention_lse"), held_lse),
                            ((kb, "bank_attention_bwd"), held_bwd),
@@ -3476,6 +3553,7 @@ def held_train_step(dev, model: str = "r50_deaotl"):
     (loss_k, gn_k), (loss_p, gn_p) = runs
     k2 = {"r50_deaotl": "K2", "r50_aotl": "K2h",
           "r50_deaotl_nmg": "K2x2", "r50_aotl_nmg": "K2x2v128"}[model]
+    k5 = "K5x2" if cfg.no_memory_gap else "K5"
 
     def worst_of(held_calls):
         return {key: max(c[key] for c in held_calls)
@@ -3495,7 +3573,7 @@ def held_train_step(dev, model: str = "r50_deaotl"):
           + (f"; {len(lse_calls)} K1'x2 calls held, worst: " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst_of(lse_calls).items())
              if lse_calls else "")
-          + (f"; {len(k5_calls)} K5x2 backward calls held, worst: "
+          + (f"; {len(k5_calls)} {k5} backward calls held, worst: "
              + ", ".join(f"{k} {v:.3e}"
                          for k, v in worst_of(k5_calls).items())
              if k5_calls else ""))
@@ -3505,10 +3583,10 @@ def held_train_step(dev, model: str = "r50_deaotl"):
     check(not deaot or len(fwd_calls) >= layers_frames,
           f"{len(fwd_calls)} K5 forward calls on the path")
     check(not cfg.no_memory_gap or (
-        len(lse_calls) == TRAIN_LAUNCHES[model]["bank_attention_lse"]
-        and len(k5_calls) == (layers_frames if deaot else 0)),
-        f"{len(lse_calls)} K1'x2 and {len(k5_calls)} K5x2 backward calls on "
-        "the path")
+        len(lse_calls) == TRAIN_LAUNCHES[model]["bank_attention_lse"]),
+        f"{len(lse_calls)} K1'x2 calls on the path")
+    check(len(k5_calls) == (layers_frames if deaot else 0),
+          f"{len(k5_calls)} {k5} backward calls on the path")
     check(loss_err <= STEP_LOSS_TOL, f"step loss {loss_err}")
     check(gn_err <= STEP_GNORM_TOL, f"step grad norm {gn_err}")
     return dict(loss=[loss_k, loss_p], grad_norm=[gn_k, gn_p],
@@ -3581,19 +3659,33 @@ MUTANTS = {
             ("const size_t rbase = ((size_t)b * H + h) * Hg * Wg;",
              "const size_t rbase = (size_t)b * H * Hg * Wg;")],
         # K5: dq is not multiplied by the logit scale
-        "dq_scale": [("store_rows<D, NF>(smem, dacc, rt, cb, scale,",
-                      "store_rows<D, NF>(smem, dacc, rt, cb, 1.f,")],
-        # K5: the key side reads p and ds at the key's offset from the
-        # query, not at the mirrored one
-        "unflipped": [("* win2 + (win2 - 1 - wk)];", "* win2 + wk];")],
+        "dq_scale": [("const float dq_mul = scale;",
+                      "const float dq_mul = 1.f;")],
+        # K5: the key side reads the bias and ds at the key's offset from
+        # the query, not at the mirrored one
+        "unflipped": [
+            ("    return (ty - (hq >> 5) + 2 * M) * WIN + 2 * M - (hq & 31);",
+             "    return WIN2 - 8 - ((ty - (hq >> 5) + 2 * M) * WIN + 2 * M - "
+             "(hq & 31));")],
         # K5: ds = p dp, without the row term delta
-        "no_delta": [("prow[w[j]] * (drow[w[j]] - delta);",
-                      "prow[w[j]] * drow[w[j]];")],
-        # K5 at 2 heads: the query side writes head 1's dp and ds into head
-        # 0's rows of drel
-        "k5x2_drel_head0": [
-            ("float* drow = drel + (((size_t)pol.b * H + pol.h) * HW",
-             "float* drow = drel + (((size_t)pol.b * H) * HW")]}),
+        "no_delta": [
+            ("ds[e] = ok ? p * (acc[a][nt][e] - dl[a][e >> 1]) : 0.f;",
+             "ds[e] = ok ? p * acc[a][nt][e] : 0.f;")],
+        # K5 at 2 heads: the query side writes head 1's ds into head 0's
+        # columns of drel
+        "k5x2_drel_head0": [("  drel += (size_t)h * WIN2;  // ds out\n",
+                             "")],
+        # K5: the query side's lse drops the row maximum
+        "k5_lse_no_max": [("lse_out[qy * Wg + qx] = lse2 * LN2;",
+                           "lse_out[qy * Wg + qx] = (lse2 - mx) * LN2;")],
+        # K5: the dk role re-indexes its drel sub-rows unmirrored (the
+        # keys of a tile row reversed)
+        "k5_reindex_unmirrored": [
+            ("cD + jt * L::DSUB + cO[jt] + 4 * (rk % TILE))",
+             "cD + jt * L::DSUB + cO[jt] + 4 * (7 - rk % TILE))")],
+        # K5 at 2 heads: the key side reads head 0's drel columns for head 1
+        "k5x2_key_drel_head0": [("  drel += (size_t)h * WIN2;  // ds in\n",
+                                 "")]}),
     "bank_attention_infer": ("k1_k3_k1p", {
         # K1: the slot-PE bias is dropped
         "k1_no_bias": [("if (kBias && qbias != nullptr) {", "if (false) {")],
@@ -3826,13 +3918,16 @@ def stem_check(dev):
 
 def k4_k5_check(dev):
     """K4 at the main path's call and on a ragged grid, at one head and at
-    two, then K5's backward at one head and at two."""
+    two, then K5's backward at one head and at two, on the training grid
+    and a ragged one."""
     errs = {f"{key}_h{heads}": held_k4(*k4_inputs(dev, *shape, heads=heads))
             for key, shape in (("b1_31x54", (1, 31, 54)),
                                ("b2_13x21", (2, 13, 21)))
             for heads in (1, 2)}
-    errs["k5"] = held_k5(*k5_inputs(dev))
-    errs["k5_h2"] = held_k5(*k5_inputs(dev, heads=2))
+    for heads in (1, 2):
+        errs[f"k5_h{heads}"] = held_k5(*k5_inputs(dev, heads=heads))
+        errs[f"k5_h{heads}_13x21"] = held_k5(*k5_inputs(
+            dev, heads=heads, batch=2, grid=(13, 21)))
     return errs
 
 

@@ -10,9 +10,11 @@ it hands the kernel the bias head-major (`rel_head_major`), one copy of it.
 `local_attention_trainable` (K5) is its differentiable form, the
 counterpart of pallas_local_attention_trainable: on the card the forward is
 the kernel and the backward is `local_attention_bwd`, two more kernels of
-the same source (`local_attention_bwd_plain` is their plain version), at
-one or two heads of 128, the bias head-major as the forward takes it; on
-the CPU it is autograd through the plain forward.
+the same source at one or two heads of 128 (`local_attention_bwd_plain` is
+their plain version; `local_attention_bwd_stages_plain` composes the plain
+forms of their stages: the query side's lse rows, the key side's P^T from
+that lse and its mirrored re-indexing of window rows); on the CPU it is
+autograd through the plain forward.
 """
 
 from __future__ import annotations
@@ -141,6 +143,18 @@ def _window_keys(h: int, w: int, max_dis: int) -> Tuple[np.ndarray,
     return np.where(ok, ky * w + kx, 0).astype(np.int64), ok
 
 
+def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
+    """[b, hw, nh * d] -> [b, nh, hw, d], f32."""
+    b, hw, _ = x.shape
+    return x.float().reshape(b, hw, nh, -1).transpose(1, 2)
+
+
+def _tokens(x: torch.Tensor) -> torch.Tensor:
+    """[b, nh, hw, d] -> [b, hw, nh * d]."""
+    b, nh, hw, _ = x.shape
+    return x.transpose(1, 2).reshape(b, hw, -1)
+
+
 def local_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, rel_emb: torch.Tensor,
                               g: torch.Tensor, size_2d: Tuple[int, int],
@@ -152,19 +166,14 @@ def local_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     ds = p (dp - delta) at each window offset, 0 where the window leaves
     the image."""
     h2d, w2d = size_2d
-    b, hw, chd = q.shape
+    b, hw, _ = q.shape
     nh = num_heads
-    dh, dv = chd // nh, v.shape[-1] // nh
     win2 = (2 * max_dis + 1) ** 2
     idx_np, ok_np = _window_keys(h2d, w2d, max_dis)
     idx = torch.from_numpy(idx_np).to(q.device).expand(b, nh, hw, win2)
     ok = torch.from_numpy(ok_np).to(q.device)
-
-    def heads(x, d):                                   # [b, nh, hw, d]
-        return x.float().reshape(b, hw, nh, d).transpose(1, 2)
-
-    qh, kh, vh, gh = heads(q, dh), heads(k, dh), heads(v, dv), heads(g, dv)
-    rel = heads(rel_emb, win2)
+    qh, kh, vh, gh = (_heads(x, nh) for x in (q, k, v, g))
+    rel = _heads(rel_emb, nh)
     # the logits and dp = g.v of each query's window keys
     s = torch.gather(qh @ kh.transpose(-1, -2), -1, idx) * scale + rel
     s = torch.where(ok, s, float("-inf"))
@@ -180,11 +189,95 @@ def local_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dq = (ds_d @ kh) * scale
     dk = (ds_d.transpose(-1, -2) @ qh) * scale
     dvv = p_d.transpose(-1, -2) @ gh
+    return _tokens(dq), _tokens(dk), _tokens(dvv), _tokens(ds)
 
-    def tokens(x):                                     # [b, hw, nh * d]
-        return x.transpose(1, 2).reshape(b, hw, -1)
 
-    return tokens(dq), tokens(dk), tokens(dvv), tokens(ds)
+# K5's backward: a head's value widths the kernels are instantiated for
+# (csrc/local_attention.cu's rmem_local_attention_bwd)
+BWD_VALUES = (512, 1024)
+
+
+def _window(size_2d: Tuple[int, int], max_dis: int, device):
+    """_window_keys on `device`, with the mirrored offsets win^2 - 1 - w."""
+    idx_np, ok_np = _window_keys(*size_2d, max_dis)
+    win2 = idx_np.shape[1]
+    idx = torch.from_numpy(idx_np).to(device)
+    flip = (win2 - 1 - torch.arange(win2, device=device)).expand_as(idx)
+    return idx, torch.from_numpy(ok_np).to(device), flip
+
+
+def local_bwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                        rel_emb: torch.Tensor, size_2d: Tuple[int, int],
+                        num_heads: int, max_dis: int,
+                        scale: float) -> torch.Tensor:
+    """The query side's first stage: each query's lse over its window keys
+    inside the image, [B, H, HW] f32 (4 bytes a row: all that the key side
+    needs to recompute p)."""
+    idx, ok, _ = _window(size_2d, max_dis, q.device)
+    qh, kh = _heads(q, num_heads), _heads(k, num_heads)
+    s = (qh[:, :, :, None] * kh[:, :, idx]).sum(-1) * scale
+    s = torch.where(ok, s + _heads(rel_emb, num_heads), float("-inf"))
+    return torch.logsumexp(s, dim=-1)
+
+
+def mirror_rows(x: torch.Tensor, size_2d: Tuple[int, int],
+                max_dis: int) -> torch.Tensor:
+    """The key side's re-indexing of query-major window rows [B, H, HW,
+    win^2] (p, ds, the bias) into key-major rows: out[.., j, w] = x[.., i,
+    win^2 - 1 - w] for the query i at window offset w from key j (the key
+    sits at the mirrored offset from the query), 0 where i lies outside the
+    image. Row j of the result is row j of the [keys x queries] tile."""
+    idx, ok, flip = _window(size_2d, max_dis, x.device)
+    return torch.where(ok, x[:, :, idx, flip], 0.0)
+
+
+def local_bwd_key_probs_plain(q: torch.Tensor, k: torch.Tensor,
+                              rel_emb: torch.Tensor, lse: torch.Tensor,
+                              size_2d: Tuple[int, int], num_heads: int,
+                              max_dis: int, scale: float) -> torch.Tensor:
+    """The key side's P^T, recomputed from q, k, the bias and the query
+    side's lse [B, H, HW], in mirror_rows' key-major layout: for key j and
+    the query i at offset w from it, exp(scale q_i.k_j + rel[i, win^2 - 1 -
+    w] - lse_i); 0 where i lies outside the image."""
+    idx, ok, flip = _window(size_2d, max_dis, q.device)
+    qh, kh = _heads(q, num_heads), _heads(k, num_heads)
+    s = (qh[:, :, idx] * kh[:, :, :, None]).sum(-1) * scale
+    s = s + _heads(rel_emb, num_heads)[:, :, idx, flip] - lse[:, :, idx]
+    return torch.where(ok, torch.exp(s), 0.0)
+
+
+def local_attention_bwd_stages_plain(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, rel_emb: torch.Tensor,
+                                     g: torch.Tensor,
+                                     size_2d: Tuple[int, int],
+                                     num_heads: int, max_dis: int,
+                                     scale: float
+                                     ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' stages in plain PyTorch, f32, gathering each
+    window rather than forming [HW x HW]: the query side's lse rows, p, dp,
+    delta, ds (drel) and dq; the key side's P^T from that lse
+    (local_bwd_key_probs_plain), ds^T re-indexed from drel's rows
+    (mirror_rows), dv and dk. Returns (dq, dk, dv, drel) as
+    local_attention_bwd_plain does."""
+    nh = num_heads
+    idx, ok, _ = _window(size_2d, max_dis, q.device)
+    qh, kh, vh, gh = (_heads(x, nh) for x in (q, k, v, g))
+    # the query side
+    lse = local_bwd_lse_plain(q, k, rel_emb, size_2d, nh, max_dis, scale)
+    s = (qh[:, :, :, None] * kh[:, :, idx]).sum(-1) * scale
+    s = torch.where(ok, s + _heads(rel_emb, nh), float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.where(ok, (gh[:, :, :, None] * vh[:, :, idx]).sum(-1), 0.0)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)                              # 0 outside the image
+    dq = (ds[..., None] * kh[:, :, idx]).sum(-2) * scale
+    # the key side
+    pt = local_bwd_key_probs_plain(q, k, rel_emb, lse, size_2d, nh, max_dis,
+                                   scale)
+    dst = mirror_rows(ds, size_2d, max_dis)
+    dv = (pt[..., None] * gh[:, :, idx]).sum(-2)
+    dk = (dst[..., None] * qh[:, :, idx]).sum(-2) * scale
+    return _tokens(dq), _tokens(dk), _tokens(dv), _tokens(ds)
 
 
 def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,10 +287,12 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, ...]:
     """Gradients (dq, dk, dv, drel) of `local_attention` for the cotangent
     g [B, HW, h*dv]. On the card: the two backward kernels of
-    csrc/local_attention.cu at one or two heads of 128 (the bias handed to
-    them head-major, `rel_head_major`), bf16 inputs as the forward takes
-    them, g bf16; dq, dk, dv come back bf16 and drel f32 [B, HW, h*win^2].
-    On the CPU: the plain version."""
+    csrc/local_attention.cu at one or two heads of 128, a 15 x 15 window
+    and values BWD_VALUES a head, every tensor in the caller's layout (the
+    query side also writes each row's lse, f32 [B, h, HW], for the key
+    side), bf16 inputs as the forward takes them, g bf16; dq, dk, dv come
+    back bf16 and drel f32 [B, HW, h*win^2]. On the CPU: the plain
+    version."""
     if not q.is_cuda:
         return local_attention_bwd_plain(q, k, v, rel_emb, g, size_2d,
                                          num_heads, max_dis, scale)
@@ -220,25 +315,24 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(num_heads in FWD_HEADS and dh == 128,
            f"{num_heads} heads of width {dh} (the kernels are held to their "
            "plain version for one or two heads of 128, r50_deaotl's)")
-    _check(dv % 128 == 0, f"value width {dv} (multiple of 128)")
+    _check(max_dis == 7, f"max_dis {max_dis} (the kernels' window is 15 x 15)")
+    _check(dv in BWD_VALUES, f"value width {dv} (one of {BWD_VALUES})")
     fn = build.load("local_attention").rmem_local_attention_bwd
     fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
     fn.restype = _I
-    rel = rel_head_major(rel_emb, num_heads)
     dq, dk = torch.empty_like(q), torch.empty_like(k)
     dvv = torch.empty_like(v)
     f32 = dict(dtype=torch.float32, device=q.device)
-    # head-major, as the kernels read and write them
-    drel = torch.empty((b, num_heads, hw, win2), **f32)
-    p_scratch = torch.empty((b, num_heads, hw, win2), **f32)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(),
+    drel = torch.empty((b, hw, num_heads * win2), **f32)
+    lse = torch.empty((b, num_heads, hw), **f32)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_emb.data_ptr(),
              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-             drel.data_ptr(), p_scratch.data_ptr(), b, h2d, w2d, num_heads,
-             dh, dv, max_dis, float(scale),
+             drel.data_ptr(), lse.data_ptr(), b, h2d, w2d, num_heads, dh, dv,
+             max_dis, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "local_attention_bwd")
     local_attention_bwd.launches += 1
-    return dq, dk, dvv, drel.transpose(1, 2).reshape(b, hw, num_heads * win2)
+    return dq, dk, dvv, drel
 
 
 local_attention_bwd.launches = 0
