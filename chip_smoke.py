@@ -21,7 +21,9 @@ non-zero exit code:
    each beside SDPA with the dense bias, and on a ragged grid; K6 at the
    serving image and phase 7's 625x1105, each beside cuDNN's bf16 chain)
    and the opt-in inference kernels (K3 at the main path's call and at
-   phase 7's two batch-2 grids, from HBM and L2-resident; K8) at 481x849,
+   phase 7's two batch-2 grids, from HBM and L2-resident; K8 at the same
+   three shapes, from HBM and L2-resident, beside PyTorch's depthwise
+   conv2d on the pre-gated map) at 481x849,
    and the training kernels (K1' with its lse output, beside SDPA, at 4
    valid slots and at 2, where its output must not lie on the bf16 grid;
    K2's split backward (csrc/bank_attention_bwd.cu: its dq kernel with the
@@ -54,8 +56,10 @@ non-zero exit code:
    the plain forward, dk and dv exactly 0 past count; K5's backward at 2
    heads on the training grid and a ragged one; each beside SDPA over the
    valid slots or with the dense bias, forward or backward), and R50-AOTL
-   no_memory_gap's kernels at 2 heads of 128 with values 128 a head (K1x2v128
-   at K1's six calls, K1'x2v128 as K1'x2, its own kernel,
+   no_memory_gap's kernels at 2 heads of 128 with values 128 a head (K1x2v128,
+   its own kernel, csrc/bank_attention_infer_v128.cu, at K1's six calls,
+   each with its cluster size and the clusters the card holds at once, one
+   kernel a call by the profiler; K1'x2v128 as K1'x2, its own kernel,
    csrc/bank_attention_lse_v128.cu, split by kernel, and K2x2v128, the fused pair of
    csrc/bank_attention_bwd_fused.cu: its dkv kernel and its dq kernel with
    the sum of the slot groups' partials, each against the plain version,
@@ -168,8 +172,8 @@ non-zero exit code:
 17. serve R50-AOTL + RMem with no_memory_gap (2 heads of 128 in the LSTT's
    long- and short-term attention, values 128 a head) on phase 3's
    traffic with the evaluator's gap of 1, as phase 13: K1x2v128 3 a frame
-   and K6 1 (every launch of K1's template at that head shape), K1h, K3
-   and K4 never; evictions counted on the device equal the schedule;
+   (one launch a call) and K6 1 (every call of K1's launcher at that head
+   shape), K1h, K3 and K4 never; evictions counted on the device equal the schedule;
    labels in [0, 10], finite logits; frames/s over three 30-frame windows
    (`--profile`: busy time a frame, top ops);
 18. phase 4 for phase 17's engine: every K1x2v128 and K6 call held against
@@ -192,8 +196,10 @@ no CUDA device is available or the package is not beside this script.
 `--mutants` runs only a mutation check of phase 2's per-call checks of K2
 (held_k2; K1'x2 + K2x2 by held_k2h at 2 heads, values 512 a head, at 9
 valid slots and on keys that cancel), K4
-and K5's backward (held_k4, held_k5; each at one head and at two), K1, K3 and K1' (held_k1, held_k3, held_k2, held_k1ph; each at one
-head and at two, K1 and K1' also at values 128 a head), K1h, K3h and K1'h
+and K5's backward (held_k4, held_k5; each at one head and at two), K1, K3
+and K1' (held_k1, held_k3, held_k2, held_k1ph; each at one head and at
+two), K1x2v128 (held_k1 at K1's six calls, and at clusters of 3), K8 (held
+at phase 2's three shapes and a ragged grid, and bit for bit), K1h, K3h and K1'h
 (held_k1h, held_k3h, held_k1ph), K2x2v128's fused pair (held_k2h at 2
 heads, values 128 a head, at 4 valid slots and on keys that cancel), K2h
 (held_k2h at 4 valid slots, at the reference frame's one, and on keys
@@ -218,9 +224,14 @@ template: the keys past Lk go unmasked, or a quarter of the accumulator
 unrescaled; at 2 heads, head 1 reads head 0's keys, or the wrapper takes
 head 0's slot mass for the heads' mean; K1': the partial outputs pass
 through bf16, or the lse drops the log of the sum; K1'x2: only head 0's
-lse is written; at 128 value columns a block, head 1 reads head 0's
-values, or the P.V product's V descriptor steps 8 keys a 16-key slice;
-K3h: the wrapper masks the keys a chunk short; K1h: the bias is
+lse is written; K1x2v128: head 1 reads head 0's values, the P.V
+product's V descriptor steps 8 keys a 16-key slice, a rank's range starts
+a chunk late, the merge drops rank 1's per-slot sums or weighs every
+rank's output by rank 0's weight, the bias is skipped on ranks past 0, or
+the key mask sits on a slot's first chunk; K8: a band's last output row
+is left unwritten, the rows below the image are not skipped, the taps are
+summed in reverse dx order, each channel takes its neighbour's weights,
+or the gate is never multiplied in; K3h: the wrapper masks the keys a chunk short; K1h: the bias is
 dropped, a slot's sum is not rescaled as the row's maximum grows, the
 zero keys past true_lk go unmasked, ldmatrix reads the tiles unswizzled,
 the merge weighs every group by the first group's maximum, or takes a
@@ -800,14 +811,15 @@ def k1x2_inputs(dev, **kw):
 
 def k1x2v128_inputs(dev, **kw):
     """K1's inputs at R50-AOTL no_memory_gap's 2 heads of 128 (values 128 a
-    head: the template's 128-wide instantiation)."""
+    head: K1x2v128, csrc/bank_attention_infer_v128.cu)."""
     return k1_inputs(dev, heads=2, values=256, **kw)
 
 
 # the multi-head rows of K1 in phase 2 (heads_entry): K1h, AOT's 8 heads
 # of 32 (csrc/bank_attention_mh.cu), and K1x2 and K1x2v128, no_memory_gap's
-# 2 heads of 128 with values 512 a head (DeAOT) and 128 a head (AOT) (K1's
-# template, csrc/bank_attention_infer.cu); `call` names the wrapper in
+# 2 heads of 128 with values 512 a head (DeAOT: K1's template,
+# csrc/bank_attention_infer.cu) and 128 a head (AOT: its own kernel,
+# csrc/bank_attention_infer_v128.cu); `call` names the wrapper in
 # kernels/bank_attention.py
 HEAD_ROWS = {
     "bank_attention_mh": dict(
@@ -821,7 +833,7 @@ HEAD_ROWS = {
     "bank_attention_h2v128": dict(
         label="K1x2v128", inputs=k1x2v128_inputs, held=held_k1,
         call="bank_attention_infer",
-        source="rmem_tpu_torch/csrc/bank_attention_infer.cu"),
+        source="rmem_tpu_torch/csrc/bank_attention_infer_v128.cu"),
 }
 
 
@@ -829,8 +841,10 @@ def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
     """Phase 2's rows of a multi-head bank attention (HEAD_ROWS): every case
     of K1_CASES held and timed (CUDA events), the main call beside its plain
     version, its bound and SDPA over the valid slots' keys flattened (the
-    bias as an additive mask; and without it). Returns the kernels-line
-    entry without its launch count."""
+    bias as an additive mask; and without it). K1x2v128 also prints each
+    case's cluster size and the clusters of that size the card holds at
+    once, and its device time by kernel (one kernel a call, no merge).
+    Returns the kernels-line entry without its launch count."""
     import torch
     import torch.nn.functional as F
 
@@ -845,10 +859,19 @@ def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
                           ms=cuda_ms(lambda: call(*args), 20))
         if name == "bank_attention_mh":
             cases[key].update(issue_ms(lambda: call(*args)))
+        cluster = ""
+        if name == "bank_attention_h2v128":
+            cl, resident = kb.v128_launch_cluster(args[0])
+            cases[key].update(cluster=cl, resident_clusters=resident,
+                              graph_ms=graph_ms(lambda: call(*args), 20))
+            cluster = (f"; clusters of {cl} blocks, {resident} resident at "
+                       f"once; a CUDA graph of it {cases[key]['graph_ms']:.4f}"
+                       " ms")
         print(f"{row['label']} {name} {key} {kw}: {cases[key]['ms']:.4f} ms, "
               f"max|out-plain| {cases[key]['err'][0]:.3e} (max|plain| "
               f"{cases[key]['err'][1]:.3e}), max|rec-plain| "
-              f"{cases[key]['err'][2]:.3e}" + issue_text(cases[key]))
+              f"{cases[key]['err'][2]:.3e}" + issue_text(cases[key])
+              + cluster)
     args = inputs(dev)
     q, bk, bvv, cnt, heads, scale, lk, qbias = args
     count, b, lq = int(cnt), q.shape[0], q.shape[1]
@@ -883,7 +906,8 @@ def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
             q_lib, k_lib, v_lib, scale=scale), 20),
         cases={key: dict(ms=c["ms"], rel_err=c["err"][0] / c["err"][1],
                          mass_err=c["err"][2],
-                         **{k: c[k] for k in ("host_ms", "graph_ms")
+                         **{k: c[k] for k in ("host_ms", "graph_ms",
+                                              "cluster", "resident_clusters")
                             if k in c}) for key, c in cases.items()})
     print(f"{row['label']} at the main path {main['ms']:.4f} ms, plain "
           f"{entry['plain_ms']:.4f} ms, SDPA over the 9 valid slots with the "
@@ -892,6 +916,11 @@ def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
           f"({b_by})")
     if name == "bank_attention_mh":
         split_row(entry, lambda: call(*args), row["label"])
+    if name == "bank_attention_h2v128":
+        split_row(entry, lambda: call(*args), row["label"])
+        ours = [k for k in entry["split_ms"] if "rmem_" in k]
+        check(len(ours) == 1 and "infer_kernel" in ours[0],
+              f"K1x2v128 launched {ours}, expected one kernel a call")
     return entry
 
 
@@ -1088,13 +1117,68 @@ def k4_shape(dev, batch: int, gh: int, gw: int, heads: int = 1) -> dict:
     return r
 
 
+# K8 in phase 2: the main path's grid at batch 1 (the shape the kernels-line
+# row reports) and phase 7's two calls, batch 2 on the grids of scales 1.0
+# and 1.3 (the only calls the opt-in route makes)
+K8_SHAPES = {"b1_31x54": (1, 31, 54), "b2_31x54": (2, 31, 54),
+             "b2_40x70": (2, 40, 70)}
+
+
+def k8_shape(randn, wt, batch: int, gh: int, gw: int) -> dict:
+    """K8 at one shape ([batch, gh * gw, C] bf16, C from the weight): held
+    within one bf16 ulp of its plain version, timed from HBM (a CUDA graph
+    cycling through input sets of at least K3_COLD_BYTES, twice the L2) and
+    on one L2-resident set, beside its plain version, its bound and
+    PyTorch's depthwise conv2d on the pre-gated map (the multiply not
+    counted, channels last as the tail holds it), the same graph. K8 takes
+    less device time than an eager call takes the host, hence the graphs."""
+    import torch.nn.functional as F
+
+    from rmem_tpu_torch.kernels import dwconv as kd
+    from rmem_tpu_torch.ops.layers import seq_to_map
+    c, hw = wt.shape[0], gh * gw
+    set_bytes = 2 * batch * hw * c * 2
+    nsets = K3_COLD_BYTES // set_bytes + 1
+    sets = [(randn(batch, hw, c), randn(batch, hw, c)) for _ in range(nsets)]
+    maps = [seq_to_map(a * b, (gh, gw)) for a, b in sets]
+    dargs = (*sets[0], wt, (gh, gw))
+    out, ref = kd.gated_dwconv(*dargs), kd.gated_dwconv_plain(*dargs)
+    err, top, _ = held("gated_dwconv", out, ref)
+    turn = itertools.count()
+
+    def k8_call():
+        a, b = sets[next(turn) % nsets]
+        return kd.gated_dwconv(a, b, wt, (gh, gw))
+
+    def conv_call():
+        return F.conv2d(maps[next(turn) % nsets], wt, padding=2, groups=c)
+
+    # x and gate read once, out written once; 25 multiply-adds an output
+    b_ms, b_by = bound(2.0 * 25 * batch * hw * c,
+                       3 * batch * hw * c * 2 + wt.numel() * 2)
+    r = dict(ms=graph_ms(k8_call, 4 * nsets), sets=nsets,
+             set_mb=set_bytes / 1e6,
+             l2_resident_ms=graph_ms(lambda: kd.gated_dwconv(*dargs), 48),
+             plain_ms=graph_ms(lambda: kd.gated_dwconv_plain(*dargs), 10),
+             library_ms=graph_ms(conv_call, 4 * nsets), bound_ms=b_ms,
+             bound_by=b_by, err=err, differ=int((out != ref).sum()))
+    print(f"K8 gated_dwconv {batch}x{gh}x{gw}x{c}: {r['ms']:.4f} ms from HBM "
+          f"({nsets} input sets, {r['set_mb']:.1f} MB each), "
+          f"{r['l2_resident_ms']:.4f} ms on one set, plain {r['plain_ms']:.4f}"
+          f" ms, depthwise conv2d {r['library_ms']:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}); max|out-plain| {err:.3e} (max|plain| "
+          f"{top:.3e}), {r['differ']} of {out.numel()} values differ")
+    return r
+
+
 def check_optin_kernels(dev):
     """Phase 2, the opt-in inference kernels in bf16: K3 (the slot-split
     bank attention; 9 valid slots of 10, dh 128, dv 1024) against its plain
     version at the main path's call (batch 1, Lq = Lk = 1674) and at phase
     7's (batch 2 on 31 x 54 and 40 x 70), each timed from HBM and
-    L2-resident; and K8 (the gated depthwise conv, [1, 1674, 1024] on the
-    31 x 54 grid). Returns {name: entry} without launch counts."""
+    L2-resident; and K8 (the gated depthwise conv, 1024 channels) at the
+    same three shapes (K8_SHAPES, k8_shape). Returns {name: entry} without
+    launch counts."""
     import torch
     import torch.nn.functional as F
 
@@ -1161,50 +1245,29 @@ def check_optin_kernels(dev):
             q[None], k_lib, v_lib, scale=scale), 20),
         l2_resident_ms=main["l2_resident_ms"], shapes=shapes)
 
-    # ---- K8: the gated tail's product and 5 x 5 depthwise conv ----
+    # ---- K8: the gated tail's product and 5 x 5 depthwise conv, at the
+    # main path's grid (batch 1) and at phase 7's calls (batch 2, the two
+    # scales' grids) ----
     c = 1024
-    x, gate = randn(1, hw, c), randn(1, hw, c)
     wt = randn(c, 1, 5, 5, scale=0.2)
+    k8_shapes = {key: k8_shape(randn, wt, *shape)
+                 for key, shape in K8_SHAPES.items()}
+    main = k8_shapes["b1_31x54"]
+    x, gate = randn(1, hw, c), randn(1, hw, c)
     dargs = (x, gate, wt, (h, w))
-    out = kd.gated_dwconv(*dargs)
-    ref = kd.gated_dwconv_plain(*dargs)
-    err, top, _ = held("gated_dwconv", out, ref)
-    print(f"K8 gated_dwconv: max|out-plain| {err:.3e} (max|plain| "
-          f"{top:.3e}), {int((out != ref).sum())} of {out.numel()} values "
-          "differ")
-    # the default tail's conv on the pre-gated map (the multiply not
-    # counted), channels last as the tail holds it
     xg_map = seq_to_map(x * gate, (h, w))
-    # K8 takes less device time than an eager call takes the host, so its
-    # times are those of a CUDA graph of 48 calls (the eager ones beside).
-    # The graph cycles through 12 input sets, 83 MB of x and gate, more
-    # than the 50 MB L2, so each call reads its inputs from HBM as the
-    # bound counts them
-    sets = [(randn(1, hw, c), randn(1, hw, c)) for _ in range(12)]
-    maps = [seq_to_map(a * b, (h, w)) for a, b in sets]
-    turn = itertools.count()
-
-    def k8_call():
-        a, b = sets[next(turn) % len(sets)]
-        return kd.gated_dwconv(a, b, wt, (h, w))
-
-    def conv_call():
-        return F.conv2d(maps[next(turn) % len(maps)], wt, padding=2,
-                        groups=c)
-
-    b_ms, b_by = bound(2.0 * 25 * hw * c, 3 * hw * c * 2 + wt.numel() * 2)
     entries["gated_dwconv"] = dict(
         name="gated_dwconv", route="cuda",
         source="rmem_tpu_torch/csrc/gated_dwconv.cu",
-        replaces="rmem_tpu/kernels/dwconv.py:51", max_abs_err=err,
-        ms=graph_ms(k8_call, 48),
-        plain_ms=graph_ms(lambda: kd.gated_dwconv_plain(*dargs), 10),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=graph_ms(conv_call, 48),
-        l2_resident_ms=graph_ms(lambda: kd.gated_dwconv(*dargs), 48),
+        replaces="rmem_tpu/kernels/dwconv.py:51",
+        max_abs_err=max(r["err"] for r in k8_shapes.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        l2_resident_ms=main["l2_resident_ms"],
         eager_ms=cuda_ms(lambda: kd.gated_dwconv(*dargs), 50),
         library_eager_ms=cuda_ms(lambda: F.conv2d(xg_map, wt, padding=2,
-                                                  groups=c), 50))
+                                                  groups=c), 50),
+        shapes=k8_shapes)
     for e in entries.values():
         e["kernel_ms"] = e["ms"]
     return entries
@@ -3721,21 +3784,64 @@ MUTANTS = {
         # K1'x2: the merge writes head 0's lse only
         "k1px2_lse_head0_only": [
             ("if (kF32 && blockIdx.y == 0 && threadIdx.x == 0)",
-             "if (kF32 && h == 0 && blockIdx.y == 0 && threadIdx.x == 0)")],
-        # K1x2v128 and K1'x2v128: at 128 value columns a block, head 1
-        # reads head 0's values
+             "if (kF32 && h == 0 && blockIdx.y == 0 && threadIdx.x == 0)")]}),
+    "bank_attention_infer_v128": ("k1v128", {
+        # head 1 reads head 0's values
         "k1v128_head0_values": [
-            ("tma_load(sv + a * ATOM, &tm_v, &full[st], c0 + a * 64, h, key0, "
-             "z);",
-             "tma_load(sv + a * ATOM, &tm_v, &full[st], c0 + a * 64, "
-             "DVB == 128 ? 0 : h, key0, z);")],
-        # K1x2v128 and K1'x2v128: the P.V product's V descriptor steps 8
-        # keys a 16-key slice of P, so slices read the wrong keys' values
+            ("          tma_load(sk + TILE + a * ATOM, &tm_v, &full[st], "
+             "a * 64, h, key0,",
+             "          tma_load(sk + TILE + a * ATOM, &tm_v, &full[st], "
+             "a * 64, 0, key0,")],
+        # the P.V product's V descriptor steps 8 keys a 16-key slice of P,
+        # so slices read the wrong keys' values
         "k1v128_v_desc_half_step": [
             ("wgmma_rs_m64n128(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, "
              "1024));",
              "wgmma_rs_m64n128(o, pa[kk], desc_sw128(sv + kk * 1024, 8192, "
-             "1024));")]}),
+             "1024));")],
+        # a rank's range starts a chunk late: the chunk at each cut is lost
+        "range_off_by_one": [
+            ("  const int p0 = (int)((long long)n * rank / CL);",
+             "  const int p0 = (int)((long long)n * rank / CL) + (rank > 0);")],
+        # rank 1's per-slot sums left out of the merge
+        "rank1_slot_sums_dropped": [
+            ("      for (int r = 0; r < CL; ++r) {",
+             "      for (int r = 0; r < CL; r += r == 0 ? 2 : 1) {")],
+        # the bias skipped on ranks > 0
+        "bias_rank0_only": [
+            ("      if (kBias && qbias != nullptr) {",
+             "      if (kBias && qbias != nullptr && rank == 0) {")],
+        # the key mask on a slot's first chunk, not its last
+        "mask_wrong_chunk": [
+            ("    const bool edge = key0 + BK > true_lk;",
+             "    const bool edge = key0 == 0;")],
+        # the merge weighs every rank's output by rank 0's weight
+        "merge_rank0_weight": [
+            ("      const float w = wgt[r * TQ + row];",
+             "      const float w = wgt[row];")]}),
+    "gated_dwconv": ("k8", {
+        # a band's last output row unwritten
+        "k8_last_row_unwritten": [
+            ("      if (y0 + j < H) {", "      if (y0 + j < H && j < RB - 1) {")],
+        # the rows below the image not skipped: stale ring rows as the
+        # bottom halo
+        "k8_bottom_halo": [
+            ("    const bool inside = yy >= 0 && yy < H;",
+             "    const bool inside = yy >= 0;")],
+        # the taps summed in reverse dx order
+        "k8_dx_reversed": [
+            ("const bf162 pr = __hmul2_rn(t[k + dx], wr[dy * 5 + dx]);",
+             "const bf162 pr = __hmul2_rn(t[k + 4 - dx], wr[dy * 5 + 4 - dx]);")],
+        # each channel takes its neighbour's weights
+        "k8_wrong_pair_weights": [
+            ("    wr[k] = __halves2bfloat162(w[(size_t)c * 25 + k],\n"
+             "                               w[(size_t)(c + 1) * 25 + k]);",
+             "    wr[k] = __halves2bfloat162(w[(size_t)(c + 1) * 25 + k],\n"
+             "                               w[(size_t)c * 25 + k]);")],
+        # the gate never multiplied in
+        "k8_no_gate": [
+            ("        for (int e = 0; e < 4; ++e) a2[e] = __hmul2_rn(a2[e], "
+             "g2[e]);", "        for (int e = 0; e < 4; ++e) a2[e] = a2[e];")]}),
     "bank_attention_mh": ("k1h", {
         # K1h: the slot-PE bias is dropped
         "k1h_no_bias": [("if (!kTrain && qbias != nullptr && key0 == 0) {",
@@ -3873,21 +3979,62 @@ MUTANTS = {
 
 def k1_k3_k1p_check(dev):
     """The template's instantiations: K1's phase-2 calls with the bias and
-    with padded keys, at one head, at two and at two with values 128 a
-    head, K3's at one head and at two, then K1' (with K2) at 2 and 4 valid
-    slots, and K1'x2 at 4 with values 512 a head."""
+    with padded keys, at one head and at two, K3's at one head and at two,
+    then K1' (with K2) at 2 and 4 valid slots, and K1'x2 at 4 with values
+    512 a head."""
     errs = {f"{key}_h{heads}": held_k1(*k1_inputs(dev, heads=heads,
                                                  **K1_CASES[key]))
             for key in ("main", "padded") for heads in (1, 2)}
-    for key in ("main", "padded"):
-        errs[f"{key}_h2v128"] = held_k1(*k1x2v128_inputs(dev,
-                                                         **K1_CASES[key]))
     errs["k3"] = held_k3(*k3_inputs(dev))
     errs["k3_h2"] = held_k3(*k3_inputs(dev, heads=2))
     for count in (2, 4):
         errs[f"k1p_{count}"] = held_k2(*k2_inputs(dev, count)[1])
     q, bk, bv, cnt, _, _, scale = k2x2_inputs(dev, count=4)
     errs["k1px2_4_v512"] = held_k1ph(q, bk, bv, cnt, scale, 2)[1]
+    return errs
+
+
+def k1v128_check(dev):
+    """K1x2v128 (csrc/bank_attention_infer_v128.cu) at K1's six phase-2
+    calls, each at the cluster size the launcher picks (4 at batch 1, 2 at
+    batch 2), and the main call and one slot at clusters of 3 (a cut inside
+    a slot; with one slot of 27 chunks, ranges of 9)."""
+    from unittest import mock
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    errs = {key: held_k1(*k1x2v128_inputs(dev, **kw))
+            for key, kw in K1_CASES.items()}
+    with mock.patch.object(kb, "v128_cluster", lambda *a, **k: 3):
+        for key in ("main", "count_1"):
+            errs[f"{key}_cl3"] = held_k1(*k1x2v128_inputs(dev,
+                                                          **K1_CASES[key]))
+    return errs
+
+
+def k8_check(dev):
+    """K8 (csrc/gated_dwconv.cu) at phase 2's three shapes and on a ragged
+    13 x 21 grid of 128 channels at batch 2: held within one bf16 ulp, and
+    bit for bit (the kernel keeps the plain version's roundings and order,
+    so a changed order shows here)."""
+    import torch
+
+    from rmem_tpu_torch.kernels import dwconv as kd
+    g = torch.Generator(device=dev).manual_seed(8)
+    errs = {}
+    for key, (b, gh, gw, c) in {"b1_31x54": (1, 31, 54, 1024),
+                                "b2_31x54": (2, 31, 54, 1024),
+                                "b2_40x70": (2, 40, 70, 1024),
+                                "b2_13x21": (2, 13, 21, 128)}.items():
+        x, gate = (torch.randn((b, gh * gw, c), generator=g, device=dev)
+                   .bfloat16() for _ in range(2))
+        wt = (torch.randn((c, 1, 5, 5), generator=g, device=dev) * 0.2
+              ).bfloat16()
+        out = kd.gated_dwconv(x, gate, wt, (gh, gw))
+        ref = kd.gated_dwconv_plain(x, gate, wt, (gh, gw))
+        errs[key] = held("gated_dwconv", out, ref)[0]
+        check(torch.equal(out, ref), f"K8 {key}: "
+              f"{int((out != ref).sum())} values differ from the plain "
+              "version's bits")
     return errs
 
 
@@ -3968,6 +4115,8 @@ MUTANT_CHECKS = {
         cancelling=held_k2h(*k1ph_inputs(dev, cancel=True),
                             plain_forward=True)),
     "k1pv128": k1pv128_check,
+    "k1v128": k1v128_check,
+    "k8": k8_check,
     "k1_k3_k1p": k1_k3_k1p_check,
     "stem": stem_check,
     "k4_k5": k4_k5_check,
@@ -4039,9 +4188,9 @@ def main() -> int:
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
                          "K5, K1, K3, K1', K1h, K3h, K1'h, K2h, K2x2v128, "
-                         "K1'x2v128, K6 and K7 checks (K1, K3, K4, K1', K2 "
-                         "and K5's backward at one head and at two, K1 also "
-                         "at values 128 a head); prints no result line")
+                         "K1'x2v128, K1x2v128, K8, K6 and K7 checks (K1, K3, "
+                         "K4, K1', K2 and K5's backward at one head and at "
+                         "two); prints no result line")
     args = ap.parse_args()
     if args.frames < 60:
         ap.error("--frames must be at least 60 (the bank fills at 40)")

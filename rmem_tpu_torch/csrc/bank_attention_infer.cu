@@ -3,7 +3,8 @@
 // the softmax mass is returned beside the output (RMem's eviction signal).
 // One kernel template, instantiated for three uses:
 //   - K1: with a per-(query, slot) logit bias (the factored slot temporal
-//     PE) and the keys masked past true_lk. Replaces
+//     PE) and the keys masked past true_lk, at values a multiple of 256 a
+//     head (csrc/bank_attention_infer_v128.cu takes 128). Replaces
 //     rmem_tpu/kernels/bank_attention.py:pallas_bank_attention_infer
 //     (_forward, _kernel) and, with one slot and no bias, the reference
 //     frame's self-memory call of pallas_bank_attention;
@@ -39,10 +40,10 @@
 // tensor maps pick a head's columns out of them. Blocks whose group starts
 // at or beyond the slot count, read on the device, return before any
 // barrier or copy, so a frame never waits for the host. Heads: 1 or 2, of
-// 128 (DeAOT's, DeAOT's no_memory_gap with 512 values a head, and AOT's
-// no_memory_gap with 128). DVB is 256 for values a multiple of 256 a head
-// and 128 for values 128 a head (one block covers them: no Q K^T is
-// recomputed, and each stage is 16 KB smaller).
+// 128 with values a multiple of DVB = 256 a head (DeAOT's, and DeAOT's
+// no_memory_gap with 512 values a head); AOT's no_memory_gap, with values
+// 128 a head, has its own kernels (csrc/bank_attention_infer_v128.cu,
+// csrc/bank_attention_lse_v128.cu).
 //   - A producer warpgroup (one thread, its registers given back with
 //     setmaxnreg) loads the two Q tiles once and then keeps the block's K
 //     and V chunks (64 keys: K [64 x 128], V [64 x DVB]) in flight by TMA
@@ -58,10 +59,9 @@
 //     and a key in [true_lk, Lk) is padding), the bias of the chunk's slot
 //     (K1: each row loads its G values once a block, in log2 units), the
 //     online softmax in registers (exp2, four threads a row), and O += P V as
-//     wgmma m64n256k16 (m64n128k16 at DVB 128) with P in registers (the
-//     accumulator's layout is the A operand's, so P needs no shuffle) and V
-//     from shared memory (MN-major). O is 64 x DVB f32: DVB / 2 registers a
-//     thread.
+//     wgmma m64n256k16 with P in registers (the accumulator's layout is the
+//     A operand's, so P needs no shuffle) and V from shared memory
+//     (MN-major). O is 64 x DVB f32: DVB / 2 registers a thread.
 //   - The two warpgroups share every K/V chunk, so the bank is read from L2
 //     once per 128 queries and DVB columns. Q K^T is recomputed for each
 //     dv slice (at one head of 1024 values, four: 1.33x the minimal work),
@@ -108,20 +108,12 @@ constexpr int G = 2;          // slots a block walks
 constexpr int ATOM = 64 * 128;              // one [64 x 64] bf16 TMA box
 constexpr int Q_BYTES = NCONS * 2 * ATOM;
 constexpr int K_BYTES = 2 * ATOM;
-// The value columns a block (DVB, a template parameter: 256, or 128 for
-// heads whose values are 128 wide) set the V tile, one 64-wide TMA box per
-// 64 columns, and with it the stage and the shared memory.
-__host__ __device__ constexpr int stage_bytes(int dvb) {
-  return K_BYTES + (dvb / 64) * ATOM;
-}
-__host__ __device__ constexpr int bar_off(int dvb) {
-  return Q_BYTES + STAGES * stage_bytes(dvb);
-}
+constexpr int DVB = 256;      // value columns a block: four 64-wide boxes
+constexpr int STAGE_BYTES = K_BYTES + (DVB / 64) * ATOM;
+constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
 // + 1024: the dynamic shared memory is aligned up to 1024 bytes by hand,
 // the period of the 128-byte swizzle that TMA and wgmma must agree on
-__host__ __device__ constexpr int smem_bytes(int dvb) {
-  return bar_off(dvb) + (2 * STAGES + 1) * 8 + 1024;
-}
+constexpr int SMEM_BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
 constexpr int kMergeThreads = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -154,7 +146,7 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 // kBias, qbias [B, H, Lq, S] f32 (natural units, or null for none) is added
 // to the scaled logits and keys >= true_lk are masked; without, true_lk =
 // Lk.
-template <bool kBias, bool kF32, int DVB>
+template <bool kBias, bool kF32>
 __global__ void __launch_bounds__(kThreads, 1)
 partial_kernel(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
@@ -165,12 +157,10 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
                std::conditional_t<kF32, float, bf16>* __restrict__ part_o,
                int B, int H, int Lq, int S, int true_lk, int DV,
                float scale_log2) {
-  static_assert(DVB == 128 || DVB == 256, "a block takes 128 or 256 values");
-  constexpr int STAGE_BYTES = stage_bytes(DVB);
   extern __shared__ __align__(1024) char smem_raw[];
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bar_off(DVB));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
 
@@ -338,15 +328,11 @@ partial_kernel(const __grid_constant__ CUtensorMap tm_q,
         pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
       // V's 64-wide boxes lie 8 KB apart (the leading offset), its 8-key
-      // groups 1024 bytes (the stride): the same descriptor at either width
+      // groups 1024 bytes (the stride)
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        if constexpr (DVB == 256)
-          wgmma_rs_m64n256(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, 1024));
-        else
-          wgmma_rs_m64n128(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, 1024));
-      }
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_m64n256(o, pa[kk], desc_sw128(sv + kk * 2048, 8192, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<DVB / 2>(o);
@@ -451,7 +437,7 @@ merge_kernel(const float* __restrict__ part_m,
   }
 }
 
-template <bool kBias, bool kF32, int DVB>
+template <bool kBias, bool kF32>
 static int launch(const void* q, const void* k, const void* v,
                   const void* qbias, const void* count, void* part_m,
                   void* part_l, void* part_o, void* out, void* rec, void* lse,
@@ -463,8 +449,7 @@ static int launch(const void* q, const void* k, const void* v,
   if (e == 0) e = map4d(&tk, k, D, H, Lk, (uint64_t)S * B);
   if (e == 0) e = map4d(&tv, v, DV, H, Lk, (uint64_t)S * B);
   if (e != 0) return e;
-  auto kern = partial_kernel<kBias, kF32, DVB>;
-  constexpr int SMEM_BYTES = smem_bytes(DVB);
+  auto kern = partial_kernel<kBias, kF32>;
   static bool configured = false;     // once per process and instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -488,24 +473,11 @@ static int launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The instantiation for DV values a head: one 128-wide block at DV 128,
-// 256-wide slices for a multiple of 256.
-template <bool kBias, bool kF32>
-static int launch_dv(const void* q, const void* k, const void* v,
-                     const void* qbias, const void* count, void* part_m,
-                     void* part_l, void* part_o, void* out, void* rec,
-                     void* lse, int B, int H, int Lq, int S, int Lk,
-                     int true_lk, int DV, float scale, cudaStream_t stream) {
-  auto* fn = DV == 128 ? launch<kBias, kF32, 128> : launch<kBias, kF32, 256>;
-  return fn(q, k, v, qbias, count, part_m, part_l, part_o, out, rec, lse, B,
-            H, Lq, S, Lk, true_lk, DV, scale, stream);
-}
-
 }  // namespace rmem_qminor
 
 // Returns the cudaError_t of the launches (0 on success); -1 for anything
-// but 1 or 2 heads of 128 with dv (a head's values) 128 or a multiple of
-// 256 and true_lk in 1..Lk, -2 or -3 if a tensor map cannot be made.
+// but 1 or 2 heads of 128 with dv (a head's values) a multiple of 256 and
+// true_lk in 1..Lk, -2 or -3 if a tensor map cannot be made.
 // q [B, Lq, H x 128], k [S, B, Lk, H x 128], v [S, B, Lk, H x dv]; qbias
 // [B, H, Lq, S] f32 (scaled logit units) or null; keys >= true_lk masked.
 // With a bias or padded keys (K1) the kernel's kBias instantiation runs,
@@ -519,15 +491,15 @@ extern "C" int rmem_bank_attention_infer(
     const void* count, void* part_m, void* part_l, void* part_o, void* out,
     void* rec, int B, int H, int Lq, int S, int Lk, int true_lk, int dh,
     int dv, float scale, void* stream) {
-  if ((H != 1 && H != 2) || dh != 128 || (dv != 128 && dv % 256 != 0) ||
+  if ((H != 1 && H != 2) || dh != 128 || dv % 256 != 0 ||
       true_lk < 1 || true_lk > Lk)
     return -1;
   cudaStream_t st = (cudaStream_t)stream;
   if (qbias == nullptr && true_lk == Lk)
-    return rmem_qminor::launch_dv<false, false>(
+    return rmem_qminor::launch<false, false>(
         q, k, v, nullptr, count, part_m, part_l, part_o, out, rec, nullptr, B,
         H, Lq, S, Lk, Lk, dv, scale, st);
-  return rmem_qminor::launch_dv<true, false>(
+  return rmem_qminor::launch<true, false>(
       q, k, v, qbias, count, part_m, part_l, part_o, out, rec, nullptr, B, H,
       Lq, S, Lk, true_lk, dv, scale, st);
 }
@@ -546,7 +518,7 @@ extern "C" int rmem_bank_attention_lse(
     void* lse, int B, int H, int Lq, int S, int Lk, int dh, int dv,
     float scale, void* stream) {
   if ((H != 1 && H != 2) || dh != 128 || dv % 256 != 0 || Lk < 1) return -1;
-  return rmem_qminor::launch<false, true, 256>(
+  return rmem_qminor::launch<false, true>(
       q, k, v, nullptr, count, part_m, part_l, part_o, out, rec, lse, B, H,
       Lq, S, Lk, Lk, dv, scale, (cudaStream_t)stream);
 }

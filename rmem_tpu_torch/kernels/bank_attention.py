@@ -9,10 +9,14 @@ pallas_bank_attention_infer and the forward of pallas_bank_attention (the
 reference frame's S = 1 self-memory call).
 
 The template takes one head of 128 or two (DeAOT's `no_memory_gap`: 2
-heads of 128, values 512 a head; AOT's: 2 heads of 128, values 128 a head,
-its instantiation with 128 value columns a block), the heads on its grid;
-at two it returns each head's slot mass and the wrapper averages them, as
-rmem_tpu/kernels/bank_attention.py:_unlayout_out does.
+heads of 128, values 512 a head), the heads on its grid; at two it returns
+each head's slot mass and the wrapper averages them, as
+rmem_tpu/kernels/bank_attention.py:_unlayout_out does. AOT's
+`no_memory_gap` (2 heads of 128, values 128 a head, K1×2ᵛ¹²⁸) has a kernel
+of its own, `csrc/bank_attention_infer_v128.cu`: one launch a call, each
+128-query tile's walk over the valid (slot, chunk) pairs split across a
+thread-block cluster of `v128_cluster` blocks and merged in distributed
+shared memory; `bank_attention_infer_v128_plain` is its form.
 
 At 8 heads of 32 (AOT's LSTT, kernel K1ʰ) `bank_attention_infer` routes
 to `bank_attention_infer_mh`, which launches `csrc/bank_attention_mh.cu`
@@ -86,10 +90,14 @@ BLOCK_K = 64      # row tile of the backward kernels: their rows pad Lq to it
 # loads; PERF.md has the sweep of 1, 2, 3 and 9 that chose it)
 SLOTS_PER_BLOCK = 2
 # K1 and K3: the head counts of 128 that the template takes on its grid;
-# values 128 a head (its 128-wide instantiation) only at AOT's
-# no_memory_gap shape, the one it is held at
+# values 128 a head only at AOT's no_memory_gap shape, the one K1×2ᵛ¹²⁸
+# (csrc/bank_attention_infer_v128.cu) is held at
 SLOT_HEADS = (1, 2)
 NARROW_VALUES = (2, 128, 128)
+# K1×2ᵛ¹²⁸ (csrc/bank_attention_infer_v128.cu; keys a chunk and slots a
+# call as K1'×2ᵛ¹²⁸'s below): queries a block and blocks a cluster at most
+# (TQ in the source; 4, the largest measured, of the source's 8)
+V128_TILE, V128_MAX_CLUSTER = 128, 4
 # K1ʰ: the head shape csrc/bank_attention_mh.cu is written for, the slots
 # a call takes, and the slots a block walks (G in the source, checked
 # against the library when it loads)
@@ -100,7 +108,7 @@ MH_SLOTS_PER_BLOCK = SLOTS_PER_BLOCK    # so one plain form is both kernels'
 FUSED_DQ_SLOTS = 2
 # K1'×2ᵛ¹²⁸ (csrc/bank_attention_lse_v128.cu): keys a chunk, the consumer
 # warpgroups that take the chunks in turn, and the slots a call takes
-# (BK, NCONS and MAX_SLOTS in the source)
+# (BK, NCONS and MAX_SLOTS in the source; K1×2ᵛ¹²⁸'s BK and MAX_SLOTS too)
 V128_CHUNK, V128_CONSUMERS, V128_MAX_SLOTS = 64, 2, 16
 # K2ʰ (csrc/bank_attention_mh_bwd.cu): the slots a dq block walks (G in the
 # source), which sizes its partials
@@ -235,9 +243,10 @@ def _lse_entry():
 def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
                 true_lk: Optional[int] = None,
                 qbias: Optional[torch.Tensor] = None):
-    """Launch csrc/bank_attention_infer.cu, K1's and K3's kernel. Returns
-    (out [B, Lq, h*dv] bf16, rec [B, Lq, S] f32, the head mean of the
-    kernel's per-head slot mass)."""
+    """Launch K1's and K3's kernel: csrc/bank_attention_infer.cu, or at 2
+    heads of 128 with values 128 a head csrc/bank_attention_infer_v128.cu.
+    Returns (out [B, Lq, h*dv] bf16, rec [B, Lq, S] f32, the head mean of
+    the kernel's per-head slot mass)."""
     s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, num_heads)
     true_lk = lk if true_lk is None else true_lk
     _check(0 < true_lk <= lk, f"true_lk {true_lk} for {lk} keys")
@@ -247,6 +256,10 @@ def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
                and qbias.is_contiguous()
                and qbias.shape == (b, num_heads, lq, s),
                "qbias must be contiguous f32 [B, h, Lq, S]")
+    if (num_heads, dh, dv) == NARROW_VALUES:
+        out, rec_h = _v128_call(q, bank_k, bank_v, count, scale, true_lk,
+                                qbias)
+        return out, rec_h.mean(dim=1)
     fn = _slots_entry()
     part_m, part_l, part_o = _scratch(s, b * num_heads, lq, dv,
                                       torch.bfloat16, q.device)
@@ -264,10 +277,158 @@ def _slots_call(q, bank_k, bank_v, count, num_heads, scale,
     return out, rec_h[:, 0] if num_heads == 1 else rec_h.mean(dim=1)
 
 
+def v128_cluster(units: int, sms: int, resident=None) -> int:
+    """The blocks a cluster takes at K1×2ᵛ¹²⁸: the most, up to
+    V128_MAX_CLUSTER, for which the grid (`units` = query tiles × batch ×
+    heads clusters) is one wave on `sms` SMs at one block an SM, and, with
+    `resident(cl)` (the clusters of cl blocks the card holds at once), every
+    cluster is resident; 1 when no size fits."""
+    for cl in range(V128_MAX_CLUSTER, 1, -1):
+        if units * cl <= sms and (resident is None or units <= resident(cl)):
+            return cl
+    return 1
+
+
+def v128_ranges(n: int, cl: int) -> list:
+    """The ranges [lo, hi) of a tile's walk of n valid (slot, chunk) pairs
+    that the cl blocks of a cluster take, as the kernel cuts them."""
+    return [(n * r // cl, n * (r + 1) // cl) for r in range(cl)]
+
+
+def bank_attention_infer_v128_plain(q: torch.Tensor, bank_k: torch.Tensor,
+                                    bank_v: torch.Tensor, count: torch.Tensor,
+                                    scale: float, true_lk: Optional[int] = None,
+                                    qbias: Optional[torch.Tensor] = None,
+                                    cluster: int = 1
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1×2ᵛ¹²⁸'s function in plain PyTorch (f32), in its kernel's form: per
+    head, the valid (slot, chunk) pairs of V128_CHUNK keys (slot major,
+    a slot's last chunk short at true_lk) cut into `cluster` ranges
+    (`v128_ranges`); each range's maximum m_r of the scaled, biased logits
+    (log2 units), its sum L_r and output O_r relative to it, and each slot's
+    sum l_r(s) relative to the range's running maximum when its walk left
+    the slot, m_r(s); then with M the largest m_r and w_r = 2^(m_r - M) (0
+    for an empty range), out = sum_r w_r O_r / sum_r w_r L_r and rec_s =
+    sum_r 2^(m_r(s) - M) l_r(s) / that sum. Returns (out [B, Lq, 256], rec_h
+    [B, 2, Lq, S]), f32, rec_h 0 past count."""
+    heads = NARROW_VALUES[0]
+    s, b, lk, _ = bank_k.shape
+    lq, n = q.shape[1], int(count)
+    true_lk = lk if true_lk is None else true_lk
+    cps = -(-true_lk // V128_CHUNK)
+    qh = q.float().unflatten(-1, (heads, -1))             # [B, Lq, h, d]
+    kh = bank_k[:n].float().unflatten(-1, (heads, -1))    # [n, B, Lk, h, d]
+    vh = bank_v[:n].float().unflatten(-1, (heads, -1))
+    x = torch.einsum("bqhd,sbkhd->bhqsk", qh, kh) * (scale * _LOG2E)
+    if qbias is not None:
+        x = x + qbias[..., :n, None].float() * _LOG2E
+    key = torch.arange(lk)
+    chunk = (torch.arange(n)[:, None] * cps + key // V128_CHUNK)
+    valid = (key < true_lk)[None].expand(n, lk)
+    inf = float("-inf")
+
+    def finite(m):
+        return torch.where(torch.isinf(m), torch.zeros_like(m), m)
+
+    ms, ls, os_, bms, bls = [], [], [], [], []
+    for lo, hi in v128_ranges(n * cps, cluster):
+        mine = (valid & (chunk >= lo) & (chunk < hi)).to(q.device)
+        xr = torch.where(mine, x, inf)                      # [B,h,Lq,n,Lk]
+        m = xr.flatten(-2).amax(-1)                         # [B, h, Lq]
+        p = torch.exp2(xr - finite(m)[..., None, None])
+        ls.append(p.sum((-2, -1)))
+        os_.append(torch.einsum("bhqsk,sbkhd->bhqd", p, vh))
+        ms.append(m)
+        # a slot's sum, booked relative to the running maximum when the
+        # walk left it (untouched slots: -inf and 0)
+        booked = torch.cummax(xr.amax(-1), dim=-1).values   # [B,h,Lq,n]
+        touched = mine.any(-1).to(q.device)                 # [n]
+        bm = torch.where(touched, booked, inf)
+        bls.append(torch.where(touched, p.sum(-1) * torch.exp2(
+            finite(m)[..., None] - finite(bm)), 0.0))
+        bms.append(bm)
+    big_m = finite(torch.stack(ms).amax(0))
+
+    def weight(m, big):        # 2^(m - M), 0 where m is -inf
+        return torch.where(torch.isinf(m), torch.zeros_like(m),
+                           torch.exp2(m - big))
+
+    total = sum(weight(m, big_m) * lr for m, lr in zip(ms, ls))
+    inv = torch.where(total > 0, 1.0 / total, torch.zeros_like(total))
+    out = sum(weight(m, big_m)[..., None] * o for m, o in zip(ms, os_)) \
+        * inv[..., None]
+    rec = torch.zeros(b, heads, lq, s, device=q.device)
+    rec[..., :n] = sum(weight(bm, big_m[..., None]) * bl
+                       for bm, bl in zip(bms, bls)) * inv[..., None]
+    return out.permute(0, 2, 1, 3).reshape(b, lq, -1), rec
+
+
+@functools.lru_cache(maxsize=None)
+def _v128_lib():
+    """csrc/bank_attention_infer_v128.cu, its tile and largest cluster held
+    to V128_TILE and the source's 8 once."""
+    lib = build.load("bank_attention_infer_v128")
+    for name in ("tile", "max_cluster"):
+        fn = getattr(lib, f"rmem_bank_attention_infer_v128_{name}")
+        fn.argtypes, fn.restype = [], _I
+    _check(lib.rmem_bank_attention_infer_v128_tile() == V128_TILE
+           and lib.rmem_bank_attention_infer_v128_max_cluster()
+           >= V128_MAX_CLUSTER, "the library's tile or cluster limit is "
+           "not the wrapper's")
+    lib.rmem_bank_attention_infer_v128.argtypes = [_P] * 7 + [_I] * 7 + [
+        _F, _P]
+    lib.rmem_bank_attention_infer_v128.restype = _I
+    lib.rmem_bank_attention_infer_v128_clusters.argtypes = [_I]
+    lib.rmem_bank_attention_infer_v128_clusters.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def v128_resident(device_index: int, cl: int) -> int:
+    """The clusters of cl blocks of K1×2ᵛ¹²⁸ that the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    with torch.cuda.device(device_index):
+        n = _v128_lib().rmem_bank_attention_infer_v128_clusters(cl)
+    _check(n >= 0, f"cudaOccupancyMaxActiveClusters failed ({-n})")
+    return n
+
+
+def v128_launch_cluster(q: torch.Tensor) -> Tuple[int, int]:
+    """The cluster size K1×2ᵛ¹²⁸ takes for the queries q [B, Lq, 256] on
+    their card, and the clusters of that size the card holds at once."""
+    units = -(-q.shape[1] // V128_TILE) * q.shape[0] * NARROW_VALUES[0]
+    index = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    cl = v128_cluster(units, sms, lambda c: v128_resident(index, c))
+    return cl, v128_resident(index, cl)
+
+
+def _v128_call(q, bank_k, bank_v, count, scale, true_lk, qbias):
+    """Launch K1×2ᵛ¹²⁸ on checked inputs: (out [B, Lq, 256] bf16, rec_h
+    [B, 2, Lq, S] f32, each head's slot mass)."""
+    s, b, lk, _ = bank_k.shape
+    lq, heads = q.shape[1], NARROW_VALUES[0]
+    _check(s <= V128_MAX_SLOTS, f"{s} slots (the kernel takes up to "
+           f"{V128_MAX_SLOTS})")
+    cl, _ = v128_launch_cluster(q)
+    out = torch.empty((b, lq, q.shape[-1]), dtype=q.dtype, device=q.device)
+    rec = torch.empty((b, heads, lq, s), dtype=torch.float32,
+                      device=q.device)
+    err = _v128_lib().rmem_bank_attention_infer_v128(
+        q.data_ptr(), bank_k.data_ptr(), bank_v.data_ptr(),
+        None if qbias is None else qbias.data_ptr(), count.data_ptr(),
+        out.data_ptr(), rec.data_ptr(), b, heads, lq, s, lk, true_lk, cl,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "bank_attention_infer_v128")
+    return out, rec
+
+
 def infer_route(num_heads: int, dh: int, dv: int) -> str:
     """The CUDA kernel that takes an inference call of this head shape on
     the card: "slots" (K1's template: one or two heads of 128, values a
-    multiple of 256 a head, or 2 heads of 128 with values 128 a head) or
+    multiple of 256 a head; or K1×2ᵛ¹²⁸, 2 heads of 128 with values 128 a
+    head) or
     "heads" (K1ʰ: 8 heads of 32, values 32 a head). Any other shape
     raises."""
     if num_heads in SLOT_HEADS and dh == 128 and dv % 256 == 0:

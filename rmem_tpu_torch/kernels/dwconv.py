@@ -1,15 +1,18 @@
 """Gated depthwise 5x5 conv (kernel K8): dwconv5x5(x * gate), zero-padded,
 on the [B, H*W, C] sequence layout of the GPM's gated tails.
 
-`gated_dwconv` launches the CUDA kernel `csrc/gated_dwconv.cu` for tensors
-on the card and runs `gated_dwconv_plain` for tensors on the CPU. It
-replaces rmem_tpu/kernels/dwconv.py:pallas_gated_dwconv. Inference only: it
-has no backward, as the TPU kernel has none.
+`gated_dwconv` launches the CUDA kernel `csrc/gated_dwconv.cu` (bands of
+rows streamed through a ring in shared memory, the sums of five output
+rows in registers) for tensors on the card and runs `gated_dwconv_plain`
+for tensors on the CPU. It replaces
+rmem_tpu/kernels/dwconv.py:pallas_gated_dwconv. Inference only: it has no
+backward, as the TPU kernel has none.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -48,10 +51,23 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"gated_dwconv: {msg}")
 
 
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """csrc/gated_dwconv.cu's C entry and the channels a block takes."""
+    lib = build.load("gated_dwconv")
+    lib.rmem_gated_dwconv_channels.argtypes = []
+    lib.rmem_gated_dwconv_channels.restype = _I
+    fn = lib.rmem_gated_dwconv
+    fn.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+    fn.restype = _I
+    return fn, lib.rmem_gated_dwconv_channels()
+
+
 def gated_dwconv(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
                  size_2d: Tuple[int, int]) -> torch.Tensor:
     """x, gate [B, H*W, C]; weight [C, 1, 5, 5]; size_2d (H, W). On the
-    card: bf16, contiguous, 16-byte aligned, C a multiple of 64."""
+    card: bf16, contiguous, 16-byte aligned, C a multiple of the channels a
+    block takes (32)."""
     if not x.is_cuda:
         return gated_dwconv_plain(x, gate, weight, size_2d)
     b, hw, c = x.shape
@@ -65,11 +81,9 @@ def gated_dwconv(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
         _check(t.dtype == torch.bfloat16, f"{name} must be bf16")
         _check(t.is_contiguous(), f"{name} must be contiguous")
         _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    _check(c % 64 == 0, f"{c} channels (a multiple of 64)")
-    _check(6 * (w + 4) * 64 * 2 <= 232448, f"rows of {w} pixels")
-    fn = build.load("gated_dwconv").rmem_gated_dwconv
-    fn.argtypes = [_P] * 4 + [_I] * 4 + [_P]
-    fn.restype = _I
+    fn, block_channels = _entry()
+    _check(c % block_channels == 0,
+           f"{c} channels (a multiple of {block_channels})")
     out = torch.empty_like(x)
     err = fn(x.data_ptr(), gate.data_ptr(), weight.data_ptr(), out.data_ptr(),
              b, h, w, c, torch.cuda.current_stream(x.device).cuda_stream)
