@@ -66,7 +66,11 @@ non-zero exit code:
    the whole against autograd, also on keys that nearly cancel in ds K,
    there fed the plain forward's output and lse, its device time split by
    kernel), and K3h, K3 at AOT's 8 heads of 32 (K1h's calls with no bias
-   and every key valid, beside SDPA over the valid slots). K1h, K3h and
+   and every key valid, beside SDPA over the valid slots), and the JPEG
+   colour kernel (csrc/jpeg_color.cu: libjpeg's chroma upsampling and
+   YCbCr to RGB on the planes nvJPEG decodes, at 4:2:0 480x854 and
+   479x853 and 4:4:4, bit for bit against its plain version, timed in a
+   CUDA graph; it replaces the JAX readers' cv2 decode, no TPU kernel). K1h, K3h and
    K1'h (one slot-group kernel and its merge) print the device time of
    each by the profiler, and at each call the host's time to issue it
    and the device time of a CUDA graph of it. K4 and K8 take less device
@@ -187,7 +191,29 @@ non-zero exit code:
    (`--profile`: busy ms a step, top ops);
 20. phase 6 for phase 19's model: one step of the kernel model, every
    K1'x2v128 and K2x2v128 call held against its plain version, and one of
-   the all-plain model: loss and global gradient norm.
+   the all-plain model: loss and global gradient norm;
+21. the evaluator on the card: a VOST tree of two videos at 480x854
+   (seq0, 90 frames with 10 objects; seq1, 60 frames with 3), seeded
+   frames encoded to JPEG on the card by nvJPEG (quality 95, 4:2:0) and
+   an annotation for every frame written by the package's PNG writer;
+   then `python -m rmem_tpu_torch.tools.eval --stage pre_vost_2 --model
+   r50_deaotl --dataset vost --ckpt_path test --score --metrics J J_last F
+   --opt eval_fps_window=30` in a process of its own, through a spy that
+   counts launches from 0 and copies every frame the evaluator fed the
+   engine. Checks: nvJPEG's frames at least 35 dB PSNR against the
+   source; launches exact (K1 and K4 3, K6 1 for every propagated frame,
+   the last chunk's padding included, and every reference frame; K1h, K3
+   and K8 never); the fed frames equal a synchronous decode bit for bit;
+   a palette PNG with the label colormap for every frame at 480x854, ids
+   within each video's objects, the first annotation copied byte for
+   byte; J, J_tr and F finite in [0, 1]; on frame 1 of each video the
+   kernel route's labels agree with the plain route's (an evaluator with
+   the engine's plain versions, on the card) on at least 0.98 of pixels,
+   and the mean J of the two over every frame is printed. Prints
+   all_frame_fps, each video's and each window's frames/s, peak_hbm_gb
+   and nvJPEG's decode ms a frame beside the card (`--profile`: a traced
+   CLI run of seq0's first 48 frames, the device's busy ms a frame and
+   idle share).
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
@@ -203,7 +229,8 @@ at phase 2's three shapes and a ragged grid, and bit for bit), K1h, K3h and K1'h
 (held_k1h, held_k3h, held_k1ph), K2x2v128's fused pair (held_k2h at 2
 heads, values 128 a head, at 4 valid slots and on keys that cancel), K2h
 (held_k2h at 4 valid slots, at the reference frame's one, and on keys
-that cancel), K1'x2v128 (held_k1ph at 9, 4 and 1 valid slots) and K6 and
+that cancel), K1'x2v128 (held_k1ph at 9, 4 and 1 valid slots), the JPEG colour kernel
+(jpeg_color_check at JPEG_CASES, bit for bit) and K6 and
 K7 (held, held_k7): for each
 mutant (MUTANTS), the package is copied into a temporary directory, one
 line of the kernel's source (or its wrapper) is changed there (K2 and
@@ -248,7 +275,10 @@ kernel the other head's keys, the invalid slots' dk and dv are computed,
 or their dk is left unwritten; K1'x2v128: the zero keys past Lk go
 unmasked, a quarter of the accumulator unrescaled, a slot's mass is
 booked to its neighbour, the merge drops the second consumer's output,
-the lse drops the log of the sum, or head 1 reads head 0's values;
+the lse drops the log of the sum, or head 1 reads head 0's values; the
+JPEG colour kernel: even outputs rounded as odd ones, a chroma row taken
+as its own neighbour, G's Cr term with the wrong sign, or the last
+column's neighbour read past the row;
 K6/K7: conv positions
 outside the conv grid enter the pool, or the pad taps carry weights), the
 copy's kernels are built, and the source's checks run on phase 2's
@@ -414,12 +444,20 @@ def kernel_split_ms(fn, reps: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile as prof
     fn()
     torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / (1e3 * reps)
-            for e in p.key_averages() if e.device_type == DeviceType.CUDA}
+    # a trace with no device activity at all is the profiler missing the
+    # window (seen once on an H100 run in which every call had run and
+    # been held), not a kernel's outcome: trace again, at most twice more
+    for _ in range(3):
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {e.key: e.self_device_time_total / (1e3 * reps)
+                 for e in p.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if split:
+            return split
+    return split
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -3660,6 +3698,486 @@ def held_train_step(dev, model: str = "r50_deaotl"):
                 k5_backward_worst=worst_of(k5_calls))
 
 
+# the colour kernel's cases: (height, width, nvjpegChromaSubsampling_t)
+# of seeded frames nvJPEG encodes: the evaluator's 4:2:0 480 x 854 frame,
+# an odd 4:2:0 size (edge rows and columns), and 4:4:4
+JPEG_CASES = {"420_480x854": (480, 854, 2), "420_479x853": (479, 853, 2),
+              "444_480x854": (480, 854, 0)}
+# integer operations a decoded pixel of the colour kernel: the chroma's
+# column and row sums and the conversion, ~55 (an estimate; the kernel is
+# bound by its bytes either way), at float32's non-tensor rate
+JPEG_OPS_PER_PIXEL = 55
+PEAK_FP32_OPS = 67e12
+
+
+def jpeg_planes(dev):
+    """{case: (mode, Y, Cb, Cr)}: nvJPEG's planes of seeded frames it
+    encoded, for each of JPEG_CASES."""
+    import torch
+
+    from rmem_tpu_torch.data import jpeg
+    out = {}
+    for key, (h, w, css) in JPEG_CASES.items():
+        img = eval_video(dev, 7, 1, 3)[0][0]
+        if (h, w) != tuple(img.shape[:2]):
+            img = img[:h, :w]
+        data = NvjpegEncoder(dev, subsampling=css).encode(img)
+        out[key] = jpeg.nvjpeg().decode_planes(data, dev)
+    torch.cuda.synchronize()
+    return out
+
+
+def jpeg_color_check(dev):
+    """The colour kernel (csrc/jpeg_color.cu) at JPEG_CASES, held to its
+    plain version bit for bit (both do libjpeg's integer arithmetic).
+    Returns {case: max |kernel - plain|}."""
+    import torch
+
+    from rmem_tpu_torch.kernels import jpeg_color as kj
+    errs = {}
+    for key, (mode, y, cb, cr) in jpeg_planes(dev).items():
+        got = kj.ycc_to_rgb(y, cb, cr, mode)
+        ref = kj.ycc_to_rgb_plain(y, cb, cr, mode)
+        errs[key] = int((got.int() - ref.int()).abs().max())
+        check(torch.equal(got, ref), f"jpeg colour {key}: "
+              f"{int((got != ref).sum())} values differ from the plain "
+              "version's")
+    return errs
+
+
+def check_jpeg_kernel(dev):
+    """Phase 2's row of the colour kernel: held at JPEG_CASES, timed at
+    the evaluator's frame (a CUDA graph: a launch costs the host more than
+    the kernel runs), beside its plain version and its bound."""
+    from rmem_tpu_torch.kernels import jpeg_color as kj
+    errs = jpeg_color_check(dev)
+    mode, y, cb, cr = jpeg_planes(dev)["420_480x854"]
+    h, w = y.shape
+    nbytes = h * w + 2 * cb.numel() + 3 * h * w
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = JPEG_OPS_PER_PIXEL * h * w / PEAK_FP32_OPS
+    entry = dict(
+        name="jpeg_ycc_to_rgb", route="cuda",
+        source="rmem_tpu_torch/csrc/jpeg_color.cu",
+        replaces="rmem_tpu/data/eval_datasets.py:64 (cv2.imread: the host "
+        "decode of the JAX readers; no TPU kernel)",
+        max_abs_err=max(errs.values()),
+        ms=graph_ms(lambda: kj.ycc_to_rgb(y, cb, cr, mode), 50),
+        plain_ms=cuda_ms(lambda: kj.ycc_to_rgb_plain(y, cb, cr, mode), 10),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, held=errs)
+    print(f"phase 2: the JPEG colour kernel, bit for bit at {errs}; "
+          f"{entry['ms']:.4f} ms a 480x854 frame (graph), plain "
+          f"{entry['plain_ms']:.4f}, bound {entry['bound_ms']:.5f} "
+          f"({entry['bound_by']})")
+    return {"jpeg_ycc_to_rgb": entry}
+
+
+# phase 21, the evaluator on the card: a VOST tree of two videos at
+# 480 x 854 (seq0 with 10 objects, seq1 with 3), JPEG-encoded on the card
+# by nvJPEG (quality 95, 4:2:0), an annotation for every frame
+EVAL_SEQS = (("seq0", 90, 10), ("seq1", 60, 3))
+EVAL_HW = RAW_HW
+EVAL_CHUNK = 16          # Config.eval_scan_chunk's default
+EVAL_WINDOW = 30         # --opt eval_fps_window=30
+EVAL_PSNR_DB = 35.0      # nvJPEG's frames against the seeded source
+EVAL_PROFILE_FRAMES = 48  # --profile: seq0's first 48 frames, traced
+# the CLI run through a spy: launch counts from 0 in the fresh process,
+# each frame the evaluator handed the engine copied on the engine's stream
+# (after the hand-over event) into one pinned host buffer allocated before
+# the run (argv[2] bytes: no allocation, no host wait a frame), and
+# evaluate()'s stats
+EVAL_CHILD = r"""
+import hashlib, json, runpy, sys
+import torch
+from rmem_tpu_torch.kernels import bank_attention as kb
+from rmem_tpu_torch.kernels import dwconv as kd
+from rmem_tpu_torch.kernels import jpeg_color as kj
+from rmem_tpu_torch.kernels import local_attention as kl
+from rmem_tpu_torch.kernels import stem as ks
+from rmem_tpu_torch.managers import evaluator as ev
+
+report, pool_bytes = sys.argv[1], int(sys.argv[2])
+sys.argv = ["rmem_tpu_torch.tools.eval"] + sys.argv[3:]
+fed, stats, used = {}, {}, [0]
+pool = torch.empty(pool_bytes, dtype=torch.uint8,
+                   pin_memory=torch.cuda.is_available())
+frames, evaluate = ev.Evaluator._frames, ev.Evaluator.evaluate
+
+
+def spied_frames(self, seq, max_frames):
+    for i, frame in frames(self, seq, max_frames):
+        n = frame.image.numel() * frame.image.element_size()
+        host = pool[used[0]:used[0] + n].view(frame.image.dtype).view(
+            frame.image.shape)
+        used[0] += n
+        host.copy_(frame.image, non_blocking=True)
+        fed[seq.name + "/" + frame.name] = host
+        yield i, frame
+
+
+def spied_evaluate(self, *a, **kw):
+    stats.update(evaluate(self, *a, **kw))
+    return stats
+
+
+ev.Evaluator._frames = spied_frames
+ev.Evaluator.evaluate = spied_evaluate
+wrappers = (kb.bank_attention_infer, kb.bank_attention_infer_mh,
+            kb.bank_attention_qminor, kl.local_attention, ks.stem,
+            kd.gated_dwconv, kj.ycc_to_rgb)
+for fn in wrappers:
+    fn.launches = 0
+runpy.run_module("rmem_tpu_torch.tools.eval", run_name="__main__")
+counts = {fn.__name__: fn.launches for fn in wrappers}
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+with open(report, "w") as f:
+    json.dump({"launches": counts, "stats": stats,
+               "fed": {k: hashlib.sha256(v.numpy().tobytes()).hexdigest()
+                       for k, v in fed.items()}}, f)
+"""
+
+
+class NvjpegEncoder:
+    """nvJPEG's encoder on the package's nvJPEG handle: uint8 [H, W, 3]
+    RGB on the card -> baseline JPEG bytes at `quality`, chroma 4:2:0
+    (`subsampling`, an nvjpegChromaSubsampling_t: 2 is NVJPEG_CSS_420, 0
+    NVJPEG_CSS_444)."""
+
+    def __init__(self, dev, quality: int = 95, subsampling: int = 2):
+        import ctypes
+
+        import torch
+
+        from rmem_tpu_torch.data import jpeg
+        self.jpeg, self.dev = jpeg, dev
+        nv = jpeg.nvjpeg()
+        lib, vp, p = nv.lib, ctypes.c_void_p, ctypes.POINTER
+        lib.nvjpegEncoderStateCreate.argtypes = [vp, p(vp), vp]
+        lib.nvjpegEncoderParamsCreate.argtypes = [vp, p(vp), vp]
+        lib.nvjpegEncoderParamsSetQuality.argtypes = [vp, ctypes.c_int, vp]
+        lib.nvjpegEncoderParamsSetSamplingFactors.argtypes = [
+            vp, ctypes.c_int, vp]
+        lib.nvjpegEncodeImage.argtypes = [
+            vp, vp, vp, p(jpeg.NvjpegImage), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, vp]
+        lib.nvjpegEncodeRetrieveBitstream.argtypes = [
+            vp, vp, ctypes.c_char_p, p(ctypes.c_size_t), vp]
+        self.lib, self.handle, self.ctypes = lib, nv.handle, ctypes
+        self.state, self.params = vp(), vp()
+        s = torch.cuda.current_stream(dev).cuda_stream
+        jpeg.check(lib.nvjpegEncoderStateCreate(
+            nv.handle, ctypes.byref(self.state), s), "encoder state")
+        jpeg.check(lib.nvjpegEncoderParamsCreate(
+            nv.handle, ctypes.byref(self.params), s), "encoder params")
+        jpeg.check(lib.nvjpegEncoderParamsSetQuality(self.params, quality,
+                                                     s), "quality")
+        jpeg.check(lib.nvjpegEncoderParamsSetSamplingFactors(
+            self.params, subsampling, s), "sampling factors")
+
+    def encode(self, img) -> bytes:
+        import torch
+        ct, jpeg = self.ctypes, self.jpeg
+        img = img.contiguous()
+        h, w = img.shape[:2]
+        src = jpeg.NvjpegImage()
+        src.channel[0] = img.data_ptr()
+        src.pitch[0] = 3 * w
+        stream = torch.cuda.current_stream(self.dev)
+        # nvjpegInputFormat_t: NVJPEG_INPUT_RGBI = 5
+        jpeg.check(self.lib.nvjpegEncodeImage(
+            self.handle, self.state, self.params, ct.byref(src), 5, w, h,
+            stream.cuda_stream), "nvjpegEncodeImage")
+        n = ct.c_size_t(0)
+        jpeg.check(self.lib.nvjpegEncodeRetrieveBitstream(
+            self.handle, self.state, None, ct.byref(n), stream.cuda_stream),
+            "bitstream size")
+        stream.synchronize()
+        buf = ct.create_string_buffer(n.value)
+        jpeg.check(self.lib.nvjpegEncodeRetrieveBitstream(
+            self.handle, self.state, buf, ct.byref(n), stream.cuda_stream),
+            "bitstream")
+        stream.synchronize()
+        return buf.raw[:n.value]
+
+
+def eval_video(dev, seed: int, frames: int, objects: int):
+    """Seeded frames as parity/make_dataset.py draws them, on the card: a
+    smooth background (low-resolution noise, cubic-upsampled 8x) with
+    `objects` moving blobs; the blobs' masks (above 0.55, later blobs on
+    top) are the annotations. Returns (uint8 [T, H, W, 3] frames on the
+    card, uint8 [T, H, W] labels on the host)."""
+    import numpy as np
+    import torch
+
+    from rmem_tpu_torch.ops.resize import resize_cubic
+    h, w = EVAL_HW
+    rng = np.random.RandomState(seed)
+    start = rng.uniform(0.15, 0.85, (objects, 2))
+    speed = rng.uniform(-0.004, 0.004, (objects, 2))
+    size = rng.uniform(0.05, 0.09, (objects, 2))
+    color = torch.from_numpy(rng.uniform(0.2, 0.45, (objects, 3))).float()
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    imgs, labels = [], []
+    for t in range(frames):
+        g = torch.Generator(device=dev).manual_seed(seed * 10_000 + t)
+        low = torch.rand((1, h // 8, w // 8, 3), generator=g, device=dev)
+        img = resize_cubic(low, (h, w))[0] * 0.5
+        lab = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+        for i in range(objects):
+            cy, cx = (start[i] + speed[i] * t) * (h, w)
+            blob = torch.exp(-(((yy - cy) / (size[i, 0] * h)) ** 2
+                               + ((xx - cx) / (size[i, 1] * w)) ** 2))
+            img = img + blob[..., None] * color[i].to(dev)
+            lab[blob > 0.55] = i + 1
+        imgs.append((img.clamp(0, 1) * 255.0).round().to(torch.uint8))
+        labels.append(lab)
+    return torch.stack(imgs), torch.stack(labels).cpu().numpy()
+
+
+def eval_tree(dev, root: Path):
+    """Write phase 21's VOST tree; returns (its source frames by video,
+    nvJPEG's encode ms a frame)."""
+    from rmem_tpu_torch.utils.image import encode_png_pal8, label_colormap
+    enc = NvjpegEncoder(dev)
+    (root / "ImageSets").mkdir(parents=True)
+    (root / "ImageSets" / "val.txt").write_text(
+        "\n".join(name for name, *_ in EVAL_SEQS) + "\n")
+    sources, enc_s, n = {}, 0.0, 0
+    for seed, (name, frames, objects) in enumerate(EVAL_SEQS):
+        imgs, labels = eval_video(dev, seed, frames, objects)
+        img_dir = root / "JPEGImages_10fps" / name
+        ann_dir = root / "Annotations" / name
+        img_dir.mkdir(parents=True)
+        ann_dir.mkdir(parents=True)
+        for t in range(frames):
+            t0 = time.perf_counter()
+            data = enc.encode(imgs[t])
+            enc_s += time.perf_counter() - t0
+            n += 1
+            (img_dir / f"{t:05d}.jpg").write_bytes(data)
+            (ann_dir / f"{t:05d}.png").write_bytes(
+                encode_png_pal8(labels[t], label_colormap()))
+        check(len(set(labels[0].flatten().tolist())) == objects + 1,
+              f"{name}: {objects} objects not all in the first annotation")
+        sources[name] = imgs
+    return sources, 1e3 * enc_s / n
+
+
+def run_eval_cli(root: Path, out: Path, report: Path, *extra):
+    """The CLI through EVAL_CHILD in a process of its own; returns
+    (report, seconds)."""
+    pool = sum(f for _, f, _ in EVAL_SEQS) * EVAL_HW[0] * EVAL_HW[1] * 3
+    cmd = [sys.executable, "-c", EVAL_CHILD, str(report), str(pool), "--stage",
+           "pre_vost_2", "--model", "r50_deaotl", "--dataset", "vost",
+           "--data_root", str(root.parent), "--ckpt_path", "test",
+           "--output_root", str(out), "--exp_name", "chip_smoke",
+           "--opt", f"dir_root={out.parent / 'results'}",
+           f"eval_fps_window={EVAL_WINDOW}", *extra]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=900)
+    secs = time.perf_counter() - t0
+    print(f"phase 21: the CLI ({' '.join(extra) or 'scoring'}) exited "
+          f"{r.returncode} after {secs:.1f} s; its output:\n"
+          + "\n".join("  | " + ln for ln in r.stdout.splitlines()[-40:]))
+    if r.returncode != 0:
+        print(r.stderr[-6000:], file=sys.stderr)
+    check(r.returncode == 0, f"the eval CLI exited {r.returncode}")
+    return json.loads(report.read_text()), secs
+
+
+def trace_busy_ms(trace: Path) -> float:
+    """The device's busy time in a torch.profiler chrome trace: the sum of
+    its kernels', copies' and memsets' durations."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    return sum(e.get("dur", 0) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+
+
+def eval_phase(dev, card: str, profile: bool):
+    """Phase 21: the evaluator's CLI over a VOST tree written on the card,
+    then its outputs checked (see the module docstring). Returns a dict of
+    what it measured."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rmem_tpu_torch.config import get_config
+    from rmem_tpu_torch.data.jpeg import read_jpeg
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import local_attention as kl
+    from rmem_tpu_torch.kernels import stem as ks
+    from rmem_tpu_torch.managers.evaluator import Evaluator
+    from rmem_tpu_torch.utils.image import decode_png, label_colormap
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        tmp = Path(tmp)
+        root, out = tmp / "data" / "VOST", tmp / "out"
+        t0 = time.perf_counter()
+        sources, enc_ms = eval_tree(dev, root)
+        print(f"phase 21: wrote {sum(f for _, f, _ in EVAL_SEQS)} frames at "
+              f"{EVAL_HW[0]}x{EVAL_HW[1]} in {time.perf_counter() - t0:.1f} "
+              f"s (nvJPEG encode {enc_ms:.3f} ms a frame)")
+
+        # nvJPEG's frames: the source's PSNR, the time of a synchronous
+        # decode, and the bits a synchronous decode gives
+        psnr, sync_sha, dec_s, n = {}, {}, 0.0, 0
+        for name, frames, _ in EVAL_SEQS:
+            worst = math.inf
+            for t in range(frames):
+                data = (root / "JPEGImages_10fps" / name
+                        / f"{t:05d}.jpg").read_bytes()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = read_jpeg(data, dev)
+                torch.cuda.synchronize()
+                dec_s += time.perf_counter() - t0
+                n += 1
+                mse = ((img.float() - sources[name][t].float()) ** 2).mean()
+                worst = min(worst, 10 * math.log10(255.0 ** 2 / float(mse)))
+                sync_sha[f"{name}/{t:05d}.jpg"] = hashlib.sha256(
+                    img.cpu().numpy().tobytes()).hexdigest()
+            psnr[name] = worst
+        dec_ms = 1e3 * dec_s / n
+        print(f"phase 21: nvJPEG decode {dec_ms:.3f} ms a frame "
+              f"(synchronous, bytes in host memory) on {card}; lowest PSNR "
+              "against the source " + ", ".join(
+                  f"{k} {v:.2f} dB" for k, v in psnr.items()))
+        check(min(psnr.values()) >= EVAL_PSNR_DB,
+              f"nvJPEG PSNR {psnr} under {EVAL_PSNR_DB} dB")
+
+        report, cli_s = run_eval_cli(root, out, tmp / "report.json",
+                                     "--score", "--metrics", "J", "J_last",
+                                     "F")
+        stats, counts = report["stats"], report["launches"]
+
+        # launches: every propagated frame (the padding of each video's
+        # last chunk included) and every reference frame runs the path once
+        steps = sum(-(-(f - 1) // EVAL_CHUNK) * EVAL_CHUNK
+                    for _, f, _ in EVAL_SEQS) + len(EVAL_SEQS)
+        expected = {name: n * steps
+                    for name, n in SERVED_LAUNCHES["r50_deaotl"].items()}
+        expected["gated_dwconv"] = 0
+        # the colour kernel once a decoded frame
+        expected["ycc_to_rgb"] = sum(f for _, f, _ in EVAL_SEQS)
+        print(f"phase 21: launches {counts} over {steps} frames of the "
+              "path (references and padding included) and "
+              f"{expected['ycc_to_rgb']} decoded frames")
+        check(counts == expected, f"phase 21 launches {counts}, expected "
+              f"{expected}")
+
+        # the frames the evaluator fed, against the synchronous decode
+        diff = sorted(k for k in sync_sha if report["fed"].get(k)
+                      != sync_sha[k])
+        check(sorted(report["fed"]) == sorted(sync_sha) and not diff,
+              f"fed frames differ from a synchronous decode: {diff[:5]} "
+              f"({len(report['fed'])} fed)")
+
+        # the masks: one palette PNG a frame at the frame's size, ids in
+        # what the evaluator can write (the first annotation's ids, with
+        # unused id channels written as 0), the first copied byte for byte
+        for name, frames, objects in EVAL_SEQS:
+            pngs = sorted((out / name).glob("*.png"))
+            check([p.name for p in pngs]
+                  == [f"{t:05d}.png" for t in range(frames)],
+                  f"{name}: {len(pngs)} masks for {frames} frames")
+            check(pngs[0].read_bytes() == (root / "Annotations" / name
+                                           / "00000.png").read_bytes(),
+                  f"{name}: first annotation not copied byte for byte")
+            ids = set()
+            for p in pngs:
+                pix, pal = decode_png(p.read_bytes())
+                check(pix.shape == EVAL_HW and pal is not None
+                      and np.array_equal(pal, label_colormap()),
+                      f"{p}: shape {pix.shape} or palette")
+                ids |= set(np.unique(pix).tolist())
+            check(ids <= set(range(objects + 1)),
+                  f"{name}: ids {sorted(ids)} past its {objects} objects")
+
+        # the scores the CLI wrote
+        lines = (out / "global_results-val.csv").read_text().splitlines()
+        scores = dict(zip(lines[0].split(","), map(float,
+                                                   lines[1].split(","))))
+        for key in ("J-Mean", "J-Recall", "J_last-Mean", "J_last-Recall",
+                    "F-Mean", "F-Recall"):
+            check(math.isfinite(scores[key]) and 0 <= scores[key] <= 1,
+                  f"{key} {scores[key]}")
+        print(f"phase 21: scores of random weights on {card}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in scores.items()))
+
+        # the plain route (the engine's plain versions, on the card) over
+        # the same tree: frame 1 must agree; later frames drift apart
+        plain_out = tmp / "plain"
+        cfg = get_config("pre_vost_2", "chip_smoke", "r50_deaotl",
+                         test_dataset="vost", test_ckpt_path="test",
+                         dir_root=str(tmp / "results"))
+        with ExitStack() as stack:
+            for mod, attr, fn in ((kb, "bank_attention_infer",
+                                   kb.bank_attention_plain),
+                                  (kl, "local_attention",
+                                   kl.local_attention_plain),
+                                  (ks, "stem", ks.stem_plain)):
+                stack.enter_context(mock.patch.object(mod, attr, fn))
+            Evaluator(cfg, data_root=str(root.parent),
+                      output_root=str(plain_out), log=lambda *a: None,
+                      device=dev).evaluate()
+        agree1, ious = {}, []
+        for name, frames, objects in EVAL_SEQS:
+            for t in range(1, frames):
+                a = decode_png((out / name / f"{t:05d}.png").read_bytes())[0]
+                b = decode_png((plain_out / name
+                                / f"{t:05d}.png").read_bytes())[0]
+                if t == 1:
+                    agree1[name] = float((a == b).mean())
+                for k in range(1, objects + 1):
+                    union = ((a == k) | (b == k)).sum()
+                    ious.append(((a == k) & (b == k)).sum() / union
+                                if union else 1.0)
+        mean_j = float(np.mean(ious))
+        print(f"phase 21: frame 1, kernel route against the plain route, "
+              f"label agreement {agree1}; mean J of the kernel route's "
+              f"masks against the plain route's over every frame {mean_j:.4f}")
+        check(min(agree1.values()) >= AGREE_FLOOR,
+              f"phase 21 frame-1 agreement {agree1}")
+
+        fps = stats["per_seq_fps"]
+        check(dev.type != "cuda" or "peak_hbm_gb" in stats,
+              "no peak_hbm_gb in the evaluator's stats")
+        print(f"phase 21: all_frame_fps {stats['all_frame_fps']:.3f}, "
+              + ", ".join(f"{k} {v:.3f}" for k, v in fps.items())
+              + f" frames/s; window fps {stats['per_seq_window_fps']}; "
+              f"peak_hbm_gb {stats.get('peak_hbm_gb')}; nvJPEG {dec_ms:.3f} ms "
+              f"a frame; R50-DeAOTL 481x849 in, 480x854 out, on {card}; "
+              f"host {host_line()}")
+        result = dict(all_frame_fps=stats["all_frame_fps"], per_seq_fps=fps,
+                      window_fps=stats["per_seq_window_fps"],
+                      peak_hbm_gb=stats.get("peak_hbm_gb"), nvjpeg_ms=dec_ms,
+                      nvjpeg_encode_ms=enc_ms, psnr_db=psnr, scores=scores,
+                      launches=counts, frame1_agreement=agree1,
+                      mean_j_vs_plain=mean_j, cli_s=cli_s)
+        if profile:
+            prof_dir = tmp / "profile"
+            report, _ = run_eval_cli(
+                root, tmp / "out_profiled", tmp / "report_profiled.json",
+                "--max_seqs", "1", "--max_frames", str(EVAL_PROFILE_FRAMES),
+                "--profile", str(prof_dir))
+            busy = trace_busy_ms(prof_dir / "trace.json") / \
+                EVAL_PROFILE_FRAMES
+            wall = 1e3 / fps["seq0"]
+            print(f"profile: phase 21, device busy {busy:.3f} ms a frame "
+                  f"(seq0's first {EVAL_PROFILE_FRAMES} frames, traced); "
+                  f"against the untraced {wall:.3f} ms a frame of seq0 the "
+                  f"device idles {100 * (1 - busy / wall):.1f} % on {card}")
+            result.update(busy_ms=busy, idle_share=1 - busy / wall)
+    return result
+
+
 # --mutants: for each kernel source, the per-call checks of phase 2 that
 # must catch its one-line mutants, and the mutants (a list of (line,
 # replacement), or (line, replacement, file) for a line of the source's
@@ -3819,6 +4337,22 @@ MUTANTS = {
         "merge_rank0_weight": [
             ("      const float w = wgt[r * TQ + row];",
              "      const float w = wgt[row];")]}),
+    "jpeg_color": ("jpeg", {
+        # even outputs rounded as odd ones
+        "jpeg_even_rounding": [("    up[p][0] = (3 * s + sl + 8) >> 4;",
+                                "    up[p][0] = (3 * s + sl + 7) >> 4;")],
+        # the chroma row's own row taken as its nearer neighbour
+        "jpeg_near_row": [
+            ("  const int near = (row & 1) ? min(i + 1, ch - 1) : max(i - 1, 0);",
+             "  const int near = i;")],
+        # G takes cr's term with the wrong sign
+        "jpeg_g_sign": [
+            ("  out[1] = clamp255(y + ((-22554 * cb + 32768 - 46802 * cr) >> 16));",
+             "  out[1] = clamp255(y + ((-22554 * cb + 32768 + 46802 * cr) >> 16));")],
+        # the last column's right neighbour read past the row
+        "jpeg_last_column": [
+            ("  const int jl = max(j - 1, 0), jr = min(j + 1, cw - 1);",
+             "  const int jl = max(j - 1, 0), jr = j + 1;")]}),
     "gated_dwconv": ("k8", {
         # a band's last output row unwritten
         "k8_last_row_unwritten": [
@@ -4117,6 +4651,7 @@ MUTANT_CHECKS = {
     "k1pv128": k1pv128_check,
     "k1v128": k1v128_check,
     "k8": k8_check,
+    "jpeg": jpeg_color_check,
     "k1_k3_k1p": k1_k3_k1p_check,
     "stem": stem_check,
     "k4_k5": k4_k5_check,
@@ -4141,7 +4676,11 @@ def mutation_check(sources=tuple(MUTANTS)) -> int:
     import shutil
     import tempfile
     runs = []
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, ExitStack() as procs:
+        # a copy that fails to set up stops the run: the checks already
+        # started are killed, not left running
+        procs.callback(lambda: [(proc.kill(), proc.wait())
+                                for *_, proc in runs if proc.poll() is None])
         for source in sources:
             check_name, mutants = MUTANTS[source]
             path = f"rmem_tpu_torch/csrc/{source}.cu"
@@ -4184,11 +4723,13 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 steady frames "
                          "of phases 3, 7, 9, 13 and 17 and of one training "
-                         "step of phases 5, 11, 15 and 19")
+                         "step of phases 5, 11, 15 and 19, and phase 21's "
+                         "device busy time a frame from a traced CLI run")
     ap.add_argument("--mutants", action="store_true",
                     help="only the mutation check of the per-call K2, K4, "
                          "K5, K1, K3, K1', K1h, K3h, K1'h, K2h, K2x2v128, "
-                         "K1'x2v128, K1x2v128, K8, K6 and K7 checks (K1, K3, "
+                         "K1'x2v128, K1x2v128, K8, JPEG colour, K6 and K7 "
+                         "checks (K1, K3, "
                          "K4, K1', K2 and K5's backward at one head and at "
                          "two); prints no result line")
     args = ap.parse_args()
@@ -4231,6 +4772,7 @@ def main() -> int:
     entries.update(check_aot_nmg_serving_kernels(dev))
     aot_nmg_train_entries, k2x2v128_whole = nmg_bank_train_rows(
         dev, values=256, suffix="_h2v128")
+    entries.update(check_jpeg_kernel(dev))
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, window_fps = main_path(dev, args.frames, card, args.profile)
@@ -4333,6 +4875,12 @@ def main() -> int:
     entries.update(aot_nmg_train_entries)
     aot_nmg_held_step = held_train_step(dev, "r50_aotl_nmg")
     print(f"phases 19 and 20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    evaluated = eval_phase(dev, card, args.profile)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    entries["jpeg_ycc_to_rgb"].update(
+        launches=evaluated["launches"]["ycc_to_rgb"],
+        launches_from="phase 21: one a decoded frame")
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -4390,6 +4938,7 @@ def main() -> int:
                       "aot_nmg_train_peak_gib": aot_nmg_peak,
                       "aot_nmg_train_launches": aot_nmg_train_counts,
                       "aot_nmg_held_step": aot_nmg_held_step,
+                      "eval": evaluated,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

@@ -17,17 +17,30 @@ there:
   slot temporal PE added to the bank's keys instead of the logit bias.
 
 The inference engine reads both once, when it is built.
+
+The evaluator's fields (`test_*`, `eval_*`) and the run's identity and
+directories (`exp_name`, `stage_name`, `model_name`, `dir_*`) are the JAX
+package's, with its defaults; `save` and `load` write and read the config
+as JSON beside the run's results.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass
 class Config:
+    # ---- identity: the result directory is
+    # dir_root/<exp_name>_<model_name>/<stage_name> ----
+    exp_name: str = "default"
+    stage_name: str = "default"
+    model_name: str = "AOTDefault"
+
     # ---- model architecture ----
     model_vos: str = "aot"                    # 'aot' | 'deaot'
     model_align_corners: bool = True
@@ -102,11 +115,32 @@ class Config:
     gru_memory: bool = False
     var_loss_weight: float = 0.0
 
-    # ---- evaluation: augmentations and frame prep ----
+    # ---- evaluation: dataset, weights, augmentations and frame prep ----
+    test_dataset: str = "youtubevos"
+    test_dataset_split: str = "val"
+    # None or "test": random weights from init_params(model, 42); else a
+    # file written by Trainer.save
+    test_ckpt_path: Optional[str] = None
+    test_ckpt_step: Optional[int] = None
+    # evaluate the checkpoint's EMA weights (else its trained weights)
+    test_ema: bool = True
     test_flip: bool = False
     test_multiscale: Tuple[float, ...] = (1.0,)
     test_min_size: Optional[int] = None
     test_max_size: float = 800 * 1.3
+    test_workers: int = 4
+    # frames per engine call on unlabelled stretches of a video; the last
+    # chunk of a video is padded with repeats of its final frame
+    eval_scan_chunk: int = 16
+    # >0: frames/s of every window of this many frames inside a video
+    eval_fps_window: int = 0
+    # frames reach the engine as uint8 and are resized and normalised on
+    # its device; float frames (the synthetic dataset's) are always
+    # prepared there too, from their float values
+    eval_device_prep: bool = True
+    # the JAX package's lossy YUV 4:2:0 upload: not ported (the evaluator
+    # raises), as frames are decoded on the card and nothing is uploaded
+    eval_yuv420_upload: bool = False
     # the gated tails through the fused kernel K8 (inference only)
     use_pallas_dwconv: bool = False
 
@@ -114,6 +148,10 @@ class Config:
     # activations on the card (autocast in training, where the parameters
     # stay f32); "float32" everywhere on the CPU tests
     compute_dtype: str = "bfloat16"
+
+    # ---- directories ----
+    dir_root: str = "./results"
+    dir_data: str = "./datasets"
 
     @property
     def max_mem_slots(self) -> int:
@@ -131,8 +169,32 @@ class Config:
         the flag, as in the JAX package."""
         return self.gru_memory and self.model_vos == "aot"
 
+    @property
+    def dir_result(self) -> str:
+        return os.path.join(self.dir_root,
+                            f"{self.exp_name}_{self.model_name}",
+                            self.stage_name)
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def save(self, path: Optional[str] = None) -> str:
+        """Write the config as JSON (default: dir_result/config.json)."""
+        path = path or os.path.join(self.dir_result, "config.json")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2, default=str)
+        return path
+
+    @staticmethod
+    def load(path: str) -> "Config":
+        """Read `save`'s JSON (or the JAX package's: keys this Config lacks
+        are dropped), lists back to tuples."""
+        with open(path) as f:
+            d = json.load(f)
+        names = {f.name for f in dataclasses.fields(Config)}
+        return Config(**{k: tuple(v) if isinstance(v, list) else v
+                         for k, v in d.items() if k in names})
 
 
 MODEL_PRESETS: Dict[str, Dict[str, Any]] = {
@@ -182,14 +244,35 @@ STAGE_PRESETS: Dict[str, Dict[str, Any]] = {
 }
 
 
-def get_config(stage: str = "default", model: str = "r50_deaotl",
-               **overrides) -> Config:
+def _rmem_name(base: str, kw: Dict[str, Any]) -> str:
+    """MODEL_NAME from the RMem flags, as rmem_tpu/config.py:_rmem_name
+    (the port has no time_encode, which adds nothing when off)."""
+    name = base
+    if kw.get("no_long_memory"):
+        name += "_No_long_mem"
+    if kw.get("no_memory_gap"):
+        name += "_No_mem_gap"
+    if kw.get("use_temporal_positional_embedding", True):
+        name += "_Temp_pe"
+        if kw.get("temporal_positional_embedding_slot_4", True):
+            name += "_Slot_4"
+    return name
+
+
+def get_config(stage: str = "default", exp_name: str = "default",
+               model: str = "r50_deaotl", **overrides) -> Config:
     """Compose model preset + stage preset + explicit overrides."""
     if model not in MODEL_PRESETS:
         raise ValueError(f"unknown model {model!r}; have {list(MODEL_PRESETS)}")
     if stage not in STAGE_PRESETS:
         raise ValueError(f"unknown stage {stage!r}; have {list(STAGE_PRESETS)}")
     kw = {**MODEL_PRESETS[model], **STAGE_PRESETS[stage], **overrides}
+    base = {"aot": "AOTL", "deaot": "DeAOTL"}[kw.get("model_vos", "aot")]
+    if kw.get("model_encoder", "mobilenetv2") == "resnet50":
+        base = "R50_" + base
+    kw.setdefault("model_name", _rmem_name(base, kw))
+    kw.setdefault("exp_name", exp_name)
+    kw.setdefault("stage_name", stage)
     if kw.get("no_memory_gap"):
         # as rmem_tpu/config.py:get_config. It also divides reverse_loss by
         # 4: the port has no such field and raises on reverse_infer, so the

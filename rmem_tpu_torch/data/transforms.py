@@ -1,10 +1,12 @@
-"""Eval-time frame geometry and normalisation constants, numpy only.
+"""Eval-time frame geometry, label resizing and normalisation, numpy only.
 
 A copy of the jax-free helpers of `rmem_tpu/data/transforms.py` that the
-engine's on-card frame prep needs: MultiRestrictSize's target size (long
-edge capped at test_max_size or short edge at test_min_size, times the
-aug's scale, snapped to the stride-16 grid, +1 with align_corners) and the
-ImageNet mean and std.
+evaluator needs: MultiRestrictSize's target size (long edge capped at
+test_max_size or short edge at test_min_size, times the aug's scale,
+snapped to the stride-16 grid, +1 with align_corners), the nearest resize
+of labels with torch's index rule, and the ImageNet normalisation. Frames
+are resized and normalised on the engine's device (`InferenceEngine.prep`),
+not here: the JAX package's cv2 `resize_image` is not ported.
 """
 
 from __future__ import annotations
@@ -47,3 +49,20 @@ def restrict_size(h: int, w: int, max_size: Optional[float] = 800 * 1.3,
     nh, nw = int(nh * scale), int(nw * scale)
     return (snap_stride(nh, stride, align_corners),
             snap_stride(nw, stride, align_corners))
+
+
+def resize_label(label: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """Nearest resize with torch `F.interpolate(mode='nearest')`'s index
+    rule, src = floor(dst * in / out), in integers."""
+    if label.shape[:2] == tuple(hw):
+        return label
+    h_in, w_in = label.shape[:2]
+    rows = (np.arange(hw[0]) * h_in // hw[0]).astype(np.int64)
+    cols = (np.arange(hw[1]) * w_in // hw[1]).astype(np.int64)
+    return label[rows][:, cols]
+
+
+def normalize_image(img: np.ndarray) -> np.ndarray:
+    """HWC pixels in 0..255 -> float32 (x / 255 - mean) / std."""
+    x = img.astype(np.float32) / 255.0
+    return (x - IMAGENET_MEAN) / IMAGENET_STD

@@ -25,7 +25,7 @@ KERNELS = ("bank_attention_bwd", "bank_attention_bwd_fused",
            "bank_attention_infer", "bank_attention_infer_v128",
            "bank_attention_lse_v128",
            "bank_attention_mh", "bank_attention_mh_bwd", "gated_dwconv",
-           "local_attention", "stem")
+           "jpeg_color", "local_attention", "stem")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,8 +1,9 @@
-"""VOS model registry and seeded random weights."""
+"""VOS model registry, seeded random weights and checkpoint loading."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -54,4 +55,31 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
             trunc_normal_(p, 0.05)
         else:
             raise ValueError(f"no initialiser for parameter {name}")
+    return model
+
+
+def load_model_params(model: nn.Module, path: Optional[str],
+                      ema: bool = True, log=print) -> nn.Module:
+    """The weights the evaluator runs: None or "test" gives random weights
+    from init_params(model, 42); else `path` is a file written by
+    `Trainer.save`, whose EMA weights are taken with `ema` (the JAX
+    package evaluates its EMA checkpoints) and its trained weights
+    without. The JAX package's msgpack checkpoints and the reference's
+    .pth files are not read yet (ROADMAP Queue 1.2)."""
+    if path in (None, "test"):
+        return init_params(model, 42)
+    with open(path, "rb") as f:
+        zipped = f.read(4) == b"PK\x03\x04"     # torch.save's format
+    d = torch.load(path, map_location="cpu",
+                   weights_only=False) if zipped else None
+    if not (isinstance(d, dict) and isinstance(d.get("state"), dict)
+            and {"params", "ema"} <= set(d["state"])):
+        raise NotImplementedError(
+            f"{path}: not a checkpoint of this package's Trainer.save; JAX "
+            "msgpack checkpoints and reference .pth files are not ported "
+            "(ROADMAP Queue 1.2, rmem_tpu/utils/checkpoint.py:"
+            "load_pretrained)")
+    key = "ema" if ema else "params"
+    model.load_state_dict(d["state"][key], strict=True)
+    log(f"loaded the {key} weights of {path} (step {d['state']['step']})")
     return model
