@@ -214,6 +214,28 @@ non-zero exit code:
    and nvJPEG's decode ms a frame beside the card (`--profile`: a traced
    CLI run of seq0's first 48 frames, the device's busy ms a frame and
    idle share).
+22. weights in and out, and the single-video tools: a reference-layout
+   .pth of R50-DeAOTL and of R50-AOTL written from seeded tensors (the
+   converter's inverse over the port's state dict: BN running statistics,
+   the LSTT's linear weights as 1x1 convs, an 11-channel id bank,
+   `module.` prefixes under `state_dict`, one dead TIME_ENCODE key), each
+   loaded through `load_model_params`: nothing skipped or unexpected, the
+   dead key reported, every folded BN within 1e-6 of the fold in f64, every
+   other weight the file's, id-bank channel 11 zero; then `python -m
+   rmem_tpu_torch.tools.demo` on the R50-DeAOTL .pth over 40 seeded
+   480x854 frames with 10 objects (phase 21's writer, JPEG-encoded on the
+   card) in a process of its own that counts launches (K1 3, K4 3, K6 1 a
+   frame; K1h, K3, K8 never), a mask and an overlay for every frame, frame
+   0's mask the first mask, every mask equal to the evaluator's per-frame
+   path (`force_slow`) on the same frames and .pth; the demo for R50-AOTL
+   over 10 frames (K1h 3, K6 1); `python -m rmem_tpu_torch.tools.video`
+   over both demos' masks, the mp4 read back by cv2 as 40 frames of 480 x
+   2562; 6 of phase 5's training steps from the .pth (first parameters
+   load_model_params's, phase 5's launches a step) saving the checkpoint
+   stream every 2 steps and keeping 2, a new trainer auto-resuming at step
+   6 with the saved state, at step 4 past a truncated save, and the EMA
+   stream's file served by an evaluator. Prints the .pth load seconds, the
+   demo's frames/s beside phase 3's, and a stream save's seconds and MB.
 
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
@@ -3429,8 +3451,12 @@ def train_config(model: str = "r50_deaotl"):
     with train_total_steps set so that the use_prev_pred curriculum (from
     half the total) starts inside a run of TRAIN_STEPS steps."""
     from rmem_tpu_torch.config import get_config
+    # a fresh run: never resumed from a checkpoint stream under ./results
+    # (pre_vost's preset turns it off too), and no save within the phases'
+    # steps (train_save_step 500)
     return get_config("pre_vost", **SERVED[model], train_batch_size=TRAIN_B,
-                      train_total_steps=TRAIN_STEPS + 2)
+                      train_total_steps=TRAIN_STEPS + 2,
+                      train_auto_resume=False)
 
 
 def fifo_evictions(cfg) -> int:
@@ -3721,7 +3747,7 @@ def jpeg_planes(dev):
         img = eval_video(dev, 7, 1, 3)[0][0]
         if (h, w) != tuple(img.shape[:2]):
             img = img[:h, :w]
-        data = NvjpegEncoder(dev, subsampling=css).encode(img)
+        data = jpeg.NvjpegEncoder(dev, subsampling=css).encode(img)
         out[key] = jpeg.nvjpeg().decode_planes(data, dev)
     torch.cuda.synchronize()
     return out
@@ -3840,69 +3866,6 @@ with open(report, "w") as f:
 """
 
 
-class NvjpegEncoder:
-    """nvJPEG's encoder on the package's nvJPEG handle: uint8 [H, W, 3]
-    RGB on the card -> baseline JPEG bytes at `quality`, chroma 4:2:0
-    (`subsampling`, an nvjpegChromaSubsampling_t: 2 is NVJPEG_CSS_420, 0
-    NVJPEG_CSS_444)."""
-
-    def __init__(self, dev, quality: int = 95, subsampling: int = 2):
-        import ctypes
-
-        import torch
-
-        from rmem_tpu_torch.data import jpeg
-        self.jpeg, self.dev = jpeg, dev
-        nv = jpeg.nvjpeg()
-        lib, vp, p = nv.lib, ctypes.c_void_p, ctypes.POINTER
-        lib.nvjpegEncoderStateCreate.argtypes = [vp, p(vp), vp]
-        lib.nvjpegEncoderParamsCreate.argtypes = [vp, p(vp), vp]
-        lib.nvjpegEncoderParamsSetQuality.argtypes = [vp, ctypes.c_int, vp]
-        lib.nvjpegEncoderParamsSetSamplingFactors.argtypes = [
-            vp, ctypes.c_int, vp]
-        lib.nvjpegEncodeImage.argtypes = [
-            vp, vp, vp, p(jpeg.NvjpegImage), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, vp]
-        lib.nvjpegEncodeRetrieveBitstream.argtypes = [
-            vp, vp, ctypes.c_char_p, p(ctypes.c_size_t), vp]
-        self.lib, self.handle, self.ctypes = lib, nv.handle, ctypes
-        self.state, self.params = vp(), vp()
-        s = torch.cuda.current_stream(dev).cuda_stream
-        jpeg.check(lib.nvjpegEncoderStateCreate(
-            nv.handle, ctypes.byref(self.state), s), "encoder state")
-        jpeg.check(lib.nvjpegEncoderParamsCreate(
-            nv.handle, ctypes.byref(self.params), s), "encoder params")
-        jpeg.check(lib.nvjpegEncoderParamsSetQuality(self.params, quality,
-                                                     s), "quality")
-        jpeg.check(lib.nvjpegEncoderParamsSetSamplingFactors(
-            self.params, subsampling, s), "sampling factors")
-
-    def encode(self, img) -> bytes:
-        import torch
-        ct, jpeg = self.ctypes, self.jpeg
-        img = img.contiguous()
-        h, w = img.shape[:2]
-        src = jpeg.NvjpegImage()
-        src.channel[0] = img.data_ptr()
-        src.pitch[0] = 3 * w
-        stream = torch.cuda.current_stream(self.dev)
-        # nvjpegInputFormat_t: NVJPEG_INPUT_RGBI = 5
-        jpeg.check(self.lib.nvjpegEncodeImage(
-            self.handle, self.state, self.params, ct.byref(src), 5, w, h,
-            stream.cuda_stream), "nvjpegEncodeImage")
-        n = ct.c_size_t(0)
-        jpeg.check(self.lib.nvjpegEncodeRetrieveBitstream(
-            self.handle, self.state, None, ct.byref(n), stream.cuda_stream),
-            "bitstream size")
-        stream.synchronize()
-        buf = ct.create_string_buffer(n.value)
-        jpeg.check(self.lib.nvjpegEncodeRetrieveBitstream(
-            self.handle, self.state, buf, ct.byref(n), stream.cuda_stream),
-            "bitstream")
-        stream.synchronize()
-        return buf.raw[:n.value]
-
-
 def eval_video(dev, seed: int, frames: int, objects: int):
     """Seeded frames as parity/make_dataset.py draws them, on the card: a
     smooth background (low-resolution noise, cubic-upsampled 8x) with
@@ -3941,8 +3904,8 @@ def eval_video(dev, seed: int, frames: int, objects: int):
 def eval_tree(dev, root: Path):
     """Write phase 21's VOST tree; returns (its source frames by video,
     nvJPEG's encode ms a frame)."""
+    from rmem_tpu_torch.data.jpeg import encode_jpeg
     from rmem_tpu_torch.utils.image import encode_png_pal8, label_colormap
-    enc = NvjpegEncoder(dev)
     (root / "ImageSets").mkdir(parents=True)
     (root / "ImageSets" / "val.txt").write_text(
         "\n".join(name for name, *_ in EVAL_SEQS) + "\n")
@@ -3955,7 +3918,7 @@ def eval_tree(dev, root: Path):
         ann_dir.mkdir(parents=True)
         for t in range(frames):
             t0 = time.perf_counter()
-            data = enc.encode(imgs[t])
+            data = encode_jpeg(imgs[t])
             enc_s += time.perf_counter() - t0
             n += 1
             (img_dir / f"{t:05d}.jpg").write_bytes(data)
@@ -4175,6 +4138,474 @@ def eval_phase(dev, card: str, profile: bool):
                   f"against the untraced {wall:.3f} ms a frame of seq0 the "
                   f"device idles {100 * (1 - busy / wall):.1f} % on {card}")
             result.update(busy_ms=busy, idle_share=1 - busy / wall)
+    return result
+
+
+# phase 22, weights in and out and the single-video tools: a reference-
+# layout .pth of R50-DeAOTL and of R50-AOTL written from seeded tensors by
+# the converter's inverse over the port's state dict, each loaded through
+# load_model_params; the demo CLI over DEMO_FRAMES of phase 21's seeded
+# frames with 10 objects (R50-AOTL's over the first DEMO_AOT_FRAMES); the
+# video CLI over their masks; 6 of phase 5's training steps from the .pth
+# with the checkpoint stream, then auto-resume
+DEMO_FRAMES = 40
+DEMO_AOT_FRAMES = 10
+DEMO_OBJECTS = 10
+PTH_DEAD_KEY = "LSTT.layers.0.Q_time_encode.0.weight"
+BN_FOLD_TOL = 1e-6      # max |folded - f64 formula| / max |f64 formula|
+STREAM_SAVE_STEP = 2
+STREAM_KEEP = 2
+# the demo's CLI through a spy: launch counts from 0 in the fresh process
+# (argv[1]: the report's path; the rest: the demo's arguments)
+DEMO_CHILD = r"""
+import json, runpy, sys
+import torch
+from rmem_tpu_torch.kernels import bank_attention as kb
+from rmem_tpu_torch.kernels import dwconv as kd
+from rmem_tpu_torch.kernels import jpeg_color as kj
+from rmem_tpu_torch.kernels import local_attention as kl
+from rmem_tpu_torch.kernels import stem as ks
+
+report = sys.argv[1]
+sys.argv = ["rmem_tpu_torch.tools.demo"] + sys.argv[2:]
+wrappers = (kb.bank_attention_infer, kb.bank_attention_infer_mh,
+            kb.bank_attention_qminor, kl.local_attention, ks.stem,
+            kd.gated_dwconv, kj.ycc_to_rgb)
+for fn in wrappers:
+    fn.launches = 0
+runpy.run_module("rmem_tpu_torch.tools.demo", run_name="__main__")
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+with open(report, "w") as f:
+    json.dump({fn.__name__: fn.launches for fn in wrappers}, f)
+"""
+
+
+def reference_name(path, model_vos: str) -> str:
+    """The reference module name of a flax path's leaf (the inverse of
+    utils/checkpoint.py's converter: its layer names, `downsample.0/1`,
+    the LSTT's attention modules, DeAOT's GroupNorm1D `.gn`)."""
+    p = list(path)
+    if p[0] == "encoder":
+        if p[1].startswith("layer"):
+            stage, idx = p[1].split("_")
+            sub = {"downsample_conv": "downsample.0",
+                   "downsample_bn": "downsample.1"}.get(p[2], p[2])
+            return f"encoder.{stage}.{idx}.{sub}"
+        return f"encoder.{p[1]}"
+    if p[0] == "lstt":
+        if p[1].startswith("decoder_norm"):
+            gn = ".gn" if model_vos == "deaot" else ""
+            return f"LSTT.decoder_norms.{p[1][len('decoder_norm'):]}{gn}"
+        mid = tuple(p[2:-1])
+        mid = {("long_proj",): "long_term_attn.projection",
+               ("short_proj",): "short_term_attn.projection",
+               ("long_tail", "dw_conv", "conv"): "long_term_attn.dw_conv.conv",
+               ("long_tail", "projection"): "long_term_attn.projection",
+               ("short_tail", "dw_conv", "conv"):
+                   "short_term_attn.dw_conv.conv",
+               ("short_tail", "projection"): "short_term_attn.projection",
+               ("relative_emb_k",): "short_term_attn.relative_emb_k",
+               ("self_attn", "tail", "dw_conv", "conv"):
+                   "self_attn.dw_conv.conv",
+               ("self_attn", "tail", "projection"): "self_attn.projection",
+               }.get(mid, ".".join(mid))
+        return f"LSTT.layers.{p[1][len('block'):]}.{mid}"
+    return ".".join(p[:-1]) if len(p) > 1 else p[0]
+
+
+def reference_checkpoint(model, seed: int):
+    """A reference-layout state dict for `model` (port names -> the
+    reference's, port layouts are torch's), seeded: BN as weight, bias,
+    running_mean and running_var (above 0.5, so the fold divides by
+    something other than 1), the LSTT's `linear_*` weights as 1x1 convs
+    (the converter squeezes them), the id bank's 11 input channels, and one
+    dead TIME_ENCODE key. Returns {name: f32 CPU tensor}."""
+    import torch
+
+    from rmem_tpu_torch.utils.checkpoint import flax_path
+    vos = model.cfg.model_vos
+    g = torch.Generator().manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=g)
+    sd = {}
+    # scaled as trained weights are, so that training from them stays
+    # finite: weights N(0, 1/fan_in), norm and BN scales near 1, small
+    # biases and means
+    for name, t in model.state_dict().items():
+        path = flax_path(name)
+        ref = reference_name(path, vos)
+        if path[0] == "encoder" and "bn" in path[-2]:
+            if f"{ref}.running_var" not in sd:
+                c = t.shape[0]
+                sd[f"{ref}.weight"] = 1 + 0.1 * randn(c)
+                sd[f"{ref}.bias"] = 0.1 * randn(c)
+                sd[f"{ref}.running_mean"] = 0.1 * randn(c)
+                sd[f"{ref}.running_var"] = randn(c).abs() + 0.5
+        elif path[-1] == "kernel":
+            w = randn(*t.shape) / math.sqrt(t[0].numel())
+            if path[0] == "lstt" and path[-2].startswith("linear_"):
+                w = w[:, :, None, None]
+            if path[0] == "patch_wise_id_bank":
+                w = w[:, :11]
+            sd[f"{ref}.weight"] = w.contiguous()
+        elif path[-1] == "scale":
+            sd[f"{ref}.weight"] = 1 + 0.1 * randn(*t.shape)
+        elif path[-1] == "bias":
+            sd[f"{ref}.bias"] = 0.1 * randn(*t.shape)
+        else:                               # cur_pos_emb, mem_pos_emb
+            sd[ref] = 0.05 * randn(*t.shape)
+    sd[PTH_DEAD_KEY] = randn(8, 8)
+    return sd
+
+
+def check_loaded(model, sd, rep: dict, label: str) -> float:
+    """Phase 22 (b): nothing skipped or unexpected, one dead key; every
+    folded BN against the fold in f64 (returns the worst relative
+    difference); every other weight the written tensor (squeezed,
+    padded); id-bank input channel 11 zero."""
+    import torch
+
+    from rmem_tpu_torch.utils.checkpoint import flax_path
+    check(rep["skipped"] == [] and rep["unexpected_keys"] == [],
+          f"{label}: skipped {rep['skipped'][:5]}, unexpected "
+          f"{rep['unexpected_keys'][:5]}")
+    check(rep["dead_keys"] == [PTH_DEAD_KEY], f"{label}: dead keys "
+          f"{rep['dead_keys']}")
+    worst, vos = 0.0, model.cfg.model_vos
+    for name, t in model.state_dict().items():
+        path = flax_path(name)
+        ref = reference_name(path, vos)
+        if path[0] == "encoder" and "bn" in path[-2]:
+            f64 = {k: sd[f"{ref}.{k}"].double() for k in
+                   ("weight", "bias", "running_mean", "running_var")}
+            scale = f64["weight"] / torch.sqrt(f64["running_var"] + 1e-5)
+            want = (scale if path[-1] == "scale"
+                    else f64["bias"] - f64["running_mean"] * scale)
+            worst = max(worst, float((t.double() - want).abs().max()
+                                     / want.abs().max()))
+            continue
+        src = sd[f"{ref}.weight" if path[-1] in ("kernel", "scale")
+                 else f"{ref}.bias" if path[-1] == "bias" else ref]
+        if path[0] == "patch_wise_id_bank" and path[-1] == "kernel":
+            check(not t[:, 11:].any(), f"{label}: id-bank channel 11 not "
+                  "zero")
+            t = t[:, :11]
+        check(torch.equal(t, src.reshape(t.shape)), f"{label}: {name} is "
+              "not the checkpoint's")
+    check(worst <= BN_FOLD_TOL, f"{label}: folded BN off the f64 fold by "
+          f"{worst:.3e}")
+    return worst
+
+
+def run_cli(child: str, args, label: str, timeout: int = 900):
+    """`child` (a spy script) in a process of its own with `args`; returns
+    (its stdout, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", child, *map(str, args)],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t0
+    print(f"phase 22: {label} exited {r.returncode} after {secs:.1f} s; "
+          "its last lines:\n"
+          + "\n".join("  | " + ln for ln in r.stdout.splitlines()[-4:]))
+    if r.returncode != 0:
+        print(r.stderr[-6000:], file=sys.stderr)
+    check(r.returncode == 0, f"{label} exited {r.returncode}")
+    return r.stdout, secs
+
+
+def run_demo_cli(frames: Path, first: Path, out: Path, report: Path,
+                 *extra):
+    """The demo's CLI through DEMO_CHILD: (launch counts, frames/s it
+    printed, seconds of the process)."""
+    stdout, secs = run_cli(DEMO_CHILD, [report, "--frames_dir", frames,
+                                        "--first_mask", first,
+                                        "--output_dir", out, *extra],
+                           f"the demo ({' '.join(map(str, extra))})")
+    fps = float(re.search(r"\(([\d.]+) frames/s on ",
+                          stdout.splitlines()[-1]).group(1))
+    return json.loads(report.read_text()), fps, secs
+
+
+def demo_outputs(frames: Path, out: Path, n: int, dev):
+    """The demo's files for the first n frames: a mask PNG and an overlay
+    JPEG each, the overlay decoding to the frame's size."""
+    from rmem_tpu_torch.data.jpeg import read_jpeg
+    from rmem_tpu_torch.utils.image import read_png
+    names = sorted(p.stem for p in frames.glob("*.jpg"))[:n]
+    masks = {}
+    for stem in names:
+        masks[stem] = read_png(str(out / "masks" / f"{stem}.png"))
+        over = read_jpeg((out / f"{stem}_overlay.jpg").read_bytes(), dev)
+        check(tuple(over.shape) == (*EVAL_HW, 3) and masks[stem].shape
+              == EVAL_HW, f"{out}/{stem}: overlay {tuple(over.shape)}, "
+              f"mask {masks[stem].shape}")
+    check(len(list((out / "masks").glob("*.png"))) == n
+          and len(list(out.glob("*_overlay.jpg"))) == n,
+          f"{out}: not {n} masks and overlays")
+    return masks
+
+
+def stream_phase(dev, pth: Path, tmp: Path, card: str):
+    """Phase 22 (e): Trainer from the .pth with the checkpoint stream,
+    phase 5's steps and launches, then auto-resume (also past a truncated
+    save) and the EMA stream served by an Evaluator. Returns a dict of
+    what it measured."""
+    import importlib
+
+    import torch
+
+    from rmem_tpu_torch.managers import trainer as trainer_mod
+    from rmem_tpu_torch.models import build_vos_model, load_model_params
+
+    base = train_config("r50_deaotl").replace(
+        pretrain_model=str(pth), train_save_step=STREAM_SAVE_STEP,
+        train_max_keep_ckpt=STREAM_KEEP, dir_root=str(tmp / "results"))
+    check(base.pretrain and not base.train_auto_resume, "pre_vost presets")
+    ref = build_vos_model(base.model_vos, base)
+    load_model_params(ref, str(pth), log=lambda s: None)
+    lines = []
+    trainer = trainer_mod.Trainer(base, device=dev, seed=0,
+                                  log=lines.append)
+    want = ref.state_dict()
+    for name, p in trainer.state.model.named_parameters():
+        check(torch.equal(p.detach().cpu(), want[name]),
+              f"phase 22: the trainer's {name} is not load_model_params's")
+    wrappers = [getattr(importlib.import_module(
+        f"rmem_tpu_torch.kernels.{mod}"), fn) for mod, fn in TRAIN_KERNELS]
+    step, save = trainer_mod.train_step, trainer_mod.save_checkpoint
+    per_step, saves = [], []
+
+    def counted_step(*a, **kw):
+        before = [fn.launches for fn in wrappers]
+        out = step(*a, **kw)
+        per_step.append([fn.launches - c for fn, c in zip(wrappers, before)])
+        return out
+
+    def timed_save(obj, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(obj, *a, **kw)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer_mod, "train_step", counted_step), \
+            mock.patch.object(trainer_mod, "save_checkpoint", timed_save):
+        metrics = trainer.train(max_steps=TRAIN_STEPS)
+    train_s = time.perf_counter() - t0
+    expected = [TRAIN_LAUNCHES["r50_deaotl"][fn] for _, fn in TRAIN_KERNELS]
+    check(per_step == [expected] * TRAIN_STEPS,
+          f"phase 22 launches per step {per_step}, expected {expected}")
+    check(math.isfinite(metrics["loss"]), f"phase 22 loss {metrics}")
+    listing = {d: sorted(os.listdir(d)) for d in (trainer.ckpt_dir,
+                                                  trainer.ema_dir)}
+    check(listing == {trainer.ckpt_dir: ["save_step_4.pt", "save_step_6.pt"],
+                      trainer.ema_dir: ["ema_step_4.pt", "ema_step_6.pt"]},
+          f"phase 22 streams {listing}")
+    # the state as the last save wrote it, and a new trainer resuming
+    state = trainer.state.state_dict()
+    lines.clear()
+    resumed = trainer_mod.Trainer(base.replace(train_auto_resume=True),
+                                  device=dev, seed=5, log=lines.append)
+    got = resumed.state.state_dict()
+    check(got["step"] == TRAIN_STEPS and all(
+        torch.equal(got[k][n], state[k][n]) for k in ("params", "mu", "nu",
+                                                      "ema")
+        for n in state[k]), f"phase 22 resume: step {got['step']}, or a "
+          "leaf differs from the saved state")
+    check(lines[-1].startswith("auto-resumed from ") and lines[-1].endswith(
+        f"(step {TRAIN_STEPS})"), f"phase 22 resume log {lines[-1:]}")
+    del resumed
+    newest = Path(trainer.ckpt_dir, f"save_step_{TRAIN_STEPS}.pt")
+    data = newest.read_bytes()
+    newest.write_bytes(data[:len(data) // 2])
+    lines.clear()
+    fallback = trainer_mod.Trainer(base.replace(train_auto_resume=True),
+                                   device=dev, seed=5, log=lines.append)
+    check(fallback.state.step == TRAIN_STEPS - STREAM_SAVE_STEP
+          and any(f"save_step_{TRAIN_STEPS}.pt unreadable" in ln
+                  for ln in lines)
+          and lines[-1].endswith(f"(step {TRAIN_STEPS - STREAM_SAVE_STEP})"),
+          f"phase 22 fallback: step {fallback.state.step}, log {lines}")
+    ema = {n: t.detach().cpu() for n, t in trainer.state.ema.items()}
+    del trainer, fallback
+    torch.cuda.empty_cache()
+    ema_file = Path(base.dir_result, "ema_ckpt", f"ema_step_{TRAIN_STEPS}.pt")
+    load_model_params(ref, str(ema_file), log=lambda s: None)
+    check(all(torch.equal(t, ema[n]) for n, t in ref.state_dict().items()),
+          "phase 22: the EMA stream's file is not the trainer's EMA")
+    return dict(saves=saves, train_s=train_s, ema_file=ema_file,
+                per_step=per_step[0])
+
+
+def weights_phase(dev, card: str, served_fps: float):
+    """Phase 22: the reference's .pth files loaded, the demo and video
+    CLIs, and training with the checkpoint stream (see the module
+    docstring). Returns a dict of what it measured."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from rmem_tpu_torch.config import get_config
+    from rmem_tpu_torch.data.jpeg import write_jpeg
+    from rmem_tpu_torch.managers.evaluator import Evaluator
+    from rmem_tpu_torch.models import build_vos_model, load_model_params
+    from rmem_tpu_torch.utils.image import (encode_png_pal8, label_colormap,
+                                            read_png)
+
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_weights_") as tmp:
+        tmp = Path(tmp)
+        # (a) and (b): a .pth a model, written and loaded
+        pths, loaded = {}, {}
+        for model_name, seed in (("r50_deaotl", 11), ("r50_aotl", 12)):
+            cfg = get_config("pre_vost_2", model=model_name)
+            sd = reference_checkpoint(build_vos_model(cfg.model_vos, cfg),
+                                      seed)
+            pths[model_name] = tmp / f"{model_name}.pth"
+            # the reference's wrapping: `module.` prefixes under state_dict
+            torch.save({"state_dict": {f"module.{k}": v
+                                       for k, v in sd.items()}},
+                       pths[model_name])
+            model = build_vos_model(cfg.model_vos, cfg)
+            rep, lines = {}, []
+            t0 = time.perf_counter()
+            load_model_params(model, str(pths[model_name]), report=rep,
+                              log=lines.append)
+            load_s = time.perf_counter() - t0
+            worst = check_loaded(model, sd, rep, f"phase 22 {model_name}")
+            mb = pths[model_name].stat().st_size / 2 ** 20
+            print(f"phase 22: {model_name} .pth ({len(sd)} tensors, "
+                  f"{mb:.1f} MB) loaded in {load_s:.3f} s (torch.load, the "
+                  "converter, the merge; host) on the machine of "
+                  f"{card}; {len(rep['extra'])} extra, dead "
+                  f"{rep['dead_keys']}, folded BN within {worst:.2e} of "
+                  "the f64 fold")
+            loaded[model_name] = dict(load_s=load_s, mb=mb, bn_rel=worst)
+        result["pth"] = loaded
+
+        # (c): the demo CLI over seeded frames (phase 21's writer)
+        vost = tmp / "data" / "VOST"
+        frames = vost / "JPEGImages_10fps" / "demo"
+        ann = vost / "Annotations" / "demo"
+        frames.mkdir(parents=True)
+        ann.mkdir(parents=True)
+        (vost / "ImageSets").mkdir()
+        (vost / "ImageSets" / "val.txt").write_text("demo\n")
+        imgs, labels = eval_video(dev, 7, DEMO_FRAMES, DEMO_OBJECTS)
+        for t in range(DEMO_FRAMES):
+            write_jpeg(frames / f"{t:05d}.jpg", imgs[t])
+        first = ann / "00000.png"
+        first.write_bytes(encode_png_pal8(labels[0], label_colormap()))
+        check(len(np.unique(labels[0])) == DEMO_OBJECTS + 1,
+              "phase 22: not every object in the first mask")
+        out = tmp / "demo_out"
+        counts, fps, cli_s = run_demo_cli(
+            frames, first, out, tmp / "demo.json", "--model", "r50_deaotl",
+            "--ckpt_path", pths["r50_deaotl"])
+        expected = {name: n * DEMO_FRAMES for name, n in
+                    SERVED_LAUNCHES["r50_deaotl"].items()}
+        expected.update(gated_dwconv=0, ycc_to_rgb=DEMO_FRAMES)
+        check(counts == expected, f"phase 22 demo launches {counts}, "
+              f"expected {expected}")
+        masks = demo_outputs(frames, out, DEMO_FRAMES, dev)
+        check((out / "masks" / "00000.png").read_bytes()
+              == first.read_bytes(), "phase 22: the demo's frame 0 mask is "
+              "not the first mask")
+        # the evaluator's per-frame path on the same frames and weights;
+        # this process has cuDNN's TF32 off and the demo's PyTorch's
+        # default (on), so equal masks also show that the served path does
+        # not depend on the flag
+        cfg = get_config("pre_vost_2", "chip_smoke", "r50_deaotl",
+                         test_dataset="vost",
+                         test_ckpt_path=str(pths["r50_deaotl"]),
+                         dir_root=str(tmp / "results"))
+        ev = Evaluator(cfg, data_root=str(vost.parent),
+                       output_root=str(tmp / "ev"), log=lambda *a: None,
+                       device=dev)
+        ev.force_slow = True
+        ev.evaluate()
+        differ = [stem for stem, m in masks.items() if not np.array_equal(
+            m, read_png(str(tmp / "ev" / "demo" / f"{stem}.png")))]
+        check(not differ, f"phase 22: the demo's masks differ from the "
+              f"evaluator's per-frame path at {differ[:5]}")
+        ids = set(np.unique(np.stack(list(masks.values()))).tolist())
+        del ev
+        torch.cuda.empty_cache()
+        aot_out = tmp / "demo_aot"
+        aot_counts, aot_fps, aot_s = run_demo_cli(
+            frames, first, aot_out, tmp / "demo_aot.json", "--model",
+            "r50_aotl", "--ckpt_path", pths["r50_aotl"], "--max_frames",
+            DEMO_AOT_FRAMES)
+        aot_expected = {name: n * DEMO_AOT_FRAMES for name, n in
+                        SERVED_LAUNCHES["r50_aotl"].items()}
+        aot_expected.update(gated_dwconv=0, ycc_to_rgb=DEMO_AOT_FRAMES)
+        check(aot_counts == aot_expected, f"phase 22 AOT demo launches "
+              f"{aot_counts}, expected {aot_expected}")
+        demo_outputs(frames, aot_out, DEMO_AOT_FRAMES, dev)
+        print(f"phase 22: the demo, R50-DeAOTL from its .pth, {DEMO_FRAMES} "
+              f"frames at {EVAL_HW[0]}x{EVAL_HW[1]} with {DEMO_OBJECTS} "
+              f"objects: launches {counts}; masks equal the evaluator's "
+              f"per-frame path on every pixel (ids {sorted(ids)}); "
+              f"{fps:.3f} frames/s (host clock, the process's first use "
+              f"included; the CLI process {cli_s:.1f} s) beside phase 3's "
+              f"{served_fps:.3f}; R50-AOTL over {DEMO_AOT_FRAMES} frames: "
+              f"launches {aot_counts}, {aot_fps:.3f} frames/s; on {card}")
+
+        # (d): the video CLI, read back
+        mp4 = tmp / "cmp.mp4"
+        stdout, video_s = run_cli(
+            "import runpy, sys\nsys.argv = ['video'] + sys.argv[1:]\n"
+            "runpy.run_module('rmem_tpu_torch.tools.video', "
+            "run_name='__main__')\n",
+            ["--frames_dir", frames, "--masks_a", out / "masks", "--masks_b",
+             aot_out / "masks", "--output", mp4], "the video tool")
+        cap = cv2.VideoCapture(str(mp4))
+        shapes = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            shapes.append(frame.shape)
+        cap.release()
+        check(shapes == [(EVAL_HW[0], 3 * EVAL_HW[1], 3)] * DEMO_FRAMES,
+              f"phase 22 video: {len(shapes)} frames of {set(shapes)}")
+        print(f"phase 22: the video tool wrote {mp4.stat().st_size} bytes, "
+              f"read back as {len(shapes)} frames of {shapes[0][:2]} "
+              f"({video_s:.1f} s)")
+
+        # (e): training from the .pth with the checkpoint stream
+        stream = stream_phase(dev, pths["r50_deaotl"], tmp, card)
+        ev = Evaluator(cfg.replace(test_ckpt_path=str(stream["ema_file"])),
+                       data_root=str(vost.parent),
+                       output_root=str(tmp / "ev_ema"), log=lambda *a: None,
+                       device=dev)
+        ev.evaluate(max_frames=3)
+        served = sorted(p.name for p in (tmp / "ev_ema" / "demo").glob(
+            "*.png"))
+        check(served == [f"{t:05d}.png" for t in range(3)],
+              f"phase 22: the EMA stream's evaluator wrote {served}")
+        del ev
+        torch.cuda.empty_cache()
+        save_s = [s for s, _ in stream["saves"]]
+        save_mb = [b / 2 ** 20 for _, b in stream["saves"]]
+        print(f"phase 22: {TRAIN_STEPS} steps of R50-DeAOTL pre_vost from "
+              f"its .pth in {stream['train_s']:.1f} s, launches a step "
+              f"{stream['per_step']} (phase 5's); a stream save (state, "
+              f"then EMA) took " + ", ".join(
+                  f"{s:.3f} s for {m:.1f} MB" for s, m in zip(save_s,
+                                                              save_mb))
+              + f"; resumed at step {TRAIN_STEPS}, and at "
+              f"{TRAIN_STEPS - STREAM_SAVE_STEP} past a truncated save; "
+              f"the EMA file served 3 frames; on {card}")
+        result.update(demo_fps=fps, demo_cli_s=cli_s, demo_aot_fps=aot_fps,
+                      demo_launches=counts, demo_aot_launches=aot_counts,
+                      served_fps=served_fps, video_s=video_s,
+                      stream_save_s=save_s, stream_save_mb=save_mb,
+                      stream_train_s=stream["train_s"])
     return result
 
 
@@ -4881,6 +5312,9 @@ def main() -> int:
     entries["jpeg_ycc_to_rgb"].update(
         launches=evaluated["launches"]["ycc_to_rgb"],
         launches_from="phase 21: one a decoded frame")
+    t0 = time.perf_counter()
+    weights = weights_phase(dev, card, statistics.median(window_fps))
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -4938,7 +5372,7 @@ def main() -> int:
                       "aot_nmg_train_peak_gib": aot_nmg_peak,
                       "aot_nmg_train_launches": aot_nmg_train_counts,
                       "aot_nmg_held_step": aot_nmg_held_step,
-                      "eval": evaluated,
+                      "eval": evaluated, "weights": weights,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

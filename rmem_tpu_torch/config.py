@@ -77,6 +77,11 @@ class Config:
     data_randomcrop: Tuple[int, int] = (465, 465)
     data_seq_len: int = 5
 
+    # ---- pretrain / resume: the Trainer starts from pretrain_model (a
+    # reference .pth or a JAX msgpack params tree) when pretrain is set ----
+    pretrain: bool = True
+    pretrain_model: str = ""
+
     # ---- train ----
     train_total_steps: int = 100_000
     train_start_step: int = 0
@@ -101,6 +106,13 @@ class Config:
     train_hard_mining_ratio: float = 0.5
     train_ema_ratio: float = 0.1
     train_clip_grad_norm: float = 5.0
+    # the checkpoint stream: params and EMA saved every train_save_step
+    # steps under dir_result/ckpt and dir_result/ema_ckpt, the newest
+    # train_max_keep_ckpt kept, and a new Trainer resumes from the newest
+    # readable save when train_auto_resume is set
+    train_save_step: int = 500
+    train_max_keep_ckpt: int = 8
+    train_auto_resume: bool = True
     train_encoder_freeze_at: int = 2
     # the LSTT's stochastic depth rate; the training step passes no
     # generator, as the JAX step passes no dp_rng, so it stays the identity
@@ -119,7 +131,7 @@ class Config:
     test_dataset: str = "youtubevos"
     test_dataset_split: str = "val"
     # None or "test": random weights from init_params(model, 42); else a
-    # file written by Trainer.save
+    # checkpoint file (see models.load_model_params)
     test_ckpt_path: Optional[str] = None
     test_ckpt_step: Optional[int] = None
     # evaluate the checkpoint's EMA weights (else its trained weights)
@@ -229,17 +241,18 @@ STAGE_PRESETS: Dict[str, Dict[str, Any]] = {
     "default": {},
     "pre_vost": dict(train_total_steps=20_000, data_seq_len=15,
                      train_long_term_mem_gap=4, model_linear_q=False,
-                     model_ignore_token=True),
+                     model_ignore_token=True, train_auto_resume=False),
     # pre_vost with clips of 17 frames: the training CLI's default stage
     "pre_vost_2": dict(train_total_steps=20_000, data_seq_len=17,
                        train_long_term_mem_gap=4, model_linear_q=False,
-                       model_ignore_token=True),
+                       model_ignore_token=True, train_auto_resume=False),
     # pre_vost with clips of 25 frames
     "pre_vost_25q": dict(train_total_steps=20_000, data_seq_len=25,
                          train_long_term_mem_gap=4, model_linear_q=False,
-                         model_ignore_token=True),
+                         model_ignore_token=True, train_auto_resume=False),
     # synthetic smoke stage: small crops, short clips
     "test": dict(train_total_steps=100, data_seq_len=3, train_batch_size=2,
+                 pretrain=False, train_auto_resume=False,
                  data_randomcrop=(129, 129)),
 }
 

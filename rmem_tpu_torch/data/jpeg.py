@@ -1,5 +1,5 @@
-"""JPEG frames as uint8 RGB tensors: decoded on the card by nvJPEG, on the
-CPU by cv2.
+"""JPEG frames as uint8 RGB tensors: decoded (and encoded) on the card by
+nvJPEG, on the CPU by cv2.
 
 On the card `read_jpeg` hands the compressed bytes to nvJPEG
 (`libnvjpeg.so` of the CUDA toolkit, loaded with ctypes as the kernels
@@ -13,6 +13,11 @@ images are decoded; another subsampling raises, and no failure falls back
 to the host. On the CPU it is `cv2.imread` (imported when called), the
 decoder of the JAX package's readers, so that the CPU tests see the same
 bits.
+
+`encode_jpeg` and `write_jpeg` go the other way: an RGB frame on the card
+becomes baseline JPEG bytes by nvJPEG's encoder (quality 95, chroma 4:2:0),
+one on the CPU by `cv2.imencode` at its defaults (the same quality and
+subsampling), the writer of the JAX package's tools.
 """
 
 from __future__ import annotations
@@ -158,6 +163,69 @@ class Nvjpeg:
         return ycc_to_rgb(y, cb, cr, mode)
 
 
+class NvjpegEncoder:
+    """nvJPEG's encoder on the process's nvJPEG handle: uint8 [H, W, 3]
+    RGB on the card -> baseline JPEG bytes at `quality`, chroma 4:2:0
+    (`subsampling`, an nvjpegChromaSubsampling_t: 2 is NVJPEG_CSS_420, 0
+    NVJPEG_CSS_444). One encoder serves one thread."""
+
+    def __init__(self, device: torch.device, quality: int = 95,
+                 subsampling: int = 2):
+        nv = nvjpeg()
+        lib, vp, p = nv.lib, ctypes.c_void_p, ctypes.POINTER
+        lib.nvjpegEncoderStateCreate.argtypes = [vp, p(vp), vp]
+        lib.nvjpegEncoderParamsCreate.argtypes = [vp, p(vp), vp]
+        lib.nvjpegEncoderParamsSetQuality.argtypes = [vp, ctypes.c_int, vp]
+        lib.nvjpegEncoderParamsSetSamplingFactors.argtypes = [
+            vp, ctypes.c_int, vp]
+        lib.nvjpegEncodeImage.argtypes = [
+            vp, vp, vp, p(NvjpegImage), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, vp]
+        lib.nvjpegEncodeRetrieveBitstream.argtypes = [
+            vp, vp, ctypes.c_char_p, p(ctypes.c_size_t), vp]
+        for fn in ("nvjpegEncoderStateCreate", "nvjpegEncoderParamsCreate",
+                   "nvjpegEncoderParamsSetQuality",
+                   "nvjpegEncoderParamsSetSamplingFactors",
+                   "nvjpegEncodeImage", "nvjpegEncodeRetrieveBitstream"):
+            getattr(lib, fn).restype = ctypes.c_int
+        self.lib, self.handle, self.device = lib, nv.handle, device
+        self.state, self.params = vp(), vp()
+        s = torch.cuda.current_stream(device).cuda_stream
+        check(lib.nvjpegEncoderStateCreate(
+            nv.handle, ctypes.byref(self.state), s), "encoder state")
+        check(lib.nvjpegEncoderParamsCreate(
+            nv.handle, ctypes.byref(self.params), s), "encoder params")
+        check(lib.nvjpegEncoderParamsSetQuality(self.params, quality, s),
+              "quality")
+        check(lib.nvjpegEncoderParamsSetSamplingFactors(
+            self.params, subsampling, s), "sampling factors")
+
+    def encode(self, img: torch.Tensor) -> bytes:
+        """Waits for the caller's current stream (the bytes are on the
+        host when it returns)."""
+        img = img.contiguous()
+        h, w = img.shape[:2]
+        src = NvjpegImage()
+        src.channel[0] = img.data_ptr()
+        src.pitch[0] = 3 * w
+        stream = torch.cuda.current_stream(self.device)
+        # nvjpegInputFormat_t: NVJPEG_INPUT_RGBI = 5
+        check(self.lib.nvjpegEncodeImage(
+            self.handle, self.state, self.params, ctypes.byref(src), 5, w, h,
+            stream.cuda_stream), "nvjpegEncodeImage")
+        n = ctypes.c_size_t(0)
+        check(self.lib.nvjpegEncodeRetrieveBitstream(
+            self.handle, self.state, None, ctypes.byref(n),
+            stream.cuda_stream), "bitstream size")
+        stream.synchronize()
+        buf = ctypes.create_string_buffer(n.value)
+        check(self.lib.nvjpegEncodeRetrieveBitstream(
+            self.handle, self.state, buf, ctypes.byref(n),
+            stream.cuda_stream), "bitstream")
+        stream.synchronize()
+        return buf.raw[:n.value]
+
+
 _decoder_lock = threading.Lock()
 _decoder = []
 
@@ -190,3 +258,33 @@ def read_jpeg(src: Union[str, os.PathLike, bytes],
         with open(src, "rb") as f:
             src = f.read()
     return nvjpeg().decode(src, device)
+
+
+_encoders = threading.local()
+
+
+def encode_jpeg(img: torch.Tensor) -> bytes:
+    """uint8 [H, W, 3] RGB -> JPEG bytes at quality 95, chroma 4:2:0:
+    nvJPEG for a tensor on the card (one encoder a thread and device), cv2
+    for one on the CPU."""
+    if img.device.type == "cpu":
+        import cv2
+        ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(
+            img.numpy()[:, :, ::-1]))
+        if not ok:
+            raise ValueError("cv2.imencode failed")
+        return buf.tobytes()
+    if img.device.type != "cuda":
+        raise ValueError(f"encode_jpeg encodes on cuda or cpu, not "
+                         f"{img.device}")
+    cache = _encoders.__dict__.setdefault("by_device", {})
+    if img.device not in cache:
+        cache[img.device] = NvjpegEncoder(img.device)
+    return cache[img.device].encode(img)
+
+
+def write_jpeg(path: Union[str, os.PathLike], img: torch.Tensor) -> None:
+    """encode_jpeg's bytes to `path`."""
+    data = encode_jpeg(img)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -106,7 +106,8 @@ class Evaluator:
         if cfg.eval_yuv420_upload:
             raise NotImplementedError(
                 "eval_yuv420_upload: the YUV 4:2:0 upload is not ported "
-                "(ROADMAP Queue 1.2); frames are decoded on the card")
+                "(ROADMAP, Not to port): frames are uploaded as JPEG bytes "
+                "and decoded on the card")
         if not cfg.eval_device_prep:
             raise NotImplementedError(
                 "eval_device_prep=False: the JAX package's cv2 host prep is "

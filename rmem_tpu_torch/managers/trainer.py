@@ -1,16 +1,23 @@
 """Trainer: build the model, then take training steps on seeded synthetic
 clips, log, save and resume.
 
-Counterpart of the parts of `rmem_tpu/managers/trainer.py` that a run of a
-few steps needs: the id shuffle drawn on the host from
-np.random.RandomState(train_start_step + 7), one step per batch, the log
-line every train_log_step steps, and the state saved with torch.save. It
-runs on one card (or on the CPU when asked); the batches are the synthetic
-clips of data/synthetic.py.
+Counterpart of `rmem_tpu/managers/trainer.py` on one card (or on the CPU
+when asked): the weights of cfg.pretrain_model (a reference .pth, a JAX
+msgpack params tree or this package's own file) when cfg.pretrain is set,
+the id shuffle drawn on the host from np.random.RandomState(
+train_start_step + 7), one step per batch, the log line every
+train_log_step steps, and the checkpoint stream: every train_save_step
+steps the state (with the host and device RNGs) goes to
+dir_result/ckpt/save_step_<N>.pt and the EMA weights to
+dir_result/ema_ckpt/ema_step_<N>.pt, each stream pruned to its newest
+train_max_keep_ckpt files; with cfg.train_auto_resume a new Trainer starts
+from the newest readable save. The batches are the synthetic clips of
+data/synthetic.py.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional, Union
 
@@ -22,8 +29,12 @@ from rmem_tpu_torch.data.synthetic import gen_blob_batch
 from rmem_tpu_torch.engine.inference import resolve_device
 from rmem_tpu_torch.engine.train_state import TrainState, apply_gradients
 from rmem_tpu_torch.engine.training import check_supported, train_forward
-from rmem_tpu_torch.models import build_vos_model, init_params
+from rmem_tpu_torch.models import (build_vos_model, init_params,
+                                   load_model_params)
 from rmem_tpu_torch.ops.masks import host_id_shuffle_matrix
+from rmem_tpu_torch.utils.checkpoint import (load_file,
+                                             load_latest_checkpoint,
+                                             save_checkpoint)
 from rmem_tpu_torch.utils.metric import AverageMeter
 
 
@@ -51,7 +62,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 class Trainer:
     """One model on one device. `params`: a state dict to start from (for
-    example utils.params_from_jax of a JAX tree); else init_params(seed)."""
+    example utils.params_from_jax of a JAX tree); else init_params(seed),
+    then cfg.pretrain_model's weights when cfg.pretrain is set."""
 
     def __init__(self, cfg: Config,
                  device: Union[None, str, torch.device] = None,
@@ -65,6 +77,8 @@ class Trainer:
         model = build_vos_model(cfg.model_vos, cfg)
         if params is None:
             init_params(model, seed)
+            if cfg.pretrain and cfg.pretrain_model:
+                load_model_params(model, cfg.pretrain_model, log=log)
         else:
             model.load_state_dict(params, strict=True)
         self.state = TrainState.create(model.to(self.device))
@@ -72,6 +86,12 @@ class Trainer:
         self.rng = np.random.RandomState(cfg.train_start_step + 7)
         self.loss_meters: list = []
         self.iou_meters: list = []
+        self.ckpt_dir = os.path.join(cfg.dir_result, "ckpt")
+        self.ema_dir = os.path.join(cfg.dir_result, "ema_ckpt")
+        if cfg.train_auto_resume:
+            path = self.load(self.ckpt_dir)
+            if path:
+                log(f"auto-resumed from {path} (step {self.state.step})")
 
     def next_batch(self):
         """A synthetic clip batch and its id shuffle, on the device."""
@@ -109,6 +129,8 @@ class Trainer:
                          f"{float(metrics['iou']) * 100:.1f} gnorm "
                          f"{float(metrics['grad_norm']):.2f} {dt:.2f}s/it "
                          f"ETA {eta_h:.1f}h")
+            if step % cfg.train_save_step == 0:
+                self.save(step)
         return {k: float(v) for k, v in metrics.items() if v.dim() == 0}
 
     def frame_meter_summary(self) -> Dict[str, list]:
@@ -128,14 +150,48 @@ class Trainer:
         for meter, v in zip(self.iou_meters, ipf):
             meter.update(v * 100.0)
 
-    def save(self, path: str) -> None:
-        torch.save({"state": self.state.state_dict(),
-                    "rng": self.rng.get_state(),
-                    "gen": self.gen.get_state()}, path)
+    def _state_file(self) -> dict:
+        """The state and both RNGs, as tensors and numbers only (so that
+        torch.load reads it with weights_only)."""
+        kind, keys, pos, has_gauss, gauss = self.rng.get_state()
+        return {"state": self.state.state_dict(),
+                "rng": {"kind": kind,
+                        "keys": torch.from_numpy(keys.astype(np.int64)),
+                        "pos": pos, "has_gauss": has_gauss, "gauss": gauss},
+                "gen": self.gen.get_state()}
 
-    def load(self, path: str) -> None:
-        """Resume from `save`'s file (written by this program)."""
-        d = torch.load(path, map_location=self.device, weights_only=False)
+    def _restore(self, d: dict) -> None:
         self.state.load_state_dict(d["state"])
-        self.rng.set_state(d["rng"])
+        r = d["rng"]
+        self.rng.set_state((r["kind"],
+                            r["keys"].cpu().numpy().astype(np.uint32),
+                            r["pos"], r["has_gauss"], r["gauss"]))
         self.gen.set_state(d["gen"].cpu())
+
+    def save(self, step: Optional[int] = None) -> None:
+        """The checkpoint stream at `step` (the state's own by default):
+        the state under dir_result/ckpt and the EMA weights under
+        dir_result/ema_ckpt, each pruned to train_max_keep_ckpt files."""
+        step = self.state.step if step is None else step
+        keep = self.cfg.train_max_keep_ckpt
+        save_checkpoint(self._state_file(), self.ckpt_dir, step, keep,
+                        log=self.log)
+        save_checkpoint({"state": {"ema": self.state.ema, "step": step}},
+                        self.ema_dir, step, keep, prefix="ema_step_",
+                        log=self.log)
+        self.log(f"saved checkpoint at step {step}")
+
+    def load(self, path: str) -> Optional[str]:
+        """Resume from a file of the save stream, or from the newest
+        readable one in a stream directory (dir_result/ckpt). Returns the
+        file's path, or None for a directory without a readable save."""
+        if os.path.isdir(path):
+            found = load_latest_checkpoint(path, log=self.log,
+                                           map_location=self.device)
+            if not found:
+                return None
+            d, _, path = found
+        else:
+            d = load_file(path, self.device)
+        self._restore(d)
+        return path

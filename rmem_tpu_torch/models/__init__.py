@@ -11,6 +11,8 @@ import torch.nn as nn
 from rmem_tpu_torch.config import Config
 from rmem_tpu_torch.models.aot import AOT
 from rmem_tpu_torch.models.deaot import DeAOT
+from rmem_tpu_torch.utils.checkpoint import (load_file, load_msgpack,
+                                             load_pretrained, params_from_jax)
 
 
 def build_vos_model(name: str, cfg: Config) -> nn.Module:
@@ -59,27 +61,50 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def load_model_params(model: nn.Module, path: Optional[str],
-                      ema: bool = True, log=print) -> nn.Module:
-    """The weights the evaluator runs: None or "test" gives random weights
-    from init_params(model, 42); else `path` is a file written by
-    `Trainer.save`, whose EMA weights are taken with `ema` (the JAX
-    package evaluates its EMA checkpoints) and its trained weights
-    without. The JAX package's msgpack checkpoints and the reference's
-    .pth files are not read yet (ROADMAP Queue 1.2)."""
+                      ema: bool = True, log=print,
+                      report: Optional[dict] = None) -> nn.Module:
+    """The weights the evaluator runs. None or "test" gives random weights
+    from init_params(model, 42); else `path` is told apart by its content,
+    then its suffix:
+
+    - a torch.save file holding this package's `state` dict (a file of
+      the trainer's checkpoint stream): its EMA weights with `ema` (the
+      JAX package evaluates its EMA checkpoints), else its trained ones; a
+      file of the EMA stream holds only EMA weights, and asking it for
+      the trained ones raises;
+    - any other torch.save zip or `.pth` file: a reference checkpoint,
+      merged shape-tolerantly into init_params(model, 0) as the JAX package
+      merges it into its PRNGKey(0) init (utils/checkpoint.py:
+      load_pretrained; `report` takes its skipped, extra, dead and
+      unexpected keys);
+    - anything else: a flax msgpack params tree written by the JAX package
+      (its EMA stream's `ema_step_N.msgpack` or any params-only file), as
+      rmem_tpu/models/__init__.py:load_model_params reads it."""
     if path in (None, "test"):
         return init_params(model, 42)
     with open(path, "rb") as f:
         zipped = f.read(4) == b"PK\x03\x04"     # torch.save's format
-    d = torch.load(path, map_location="cpu",
-                   weights_only=False) if zipped else None
-    if not (isinstance(d, dict) and isinstance(d.get("state"), dict)
-            and {"params", "ema"} <= set(d["state"])):
-        raise NotImplementedError(
-            f"{path}: not a checkpoint of this package's Trainer.save; JAX "
-            "msgpack checkpoints and reference .pth files are not ported "
-            "(ROADMAP Queue 1.2, rmem_tpu/utils/checkpoint.py:"
-            "load_pretrained)")
-    key = "ema" if ema else "params"
-    model.load_state_dict(d["state"][key], strict=True)
-    log(f"loaded the {key} weights of {path} (step {d['state']['step']})")
+    if zipped or str(path).endswith(".pth"):
+        d = load_file(path)
+        state = d.get("state") if isinstance(d, dict) else None
+        if isinstance(state, dict) and ({"params", "ema"} & set(state)):
+            key = "ema" if ema else "params"
+            if key not in state:
+                raise ValueError(f"{path} holds only EMA weights; ask for "
+                                 "them (ema=True, test_ema) or give a file "
+                                 "of the trainer's save stream")
+            model.load_state_dict(state[key], strict=True)
+            log(f"loaded the {key} weights of {path} (step "
+                f"{state['step']})")
+            return model
+        init_params(model, 0)
+        skipped, _ = load_pretrained(model, d, model.cfg.model_vos,
+                                     model.cfg.id_channels, report=report,
+                                     log=log)
+        if skipped:
+            log(f"checkpoint merge skipped {len(skipped)} entries")
+        log(f"loaded the reference checkpoint {path}")
+        return model
+    model.load_state_dict(params_from_jax(load_msgpack(path)), strict=True)
+    log(f"loaded the JAX params tree {path}")
     return model

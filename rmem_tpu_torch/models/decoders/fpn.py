@@ -48,6 +48,14 @@ class FPNSegmentationHead(nn.Module):
         x = torch.relu(self.conv_8x(self.adapter_8x(shortcuts[-3]) + x))
         x = resize_bilinear(x, shortcuts[-4].shape[2:], ac, channel_last=False)
         x = torch.relu(self.conv_4x(self.adapter_4x(shortcuts[-4]) + x))
-        # logits in f32, as the JAX head computes them
-        return F.conv2d(x.float(), self.conv_out.weight.float(),
-                        self.conv_out.bias.float())
+        # logits in f32, as the JAX head computes them: in full f32 on the
+        # card whatever the caller's cuDNN flag (TF32, PyTorch's default
+        # for cuDNN, rounds the inputs to 10 bits of mantissa, and the
+        # served masks would then depend on the flag)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return F.conv2d(x.float(), self.conv_out.weight.float(),
+                            self.conv_out.bias.float())
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32

@@ -4,10 +4,16 @@ clips.
     python -m rmem_tpu_torch.tools.train --stage test --model tiny_deaotl
     python -m rmem_tpu_torch.tools.train --model r50_aotl --batch_size 4
     python -m rmem_tpu_torch.tools.train ... --device cpu
+    python -m rmem_tpu_torch.tools.train ... --pretrained_path R50_DeAOTL.pth
 
 Runs on the card unless --device cpu is given; on the CPU the activations
-default to f32 (--opt compute_dtype=bfloat16 overrides). --save writes the
-state after the run and --resume starts from such a file.
+default to f32 (--opt compute_dtype=bfloat16 overrides). --pretrained_path
+starts from a reference .pth, a JAX msgpack params tree or a file of this
+package's where the stage's `pretrain` is on. The trainer saves its checkpoint stream every train_save_step
+steps under the run's result directory and resumes from it when
+train_auto_resume is set (the stages pre_vost* and test turn it off).
+--save also saves the stream after the last step; --resume starts from a
+file of the stream or from the newest readable one in a stream directory.
 """
 
 from __future__ import annotations
@@ -45,9 +51,13 @@ def main(argv=None):
     p.add_argument("--total_steps", type=int, default=None)
     p.add_argument("--max_steps", type=int, default=None,
                    help="stop after this many steps")
+    p.add_argument("--pretrained_path", default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--save", default=None, help="write the state here")
-    p.add_argument("--resume", default=None, help="start from this state")
+    p.add_argument("--save", action="store_true",
+                   help="save the checkpoint stream after the last step")
+    p.add_argument("--resume", default=None,
+                   help="start from this save, or from the newest in this "
+                        "stream directory")
     p.add_argument("--opt", nargs="*", default=[], metavar="KEY=VALUE",
                    help="config overrides, e.g. --opt train_log_step=1")
     args = p.parse_args(argv)
@@ -61,14 +71,16 @@ def main(argv=None):
         over["train_batch_size"] = args.batch_size
     if args.total_steps:
         over["train_total_steps"] = args.total_steps
+    if args.pretrained_path:
+        over["pretrain_model"] = args.pretrained_path
     over.update(_parse_opts(args.opt))
     cfg = get_config(args.stage, model=args.model, **over)
     trainer = Trainer(cfg, device=args.device, seed=args.seed)
-    if args.resume:
-        trainer.load(args.resume)
+    if args.resume and not trainer.load(args.resume):
+        raise SystemExit(f"no readable save in {args.resume}")
     metrics = trainer.train(max_steps=args.max_steps)
     if args.save:
-        trainer.save(args.save)
+        trainer.save()
     print("final metrics:", metrics)
 
 

@@ -202,10 +202,20 @@ class AsyncMaskWriter:
             raise err
 
 
-def overlay_mask(image: np.ndarray, mask: np.ndarray,
-                 alpha: float = 0.7) -> np.ndarray:
-    """Blend the colormap of a mask over an RGB image."""
-    colored = label_colormap()[mask.astype(np.uint8)]
-    m = (mask > 0)[..., None]
-    out = np.where(m, image * alpha + colored * (1 - alpha), image)
-    return out.astype(np.uint8)
+def overlay_mask(image, mask, alpha: float = 0.7):
+    """Blend the colormap of a mask over an RGB image where the mask is not
+    background, in the f64 arithmetic of the JAX package's numpy version.
+    `image` [H, W, 3] uint8 and `mask` [H, W]: numpy arrays, giving one,
+    or tensors on one device, giving a tensor there."""
+    import torch
+    img = torch.as_tensor(image).double()
+    lab = torch.as_tensor(mask, device=img.device)
+    colored = torch.as_tensor(_COLORMAP, device=img.device)[
+        lab.to(torch.uint8).long()].double()
+    out = torch.where((lab > 0)[..., None],
+                      img * alpha + colored * (1 - alpha),
+                      img).to(torch.uint8)
+    return out.numpy() if isinstance(image, np.ndarray) else out
+
+
+_COLORMAP = label_colormap()

@@ -543,7 +543,7 @@ def test_config_eval_fields_match_jax(tmp_path):
     jpath = jget_config("test", model="tiny_deaotl").save(
         str(tmp_path / "j.json"))
     assert Config.load(jpath) == get_config("test", model="tiny_deaotl")
-    with pytest.raises(NotImplementedError, match="Queue 1.2"):
+    with pytest.raises(NotImplementedError, match="Not to port"):
         Evaluator(cfg.replace(eval_yuv420_upload=True), device="cpu")
 
 

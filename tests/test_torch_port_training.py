@@ -11,6 +11,7 @@ out-of-place bank ops, the IoU, the id shuffle, the synthetic clips and the
 trainer's save and resume, each against JAX where JAX has it."""
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -315,15 +316,16 @@ def test_trainer_saves_and_resumes(tmp_path):
     one step: the same loss, parameters and EMA. Logs every step."""
     cfg = get_config("test", model="tiny_deaotl", compute_dtype="float32",
                      train_batch_size=1, data_randomcrop=(65, 65),
-                     train_log_step=1)
+                     train_log_step=1, dir_root=str(tmp_path))
     lines = []
     straight = Trainer(cfg, device="cpu", seed=3, log=lines.append)
     m2 = straight.train(max_steps=2)
     first = Trainer(cfg, device="cpu", seed=3, log=lambda s: None)
     first.train(max_steps=1)
-    first.save(str(tmp_path / "state.pt"))
+    first.save()
     resumed = Trainer(cfg, device="cpu", seed=9, log=lambda s: None)
-    resumed.load(str(tmp_path / "state.pt"))
+    assert resumed.load(first.ckpt_dir) == os.path.join(first.ckpt_dir,
+                                                         "save_step_1.pt")
     assert resumed.state.step == 1
     assert resumed.train(max_steps=1)["loss"] == m2["loss"]
     for (name, p), q in zip(straight.state.model.named_parameters(),
