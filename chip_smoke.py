@@ -237,6 +237,35 @@ non-zero exit code:
    stream's file served by an evaluator. Prints the .pth load seconds, the
    demo's frames/s beside phase 3's, and a stream save's seconds and MB.
 
+23. AOT-L + RMem on MobileNetV2, the default encoder, at full width
+   (`get_config("pre_vost", model="aotl")`: 3 LSTT layers of 8 heads of
+   32, encoder dims (24, 32, 96, 1280), 1 + 8 slots) on phase 3's
+   traffic: frames/s per window, peak memory (`--profile`: device busy ms
+   a frame), exact launches a frame (K1h 3; K6, K1, K3, K4, K8 never; the
+   stem is a 3x3/s2 conv); then phase 4's hold (every K1h call against its
+   plain version, the engine against the all-plain engine); then a
+   reference-layout AOT-L .pth (MobileNetV2's `features` names) written
+   from seeded tensors, loaded through `load_model_params` with nothing
+   skipped or unexpected, and served for 5 frames.
+24. every other preset, each on phase 3's traffic for 20 frames and held
+   against its all-plain engine through the reference and 8 frames: aott,
+   aots, aotb (MobileNetV2 at 1, 2, 3 LSTT layers: K1h 1, 2, 3 a frame),
+   deaott (K1 and K4 1), aotl_v3 (MobileNetV3), r101_aotl (ResNet-101: K6
+   1 a frame, the only one), rs101_aotl (ResNeSt-101), swinb_aotl (Swin-B
+   at 480 x 848: its VALID patch embed's 30 x 53 grid, 1590 tokens; at 481
+   x 849 its grid is a row and a column short of the id bank's) and
+   r50_topdown_aotl (the top-down ResNet-50, its stem plain). Prints each
+   preset's frames/s over the last 10 frames and its seconds.
+25. training: AOT-L on MobileNetV2 for 6 of phase 11's steps (K1'h 87 and
+   K2h 45 a step, no K7), s/step and peak memory, its kernel step held
+   against the plain step as phase 12; then 2 steps each of DeAOT-T (K1'
+   and K4 29, K2 and K5's backward 15), AOT-L on ResNet-101 (K7 1) and on
+   the top-down ResNet-50, whose var_loss must be finite, above 0 and in
+   the loss at weight 0.01.
+
+Phase 2 also holds K1h on Swin-B's 30 x 53 grid (1590 tokens; and keys
+padded 70 past them).
+
 Prints the `kernels` JSON line, then the card line, then the result line
 `{"ok": true, "device": {...}}` last. Exits non-zero without a result when
 no CUDA device is available or the package is not beside this script.
@@ -763,6 +792,12 @@ def k6_shape(dev, g, hw) -> dict:
                 differ=int((out != ref).sum()), n=out.numel())
 
 
+# the input of Swin-B's serving phase (swinb_aotl in phase 24): its VALID
+# 4x4 patch embed gives a 30 x 53 grid at 481 x 849 where the id bank's is
+# 31 x 54, so no engine serves it there; at 480 x 848 both are 30 x 53
+SWIN_HW = (480, 848)
+SWIN_GRID = (30, 53)
+
 # K1 in phase 2: the main path's call (batch 1 on 31 x 54, 9 valid slots of
 # 10, the slot-PE bias) and the other calls K1 takes: one slot or all ten,
 # the reference frame's (one slot, no bias), two id groups, and keys padded
@@ -770,6 +805,10 @@ def k6_shape(dev, g, hw) -> dict:
 K1_CASES = {"main": {}, "count_1": dict(count=1), "count_10": dict(count=10),
             "reference": dict(slots=1, count=1, bias=False),
             "batch_2": dict(batch=2), "padded": dict(pad=70)}
+# K1h's calls on Swin-B's 30 x 53 grid (1590 tokens: swinb_aotl, phase 24),
+# 9 valid slots of 10 and keys padded 70 past true_lk
+K1H_EXTRA_CASES = {"swin_30x53": dict(grid=SWIN_GRID),
+                   "swin_30x53_padded": dict(grid=SWIN_GRID, pad=70)}
 
 
 def k1_inputs(dev, batch: int = 1, slots: int = 10, count: int = 9,
@@ -815,18 +854,20 @@ def held_k1(*args):
 
 
 def k1h_inputs(dev, batch: int = 1, slots: int = 10, count: int = 9,
-               bias: bool = True, pad: int = 0):
+               bias: bool = True, pad: int = 0, grid=None):
     """K1h's inputs at a call of the AOT serving path on the 31 x 54 grid
-    (bf16, 8 heads of 32, Lq = true_lk = 1674 and Lk = true_lk + pad): (q,
-    bank_k, bank_v, count, heads, scale, true_lk, qbias [B, 8, Lq, S] or
-    None). Phase 2 holds K1h at K1's cases (K1_CASES)."""
+    (or `grid`: Swin-B's 30 x 53) (bf16, 8 heads of 32, Lq = true_lk = 1674
+    (1590) and Lk = true_lk + pad): (q, bank_k, bank_v, count, heads,
+    scale, true_lk, qbias [B, 8, Lq, S] or None). Phase 2 holds K1h at K1's
+    cases (K1_CASES) and on Swin-B's grid (K1H_EXTRA_CASES)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(4)
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
-    hw = ((IN_HW[0] - 1) // 16 + 1) * ((IN_HW[1] - 1) // 16 + 1)
+    gh, gw = grid or ((IN_HW[0] - 1) // 16 + 1, (IN_HW[1] - 1) // 16 + 1)
+    hw = gh * gw
     q = randn(batch, hw, 256, scale=2.0)
     bk, bv = (randn(slots, batch, hw + pad, 256),
               randn(slots, batch, hw + pad, 256))
@@ -913,7 +954,8 @@ def heads_entry(dev, name: str = "bank_attention_mh") -> dict:
     inputs, held_fn = row["inputs"], row["held"]
     call = getattr(kb, row["call"])
     cases = {}
-    for key, kw in K1_CASES.items():
+    extra = K1H_EXTRA_CASES if name == "bank_attention_mh" else {}
+    for key, kw in {**K1_CASES, **extra}.items():
         args = inputs(dev, **kw)
         cases[key] = dict(err=held_fn(*args),
                           ms=cuda_ms(lambda: call(*args), 20))
@@ -2669,14 +2711,15 @@ def held_k7(x, wt, sc, bi, g, timed: bool = True) -> dict:
         library_ms=cuda_ms(library, 5), bound_ms=b_ms, bound_by=b_by)
 
 
-def reference_inputs(dev):
+def reference_inputs(dev, in_hw=None):
     import numpy as np
     import torch
+    in_hw = in_hw or IN_HW
     g = torch.Generator(device=dev).manual_seed(1)
-    mask = np.zeros((1, *IN_HW), np.int32)
+    mask = np.zeros((1, *in_hw), np.int32)
     for i in range(NUM_OBJECTS):          # 10 object stripes
         mask[:, :, i * 80:i * 80 + 60] = i + 1
-    img0 = torch.rand((1, *IN_HW, 3), generator=g, device=dev)
+    img0 = torch.rand((1, *in_hw, 3), generator=g, device=dev)
     return img0, mask, g
 
 
@@ -2688,6 +2731,20 @@ SERVED = {"r50_deaotl": dict(model="r50_deaotl"),
           "r50_aotl": dict(model="r50_aotl"),
           "r50_deaotl_nmg": dict(model="r50_deaotl", no_memory_gap=True),
           "r50_aotl_nmg": dict(model="r50_aotl", no_memory_gap=True)}
+# phase 23's AOT-L on MobileNetV2 (the default encoder) at full width, and
+# phase 24's other presets: the AOT family on MobileNetV2 at 1, 2 and 3
+# LSTT layers, DeAOT-T (one GPM layer), and AOT-L on MobileNetV3,
+# ResNet-101, ResNeSt-101, Swin-B and the top-down ResNet-50
+ENCODER_PRESETS = ("aott", "aots", "aotb", "deaott", "aotl_v3", "r101_aotl",
+                   "rs101_aotl", "swinb_aotl", "r50_topdown_aotl")
+SERVED.update({m: dict(model=m) for m in ("aotl",) + ENCODER_PRESETS})
+# a served model's input where it is not IN_HW, and its 16x grid where it
+# is not the id bank's usual 31 x 54 (checked on the bank's tokens)
+SERVED_HW = {"swinb_aotl": SWIN_HW}
+SERVED_GRID = {"swinb_aotl": SWIN_GRID}
+
+
+_SEEDED = {}     # the last model's seeded weights: phases build it 3 times
 
 
 def build_engine(dev, model: str = "r50_deaotl"):
@@ -2695,8 +2752,13 @@ def build_engine(dev, model: str = "r50_deaotl"):
     from rmem_tpu_torch.engine import InferenceEngine
     from rmem_tpu_torch.models import build_vos_model, init_params
     cfg = get_config("pre_vost", **SERVED[model])
-    model = init_params(build_vos_model(cfg.model_vos, cfg), seed=0)
-    return InferenceEngine(model, cfg, device=dev), cfg
+    net = build_vos_model(cfg.model_vos, cfg)
+    if model not in _SEEDED:      # init_params(net, seed=0), once a model
+        _SEEDED.clear()
+        _SEEDED[model] = {k: v.clone() for k, v in
+                          init_params(net, seed=0).state_dict().items()}
+    net.load_state_dict(_SEEDED[model])
+    return InferenceEngine(net, cfg, device=dev), cfg
 
 
 def evaluator_gap(cfg, num_frames: int) -> int:
@@ -2712,8 +2774,11 @@ def evaluator_gap(cfg, num_frames: int) -> int:
 
 def served_gap(cfg, num_frames: int) -> int:
     """Phases 3 and 9 serve with the preset's gap (5), phases 13 and 14
-    with the evaluator's (1 with no_memory_gap)."""
-    return (evaluator_gap(cfg, num_frames) if cfg.no_memory_gap
+    with the evaluator's (1 with no_memory_gap); so do the presets that set
+    no gap of their own (aott, aots, aotb, deaott: 9999, which the
+    evaluator ignores: 5 here)."""
+    return (evaluator_gap(cfg, num_frames)
+            if cfg.no_memory_gap or cfg.test_long_term_mem_gap >= 9999
             else cfg.test_long_term_mem_gap)
 
 
@@ -2770,23 +2835,43 @@ SERVED_LAUNCHES = {
                          bank_attention_infer_mh=0, local_attention=0,
                          bank_attention_qminor=0),
 }
+# phases 23 and 24: K1h once a frame in each LSTT layer, K6 only for
+# ResNet-101 (the other encoders' stems are not its 7x7/s2 conv + max pool,
+# the top-down one's runs plain, as in the JAX package); DeAOT-T's one GPM
+# layer K1 and K4 once
+_AOT_LAYERS = {"aott": 1, "aots": 2, "aotb": 3, "aotl": 3, "aotl_v3": 3,
+               "r101_aotl": 3, "rs101_aotl": 3, "swinb_aotl": 3,
+               "r50_topdown_aotl": 3}
+SERVED_LAUNCHES.update({
+    m: dict(bank_attention_infer_mh=n, stem=int(m == "r101_aotl"),
+            bank_attention_infer=0, local_attention=0,
+            bank_attention_qminor=0) for m, n in _AOT_LAYERS.items()})
+SERVED_LAUNCHES["deaott"] = dict(bank_attention_infer=1, local_attention=1,
+                                 stem=0, bank_attention_infer_mh=0,
+                                 bank_attention_qminor=0)
 # the head shape (heads, key width, value width a head) of every launch of
 # K1's template on each served path: the wrapper's one counter covers the
 # template's instantiations, so the shape tells K1x2v128 from K1 and K1x2
 SERVED_SHAPES = {"r50_deaotl": (1, 128, 1024), "r50_aotl": None,
                  "r50_deaotl_nmg": (2, 128, 512),
-                 "r50_aotl_nmg": (2, 128, 128)}
+                 "r50_aotl_nmg": (2, 128, 128), "deaott": (1, 128, 1024)}
+SERVED_SHAPES.update({m: None for m in _AOT_LAYERS})
 PHASE_LABEL = {"r50_deaotl": "main path", "r50_aotl": "phase 9 (AOT)",
                "r50_deaotl_nmg": "phase 13 (no_memory_gap)",
-               "r50_aotl_nmg": "phase 17 (AOT no_memory_gap)"}
+               "r50_aotl_nmg": "phase 17 (AOT no_memory_gap)",
+               "aotl": "phase 23 (AOT-L, MobileNetV2)"}
+PHASE_LABEL.update({m: f"phase 24 ({m})" for m in ENCODER_PRESETS})
 
 
 def main_path(dev, frames: int, card: str, profile: bool,
-              model: str = "r50_deaotl"):
+              model: str = "r50_deaotl", window: int = WINDOW):
     """Phase 3 (R50-DeAOTL), phase 9 (R50-AOTL), phase 13 (R50-DeAOTL with
-    no_memory_gap, the evaluator's gap of 1) or phase 17 (R50-AOTL with
-    no_memory_gap, the same gap): returns (launch counts, per-window
-    frames/s)."""
+    no_memory_gap, the evaluator's gap of 1), phase 17 (R50-AOTL with
+    no_memory_gap, the same gap), phase 23 (AOT-L on MobileNetV2) or phase
+    24 (another preset, a shorter run in shorter windows: the bank does not
+    fill): returns (launch counts, per-window frames/s). Frames/s are of
+    the windows after the bank fills, or of the last ones where it does
+    not fill."""
     import torch
 
     from rmem_tpu_torch.kernels import bank_attention as kb
@@ -2797,8 +2882,9 @@ def main_path(dev, frames: int, card: str, profile: bool,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine, cfg = build_engine(dev, model)
-    img0, mask, g = reference_inputs(dev)
-    imgs = torch.rand((frames, 1, *IN_HW, 3), generator=g, device=dev)
+    in_hw = SERVED_HW.get(model, IN_HW)
+    img0, mask, g = reference_inputs(dev, in_hw)
+    imgs = torch.rand((frames, 1, *in_hw, 3), generator=g, device=dev)
     torch.cuda.synchronize()
     print(f"{phase}: {model} built in {time.perf_counter() - t0:.1f} s, "
           f"{sum(p.numel() for p in engine.model.parameters())} weights")
@@ -2820,15 +2906,21 @@ def main_path(dev, frames: int, card: str, profile: bool,
     spy = mock.patch.object(kb, "_slots_call", spied_slots_call)
     spy.start()
     state, logits = engine.add_reference(img0, mask, [NUM_OBJECTS], gap=gap)
+    grid = tuple(state.logits4x.shape[1:3])
+    if model in SERVED_GRID:
+        gh, gw = SERVED_GRID[model]
+        check(state.short_k.shape[2] == gh * gw == state.bank.k.shape[3],
+              f"{phase}: {state.short_k.shape[2]} tokens a frame, expected "
+              f"the {gh}x{gw} grid's {gh * gw}")
     labels = []
-    windows = max(1, (frames - BANK_FULL) // WINDOW)
-    first = frames - windows * WINDOW
+    windows = max(1, (frames - BANK_FULL) // window)
+    first = max(0, frames - windows * window)
     host = host_line()
     marks = []
     slots = cfg.former_mem_len + cfg.latter_mem_len
     evictions = torch.zeros((), dtype=torch.int32, device=dev)
     for t in range(frames):
-        if t >= first and (t - first) % WINDOW == 0:
+        if t >= first and (t - first) % window == 0:
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
         was_full = state.bank.count >= slots
@@ -2840,13 +2932,13 @@ def main_path(dev, frames: int, card: str, profile: bool,
     marks.append(time.perf_counter())
     spy.stop()
     counts = {fn.__name__: fn.launches for fn in wrappers}
-    window_fps = [WINDOW / (b - a) for a, b in zip(marks, marks[1:])]
+    window_fps = [window / (b - a) for a, b in zip(marks, marks[1:])]
     fps = statistics.median(window_fps)
 
     labels = torch.stack(labels)
     evictions = int(evictions)
     # the reference fills slot 1; a write every `gap` frames fills the rest
-    scheduled = frames // gap - (slots - 1)
+    scheduled = max(0, frames // gap - (slots - 1))
     print(f"{phase}: {frames} frames, a long-term write every {gap}, "
           f"launches {counts}, bank count "
           f"{int(state.bank.count)}, order {state.bank.order.tolist()}, "
@@ -2860,8 +2952,9 @@ def main_path(dev, frames: int, card: str, profile: bool,
           == counts["bank_attention_infer"], f"{phase}: K1's template "
           f"launched at head shapes {sorted(set(shapes))} ({len(shapes)} "
           f"launches), expected only {shape}")
-    check(int(state.bank.count) == slots, "bank not full")
-    check(evictions >= 1 and evictions == scheduled,
+    check(int(state.bank.count) == min(slots, 1 + frames // gap),
+          f"bank count {int(state.bank.count)}")
+    check(evictions == scheduled and (evictions >= 1 or frames < BANK_FULL),
           f"{evictions} evictions, {scheduled} scheduled")
     check(labels.shape == (frames, *OUT_HW), f"labels {tuple(labels.shape)}")
     check(int(labels.min()) >= 0 and int(labels.max()) <= NUM_OBJECTS,
@@ -2873,9 +2966,11 @@ def main_path(dev, frames: int, card: str, profile: bool,
           f"histogram of the last frame "
           f"{torch.bincount(labels[-1].flatten().long(), minlength=11).tolist()}")
     print(f"{phase}: {fps:.3f} frames/s, median of {windows} windows of "
-          f"{WINDOW} frames ("
+          f"{window} frames ("
           + ", ".join(f"{x:.3f}" for x in window_fps)
-          + f"; the last is the last {WINDOW} frames) at 481x849 in, "
+          + f"; the last is the last {window} frames) at "
+          f"{in_hw[0]}x{in_hw[1]} in ({grid[0]}x{grid[1]} logits, a "
+          f"{(grid[0] - 1) // 4 + 1}x{(grid[1] - 1) // 4 + 1} grid), "
           f"480x854 out, 10 objects, {model}, on {card}; host {host}; "
           f"peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2885,6 +2980,8 @@ def main_path(dev, frames: int, card: str, profile: bool,
             for t in range(5):
                 engine.step(state, imgs[t], OUT_HW)
         device_busy_table(five_frames, 5, 1e3 / fps, "per frame")
+    del engine, state
+    torch.cuda.empty_cache()
     return counts, window_fps
 
 
@@ -2896,9 +2993,15 @@ def main_path(dev, frames: int, card: str, profile: bool,
 # victim may follow a near tie in the slot mass, which the bf16 rounding
 # inside the kernels can flip)
 PLAIN_FRAMES = {"r50_deaotl": AGREE_FRAMES, "r50_aotl": AGREE_FRAMES,
-                "r50_deaotl_nmg": 9, "r50_aotl_nmg": 9}
+                "r50_deaotl_nmg": 9, "r50_aotl_nmg": 9, "aotl": AGREE_FRAMES}
 AGREE_PHASE = {"r50_deaotl": "phase 4", "r50_aotl": "phase 10",
-               "r50_deaotl_nmg": "phase 14", "r50_aotl_nmg": "phase 18"}
+               "r50_deaotl_nmg": "phase 14", "r50_aotl_nmg": "phase 18",
+               "aotl": "phase 23, held"}
+# phase 24 holds each preset through the reference and 8 frames, the kernel
+# engine's run no longer than the plain one's
+PRESET_AGREE_FRAMES = 8
+PLAIN_FRAMES.update({m: PRESET_AGREE_FRAMES for m in ENCODER_PRESETS})
+AGREE_PHASE.update({m: f"phase 24 ({m}), held" for m in ENCODER_PRESETS})
 
 
 def holding(calls: dict, name: str, kernel, plain_fn):
@@ -2916,9 +3019,10 @@ def holding(calls: dict, name: str, kernel, plain_fn):
 
 def plain_agreement(dev, model: str = "r50_deaotl"):
     """Phase 4 (R50-DeAOTL), phase 10 (R50-AOTL), phase 14 (R50-DeAOTL
-    with no_memory_gap) or phase 18 (R50-AOTL with no_memory_gap, K1's
-    template at values 128 a head): the same weights and frames through the
-    kernel
+    with no_memory_gap), phase 18 (R50-AOTL with no_memory_gap, K1's
+    template at values 128 a head), phase 23's hold (AOT-L on MobileNetV2)
+    or phase 24's (each other preset, through the reference and 8 frames,
+    the bank at 2 slots): the same weights and frames through the kernel
     engine, each of whose kernel calls is held against its plain version on
     the same inputs, and through an engine whose kernels are their plain
     versions. The plain engine is teacher-forced with the kernel engine's
@@ -2931,7 +3035,8 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
     from rmem_tpu_torch.kernels import bank_attention as kb
     from rmem_tpu_torch.kernels import local_attention as kl
     from rmem_tpu_torch.kernels import stem as ks
-    from rmem_tpu_torch.ops.resize import resize_nearest, upsample_argmax
+    from rmem_tpu_torch.ops.resize import (resize_bilinear, resize_nearest,
+                                           upsample_argmax)
 
     phase = AGREE_PHASE[model]
     bank = ("bank_attention", kb, "bank_attention_infer",
@@ -2939,18 +3044,22 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
     stem = ("stem", ks, "stem", ks.stem_plain)
     local = ("local_attention", kl, "local_attention",
              kl.local_attention_plain)
-    kernels = {
-        "r50_deaotl": (bank, local, stem),
-        # the LSTT calls bank_attention_infer, which routes 8 heads to K1h
-        "r50_aotl": (("bank_attention_mh",) + bank[1:], stem),
-        "r50_deaotl_nmg": (bank, local, stem),
-        "r50_aotl_nmg": (bank, stem),
-    }[model]
+    # the LSTT calls bank_attention_infer, which routes 8 heads to K1h
+    mh = ("bank_attention_mh",) + bank[1:]
+    launches = SERVED_LAUNCHES[model]
+    kernels = tuple(k for k, n in (
+        (mh, launches["bank_attention_infer_mh"]),
+        (bank, launches["bank_attention_infer"]),
+        (local, launches["local_attention"]), (stem, launches["stem"])) if n)
     calls = {name: [] for name, *_ in kernels}
     kb.bank_attention_infer_mh.launches = 0
+    decided = []
 
-    img0, mask, g = reference_inputs(dev)
-    imgs = torch.rand((AGREE_FRAMES, 1, *IN_HW, 3), generator=g, device=dev)
+    in_hw = SERVED_HW.get(model, IN_HW)
+    frames = (PLAIN_FRAMES[model] if model in ENCODER_PRESETS
+              else AGREE_FRAMES)
+    img0, mask, g = reference_inputs(dev, in_hw)
+    imgs = torch.rand((frames, 1, *in_hw, 3), generator=g, device=dev)
     runs = []
     for plain in (False, True):
         with ExitStack() as stack:
@@ -2959,24 +3068,32 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
                       else holding(calls, name, getattr(mod, attr), plain_fn))
                 stack.enter_context(mock.patch.object(mod, attr, fn))
             engine, cfg = build_engine(dev, model)
-            state, logits = engine.add_reference(
-                img0, mask, [NUM_OBJECTS],
-                gap=served_gap(cfg, AGREE_FRAMES + 1))
+            gap = served_gap(cfg, AGREE_FRAMES + 1)
+            state, logits = engine.add_reference(img0, mask, [NUM_OBJECTS],
+                                                 gap=gap)
             frame_logits, labels = [logits.float()], []
-            for t in range(AGREE_FRAMES if not plain
-                           else PLAIN_FRAMES[model]):
+            for t in range(frames if not plain else PLAIN_FRAMES[model]):
                 if not plain:
                     state, label = engine.step(state, imgs[t], OUT_HW)
                 else:
                     state, logits4 = engine.propagate(state, imgs[t])
                     label = upsample_argmax(logits4, OUT_HW,
                                             cfg.model_align_corners)
+                    # the pixels whose label the plain logits decide at the
+                    # precision they are held to: top-2 margin above
+                    # LOGIT_TOL of the largest logit
+                    up = resize_bilinear(logits4.float(), OUT_HW,
+                                         cfg.model_align_corners)
+                    top2 = up.topk(2, dim=-1).values
+                    decided.append(top2[..., 0] - top2[..., 1]
+                                   > LOGIT_TOL * up.abs().max())
                     forced = runs[0][1][t]
                     engine.update_memory(state, resize_nearest(
-                        forced[None, ..., None], IN_HW)[..., 0])
+                        forced[None, ..., None], in_hw)[..., 0])
                 frame_logits.append(state.logits4x.float())
                 labels.append(label)
             runs.append((frame_logits, labels, int(state.bank.count)))
+            del engine, state
     worst = {}
     for name, errs in calls.items():
         worst[name] = dict(calls=len(errs),
@@ -2985,7 +3102,7 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
             worst[name]["slot_mass_err"] = max(m for *_, m in errs)
     print(f"{phase}, every kernel call on the path against its plain "
           f"version: {worst}")
-    if model == "r50_aotl":
+    if launches["bank_attention_infer_mh"]:
         check(kb.bank_attention_infer_mh.launches
               == len(calls["bank_attention_mh"]) > 0,
               f"{phase}: {kb.bank_attention_infer_mh.launches} K1h launches "
@@ -3003,12 +3120,30 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
           + ", ".join(f"{e:.3e}" for e in errs))
     print(f"{phase}, kernel vs plain engine, label agreement per frame: "
           + ", ".join(f"{a:.5f}" for a in agree))
-    slots = cfg.former_mem_len + cfg.latter_mem_len
+    slots = min(cfg.former_mem_len + cfg.latter_mem_len,
+                1 + PLAIN_FRAMES[model] // gap)
     check(count == count_p == slots, f"{phase} bank counts {count}, "
-          f"{count_p}")
+          f"{count_p}, expected {slots}")
     check(all(w["calls"] > 0 for w in worst.values()), f"calls {worst}")
     check(max(errs) <= LOGIT_TOL, f"{phase} logits {max(errs)}")
-    check(min(agree) >= AGREE_FLOOR, f"{phase} label agreement {min(agree)}")
+    if model not in ENCODER_PRESETS:
+        check(min(agree) >= AGREE_FLOOR,
+              f"{phase} label agreement {min(agree)}")
+        return worst, errs, agree
+    # phase 24 holds the labels the plain logits decide: on random weights
+    # the shallow presets' logits tie on a tenth of the pixels within 1 %
+    # of the largest logit, under the engines' ~2 % difference (PERF.md)
+    on_decided = [((a == b) & d).sum().item() / max(d.sum().item(), 1)
+                  for a, b, d in zip(yk, yp, decided)]
+    ties = [1 - d.float().mean().item() for d in decided]
+    print(f"{phase}, label agreement per frame on the pixels the plain "
+          f"logits decide (top-2 margin above {LOGIT_TOL:g} of the largest "
+          "logit): " + ", ".join(f"{a:.5f}" for a in on_decided)
+          + "; the tied pixels' share: " + ", ".join(f"{x:.4f}"
+                                                     for x in ties))
+    check(min(on_decided) >= AGREE_FLOOR,
+          f"{phase} label agreement on decided pixels {min(on_decided)}")
+    worst["labels"] = dict(agreement_on_decided=on_decided, tie_share=ties)
     return worst, errs, agree
 
 
@@ -3351,14 +3486,33 @@ TRAIN_LAUNCHES["r50_aotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"],
                                       local_attention_bwd=0,
                                       bank_attention_bwd_split=0,
                                       bank_attention_bwd_fused=_BWD)
+# phase 25: AOT-L on MobileNetV2 (no stem kernel), DeAOT-T (one GPM
+# layer), AOT-L on ResNet-101 (K7) and on the top-down ResNet-50 (its stem
+# plain, as in the JAX package)
+_AOT_TRAIN = dict(TRAIN_LAUNCHES["r50_aotl"], stem=0)
+TRAIN_LAUNCHES.update({
+    "aotl": _AOT_TRAIN, "r101_aotl": dict(_AOT_TRAIN, stem=1),
+    "r50_topdown_aotl": _AOT_TRAIN,
+    "deaott": dict(TRAIN_LAUNCHES["r50_deaotl"], stem=0,
+                   bank_attention_lse=_FWD // 3,
+                   bank_attention_bwd_split=_BWD // 3,
+                   local_attention=_FWD // 3, local_attention_bwd=_BWD // 3)})
 TRAIN_PHASE = {"r50_deaotl": ("phase 5", "R50-DeAOTL"),
                "r50_aotl": ("phase 11", "R50-AOTL"),
                "r50_deaotl_nmg": ("phase 15",
                                   "R50-DeAOTL with no_memory_gap"),
-               "r50_aotl_nmg": ("phase 19", "R50-AOTL with no_memory_gap")}
+               "r50_aotl_nmg": ("phase 19", "R50-AOTL with no_memory_gap"),
+               "aotl": ("phase 25", "AOT-L on MobileNetV2"),
+               "deaott": ("phase 25", "DeAOT-T on MobileNetV2"),
+               "r101_aotl": ("phase 25", "AOT-L on ResNet-101"),
+               "r50_topdown_aotl": ("phase 25",
+                                    "AOT-L on the top-down ResNet-50")}
+# phase 25's other models take two steps each
+ENCODER_TRAIN_STEPS = 2
 # the held kernel step against the all-plain step of each trained model
 HELD_PHASE = {"r50_deaotl": "phase 6", "r50_aotl": "phase 12",
-              "r50_deaotl_nmg": "phase 16", "r50_aotl_nmg": "phase 20"}
+              "r50_deaotl_nmg": "phase 16", "r50_aotl_nmg": "phase 20",
+              "aotl": "phase 25, held"}
 
 
 def route_turns(dev, card: str):
@@ -3445,17 +3599,17 @@ def route_turns(dev, card: str):
             for name, r in routes.items()}
 
 
-def train_config(model: str = "r50_deaotl"):
+def train_config(model: str = "r50_deaotl", steps: int = TRAIN_STEPS):
     """pre_vost `model` (a key of SERVED: r50_deaotl_nmg and r50_aotl_nmg
     are R50-DeAOTL and R50-AOTL with no_memory_gap) at the card's batch,
     with train_total_steps set so that the use_prev_pred curriculum (from
-    half the total) starts inside a run of TRAIN_STEPS steps."""
+    half the total) starts inside a run of `steps` steps."""
     from rmem_tpu_torch.config import get_config
     # a fresh run: never resumed from a checkpoint stream under ./results
     # (pre_vost's preset turns it off too), and no save within the phases'
     # steps (train_save_step 500)
     return get_config("pre_vost", **SERVED[model], train_batch_size=TRAIN_B,
-                      train_total_steps=TRAIN_STEPS + 2,
+                      train_total_steps=max(2, 2 * steps - 4),
                       train_auto_resume=False)
 
 
@@ -3467,18 +3621,22 @@ def fifo_evictions(cfg) -> int:
     return max(0, 1 + writes - cfg.former_mem_len - cfg.latter_mem_len)
 
 
-def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
+def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl",
+                steps: int = TRAIN_STEPS):
     """Phase 5 (R50-DeAOTL), phase 11 (R50-AOTL), phase 15 (R50-DeAOTL
-    with no_memory_gap: 2 heads of 128, a long-term write every frame) or
-    phase 19 (R50-AOTL with no_memory_gap, the same, values 128 a head):
-    TRAIN_STEPS training steps on synthetic clips (465 x 465, 15 frames, 4
-    clips), random weights from a seed. Launch counts are zeroed just
-    before and read just after, and each step's must equal
-    TRAIN_LAUNCHES[model]; the FIFO evictions each step makes (counted on
-    the host at the bank's out-of-place compaction) must equal the
-    schedule's (fifo_evictions: phases 15's and 19's 6 a clip). With
-    `profile`, one more step runs under torch.profiler. Returns (launch
-    counts by wrapper, per-step seconds, peak GiB)."""
+    with no_memory_gap: 2 heads of 128, a long-term write every frame),
+    phase 19 (R50-AOTL with no_memory_gap, the same, values 128 a head) or
+    phase 25 (AOT-L on MobileNetV2, and 2 steps each of DeAOT-T, AOT-L on
+    ResNet-101 and on the top-down ResNet-50): `steps` training steps on
+    synthetic clips (465 x 465, 15 frames, 4 clips), random weights from a
+    seed. Launch counts are zeroed just before and read just after, and
+    each step's must equal TRAIN_LAUNCHES[model]; the FIFO evictions each
+    step makes (counted on the host at the bank's out-of-place compaction)
+    must equal the schedule's (fifo_evictions: phases 15's and 19's 6 a
+    clip). Where the model has a var loss (the top-down encoder), each
+    step's must be finite and above 0 and enter the loss at its weight.
+    With `profile`, one more step runs under torch.profiler. Returns
+    (launch counts by wrapper, per-step seconds, peak GiB)."""
     import importlib
 
     import torch
@@ -3486,9 +3644,8 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
     from rmem_tpu_torch.managers.trainer import Trainer, train_step
     from rmem_tpu_torch.memory import eviction
 
-    steps = TRAIN_STEPS
     phase, name = TRAIN_PHASE[model]
-    cfg = train_config(model)
+    cfg = train_config(model, steps)
     check(cfg.data_seq_len == TRAIN_T
           and tuple(cfg.data_randomcrop) == TRAIN_HW, "pre_vost's shapes")
     check(not cfg.no_memory_gap or (
@@ -3513,7 +3670,7 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
         evictions[-1] += 1
         return compact(*a, **kw)
 
-    times, losses, per_step = [], [], []
+    times, losses, per_step, var_terms = [], [], [], []
     with mock.patch.object(eviction, "bank_compact", counted_compact):
         for i, (batch, shuffle) in enumerate(batches):
             counts0 = [fn.launches for fn in wrappers]
@@ -3526,12 +3683,21 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
             losses.append(float(metrics["loss"]))
             per_step.append([fn.launches - c
                              for fn, c in zip(wrappers, counts0)])
+            if cfg.var_loss_weight > 0:
+                # the loss less its other terms, against the weighted var
+                # loss
+                rest = float(metrics["aux_weight"] * metrics["aux_loss"]
+                             + metrics["pred_loss"])
+                var_terms.append((float(metrics["var_loss"]),
+                                  losses[-1] - rest))
             print(f"{phase}: train step {i} (curriculum "
                   f"{'on' if i >= seq_start else 'off'}"
                   f"): loss {losses[-1]:.4f}, grad norm "
                   f"{float(metrics['grad_norm']):.3f}, iou "
                   f"{float(metrics['iou']):.4f}, {times[-1]:.3f} s, "
-                  f"{evictions[-1]} FIFO evictions, launches "
+                  + (f"var_loss {var_terms[-1][0]:.6f} (in the loss "
+                     f"{var_terms[-1][1]:.6e}), " if var_terms else "")
+                  + f"{evictions[-1]} FIFO evictions, launches "
                   + str(dict(zip((fn for _, fn in TRAIN_KERNELS),
                                  per_step[-1]))))
     counts = {fn: w.launches for (_, fn), w in zip(TRAIN_KERNELS, wrappers)}
@@ -3539,8 +3705,15 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
     moved = max((p.detach() - before[n]).abs().max().item()
                 for n, p in trainer.state.model.named_parameters())
     expected = [TRAIN_LAUNCHES[model][fn] for _, fn in TRAIN_KERNELS]
-    check(cfg.model_lstt_num == 3 and all(s == expected for s in per_step),
+    check(all(s == expected for s in per_step),
           f"{phase} launches per step {per_step}, expected {expected}")
+    for var_loss, term in var_terms:
+        check(math.isfinite(var_loss) and var_loss > 0
+              and abs(term - cfg.var_loss_weight * var_loss)
+              <= 1e-5 * max(abs(losses[0]), 1.0),
+              f"{phase}: var_loss {var_loss}, its term in the loss {term}")
+    check(cfg.var_loss_weight == 0 or len(var_terms) == steps,
+          f"{phase}: {len(var_terms)} var losses")
     check(evictions == [fifo_evictions(cfg)] * steps,
           f"{phase} FIFO evictions per step {evictions}, expected "
           f"{fifo_evictions(cfg)}")
@@ -3548,7 +3721,7 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
     check(moved > 0, "the parameters did not change")
     check(seq_start < steps, "the curriculum did not start")
     timed = times[1:]     # the first step includes cuDNN's autotuning
-    print(f"{phase}: {steps} steps of {name} pre_vost at 465x465, T "
+    print(f"{phase}: {steps} steps of {name} ({model}) pre_vost at 465x465, T "
           f"{TRAIN_T}, B {TRAIN_B} (the reference's 16 over 4 GPUs), "
           f"{cfg.model_att_heads} heads, a long-term write every "
           f"{cfg.train_long_term_mem_gap} frames, {evictions[0]} FIFO "
@@ -3569,7 +3742,8 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl"):
 
 def held_train_step(dev, model: str = "r50_deaotl"):
     """Phase 6 (R50-DeAOTL), phase 12 (R50-AOTL), phase 16 (R50-DeAOTL
-    with no_memory_gap) or phase 20 (R50-AOTL with no_memory_gap): one step
+    with no_memory_gap), phase 20 (R50-AOTL with no_memory_gap) or phase
+    25's hold (AOT-L on MobileNetV2, as phase 12 without the stem): one step
     of the kernel model, every K2 call and every K5 forward (K4) call
     (R50-DeAOTL), every K2h call (R50-AOTL), every K1'x2, K2x2, K5x2
     forward and K5x2 backward call (R50-DeAOTL with no_memory_gap) or
@@ -3651,6 +3825,7 @@ def held_train_step(dev, model: str = "r50_deaotl"):
                            ((kl, "local_attention_bwd"), held_bwd_la)],
         "r50_aotl_nmg": [((kb, "bank_attention_lse"), held_lse),
                          ((kb, "bank_attention_bwd"), held_bwd)],
+        "aotl": [((kb, "bank_attention_bwd_mh"), held_bwd_mh)],
     }[model]
 
     # the plain versions take the inputs in bf16, as the kernels do
@@ -3678,7 +3853,7 @@ def held_train_step(dev, model: str = "r50_deaotl"):
             runs.append((float(m["loss"]), float(m["grad_norm"])))
             del trainer
     (loss_k, gn_k), (loss_p, gn_p) = runs
-    k2 = {"r50_deaotl": "K2", "r50_aotl": "K2h",
+    k2 = {"r50_deaotl": "K2", "r50_aotl": "K2h", "aotl": "K2h",
           "r50_deaotl_nmg": "K2x2", "r50_aotl_nmg": "K2x2v128"}[model]
     k5 = "K5x2" if cfg.no_memory_gap else "K5"
 
@@ -4181,11 +4356,30 @@ with open(report, "w") as f:
 """
 
 
-def reference_name(path, model_vos: str) -> str:
+def mobilenetv2_reference_name(p) -> str:
+    """The reference's name of a MobileNetV2 encoder leaf's module
+    (`features.N` Sequentials: the stem 0, blocks 1-17, the head 18; a
+    block's conv Sequential (pw, dw) ConvBNReLU pairs, pw_linear, bn_out;
+    block 1, expansion 1, has no pw)."""
+    if p[1] in ("stem", "head"):
+        return (f"encoder.features.{0 if p[1] == 'stem' else 18}."
+                f"{0 if p[2] == 'conv' else 1}")
+    idx = int(p[1][len("block"):])
+    seq = ("pw", "dw") if idx > 1 else ("dw",)
+    base = f"encoder.features.{idx}.conv"
+    if p[2] in seq:
+        return f"{base}.{seq.index(p[2])}.{0 if p[3] == 'conv' else 1}"
+    return f"{base}.{len(seq) + (p[2] == 'bn_out')}"
+
+
+def reference_name(path, model_vos: str, encoder: str = "resnet50") -> str:
     """The reference module name of a flax path's leaf (the inverse of
     utils/checkpoint.py's converter: its layer names, `downsample.0/1`,
-    the LSTT's attention modules, DeAOT's GroupNorm1D `.gn`)."""
+    MobileNetV2's `features`, the LSTT's attention modules, DeAOT's
+    GroupNorm1D `.gn`)."""
     p = list(path)
+    if p[0] == "encoder" and encoder == "mobilenetv2":
+        return mobilenetv2_reference_name(p)
     if p[0] == "encoder":
         if p[1].startswith("layer"):
             stage, idx = p[1].split("_")
@@ -4224,7 +4418,7 @@ def reference_checkpoint(model, seed: int):
     import torch
 
     from rmem_tpu_torch.utils.checkpoint import flax_path
-    vos = model.cfg.model_vos
+    vos, encoder = model.cfg.model_vos, model.cfg.model_encoder
     g = torch.Generator().manual_seed(seed)
     randn = lambda *shape: torch.randn(shape, generator=g)
     sd = {}
@@ -4233,7 +4427,7 @@ def reference_checkpoint(model, seed: int):
     # biases and means
     for name, t in model.state_dict().items():
         path = flax_path(name)
-        ref = reference_name(path, vos)
+        ref = reference_name(path, vos, encoder)
         if path[0] == "encoder" and "bn" in path[-2]:
             if f"{ref}.running_var" not in sd:
                 c = t.shape[0]
@@ -4274,7 +4468,7 @@ def check_loaded(model, sd, rep: dict, label: str) -> float:
     worst, vos = 0.0, model.cfg.model_vos
     for name, t in model.state_dict().items():
         path = flax_path(name)
-        ref = reference_name(path, vos)
+        ref = reference_name(path, vos, model.cfg.model_encoder)
         if path[0] == "encoder" and "bn" in path[-2]:
             f64 = {k: sd[f"{ref}.{k}"].double() for k in
                    ("weight", "bias", "running_mean", "running_var")}
@@ -4613,6 +4807,150 @@ def weights_phase(dev, card: str, served_fps: float):
 # must catch its one-line mutants, and the mutants (a list of (line,
 # replacement), or (line, replacement, file) for a line of the source's
 # Python wrapper)
+# phase 23's served frames from the seeded reference-layout AOT-L .pth
+PTH_SERVED_FRAMES = 5
+
+
+def aotl_pth_phase(dev, card: str) -> dict:
+    """Phase 23 (c): a reference-layout AOT-L (MobileNetV2) .pth written
+    from seeded tensors (reference_checkpoint: MobileNetV2's `features`
+    names, BN running statistics, the LSTT's linear weights as 1x1 convs,
+    an 11-channel id bank, one dead key), loaded through load_model_params
+    (check_loaded: nothing skipped or unexpected, every folded BN within
+    BN_FOLD_TOL of the f64 fold, every other weight the file's), then
+    served: the reference frame and PTH_SERVED_FRAMES frames at 481 x 849
+    with 10 objects, K1h 3 a frame and nothing else, finite logits."""
+    import tempfile
+
+    import torch
+
+    from rmem_tpu_torch.config import get_config
+    from rmem_tpu_torch.engine import InferenceEngine
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import local_attention as kl
+    from rmem_tpu_torch.kernels import stem as ks
+    from rmem_tpu_torch.models import build_vos_model, load_model_params
+
+    cfg = get_config("pre_vost", model="aotl")
+    sd = reference_checkpoint(build_vos_model(cfg.model_vos, cfg), 23)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aotl_") as tmp:
+        pth = Path(tmp) / "aotl.pth"
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+                   pth)
+        model = build_vos_model(cfg.model_vos, cfg)
+        rep, lines = {}, []
+        t0 = time.perf_counter()
+        load_model_params(model, str(pth), report=rep, log=lines.append)
+        load_s = time.perf_counter() - t0
+        mb = pth.stat().st_size / 2 ** 20
+    worst = check_loaded(model, sd, rep, "phase 23 aotl")
+    engine = InferenceEngine(model, cfg, device=dev)
+    wrappers = (kb.bank_attention_infer, kb.bank_attention_infer_mh,
+                kb.bank_attention_qminor, kl.local_attention, ks.stem)
+    for fn in wrappers:
+        fn.launches = 0
+    img0, mask, g = reference_inputs(dev)
+    state, logits = engine.add_reference(img0, mask, [NUM_OBJECTS])
+    for _ in range(PTH_SERVED_FRAMES):
+        state, label = engine.step(
+            state, torch.rand((1, *IN_HW, 3), generator=g, device=dev),
+            OUT_HW)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    expected = {name: n * (PTH_SERVED_FRAMES + 1)
+                for name, n in SERVED_LAUNCHES["aotl"].items()}
+    check(counts == expected, f"phase 23 .pth serving launches {counts}, "
+          f"expected {expected}")
+    check(bool(torch.isfinite(state.logits4x).all()), "phase 23 .pth "
+          "serving: non-finite logits")
+    check(int(label.min()) >= 0 and int(label.max()) <= NUM_OBJECTS,
+          "phase 23 .pth serving: labels out of [0, 10]")
+    print(f"phase 23: an AOT-L (MobileNetV2) .pth ({len(sd)} tensors, "
+          f"{mb:.1f} MB) loaded in {load_s:.3f} s (host) on the machine of "
+          f"{card}: nothing skipped or unexpected, dead {rep['dead_keys']}, "
+          f"folded BN within {worst:.2e} of the f64 fold; served "
+          f"{PTH_SERVED_FRAMES} frames, launches {counts}")
+    del engine, state, model
+    torch.cuda.empty_cache()
+    return dict(load_s=load_s, mb=mb, bn_rel=worst, launches=counts)
+
+
+def aotl_phase(dev, frames: int, card: str, profile: bool) -> dict:
+    """Phase 23: AOT-L + RMem on MobileNetV2 at full width (3 LSTT layers of
+    8 heads of 32, encoder dims (24, 32, 96, 1280), 1 + 8 slots) on phase
+    3's traffic: main_path (exact launches a frame: K1h 3; K6, K1, K3, K4
+    and K8 never), its hold against the all-plain engine (plain_agreement,
+    every K1h call held), then aotl_pth_phase."""
+    counts, fps = main_path(dev, frames, card, profile, model="aotl")
+    worst, logit_errs, agree = plain_agreement(dev, "aotl")
+    return dict(launches=counts, fps_windows=fps,
+                fps_median=statistics.median(fps), on_path=worst,
+                logit_rel_err=logit_errs, label_agreement=agree,
+                pth=aotl_pth_phase(dev, card))
+
+
+# phase 24's frames a preset (phase 3's traffic, shorter) and its windows
+PRESET_FRAMES = 20
+PRESET_WINDOW = 10
+
+
+def presets_phase(dev, card: str) -> dict:
+    """Phase 24: every other preset (ENCODER_PRESETS) on phase 3's traffic
+    for PRESET_FRAMES frames (Swin-B at SWIN_HW: its 30 x 53 grid, checked
+    on the bank), exact launches a frame and the frames/s of the last
+    PRESET_WINDOW frames, then held against its all-plain engine through
+    the reference and PRESET_AGREE_FRAMES frames: logits within LOGIT_TOL
+    of the largest, and labels agreeing on AGREE_FLOOR of the pixels whose
+    label the plain logits decide at that precision (top-2 margin above
+    LOGIT_TOL of the largest logit; the raw agreement is printed beside
+    it). Returns each preset's numbers."""
+    import torch
+    out = {}
+    for model in ENCODER_PRESETS:
+        t0 = time.perf_counter()
+        counts, fps = main_path(dev, PRESET_FRAMES, card, False, model=model,
+                                window=PRESET_WINDOW)
+        worst, logit_errs, agree = plain_agreement(dev, model)
+        labels = worst.pop("labels")
+        out[model] = dict(launches=counts, fps=fps[-1], on_path=worst,
+                          logit_rel_err=max(logit_errs),
+                          label_agreement=min(agree),
+                          label_agreement_on_decided=min(
+                              labels["agreement_on_decided"]),
+                          tie_share=max(labels["tie_share"]),
+                          seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    grid = SWIN_GRID[0] * SWIN_GRID[1]
+    check(out["swinb_aotl"]["launches"]["bank_attention_infer_mh"] > 0,
+          "phase 24: Swin-B launched no K1h")
+    print("phase 24: " + "; ".join(
+        f"{m} {o['fps']:.3f} frames/s, logits {o['logit_rel_err']:.2e}, "
+        f"labels >= {o['label_agreement']:.5f} (on decided pixels >= "
+        f"{o['label_agreement_on_decided']:.5f}, ties <= "
+        f"{o['tie_share']:.4f}), {o['seconds']:.1f} s"
+        for m, o in out.items()) + f"; Swin-B on its {SWIN_GRID[0]}x"
+        f"{SWIN_GRID[1]} grid ({grid} tokens); on {card}")
+    return out
+
+
+def encoder_train_phase(dev, card: str, profile: bool) -> dict:
+    """Phase 25: AOT-L on MobileNetV2 for TRAIN_STEPS steps (phase 11's
+    traffic: K1'h 87 and K2h 45 a step, no K7) and its kernel step held
+    against the plain step; then ENCODER_TRAIN_STEPS steps each of DeAOT-T
+    (K1' and K4 29, K2 and K5's backward 15), AOT-L on ResNet-101 (K7 1 a
+    step) and on the top-down ResNet-50 (the var loss finite, above 0, in
+    the loss at weight 0.01). Returns the numbers."""
+    counts, times, peak = train_phase(dev, card, profile, model="aotl")
+    out = {"aotl": dict(launches=counts, step_s=times,
+                        step_s_median=statistics.median(times[1:]),
+                        peak_gib=peak, held=held_train_step(dev, "aotl"))}
+    for model in ("deaott", "r101_aotl", "r50_topdown_aotl"):
+        counts, times, peak = train_phase(dev, card, False, model=model,
+                                          steps=ENCODER_TRAIN_STEPS)
+        out[model] = dict(launches=counts, step_s=times, peak_gib=peak)
+    return out
+
+
 MUTANTS = {
     "bank_attention_bwd": ("k2", {
         # the dk kernel's ds drops the row term (delta and the slot mass)
@@ -5315,6 +5653,36 @@ def main() -> int:
     t0 = time.perf_counter()
     weights = weights_phase(dev, card, statistics.median(window_fps))
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    aotl = aotl_phase(dev, args.frames, card, args.profile)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    presets = presets_phase(dev, card)
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    encoder_train = encoder_train_phase(dev, card, args.profile)
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s")
+    # the launches of phases 23-25 beside each kernel's main-path count
+    mh = entries["bank_attention_mh"]
+    mh["phase23_launches"] = aotl["launches"]["bank_attention_infer_mh"]
+    mh["phase24_launches"] = {
+        m: o["launches"]["bank_attention_infer_mh"]
+        for m, o in presets.items()}
+    for key, fn_name in (("bank_attention", "bank_attention_infer"),
+                         ("local_attention", "local_attention"),
+                         ("stem", "stem")):
+        entries[key]["phase24_launches"] = {
+            m: o["launches"][fn_name] for m, o in presets.items()
+            if o["launches"][fn_name]}
+    for key, e in list(train_entries.items()) + list(
+            aot_train_entries.items()):
+        fn_name = {"local_attention_fwd_train": "local_attention",
+                   "stem_trainable": "stem"}.get(key, key)
+        if fn_name.startswith("bank_attention_bwd_split"):
+            fn_name = "bank_attention_bwd_split"
+        e["phase25_launches"] = {m: o["launches"][fn_name]
+                                 for m, o in encoder_train.items()
+                                 if o["launches"].get(fn_name)}
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -5373,6 +5741,8 @@ def main() -> int:
                       "aot_nmg_train_launches": aot_nmg_train_counts,
                       "aot_nmg_held_step": aot_nmg_held_step,
                       "eval": evaluated, "weights": weights,
+                      "aotl": aotl, "presets": presets,
+                      "encoder_train": encoder_train,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

@@ -1,5 +1,7 @@
-"""Config for the PyTorch port: the model and stage presets of R50-DeAOTL +
-RMem and R50-AOTL + RMem, inference and training, as one dataclass.
+"""Config for the PyTorch port: the model presets of the AOT and DeAOT
+families with RMem (on MobileNetV2, the default encoder, and on ResNet-50,
+ResNet-101, MobileNetV3, ResNeSt-101, Swin-B and the top-down ResNet-50)
+and the stage presets, inference and training, as one dataclass.
 
 A copy of the fields of `rmem_tpu/config.py` that the port reads, with the
 same names and defaults, so that one preset name gives the same model on
@@ -209,7 +211,39 @@ class Config:
                          for k, v in d.items() if k in names})
 
 
+def _r50_common(**kw) -> Dict[str, Any]:
+    """The ResNet-50 presets' shared fields, as the JAX package's."""
+    return dict(dict(model_encoder="resnet50",
+                     model_encoder_dim=(256, 512, 1024, 1024),
+                     model_lstt_num=3, train_long_term_mem_gap=2,
+                     test_long_term_mem_gap=5), **kw)
+
+
 MODEL_PRESETS: Dict[str, Dict[str, Any]] = {
+    # the AOT family on the default encoder, MobileNetV2 (24, 32, 96, 1280)
+    "aott": dict(model_vos="aot", model_lstt_num=1),
+    "aots": dict(model_vos="aot", model_lstt_num=2),
+    "aotb": dict(model_vos="aot", model_lstt_num=3),
+    "aotl": dict(model_vos="aot", model_lstt_num=3,
+                 train_long_term_mem_gap=2, test_long_term_mem_gap=5),
+    # the feedback encoder and its reconstruction loss at weight 0.01
+    "r50_topdown_aotl": _r50_common(model_vos="aot",
+                                    model_encoder="resnet50_topdown",
+                                    var_loss_weight=0.01),
+    "aotl_v3": dict(model_vos="aot", model_encoder="mobilenetv3",
+                    model_encoder_dim=(24, 40, 112, 960), model_lstt_num=3,
+                    train_long_term_mem_gap=2, test_long_term_mem_gap=5),
+    "swinb_aotl": _r50_common(model_vos="aot", model_encoder="swin_base",
+                              model_encoder_dim=(128, 256, 512, 512)),
+    # DeAOT-T: one GPM layer at one head, no intermediate decoding
+    "deaott": dict(model_vos="deaot", model_lstt_num=1, model_self_heads=1,
+                   model_att_heads=1, model_decoder_intermediate_lstt=False),
+    # fixed model names, without the RMem flags' suffixes; ResNeSt-101 keeps
+    # R101_AOTL too, as the reference's preset does
+    "r101_aotl": _r50_common(model_vos="aot", model_encoder="resnet101",
+                             model_name="R101_AOTL"),
+    "rs101_aotl": _r50_common(model_vos="aot", model_encoder="resnest101",
+                              model_name="R101_AOTL"),
     # CI-only tiny variant: the full AOT graph (8 heads of 8) on a toy encoder
     "tiny_aotl": dict(model_vos="aot", model_encoder="tiny",
                       model_encoder_dim=(32, 48, 64, 64),

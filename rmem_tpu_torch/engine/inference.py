@@ -91,6 +91,21 @@ def soft_logit_aggregation(logits: torch.Tensor,
     return torch.log(merged) - torch.log1p(-merged)
 
 
+def check_id_grid(feat: torch.Tensor, id_emb: torch.Tensor,
+                  grid: Tuple[int, int]) -> None:
+    """The identity embedding must cover the encoder's 16x grid. Swin's
+    VALID patch embed gives floor(side / 4) patches, so at a side 1-3 past
+    a multiple of 16 (481 x 849: 30 x 53) its grid is a row or column
+    short of the id bank's (31 x 54), as in the JAX package, whose engine
+    fails there too."""
+    if id_emb.shape[1] != feat.shape[1]:
+        raise ValueError(
+            f"the encoder's {grid[0]}x{grid[1]} grid ({feat.shape[1]} "
+            f"tokens) and the id bank's ({id_emb.shape[1]} tokens) differ; "
+            "for Swin give a side that is not 1-3 past a multiple of 16 "
+            "(e.g. 480 x 848)")
+
+
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     """None means the card; without one that is an error, never a silent
     fall back to the CPU."""
@@ -181,6 +196,7 @@ class InferenceEngine:
         obj_nums = self._to_dev(obj_nums, torch.int32)
         xs, feat, (eh, ew) = self._encode(img, label.shape[0])
         id_emb = self._id_emb(label)
+        check_id_grid(feat, id_emb, (eh, ew))
         cur_pe, mem_pe = self.model.temporal_pe()
         if mem_pe is not None:
             mem_pe = mem_pe[0:1]     # one slot: the first PE row

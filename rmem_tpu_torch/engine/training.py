@@ -12,7 +12,9 @@ Counterpart of `rmem_tpu/engine/training.py:train_forward`:
    embedding's gradient stopped; every `train_long_term_mem_gap` frames the
    bank takes a slot and evicts FIFO when full;
 4. the upsample, loss and IoU once over all frames after the loop, and the
-   loss aux_weight(step) * aux + mean(frame losses).
+   loss aux_weight(step) * aux + mean(frame losses), plus, where
+   `var_loss_weight` > 0, that weight times the top-down encoder's
+   reconstruction loss from step 1's encoder pass (`metrics["var_loss"]`).
 
 Every LSTT call takes the sine position embedding for its self-attention
 (the GPM ignores it) and no drop-path generator, as the JAX step passes
@@ -35,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from rmem_tpu_torch.config import Config
+from rmem_tpu_torch.engine.inference import check_id_grid
 from rmem_tpu_torch.memory import bank_appended, evict_if_full, init_bank
 from rmem_tpu_torch.ops.layers import map_to_seq
 from rmem_tpu_torch.ops.losses import segmentation_loss
@@ -53,8 +56,6 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError("reverse_infer training is not ported")
     if cfg.gru_memory_active:
         raise NotImplementedError("gru_memory training is not ported")
-    if cfg.var_loss_weight > 0:
-        raise NotImplementedError("var_loss_weight > 0 is not ported")
     if cfg.train_remat not in ("full", "dots", "none"):
         raise ValueError(f"train_remat {cfg.train_remat!r}")
 
@@ -82,8 +83,9 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
     align = cfg.model_align_corners
     max_obj = cfg.model_max_obj_num
 
-    xs_bt = [x.reshape(b, t, *x.shape[1:]) for x in
-             model.encode_image(imgs.reshape(b * t, *imgs.shape[2:]))]
+    xs_flat, var_loss = model.encode_image_aux(
+        imgs.reshape(b * t, *imgs.shape[2:]))
+    xs_bt = [x.reshape(b, t, *x.shape[1:]) for x in xs_flat]
     eh, ew = xs_bt[-1].shape[-2:]
     self_pos = model.get_pos_emb(eh, ew)
     cur_pe, mem_pe = model.temporal_pe()
@@ -114,6 +116,7 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
     # the reference frame
     xs0, feat0 = frame(0)
     ref_id = id_embed(labels[:, 0])
+    check_id_grid(feat0, ref_id, (eh, ew))
     inter0, mems0, _ = model.lstt_forward(
         feat0, None, None, None, ref_id, cur_pe,
         None if mem_pe is None else mem_pe[0:1], (eh, ew), self_pos=self_pos)
@@ -171,4 +174,12 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
                "loss_per_frame": losses.mean(-1).detach(),
                "iou_per_frame": ious, "iou": ious.mean(),
                "pred_label_last": preds[-1]}
+    if cfg.var_loss_weight > 0:
+        # the top-down encoder's reconstruction loss (0 for an encoder
+        # without one, as the JAX step's empty mean of sown losses)
+        if var_loss is None:
+            var_loss = torch.zeros((), device=loss.device)
+        loss = loss + cfg.var_loss_weight * var_loss
+        metrics["loss"] = loss.detach()
+        metrics["var_loss"] = var_loss.detach()
     return loss, metrics

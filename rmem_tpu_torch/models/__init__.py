@@ -30,7 +30,9 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     package draw them (not the same numbers): lecun-normal conv and dense
     weights, zero biases, unit norm scales, an orthogonal id-bank kernel
     scaled by k^-2, and N(0, 0.05) truncated at 2 sigma for the temporal
-    PEs."""
+    PEs; Swin's relative-position tables N(0, 0.02) truncated at 2 sigma,
+    the top-down encoder's prompt N(0, 1) and its transform the
+    identity."""
     g = torch.Generator().manual_seed(seed)
 
     def trunc_normal_(t, std):
@@ -55,6 +57,12 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
             p.zero_()
         elif leaf in ("cur_pos_emb", "mem_pos_emb"):
             trunc_normal_(p, 0.05)
+        elif leaf == "relative_position_bias_table":
+            trunc_normal_(p, 0.02)
+        elif leaf == "prompt":
+            p.normal_(0.0, 1.0, generator=g)
+        elif leaf == "top_down_transform":
+            p.copy_(torch.eye(p.shape[0]))
         else:
             raise ValueError(f"no initialiser for parameter {name}")
     return model

@@ -76,9 +76,17 @@ class AOT(nn.Module):
     # ---- engine-facing methods ----
     def encode_image(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """img [B,H,W,3] -> NCHW pyramid [4x, 8x, 16x, 16x-projected]."""
-        xs = list(self.encoder(img))
+        return self.encode_image_aux(img)[0]
+
+    def encode_image_aux(self, img: torch.Tensor):
+        """(encode_image's pyramid, the encoder's var_loss): the top-down
+        encoders return (pyramid, var_loss), var_loss in training mode
+        only; for every other encoder it is None."""
+        out = self.encoder(img)
+        xs, var_loss = out if isinstance(out[0], tuple) else (out, None)
+        xs = list(xs)
         xs[-1] = self.encoder_projector(xs[-1])
-        return tuple(xs)
+        return tuple(xs), var_loss
 
     def get_id_emb(self, label: torch.Tensor) -> torch.Tensor:
         """Int label plane [B,H,W] of channel indices (255 already mapped to

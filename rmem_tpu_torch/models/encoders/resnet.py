@@ -1,4 +1,4 @@
-"""ResNet-50 backbone at output stride 16 with frozen BN: the stem and
+"""ResNet-50/101 backbone at output stride 16 with frozen BN: the stem and
 stages 1-3 (stage 4 is not run; the 16x feature is emitted twice).
 
 Counterpart of `rmem_tpu/models/encoders/resnet.py`. The stem (conv7x7/s2,
@@ -83,3 +83,7 @@ class ResNet(nn.Module):
 
 def ResNet50() -> ResNet:
     return ResNet(layers=(3, 4, 6, 3))
+
+
+def ResNet101() -> ResNet:
+    return ResNet(layers=(3, 4, 23, 3))

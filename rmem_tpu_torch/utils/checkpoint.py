@@ -15,10 +15,12 @@ the `msgpack` package (the card's machine has neither):
   module's own decoder of the msgpack subset flax writes. bfloat16 leaves
   are widened to f32, which is exact.
 - `convert_torch_checkpoint` and `load_pretrained`: the reference's
-  released R50-AOTL / R50-DeAOTL state dicts onto the flax-path tree, in
-  the JAX converter's numpy expressions (conv OIHW -> HWIO, linear [out,
-  in] -> [in, out], BN folded into scale and bias, `module.` stripped, the
-  id bank padded from 11 to 12 input channels), then through
+  AOT / DeAOT state dicts, on any of its encoders (ResNet, MobileNetV2,
+  MobileNetV3, ResNeSt, Swin, the top-down ResNet-50), onto the flax-path
+  tree, in the JAX converter's numpy expressions (conv OIHW -> HWIO,
+  linear [out, in] -> [in, out], transposed conv [in, out, kh, kw] ->
+  flipped [kh, kw, in, out], BN folded into scale and bias, `module.`
+  stripped, the id bank padded from 11 to 12 input channels), then through
   `params_from_jax`, so that a file loads bit for bit as the JAX package
   loads it.
 - `load_file`: every file of either kind is read with
@@ -274,6 +276,12 @@ def _dense(w: np.ndarray) -> np.ndarray:
     return np.transpose(w, (1, 0))
 
 
+def _conv_t(w: np.ndarray) -> np.ndarray:
+    """PyTorch ConvTranspose2d [in, out, kh, kw] -> flax ConvTranspose
+    [kh, kw, in, out], spatially flipped (flax's kernel is not)."""
+    return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]
+
+
 def torch_state_dict(obj) -> Dict[str, np.ndarray]:
     """A loaded reference checkpoint -> {name: numpy array}: a
     `state_dict` entry unwrapped, `module.` prefixes stripped."""
@@ -364,6 +372,171 @@ def _convert_resnet(sd, out: Dict[Tuple[str, ...], np.ndarray],
                     sd[f"{tp}.downsample.0.weight"])
                 for k, v in _fold_bn(sd, f"{tp}.downsample.1").items():
                     out[fp + ("downsample_bn", k)] = v
+
+
+def _convert_swin(sd, out: Dict[Tuple[str, ...], np.ndarray],
+                  depths=(2, 2, 18)):
+    """Swin-B trunk (mmseg-style naming: patch_embed.proj, layers.i.blocks.j,
+    layers.i.downsample, norm{i}) -> models/encoders/swin.py names. The dead
+    32x stage (layers.3) is ignored."""
+    e = ("encoder",)
+    out[e + ("patch_embed", "kernel")] = _conv(
+        sd["encoder.patch_embed.proj.weight"])
+    out[e + ("patch_embed", "bias")] = sd["encoder.patch_embed.proj.bias"]
+    _put_norm(sd, out, "encoder.patch_embed.norm", e + ("patch_norm",))
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            t = f"encoder.layers.{i}.blocks.{j}"
+            f = e + (f"stage{i}_block{j}",)
+            _put_norm(sd, out, f"{t}.norm1", f + ("norm1",))
+            _put_dense(sd, out, f"{t}.attn.qkv", f + ("attn", "qkv"))
+            _put_dense(sd, out, f"{t}.attn.proj", f + ("attn", "proj"))
+            out[f + ("attn", "relative_position_bias_table")] = \
+                sd[f"{t}.attn.relative_position_bias_table"]
+            _put_norm(sd, out, f"{t}.norm2", f + ("norm2",))
+            _put_dense(sd, out, f"{t}.mlp.fc1", f + ("fc1",))
+            _put_dense(sd, out, f"{t}.mlp.fc2", f + ("fc2",))
+        _put_norm(sd, out, f"encoder.norm{i}", e + (f"out_norm{i}",))
+        if i < len(depths) - 1:
+            t = f"encoder.layers.{i}.downsample"
+            f = e + (f"merge{i}",)
+            _put_norm(sd, out, f"{t}.norm", f + ("norm",))
+            _put_dense(sd, out, f"{t}.reduction", f + ("reduction",))
+
+
+def _convert_mobilenetv2(sd, out: Dict[Tuple[str, ...], np.ndarray]):
+    """Reference MobileNetV2 naming (features.N nested Sequentials,
+    mobilenetv2.py:62-205) -> models/encoders/mobilenet.py names."""
+    e = ("encoder",)
+    out[e + ("stem", "conv", "kernel")] = _conv(
+        sd["encoder.features.0.0.weight"])
+    for k, v in _fold_bn(sd, "encoder.features.0.1").items():
+        out[e + ("stem", "bn", k)] = v
+    # inverted residual blocks: features.1..17
+    setting = [(1, 1), (6, 2), (6, 3), (6, 4), (6, 3), (6, 3), (6, 1)]
+    idx = 1
+    for t_exp, n in setting:
+        for _ in range(n):
+            tp = f"encoder.features.{idx}.conv"
+            f = e + (f"block{idx}",)
+            if t_exp != 1:
+                out[f + ("pw", "conv", "kernel")] = _conv(
+                    sd[f"{tp}.0.0.weight"])
+                for k, v in _fold_bn(sd, f"{tp}.0.1").items():
+                    out[f + ("pw", "bn", k)] = v
+                dw, pwl, bno = f"{tp}.1", f"{tp}.2", f"{tp}.3"
+            else:
+                dw, pwl, bno = f"{tp}.0", f"{tp}.1", f"{tp}.2"
+            out[f + ("dw", "conv", "kernel")] = _conv(sd[f"{dw}.0.weight"])
+            for k, v in _fold_bn(sd, f"{dw}.1").items():
+                out[f + ("dw", "bn", k)] = v
+            out[f + ("pw_linear", "kernel")] = _conv(sd[f"{pwl}.weight"])
+            for k, v in _fold_bn(sd, bno).items():
+                out[f + ("bn_out", k)] = v
+            idx += 1
+    out[e + ("head", "conv", "kernel")] = _conv(
+        sd["encoder.features.18.0.weight"])
+    for k, v in _fold_bn(sd, "encoder.features.18.1").items():
+        out[e + ("head", "bn", k)] = v
+
+
+def _convert_mobilenetv3(sd, out: Dict[Tuple[str, ...], np.ndarray]):
+    """Reference MobileNetV3-Large naming (flat block Sequentials,
+    mobilenetv3.py:78-205) -> models/encoders/mobilenetv3.py names."""
+    e = ("encoder",)
+    out[e + ("stem", "kernel")] = _conv(sd["encoder.features.0.0.weight"])
+    for k, v in _fold_bn(sd, "encoder.features.0.1").items():
+        out[e + ("stem_bn", k)] = v
+    # (k, t, c, SE, HS, s) rows of the cfgs table (mobilenetv3.py:150-166);
+    # only block 1 has inp == hidden (t=1), which drops the leading pw conv
+    # and shifts every index down by 3
+    se_blocks = {4, 5, 6, 11, 12, 13, 14, 15}
+    for idx in range(1, 16):
+        tp = f"encoder.features.{idx}.conv"
+        f = e + (f"block{idx}",)
+        has_pw = f"{tp}.0.weight" in sd and sd[f"{tp}.0.weight"].shape[2] == 1
+        if has_pw:
+            out[f + ("pw", "kernel")] = _conv(sd[f"{tp}.0.weight"])
+            for k, v in _fold_bn(sd, f"{tp}.1").items():
+                out[f + ("pw_bn", k)] = v
+            dw, dwbn, se, pwl, bno = (f"{tp}.3", f"{tp}.4", f"{tp}.5",
+                                      f"{tp}.7", f"{tp}.8")
+        else:
+            dw, dwbn, se, pwl, bno = (f"{tp}.0", f"{tp}.1", f"{tp}.3",
+                                      f"{tp}.4", f"{tp}.5")
+        out[f + ("dw", "kernel")] = _conv(sd[f"{dw}.weight"])
+        for k, v in _fold_bn(sd, dwbn).items():
+            out[f + ("dw_bn", k)] = v
+        if idx in se_blocks:
+            _put_dense(sd, out, f"{se}.fc.0", f + ("se", "fc1"))
+            _put_dense(sd, out, f"{se}.fc.2", f + ("se", "fc2"))
+        out[f + ("pw_linear", "kernel")] = _conv(sd[f"{pwl}.weight"])
+        for k, v in _fold_bn(sd, bno).items():
+            out[f + ("out_bn", k)] = v
+    out[e + ("head", "kernel")] = _conv(sd["encoder.conv.0.weight"])
+    for k, v in _fold_bn(sd, "encoder.conv.1").items():
+        out[e + ("head_bn", k)] = v
+
+
+def _convert_resnest(sd, out: Dict[Tuple[str, ...], np.ndarray],
+                     layers=(3, 4, 6)):
+    """ResNeSt deep-stem + split-attention naming (resnest/resnet.py:27-357,
+    splat.py:15-115) -> models/encoders/resnest.py names."""
+    e = ("encoder",)
+    # deep stem: conv1 = Sequential(conv,bn,relu,conv,bn,relu,conv) + bn1
+    for ti, fn, bn in ((0, "stem0", "stem0_bn"), (3, "stem1", "stem1_bn"),
+                       (6, "stem2", "bn1")):
+        out[e + (fn, "kernel")] = _conv(sd[f"encoder.conv1.{ti}.weight"])
+        bkey = "encoder.bn1" if bn == "bn1" else f"encoder.conv1.{ti + 1}"
+        for k, v in _fold_bn(sd, bkey).items():
+            out[e + (bn, k)] = v
+    for stage, blocks in enumerate(layers, start=1):
+        for i in range(blocks):
+            tp = f"encoder.layer{stage}.{i}"
+            fp = e + (f"layer{stage}_{i}",)
+            for c in ("conv1", "conv3"):
+                out[fp + (c, "kernel")] = _conv(sd[f"{tp}.{c}.weight"])
+            for b in ("bn1", "bn3"):
+                for k, v in _fold_bn(sd, f"{tp}.{b}").items():
+                    out[fp + (b, k)] = v
+            sp = fp + ("conv2",)
+            out[sp + ("conv", "kernel")] = _conv(sd[f"{tp}.conv2.conv.weight"])
+            for k, v in _fold_bn(sd, f"{tp}.conv2.bn0").items():
+                out[sp + ("bn0", k)] = v
+            out[sp + ("fc1", "kernel")] = _conv(sd[f"{tp}.conv2.fc1.weight"])
+            out[sp + ("fc1", "bias")] = sd[f"{tp}.conv2.fc1.bias"]
+            for k, v in _fold_bn(sd, f"{tp}.conv2.bn1").items():
+                out[sp + ("bn1", k)] = v
+            out[sp + ("fc2", "kernel")] = _conv(sd[f"{tp}.conv2.fc2.weight"])
+            out[sp + ("fc2", "bias")] = sd[f"{tp}.conv2.fc2.bias"]
+            # avg_down shortcut: Sequential(AvgPool, Conv, BN) -> indices 1,2
+            if f"{tp}.downsample.1.weight" in sd:
+                out[fp + ("downsample_conv", "kernel")] = _conv(
+                    sd[f"{tp}.downsample.1.weight"])
+                for k, v in _fold_bn(sd, f"{tp}.downsample.2").items():
+                    out[fp + ("downsample_bn", k)] = v
+
+
+def _convert_topdown(sd, out: Dict[Tuple[str, ...], np.ndarray]):
+    """The top-down ResNet-50: the ResNet trunk plus the feedback decoders,
+    the prompt and the top-down transform."""
+    _convert_resnet(sd, out)
+    e = ("encoder",)
+    # decoders.0 = Sequential(ConvTranspose(bias), Decode_Block(k7 s2))
+    out[e + ("dec0", "unpool", "kernel")] = _conv_t(
+        sd["encoder.decoders.0.0.weight"])
+    out[e + ("dec0", "unpool", "bias")] = sd["encoder.decoders.0.0.bias"]
+    out[e + ("dec0", "linear", "kernel")] = _conv_t(
+        sd["encoder.decoders.0.1.linear.weight"])
+    out[e + ("dec0", "linear2", "kernel")] = _conv(
+        sd["encoder.decoders.0.1.linear2.weight"])
+    for i in (1, 2, 3):
+        out[e + (f"dec{i}", "linear", "kernel")] = _conv_t(
+            sd[f"encoder.decoders.{i}.linear.weight"])
+        out[e + (f"dec{i}", "linear2", "kernel")] = _conv(
+            sd[f"encoder.decoders.{i}.linear2.weight"])
+    out[e + ("prompt",)] = sd["encoder.prompt"]
+    out[e + ("top_down_transform",)] = sd["encoder.top_down_transform"]
 
 
 def _put_dense(sd, out, tname: str, fpath: Tuple[str, ...],
@@ -467,15 +640,6 @@ def _convert_fpn(sd, out):
         out[f + (name, "bias")] = sd[f"decoder.{name}.bias"]
 
 
-# the encoders the JAX converter reads and the port has no model for, by
-# the key that marks each (in the JAX converter's order of detection)
-UNPORTED_ENCODERS = (("encoder.patch_embed.proj.weight", "Swin"),
-                     ("encoder.conv.0.weight", "MobileNetV3"),
-                     ("encoder.features.0.0.weight", "MobileNetV2"),
-                     ("encoder.conv1.0.weight", "ResNeSt"),
-                     ("encoder.prompt", "ResNet top-down"))
-
-
 def _unflatten(flat: Dict[Tuple[str, ...], Any]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for path, val in flat.items():
@@ -491,21 +655,30 @@ def convert_torch_checkpoint(sd: Dict[str, np.ndarray], model_vos: str,
                              id_channels: int = 12,
                              report: Optional[dict] = None
                              ) -> Dict[str, Any]:
-    """Torch state_dict -> nested flax-path param dict for AOT/DeAOT on
-    the ResNet-50 encoder; another encoder raises NotImplementedError.
+    """Torch state_dict -> nested flax-path param dict for AOT/DeAOT. The
+    encoder is told by its marker key, in the JAX converter's order: Swin,
+    MobileNetV3, MobileNetV2, ResNeSt, the top-down ResNet-50, else ResNet
+    (the converters read the JAX converter's fixed depths: ResNet's and
+    ResNeSt's stage 3 at 6 blocks, Swin's at 18).
 
     If `report` is a dict, it is filled with `dead_keys` (source keys that
     are dead in the reference itself, e.g. TIME_ENCODE MLPs) and
     `unexpected_keys` (source content the converter does not understand;
     empty for reference models)."""
-    for key, name in UNPORTED_ENCODERS:
-        if key in sd:
-            raise NotImplementedError(
-                f"a {name} encoder's checkpoint ({key!r}): the port has "
-                "the ResNet-50 encoder only (ROADMAP Queue 1.4)")
     sd = _RecordingDict(sd)
     out: Dict[Tuple[str, ...], np.ndarray] = {}
-    _convert_resnet(sd, out)
+    if "encoder.patch_embed.proj.weight" in sd:
+        _convert_swin(sd, out)
+    elif "encoder.conv.0.weight" in sd:  # MobileNetV3's final 1x1 conv
+        _convert_mobilenetv3(sd, out)
+    elif "encoder.features.0.0.weight" in sd:
+        _convert_mobilenetv2(sd, out)
+    elif "encoder.conv1.0.weight" in sd:  # ResNeSt's deep stem
+        _convert_resnest(sd, out)
+    elif "encoder.prompt" in sd:
+        _convert_topdown(sd, out)
+    else:
+        _convert_resnet(sd, out)
     out[("encoder_projector", "kernel")] = _conv(
         sd["encoder_projector.weight"])
     out[("encoder_projector", "bias")] = sd["encoder_projector.bias"]

@@ -164,20 +164,6 @@ def test_partial_pth_skips_what_jax_skips(deaotl, tmp_path):
             assert torch.equal(t, ref[name]), name
 
 
-def test_unported_encoder_raises(tmp_path):
-    """An encoder the port lacks (by the JAX converter's marker keys)
-    raises, naming the queue that holds it, before anything is read."""
-    for key, _ in ckpt.UNPORTED_ENCODERS:
-        with pytest.raises(NotImplementedError, match="Queue 1.4"):
-            ckpt.convert_torch_checkpoint({key: np.zeros(1)}, "deaot")
-    model = build_vos_model("deaot", get_config("test", model="tiny_deaotl"))
-    path = _write_pth({"encoder.features.0.0.weight": np.zeros((1, 1, 1, 1),
-                                                               np.float32)},
-                      tmp_path / "mnv2.pth")
-    with pytest.raises(NotImplementedError, match="MobileNetV2"):
-        load_model_params(model, path, log=lambda s: None)
-
-
 def _assert_trees_equal(got, ref, where=()):
     if isinstance(ref, dict):
         assert isinstance(got, dict) and sorted(got) == sorted(ref), where

@@ -339,16 +339,18 @@ def test_trainer_saves_and_resumes(tmp_path):
 
 
 def test_unported_training_branches_raise():
-    """reverse_infer, GRU memory and the var loss are not ported: the
-    trainer refuses each instead of skipping it. The GRU memory acts only
-    on the AOT path (`gru_memory_active`), so its case is tiny_aotl's."""
+    """reverse_infer and the GRU memory are not ported: the trainer refuses
+    each instead of skipping it. The GRU memory acts only on the AOT path
+    (`gru_memory_active`), so its case is tiny_aotl's. The var loss is
+    ported (tests/test_torch_port_encoder_train.py): the trainer takes it."""
     for model, over in (("tiny_deaotl", dict(reverse_infer=True)),
-                        ("tiny_aotl", dict(gru_memory=True)),
-                        ("tiny_deaotl", dict(var_loss_weight=0.01))):
+                        ("tiny_aotl", dict(gru_memory=True))):
         cfg = get_config("test", model=model, compute_dtype="float32",
                          **over)
         with pytest.raises(NotImplementedError):
             Trainer(cfg, device="cpu")
+    Trainer(get_config("test", model="tiny_deaotl", compute_dtype="float32",
+                       var_loss_weight=0.01), device="cpu")
 
 
 def test_deaot_trains_with_gru_memory_ignored():
