@@ -262,6 +262,26 @@ non-zero exit code:
    and K4 29, K2 and K5's backward 15), AOT-L on ResNet-101 (K7 1) and on
    the top-down ResNet-50, whose var_loss must be finite, above 0 and in
    the loss at weight 0.01.
+26. R50-AOTL + RMem with the ConvGRU memory (`get_config("pre_vost",
+   model="r50_aotl", gru_memory=True)`) on phase 9's traffic: exact
+   launches a frame (K1h 3, K6 1; K1, K3, K4, K8 never), frames/s beside
+   phase 9's; the GRU rounds (at least 17: every write after the bank
+   fills at frame 40) with the hidden states changing on exactly those
+   frames; the device busy ms a frame of both models over 10 steady
+   frames; phase 4's hold through the first three evicting writes.
+27. training on a tree: a VOST-layout tree of 3 videos of 30 frames at
+   480x854 with up to 10 objects written on the card (phase 21's
+   writer); the training loader's batch on the card against its CPU route
+   on the same files (labels and obj_nums equal, frames >= 40 dB PSNR)
+   and its ms a clip; 6 steps of R50-AOTL with the GRU memory and
+   reverse_infer from the tree (latter_mem_len 2: one GRU round a clip;
+   K1'h 105 and K2h 54 a step with the 3 reverse decodes), its kernel step
+   held against the plain step as phase 12; 2 steps of R50-DeAOTL with
+   reverse_infer and SGD (K1' and K4 105, K2 and K5's backward 54); then
+   `python -m rmem_tpu_torch.tools.train --stage pre_vost_2 --data_root
+   <tree> --max_steps 2` in a process of its own (launches a step exact,
+   every frame decoded on the card, the config, logs/ and img_logs/
+   written).
 
 Phase 2 also holds K1h on Swin-B's 30 x 53 grid (1590 tokens; and keys
 padded 70 past them).
@@ -3056,7 +3076,8 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
     decided = []
 
     in_hw = SERVED_HW.get(model, IN_HW)
-    frames = (PLAIN_FRAMES[model] if model in ENCODER_PRESETS
+    frames = (PLAIN_FRAMES[model]
+              if model in ENCODER_PRESETS + ("r50_aotl_gru",)
               else AGREE_FRAMES)
     img0, mask, g = reference_inputs(dev, in_hw)
     imgs = torch.rand((frames, 1, *in_hw, 3), generator=g, device=dev)
@@ -3298,7 +3319,7 @@ def optin_path(dev, card: str, profile: bool):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
         was_full = states[0].bank.count >= slots
-        last = states[0].last_mem_step.clone()
+        last = states[0].last_mem_step
         t0 = 1 + c * OPTIN_CHUNK
         states, lab = engine.scan_steps_multi_raw(
             states, raw[t0:t0 + OPTIN_CHUNK], in_hws, RAW_HW, flips)
@@ -3621,15 +3642,24 @@ def fifo_evictions(cfg) -> int:
     return max(0, 1 + writes - cfg.former_mem_len - cfg.latter_mem_len)
 
 
+def reverse_writes(cfg) -> int:
+    """The reverse decodes of one training clip with reverse_infer: one
+    after each long-term write (frames gap, 2 gap, ... of 1 .. T-1)."""
+    return ((cfg.data_seq_len - 1) // cfg.train_long_term_mem_gap
+            if cfg.reverse_infer else 0)
+
+
 def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl",
-                steps: int = TRAIN_STEPS):
+                steps: int = TRAIN_STEPS, data_root=None):
     """Phase 5 (R50-DeAOTL), phase 11 (R50-AOTL), phase 15 (R50-DeAOTL
     with no_memory_gap: 2 heads of 128, a long-term write every frame),
     phase 19 (R50-AOTL with no_memory_gap, the same, values 128 a head) or
     phase 25 (AOT-L on MobileNetV2, and 2 steps each of DeAOT-T, AOT-L on
-    ResNet-101 and on the top-down ResNet-50): `steps` training steps on
-    synthetic clips (465 x 465, 15 frames, 4 clips), random weights from a
-    seed. Launch counts are zeroed just before and read just after, and
+    ResNet-101 and on the top-down ResNet-50) or phase 27 (R50-AOTL with
+    the GRU memory and reverse_infer, R50-DeAOTL with reverse_infer and
+    SGD): `steps` training steps on synthetic clips, or with `data_root`
+    on the clips the trainer's loader draws from the tree there (465 x
+    465, 15 frames, 4 clips), random weights from a seed. Launch counts are zeroed just before and read just after, and
     each step's must equal TRAIN_LAUNCHES[model]; the FIFO evictions each
     step makes (counted on the host at the bank's out-of-place compaction)
     must equal the schedule's (fifo_evictions: phases 15's and 19's 6 a
@@ -3641,6 +3671,7 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl",
 
     import torch
 
+    from rmem_tpu_torch.data.synthetic import blob_batches
     from rmem_tpu_torch.managers.trainer import Trainer, train_step
     from rmem_tpu_torch.memory import eviction
 
@@ -3654,10 +3685,13 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl",
         f"{cfg.train_long_term_mem_gap}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(cfg, device=dev, seed=0)
+    trainer = Trainer(cfg, data_root=data_root, device=dev, seed=0,
+                      batches=(None if data_root
+                               else blob_batches(cfg, 0, dev)))
     before = {n: p.detach().clone()
               for n, p in trainer.state.model.named_parameters()}
     batches = [trainer.next_batch() for _ in range(steps)]
+    trainer.close()
     wrappers = [getattr(importlib.import_module(
         f"rmem_tpu_torch.kernels.{mod}"), fn) for mod, fn in TRAIN_KERNELS]
     for fn in wrappers:
@@ -3755,6 +3789,7 @@ def held_train_step(dev, model: str = "r50_deaotl"):
     summary."""
     import torch
 
+    from rmem_tpu_torch.data.synthetic import blob_batches
     from rmem_tpu_torch.kernels import bank_attention as kb
     from rmem_tpu_torch.kernels import local_attention as kl
     from rmem_tpu_torch.kernels import stem as ks
@@ -3826,6 +3861,7 @@ def held_train_step(dev, model: str = "r50_deaotl"):
         "r50_aotl_nmg": [((kb, "bank_attention_lse"), held_lse),
                          ((kb, "bank_attention_bwd"), held_bwd)],
         "aotl": [((kb, "bank_attention_bwd_mh"), held_bwd_mh)],
+        "r50_aotl_gru_rev": [((kb, "bank_attention_bwd_mh"), held_bwd_mh)],
     }[model]
 
     # the plain versions take the inputs in bf16, as the kernels do
@@ -3845,16 +3881,17 @@ def held_train_step(dev, model: str = "r50_deaotl"):
             patches = plain.items() if use_plain else held_patches
             for (mod, attr), fn in patches:
                 stack.enter_context(mock.patch.object(mod, attr, fn))
-            trainer = Trainer(cfg, device=dev, seed=1)
+            trainer = Trainer(cfg, device=dev, seed=1,
+                              batches=blob_batches(cfg, 11, dev))
             trainer.rng.seed(11)
-            trainer.gen.manual_seed(11)
             batch, shuffle = trainer.next_batch()
             m = train_step(trainer.state, batch, shuffle, cfg)
             runs.append((float(m["loss"]), float(m["grad_norm"])))
             del trainer
     (loss_k, gn_k), (loss_p, gn_p) = runs
     k2 = {"r50_deaotl": "K2", "r50_aotl": "K2h", "aotl": "K2h",
-          "r50_deaotl_nmg": "K2x2", "r50_aotl_nmg": "K2x2v128"}[model]
+          "r50_aotl_gru_rev": "K2h", "r50_deaotl_nmg": "K2x2",
+          "r50_aotl_nmg": "K2x2v128"}[model]
     k5 = "K5x2" if cfg.no_memory_gap else "K5"
 
     def worst_of(held_calls):
@@ -3879,7 +3916,8 @@ def held_train_step(dev, model: str = "r50_deaotl"):
              + ", ".join(f"{k} {v:.3e}"
                          for k, v in worst_of(k5_calls).items())
              if k5_calls else ""))
-    layers_frames = cfg.model_lstt_num * TRAIN_T
+    # each frame's backward, and each reverse decode's
+    layers_frames = cfg.model_lstt_num * (TRAIN_T + reverse_writes(cfg))
     deaot = cfg.model_vos == "deaot"
     check(len(calls) == layers_frames, f"{len(calls)} {k2} calls on the path")
     check(not deaot or len(fwd_calls) >= layers_frames,
@@ -4076,16 +4114,17 @@ def eval_video(dev, seed: int, frames: int, objects: int):
     return torch.stack(imgs), torch.stack(labels).cpu().numpy()
 
 
-def eval_tree(dev, root: Path):
-    """Write phase 21's VOST tree; returns (its source frames by video,
-    nvJPEG's encode ms a frame)."""
+def eval_tree(dev, root: Path, seqs=EVAL_SEQS, split: str = "val"):
+    """Write phase 21's VOST tree (phase 27's: `seqs` listed as the train
+    split); returns (its source frames by video, nvJPEG's encode ms a
+    frame)."""
     from rmem_tpu_torch.data.jpeg import encode_jpeg
     from rmem_tpu_torch.utils.image import encode_png_pal8, label_colormap
     (root / "ImageSets").mkdir(parents=True)
-    (root / "ImageSets" / "val.txt").write_text(
-        "\n".join(name for name, *_ in EVAL_SEQS) + "\n")
+    (root / "ImageSets" / f"{split}.txt").write_text(
+        "\n".join(name for name, *_ in seqs) + "\n")
     sources, enc_s, n = {}, 0.0, 0
-    for seed, (name, frames, objects) in enumerate(EVAL_SEQS):
+    for seed, (name, frames, objects) in enumerate(seqs):
         imgs, labels = eval_video(dev, seed, frames, objects)
         img_dir = root / "JPEGImages_10fps" / name
         ann_dir = root / "Annotations" / name
@@ -4099,7 +4138,8 @@ def eval_tree(dev, root: Path):
             (img_dir / f"{t:05d}.jpg").write_bytes(data)
             (ann_dir / f"{t:05d}.png").write_bytes(
                 encode_png_pal8(labels[t], label_colormap()))
-        check(len(set(labels[0].flatten().tolist())) == objects + 1,
+        check(split != "val"
+              or len(set(labels[0].flatten().tolist())) == objects + 1,
               f"{name}: {objects} objects not all in the first annotation")
         sources[name] = imgs
     return sources, 1e3 * enc_s / n
@@ -4549,6 +4589,7 @@ def stream_phase(dev, pth: Path, tmp: Path, card: str):
 
     import torch
 
+    from rmem_tpu_torch.data.synthetic import blob_batches
     from rmem_tpu_torch.managers import trainer as trainer_mod
     from rmem_tpu_torch.models import build_vos_model, load_model_params
 
@@ -4560,7 +4601,8 @@ def stream_phase(dev, pth: Path, tmp: Path, card: str):
     load_model_params(ref, str(pth), log=lambda s: None)
     lines = []
     trainer = trainer_mod.Trainer(base, device=dev, seed=0,
-                                  log=lines.append)
+                                  log=lines.append,
+                                  batches=blob_batches(base, 0, dev))
     want = ref.state_dict()
     for name, p in trainer.state.model.named_parameters():
         check(torch.equal(p.detach().cpu(), want[name]),
@@ -4948,6 +4990,321 @@ def encoder_train_phase(dev, card: str, profile: bool) -> dict:
         counts, times, peak = train_phase(dev, card, False, model=model,
                                           steps=ENCODER_TRAIN_STEPS)
         out[model] = dict(launches=counts, step_s=times, peak_gib=peak)
+    return out
+
+
+# phase 26: R50-AOTL + RMem with the ConvGRU memory on phase 9's traffic. A
+# write every 5 frames fills the 1 + 8 slots at frame 40; every later write
+# appends, folds the victim into slot 1 through each layer's two GRU cells
+# and compacts. Phase 4's hold runs through the first three such writes
+SERVED["r50_aotl_gru"] = dict(model="r50_aotl", gru_memory=True)
+SERVED_LAUNCHES["r50_aotl_gru"] = dict(SERVED_LAUNCHES["r50_aotl"])
+SERVED_SHAPES["r50_aotl_gru"] = None
+PHASE_LABEL["r50_aotl_gru"] = "phase 26 (AOT, GRU memory)"
+PLAIN_FRAMES["r50_aotl_gru"] = BANK_FULL + 15
+AGREE_PHASE["r50_aotl_gru"] = "phase 26, held"
+GRU_MIN_ROUNDS = 17
+BUSY_FRAMES = 10            # steady frames under the profiler, 2 writes
+
+
+def gru_rounds(dev, frames: int) -> dict:
+    """Phase 26's schedule: the GRU engine over `frames` of phase 9's
+    frames, counting the GRU rounds (calls of the LSTT's compress_evicted)
+    and, after every frame, whether each hidden state changed: they must
+    change on exactly the frames with a round, and the rounds must be the
+    schedule's evicting writes (at least GRU_MIN_ROUNDS)."""
+    import torch
+
+    engine, cfg = build_engine(dev, "r50_aotl_gru")
+    img0, mask, g = reference_inputs(dev)
+    imgs = torch.rand((frames, 1, *IN_HW, 3), generator=g, device=dev)
+    gap = served_gap(cfg, frames + 1)
+    state, _ = engine.add_reference(img0, mask, [NUM_OBJECTS], gap=gap)
+    lstt = engine.model.lstt
+    compress, rounds, changed = lstt.compress_evicted, [], []
+
+    def counted(*a, **kw):
+        rounds[-1] = True
+        return compress(*a, **kw)
+
+    with mock.patch.object(lstt, "compress_evicted", counted):
+        for t in range(frames):
+            rounds.append(False)
+            hk, hv = state.gru_hid_k.clone(), state.gru_hid_v.clone()
+            state, _ = engine.step(state, imgs[t], OUT_HW)
+            changed.append(torch.stack([(state.gru_hid_k != hk).any(),
+                                        (state.gru_hid_v != hv).any()]))
+    changed = torch.stack(changed).cpu().tolist()
+    slots = cfg.former_mem_len + cfg.latter_mem_len
+    scheduled = [(t + 1) % gap == 0 and 1 + (t + 1) // gap > slots
+                 for t in range(frames)]
+    n = sum(rounds)
+    print(f"phase 26: {n} GRU rounds over {frames} frames (a write every "
+          f"{gap}, the bank full at {slots} slots), at frames "
+          f"{[t + 1 for t, r in enumerate(rounds) if r]}; hidden states "
+          f"changed on {sum(k or v for k, v in changed)} frames")
+    check(rounds == scheduled, "phase 26: GRU rounds off the schedule")
+    check(all(k == v == r for (k, v), r in zip(changed, rounds)),
+          "phase 26: a hidden state changed off a GRU round, or not on one")
+    check(n >= GRU_MIN_ROUNDS, f"phase 26: {n} GRU rounds")
+    del engine, state
+    torch.cuda.empty_cache()
+    return dict(rounds=n, round_frames=[t + 1 for t, r in enumerate(rounds)
+                                        if r])
+
+
+def busy_beside(dev, models=("r50_aotl", "r50_aotl_gru")) -> dict:
+    """Each model's device busy ms a frame (torch.profiler, the sum of its
+    kernels) and host ms a frame over BUSY_FRAMES steady frames after the
+    bank fills (frames 46-55: the writes at 50 and 55 evict), in one
+    run."""
+    import torch
+    out = {}
+    for model in models:
+        engine, cfg = build_engine(dev, model)
+        img0, mask, g = reference_inputs(dev)
+        n = BANK_FULL + 5 + BUSY_FRAMES
+        imgs = torch.rand((n, 1, *IN_HW, 3), generator=g, device=dev)
+        state, _ = engine.add_reference(img0, mask, [NUM_OBJECTS],
+                                        gap=served_gap(cfg, n + 1))
+        for t in range(BANK_FULL + 5):
+            state, _ = engine.step(state, imgs[t], OUT_HW)
+
+        def steady():
+            for t in range(BANK_FULL + 5, n):
+                engine.step(state, imgs[t], OUT_HW)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steady()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / BUSY_FRAMES
+        # the state moved on: the profiled frames are the next ten
+        busy = device_busy_ms(steady, BUSY_FRAMES)
+        out[model] = dict(busy_ms=busy, host_ms=wall)
+        del engine, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def gru_served_phase(dev, frames: int, card: str, profile: bool,
+                     aot_fps: float) -> dict:
+    """Phase 26: R50-AOTL with the GRU memory on phase 9's traffic through
+    main_path (exact launches: K1h 3 and K6 1 a frame; K1, K3, K4, K8
+    never; the evictions the schedule's), the GRU rounds and hidden states
+    (gru_rounds), the busy ms a frame beside phase 9's model, and phase
+    4's hold through the first three evicting writes (every K1h and K6
+    call held, the engine against the all-plain engine, labels >= 0.98)."""
+    counts, fps = main_path(dev, frames, card, profile, model="r50_aotl_gru")
+    rounds = gru_rounds(dev, frames)
+    busy = busy_beside(dev)
+    worst, logit_errs, agree = plain_agreement(dev, "r50_aotl_gru")
+    fps_median = statistics.median(fps)
+    print(f"phase 26: {fps_median:.3f} frames/s beside phase 9's "
+          f"{aot_fps:.3f}; device busy ms a frame "
+          + ", ".join(f"{m} {b['busy_ms']:.3f} (host {b['host_ms']:.3f})"
+                      for m, b in busy.items())
+          + f"; on {card}")
+    return dict(launches=counts, fps_windows=fps, fps_median=fps_median,
+                phase9_fps_median=aot_fps, busy=busy, on_path=worst,
+                logit_rel_err=logit_errs, label_agreement=agree, **rounds)
+
+
+# phase 27: training from a VOST-layout tree written on the card (phase
+# 21's writer): the loader on the card against its CPU route, 6 steps of
+# R50-AOTL with the GRU memory and reverse_infer (latter_mem_len 2, so
+# each clip's third write, at frame 12, evicts through the GRU: with the
+# preset's 8 latter slots a clip of 15 never fills the bank), its kernel
+# step held against the plain one, 2 steps of R50-DeAOTL with
+# reverse_infer and SGD, and the training CLI in a process of its own
+TREE_SEQS = (("train0", 30, 10), ("train1", 30, 3), ("train2", 30, 6))
+TREE_SEED = 7               # the loaders' seed
+LOADER_PSNR_DB = 40.0       # the card's clips against the CPU route's
+LOADER_TIMED = 3            # batches timed on the card
+TREE_STEPS = 2              # R50-DeAOTL's steps and the CLI's
+SERVED["r50_aotl_gru_rev"] = dict(model="r50_aotl", gru_memory=True,
+                                  reverse_infer=True, latter_mem_len=2)
+SERVED["r50_deaotl_rev_sgd"] = dict(model="r50_deaotl", reverse_infer=True,
+                                    train_opt="sgd")
+_REV = reverse_writes(type("c", (), dict(
+    data_seq_len=TRAIN_T, train_long_term_mem_gap=4, reverse_infer=True)))
+# each reverse decode runs the LSTT forward twice (under its checkpoint)
+# and backward once, in every layer
+TRAIN_LAUNCHES["r50_aotl_gru_rev"] = dict(
+    TRAIN_LAUNCHES["r50_aotl"],
+    bank_attention_lse_mh=_FWD + 6 * _REV,
+    bank_attention_bwd_mh=_BWD + 3 * _REV)
+TRAIN_LAUNCHES["r50_deaotl_rev_sgd"] = dict(
+    TRAIN_LAUNCHES["r50_deaotl"], bank_attention_lse=_FWD + 6 * _REV,
+    bank_attention_bwd_split=_BWD + 3 * _REV,
+    local_attention=_FWD + 6 * _REV, local_attention_bwd=_BWD + 3 * _REV)
+TRAIN_PHASE.update({
+    "r50_aotl_gru_rev": ("phase 27", "R50-AOTL, GRU memory, reverse_infer"),
+    "r50_deaotl_rev_sgd": ("phase 27", "R50-DeAOTL, reverse_infer, SGD")})
+HELD_PHASE["r50_aotl_gru_rev"] = "phase 27, held"
+# the CLI child: launches from 0 in the fresh process, each step's by a spy
+# on train_step, the colour kernel's in all (the loader's thread decodes
+# while steps run)
+TRAIN_CHILD = r"""
+import importlib, json, runpy, sys
+import torch
+from rmem_tpu_torch.kernels import jpeg_color as kj
+from rmem_tpu_torch.managers import trainer as tm
+
+report, names = sys.argv[1], json.loads(sys.argv[2])
+sys.argv = ["rmem_tpu_torch.tools.train"] + sys.argv[3:]
+wrappers = [getattr(importlib.import_module("rmem_tpu_torch.kernels." + m),
+                    f) for m, f in names]
+for fn in wrappers + [kj.ycc_to_rgb]:
+    fn.launches = 0
+step, per_step = tm.train_step, []
+
+
+def counted(*a, **kw):
+    before = [fn.launches for fn in wrappers]
+    out = step(*a, **kw)
+    per_step.append([fn.launches - b for fn, b in zip(wrappers, before)])
+    return out
+
+
+tm.train_step = counted
+runpy.run_module("rmem_tpu_torch.tools.train", run_name="__main__")
+with open(report, "w") as f:
+    json.dump({"per_step": per_step, "ycc_to_rgb": kj.ycc_to_rgb.launches},
+              f)
+"""
+
+
+def psnr(a, b) -> float:
+    """PSNR in dB of two frame stacks in pixel levels 0..255."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def loader_phase(dev, data_root: Path, cfg) -> dict:
+    """The loader on the card against its CPU route on the same files and
+    seed: labels and obj_nums equal, frames (back in pixel levels) at least
+    LOADER_PSNR_DB apart; then the card's clip-preparation ms over
+    LOADER_TIMED batches (decode, scale, crop, flip, merge, normalise)."""
+    import torch
+
+    from rmem_tpu_torch.data.train_datasets import (InlineBatchLoader,
+                                                    build_train_dataset)
+    from rmem_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    ds = build_train_dataset(cfg, str(data_root))
+    loaders = [InlineBatchLoader(ds, cfg.train_batch_size, TREE_SEED,
+                                 cfg.model_max_obj_num, device=d)
+               for d in (dev, "cpu")]
+    t0 = time.perf_counter()
+    card, host = (next(ld) for ld in loaders)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    mean = torch.as_tensor(IMAGENET_MEAN * 255.0)
+    std = torch.as_tensor(IMAGENET_STD * 255.0)
+    level = lambda x: x.float().cpu() * std + mean
+    db = psnr(level(card["imgs"]), level(host["imgs"]))
+    same = all(torch.equal(card[k].cpu(), host[k]) for k in ("labels",
+                                                             "obj_nums"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOADER_TIMED):
+        next(loaders[0])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (LOADER_TIMED
+                                             * cfg.train_batch_size)
+    print(f"phase 27: the loader's batch of {cfg.train_batch_size} clips of "
+          f"{cfg.data_seq_len} at {cfg.data_randomcrop}: labels and obj_nums "
+          f"{'equal' if same else 'DIFFER'} on the card and the CPU "
+          f"(obj_nums {card['obj_nums'].tolist()}), frames {db:.2f} dB "
+          f"apart; {ms:.2f} ms a clip prepared on the card (mean of "
+          f"{LOADER_TIMED} batches; the first pair of batches with the CPU "
+          f"route {first_s:.1f} s)")
+    check(same, "phase 27: the card's labels or obj_nums differ from the "
+          "CPU route's")
+    check(db >= LOADER_PSNR_DB, f"phase 27: loader PSNR {db:.2f} dB")
+    return dict(psnr_db=db, clip_ms=ms, obj_nums=card["obj_nums"].tolist())
+
+
+def run_train_cli(data_root: Path, out: Path, report: Path):
+    """The training CLI through TRAIN_CHILD in a process of its own;
+    returns (report, seconds)."""
+    cmd = [sys.executable, "-c", TRAIN_CHILD, str(report),
+           json.dumps(TRAIN_KERNELS), "--stage", "pre_vost_2",
+           "--data_root", str(data_root), "--max_steps", str(TREE_STEPS),
+           "--batch_size", str(TRAIN_B), "--opt", f"dir_root={out}",
+           "train_tblog_step=1", "train_log_step=1"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=900)
+    secs = time.perf_counter() - t0
+    print(f"phase 27: the training CLI exited {r.returncode} after "
+          f"{secs:.1f} s; its output:\n"
+          + "\n".join("  | " + ln for ln in r.stdout.splitlines()[-12:]))
+    if r.returncode != 0:
+        print(r.stderr[-6000:], file=sys.stderr)
+    check(r.returncode == 0, f"the training CLI exited {r.returncode}")
+    return json.loads(report.read_text()), secs
+
+
+def tree_train_phase(dev, card: str) -> dict:
+    """Phase 27 (see the module docstring). Returns what it measured."""
+    import tempfile
+
+    import torch
+
+    from rmem_tpu_torch.config import get_config
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        _, enc_ms = eval_tree(dev, tmp / "VOST", TREE_SEQS, "train")
+        out["tree_s"] = time.perf_counter() - t0
+        print(f"phase 27: a VOST tree of {len(TREE_SEQS)} videos of "
+              f"{TREE_SEQS[0][1]} frames at {EVAL_HW[0]}x{EVAL_HW[1]} "
+              f"written in {out['tree_s']:.1f} s ({enc_ms:.2f} ms a JPEG)")
+        cfg = train_config("r50_aotl_gru_rev")
+        out["loader"] = loader_phase(dev, tmp, cfg)
+        for model, steps in (("r50_aotl_gru_rev", TRAIN_STEPS),
+                             ("r50_deaotl_rev_sgd", TREE_STEPS)):
+            counts, times, peak = train_phase(dev, card, False, model,
+                                              steps, data_root=str(tmp))
+            out[model] = dict(launches=counts, step_s=times, peak_gib=peak,
+                              step_s_median=statistics.median(
+                                  times[1:] or times))
+        out["r50_aotl_gru_rev"]["held"] = held_train_step(
+            dev, "r50_aotl_gru_rev")
+        report, secs = run_train_cli(tmp, tmp / "results",
+                                     tmp / "train_report.json")
+        run = tmp / "results"
+        stage = next(run.iterdir()) / "pre_vost_2"
+        logs = sorted((stage / "logs").iterdir())
+        imgs = sorted(p.name for p in (stage / "img_logs").iterdir())
+        cli_cfg = get_config("pre_vost_2", model="r50_deaotl")
+        t = cli_cfg.data_seq_len
+        want = dict(TRAIN_LAUNCHES["r50_deaotl"],
+                    bank_attention_lse=3 * (2 * t - 1),
+                    bank_attention_bwd_split=3 * t,
+                    local_attention=3 * (2 * t - 1),
+                    local_attention_bwd=3 * t)
+        expected = [want[fn] for _, fn in TRAIN_KERNELS]
+        text = logs[0].read_text() if logs else ""
+        print(f"phase 27: the CLI's launches per step {report['per_step']} "
+              f"(expected {expected}), {report['ycc_to_rgb']} frames "
+              f"decoded on the card; logs {[p.name for p in logs]}; "
+              f"img_logs {imgs}")
+        check(report["per_step"] == [expected] * TREE_STEPS,
+              f"phase 27 CLI launches {report['per_step']}")
+        check(report["ycc_to_rgb"] >= TREE_STEPS * TRAIN_B * t,
+              f"phase 27 CLI decoded {report['ycc_to_rgb']} frames")
+        check(len(logs) == 1 and f"step {TREE_STEPS}/" in text
+              and (stage / "config.json").is_file(), "phase 27 CLI logs")
+        check(imgs == sorted(f"{s:08d}_{k}.png" for s in
+                             range(1, TREE_STEPS + 1)
+                             for k in ("gt", "img", "pred")),
+              f"phase 27 img_logs {imgs}")
+        out["cli"] = dict(per_step=report["per_step"][0], seconds=secs,
+                          decoded=report["ycc_to_rgb"])
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5662,6 +6019,13 @@ def main() -> int:
     t0 = time.perf_counter()
     encoder_train = encoder_train_phase(dev, card, args.profile)
     print(f"phase 25: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gru_served = gru_served_phase(dev, args.frames, card, args.profile,
+                                  statistics.median(aot_fps))
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tree_train = tree_train_phase(dev, card)
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s")
     # the launches of phases 23-25 beside each kernel's main-path count
     mh = entries["bank_attention_mh"]
     mh["phase23_launches"] = aotl["launches"]["bank_attention_infer_mh"]
@@ -5683,6 +6047,15 @@ def main() -> int:
         e["phase25_launches"] = {m: o["launches"][fn_name]
                                  for m, o in encoder_train.items()
                                  if o["launches"].get(fn_name)}
+        e["phase27_launches"] = {
+            m: tree_train[m]["launches"][fn_name]
+            for m in ("r50_aotl_gru_rev", "r50_deaotl_rev_sgd")
+            if tree_train[m]["launches"].get(fn_name)}
+    entries["jpeg_ycc_to_rgb"]["phase27_cli_launches"] = tree_train["cli"][
+        "decoded"]
+    # phase 26's launches beside each serving kernel's main-path count
+    mh["phase26_launches"] = gru_served["launches"]["bank_attention_infer_mh"]
+    entries["stem"]["phase26_launches"] = gru_served["launches"]["stem"]
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -5743,6 +6116,7 @@ def main() -> int:
                       "eval": evaluated, "weights": weights,
                       "aotl": aotl, "presets": presets,
                       "encoder_train": encoder_train,
+                      "gru_served": gru_served, "tree_train": tree_train,
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

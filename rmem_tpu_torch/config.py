@@ -75,9 +75,31 @@ class Config:
     train_long_term_mem_gap: int = 9999
     test_long_term_mem_gap: int = 9999
 
-    # ---- data ----
+    # ---- data: the training clips (data/train_datasets.py). As in the
+    # JAX package, the loader reads neither data_random_reverse_seq (every
+    # clip may be reversed), data_max_crop_steps (10 crop draws) nor
+    # data_visor_repeat ----
+    datasets: Tuple[str, ...] = ("youtubevos",)
+    data_workers: int = 8
     data_randomcrop: Tuple[int, int] = (465, 465)
+    data_randomflip: float = 0.5
+    data_max_crop_steps: int = 10
+    data_short_edge_len: int = 480
+    data_min_scale_factor: float = 0.7
+    data_max_scale_factor: float = 1.3
+    data_random_reverse_seq: bool = True
     data_seq_len: int = 5
+    data_davis_repeat: int = 5
+    data_vost_repeat: int = 1
+    data_vost_ignore_thresh: float = 0.2
+    data_random_gap_davis: int = 12
+    data_random_gap_ytb: int = 3
+    data_random_gap_vost: int = 3
+    data_random_gap_visor: int = 1
+    data_visor_repeat: int = 1
+    data_visor_ignore_thresh: float = 0.2
+    data_dynamic_merge_prob: float = 0.2
+    ignore_in_merge: bool = True
 
     # ---- pretrain / resume: the Trainer starts from pretrain_model (a
     # reference .pth or a JAX msgpack params tree) when pretrain is set ----
@@ -101,8 +123,15 @@ class Config:
     train_lr_restart: int = 1
     train_aux_loss_weight: float = 1.0
     train_aux_loss_ratio: float = 1.0
+    # "adamw", or "sgd": momentum m = g + train_sgd_momentum * m, no
+    # dampening and no Nesterov (optax.trace)
+    train_opt: str = "adamw"
+    train_sgd_momentum: float = 0.9
     train_batch_size: int = 16
     train_log_step: int = 20
+    # every N steps the last frame of the batch's first clip, its labels
+    # and the prediction go to dir_result/img_logs as PNGs; 0 is off
+    train_tblog_step: int = 0
     train_top_k_percent_pixels: float = 0.15
     train_seq_training_start_ratio: float = 0.5
     train_hard_mining_ratio: float = 0.5
@@ -123,10 +152,14 @@ class Config:
     # frame of the clip (the port has no policy that keeps matmul outputs,
     # so "dots" is "full" here); "none" keeps every activation
     train_remat: str = "dots"
-    # branches of the JAX training step the port does not take: each must
-    # stay off (the trainer raises NotImplementedError otherwise)
+    # RMem's variants: re-decode frame 0 from the bank less its first
+    # slot after every long-term write and add reverse_loss times its loss
+    # (training only); compress each evicted slot into slot 1 through a
+    # ConvGRU a layer (AOT only, served and trained: gru_memory_active)
     reverse_infer: bool = False
+    reverse_loss: float = 0.4
     gru_memory: bool = False
+    # the top-down encoder's reconstruction loss weight
     var_loss_weight: float = 0.0
 
     # ---- evaluation: dataset, weights, augmentations and frame prep ----
@@ -270,23 +303,38 @@ MODEL_PRESETS: Dict[str, Dict[str, Any]] = {
                        test_long_term_mem_gap=5),
 }
 
-# the stage presets' fields that the port reads
+# the stage presets' fields that the port reads: every preset of the JAX
+# package but `pre`, the static-image pretraining, whose dataset is not
+# ported yet
 STAGE_PRESETS: Dict[str, Dict[str, Any]] = {
     "default": {},
-    "pre_vost": dict(train_total_steps=20_000, data_seq_len=15,
-                     train_long_term_mem_gap=4, model_linear_q=False,
-                     model_ignore_token=True, train_auto_resume=False),
+    # YouTube-VOS and DAVIS 2017 together, clips of 5
+    "pre_ytb_dav": dict(datasets=("youtubevos", "davis2017"),
+                        data_seq_len=5),
+    "ytb": dict(datasets=("youtubevos",), data_seq_len=5),
+    # YouTube-VOS from the static-image stage: clips of 10, a write every
+    # 4 frames, the short-term memory concatenated (model_linear_q)
+    "pre_ytb": dict(datasets=("youtubevos",), data_seq_len=10,
+                    train_long_term_mem_gap=4, train_total_steps=80_000,
+                    model_linear_q=True),
+    "pre_dav": dict(datasets=("davis2017",), train_total_steps=50_000),
+    "pre_vost": dict(datasets=("vost",), train_total_steps=20_000,
+                     data_seq_len=15, train_long_term_mem_gap=4,
+                     model_linear_q=False, model_ignore_token=True,
+                     train_auto_resume=False),
     # pre_vost with clips of 17 frames: the training CLI's default stage
-    "pre_vost_2": dict(train_total_steps=20_000, data_seq_len=17,
-                       train_long_term_mem_gap=4, model_linear_q=False,
-                       model_ignore_token=True, train_auto_resume=False),
+    "pre_vost_2": dict(datasets=("vost",), train_total_steps=20_000,
+                       data_seq_len=17, train_long_term_mem_gap=4,
+                       model_linear_q=False, model_ignore_token=True,
+                       train_auto_resume=False),
     # pre_vost with clips of 25 frames
-    "pre_vost_25q": dict(train_total_steps=20_000, data_seq_len=25,
-                         train_long_term_mem_gap=4, model_linear_q=False,
-                         model_ignore_token=True, train_auto_resume=False),
-    # synthetic smoke stage: small crops, short clips
-    "test": dict(train_total_steps=100, data_seq_len=3, train_batch_size=2,
-                 pretrain=False, train_auto_resume=False,
+    "pre_vost_25q": dict(datasets=("vost",), train_total_steps=20_000,
+                         data_seq_len=25, train_long_term_mem_gap=4,
+                         model_linear_q=False, model_ignore_token=True,
+                         train_auto_resume=False),
+    # smoke stage: constant synthetic clips, small crops, short clips
+    "test": dict(datasets=("test",), train_total_steps=100, data_seq_len=3,
+                 train_batch_size=2, pretrain=False, train_auto_resume=False,
                  data_randomcrop=(129, 129)),
 }
 
@@ -321,9 +369,10 @@ def get_config(stage: str = "default", exp_name: str = "default",
     kw.setdefault("exp_name", exp_name)
     kw.setdefault("stage_name", stage)
     if kw.get("no_memory_gap"):
-        # as rmem_tpu/config.py:get_config. It also divides reverse_loss by
-        # 4: the port has no such field and raises on reverse_infer, so the
-        # division has nothing to act on yet
+        # as rmem_tpu/config.py:get_config: 2 heads, a write every
+        # training frame, and a quarter of the reverse loss, as the
+        # reference's r50_aotl.py and r50_deaotl.py divide it
         kw["model_att_heads"] = 2
         kw["train_long_term_mem_gap"] = 1
+        kw["reverse_loss"] = kw.get("reverse_loss", 0.4) / 4
     return Config(**kw)

@@ -10,7 +10,7 @@ device copy and batch i is a function of (seed, i).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
 
@@ -60,3 +60,15 @@ def gen_blob_batch(gen: torch.Generator, batch: int, seq_len: int,
     std = torch.tensor(IMAGENET_STD, device=dev)
     return {"imgs": (imgs / 255.0 - mean) / std, "labels": labels,
             "obj_nums": n_obj.to(torch.int32)}
+
+
+def blob_batches(cfg, seed: int, device="cpu"
+                 ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless gen_blob_batch batches at cfg's train_batch_size,
+    data_seq_len and data_randomcrop, from a generator on `device` seeded
+    with `seed`: what a Trainer takes as `batches` to train on seeded
+    clips instead of cfg.datasets'."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    while True:
+        yield gen_blob_batch(gen, cfg.train_batch_size, cfg.data_seq_len,
+                             tuple(cfg.data_randomcrop))

@@ -9,10 +9,18 @@ than the model's `model_max_obj_num` run as a leading id-group axis: the
 frame is encoded once and its features broadcast to the groups, each group
 labels its own objects, and the group logits merge by
 `soft_logit_aggregation`. The bank capacity and image size are fixed per
-video; the bank count, the memory-write flag and every eviction decision
+video. The write schedule (the frame step, the last long-term write's
+step, the gap and the count of writes) is the host's: whether a frame
+writes follows from it, and the bank count and every eviction decision
 stay on the device, so the host queues a frame's work without waiting for
 the card. The state is updated in place: the returned state is the object
 passed in.
+
+With RMem's ConvGRU memory (`Config.gru_memory_active`, AOT only) a
+long-term write appends to the bank in temporal order and, once the bank
+is full (which the count of writes tells the host), folds the evicted slot
+into slot 1 through each layer's GRU cells
+(memory/eviction.py:evict_if_full_gru).
 
 The engine runs on the card unless the caller passes `device="cpu"`; with
 no card and no device given it raises. On the card every kernel of the path
@@ -36,6 +44,7 @@ import torch.nn as nn
 from rmem_tpu_torch.config import Config
 from rmem_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from rmem_tpu_torch.memory import bank_append, init_bank, update_bank_inplace
+from rmem_tpu_torch.memory.eviction import evict_if_full_gru
 from rmem_tpu_torch.memory.bank import MemoryBank
 from rmem_tpu_torch.models.encoders import fold_bn_params
 from rmem_tpu_torch.ops.layers import map_to_seq
@@ -55,10 +64,13 @@ class EngineState:
     mems: Dict[str, torch.Tensor]         # pending emissions of propagate
     record: Optional[torch.Tensor]        # [B, HW, S] layer-0 slot mass
     logits4x: torch.Tensor                # [B, H/4, W/4, obj+1] masked
-    frame_step: torch.Tensor              # int32 scalars from here on
-    last_mem_step: torch.Tensor
-    gap: torch.Tensor
     obj_nums: torch.Tensor                # [B] int32
+    frame_step: int                       # the write schedule, on the host
+    last_mem_step: int
+    gap: int
+    long_writes: int = 0                  # long-term writes after the ref
+    gru_hid_k: Optional[torch.Tensor] = None   # [L, B, H, W, C], GRU only
+    gru_hid_v: Optional[torch.Tensor] = None
 
 
 def separate_mask(label: torch.Tensor, num_groups: int,
@@ -144,6 +156,9 @@ class InferenceEngine:
         self._mean = torch.as_tensor(IMAGENET_MEAN * 255.0,
                                      device=self.device)
         self._std = torch.as_tensor(IMAGENET_STD * 255.0, device=self.device)
+        # update_bank_inplace's write flag, made once: no copy a frame
+        self._write_flag = {b: torch.tensor(b, device=self.device)
+                            for b in (False, True)}
 
     # -- helpers -------------------------------------------------------
     def _to_dev(self, x, dtype=None) -> torch.Tensor:
@@ -213,11 +228,17 @@ class InferenceEngine:
         record0 = (torch.zeros((b, hw, cfg.max_mem_slots),
                                dtype=torch.float32, device=self.device)
                    if not cfg.no_long_memory else None)
-        step = self._to_dev(frame_step, torch.int32)
+        hid_k = hid_v = None
+        if cfg.gru_memory_active:
+            hid_k = torch.zeros((lk.shape[0], b, eh, ew, lk.shape[-1]),
+                                dtype=lk.dtype, device=self.device)
+            hid_v = torch.zeros((lv.shape[0], b, eh, ew, lv.shape[-1]),
+                                dtype=lv.dtype, device=self.device)
         state = EngineState(
             bank=bank, short_k=sk, short_v=sv, mems=mems, record=record0,
-            logits4x=logits, frame_step=step, last_mem_step=step.clone(),
-            gap=self._to_dev(gap, torch.int32), obj_nums=obj_nums)
+            logits4x=logits, obj_nums=obj_nums, frame_step=int(frame_step),
+            last_mem_step=int(frame_step), gap=int(gap), gru_hid_k=hid_k,
+            gru_hid_v=hid_v)
         return state, logits
 
     @torch.inference_mode()
@@ -237,7 +258,7 @@ class InferenceEngine:
             (state.short_k, state.short_v), None, cur_pe, slot_pe, size_2d,
             self_pos=self.model.get_pos_emb(*size_2d), **self.route)
         logits = self._decode(intermediates, xs, state.obj_nums)
-        state.frame_step = state.frame_step + 1
+        state.frame_step += 1
         state.mems = mems
         state.record = record
         state.logits4x = logits
@@ -254,15 +275,40 @@ class InferenceEngine:
         if cfg.no_long_memory:
             return state
         do_long = state.frame_step - state.last_mem_step >= state.gap
+        if cfg.gru_memory_active and not do_long:
+            return state
         b, hw = lk.shape[1], lk.shape[2]
         up = resize_bilinear(state.logits4x, self._enc_hw(state),
                              cfg.model_align_corners)
         fg = 1.0 - torch.softmax(up.float(), dim=-1)[..., 0].reshape(b, hw)
-        update_bank_inplace(state.bank, lk, lv, do_long, cfg.former_mem_len,
-                            cfg.latter_mem_len, state.record, fg)
-        state.last_mem_step = torch.where(do_long, state.frame_step,
-                                          state.last_mem_step)
+        if cfg.gru_memory_active:
+            self._write_gru(state, lk, lv, fg)
+        else:
+            update_bank_inplace(state.bank, lk, lv, self._write_flag[do_long],
+                                cfg.former_mem_len, cfg.latter_mem_len,
+                                state.record, fg)
+        if do_long:
+            state.last_mem_step = state.frame_step
+            state.long_writes += 1
         return state
+
+    def _write_gru(self, state: EngineState, lk, lv, fg) -> None:
+        """The ConvGRU memory's write: append in temporal order, then,
+        past former + latter slots, one GRU eviction round (slot 1 takes
+        the compressed victim)."""
+        cfg = self.cfg
+        bank_append(state.bank, lk, lv)
+        size_2d = self._enc_hw(state)
+
+        def compress(k, v, hid_k, hid_v):
+            return self.model.lstt.compress_evicted(k, v, hid_k, hid_v,
+                                                    size_2d)
+
+        state.bank, state.gru_hid_k, state.gru_hid_v = evict_if_full_gru(
+            state.bank, cfg.former_mem_len, cfg.latter_mem_len, compress,
+            # the slots written: the reference's, the earlier writes', this
+            state.gru_hid_k, state.gru_hid_v, 2 + state.long_writes,
+            state.record, fg)
 
     def _merged_label(self, logits4: torch.Tensor,
                       out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -1,10 +1,13 @@
-"""Train state and one optimizer step: clip by global norm, Adam moments,
-decoupled weight decay, a learning rate per parameter group, and the EMA.
+"""Train state and one optimizer step: clip by global norm, Adam moments
+or SGD's momentum, decoupled weight decay, a learning rate per parameter
+group, and the EMA.
 
 Counterpart of `rmem_tpu/engine/train_state.py` (its optax chain
-clip_by_global_norm -> scale_by_adam(eps 1e-8) -> add_decayed_weights
-(masked) -> -lr(group, step), then the EMA with warm-up decay), written out
-over the model's parameters. The global norm takes every gradient, the
+clip_by_global_norm -> scale_by_adam(eps 1e-8), or with train_opt "sgd"
+trace(decay=train_sgd_momentum) -> add_decayed_weights (masked) ->
+-lr(group, step), then the EMA with warm-up decay), written out over the
+model's parameters. SGD's trace is m = g + momentum * m, with no
+dampening and no Nesterov term. The global norm takes every gradient, the
 frozen parameters' too, as the JAX step's does: frozen parameters keep
 `requires_grad` and their gradients, and only their learning rate is 0.
 """
@@ -59,34 +62,49 @@ def ema_decay(step: int, cfg: Config) -> float:
 
 @dataclass
 class TrainState:
-    """The model (f32 parameters) and everything the next step needs."""
+    """The model (f32 parameters) and everything the next step needs: mu
+    is Adam's first moment, or with opt "sgd" the momentum trace (nu then
+    stays empty)."""
 
     model: nn.Module
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
     ema: Dict[str, torch.Tensor]
     step: int
+    opt: str = "adamw"
 
     @staticmethod
-    def create(model: nn.Module) -> "TrainState":
+    def create(model: nn.Module, opt: str = "adamw") -> "TrainState":
+        if opt not in ("adamw", "sgd"):
+            raise ValueError(f"train_opt {opt!r}")
         params = dict(model.named_parameters())
         zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
-        return TrainState(model=model, mu=zeros(), nu=zeros(),
+        return TrainState(model=model, mu=zeros(),
+                          nu=zeros() if opt == "adamw" else {},
                           ema={n: p.detach().clone()
-                               for n, p in params.items()}, step=0)
+                               for n, p in params.items()}, step=0, opt=opt)
+
+    def _slots(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The optimizer's state by its name in a save."""
+        if self.opt == "sgd":
+            return {"trace": self.mu}
+        return {"mu": self.mu, "nu": self.nu}
 
     def state_dict(self) -> dict:
         return {"params": {n: p.detach() for n, p in
                            self.model.named_parameters()},
-                "mu": self.mu, "nu": self.nu, "ema": self.ema,
-                "step": self.step}
+                **self._slots(), "ema": self.ema, "step": self.step}
 
     def load_state_dict(self, d: dict) -> None:
+        slots = self._slots()
+        if not set(slots) <= set(d):
+            raise ValueError(f"the save holds no {self.opt} state "
+                             f"({sorted(slots)})")
         with torch.no_grad():
             for n, p in self.model.named_parameters():
                 p.copy_(d["params"][n])
-        for key in ("mu", "nu", "ema"):
-            for n, t in getattr(self, key).items():
+        for key, tensors in (*slots.items(), ("ema", self.ema)):
+            for n, t in tensors.items():
                 t.copy_(d[key][n])
         self.step = int(d["step"])
 
@@ -125,10 +143,13 @@ def apply_gradients(state: TrainState, cfg: Config) -> torch.Tensor:
     for (name, p), g in zip(params, grads):
         g = torch.where(keep, g, g / gnorm * cfg.train_clip_grad_norm)
         mu = state.mu[name]
-        nu = state.nu[name]
-        mu.copy_((1.0 - ADAM_B1) * g + ADAM_B1 * mu)
-        nu.copy_((1.0 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
-        u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+        if state.opt == "sgd":
+            u = mu.copy_(g + cfg.train_sgd_momentum * mu)
+        else:
+            nu = state.nu[name]
+            mu.copy_((1.0 - ADAM_B1) * g + ADAM_B1 * mu)
+            nu.copy_((1.0 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
         if wd_applies(name, p, cfg):
             u = u + cfg.train_weight_decay * p
         p.add_(u * -lrs[param_label(name, cfg)])

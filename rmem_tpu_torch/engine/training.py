@@ -10,7 +10,13 @@ Counterpart of `rmem_tpu/engine/training.py:train_forward`:
    write this frame's memories from its ground-truth labels or, under the
    `use_prev_pred` curriculum, from the argmax prediction with the id
    embedding's gradient stopped; every `train_long_term_mem_gap` frames the
-   bank takes a slot and evicts FIFO when full;
+   bank takes a slot and evicts FIFO when full (with RMem's ConvGRU
+   memory, `gru_memory_active`, the evicted slot after the first two is
+   folded into slot 1 through the GRU cells, whose hidden states start at
+   zero and carry from frame to frame); with `reverse_infer`, after each
+   such write frame 0 is decoded again from the bank without its first
+   slot and frame 1's short-term memory, detached, and reverse_loss times
+   its loss against frame 0's labels joins that frame's loss;
 4. the upsample, loss and IoU once over all frames after the loop, and the
    loss aux_weight(step) * aux + mean(frame losses), plus, where
    `var_loss_weight` > 0, that weight times the top-down encoder's
@@ -20,12 +26,12 @@ Every LSTT call takes the sine position embedding for its self-attention
 (the GPM ignores it) and no drop-path generator, as the JAX step passes
 no dp_rng. Each frame's propagate and decode run under
 torch.utils.checkpoint (the JAX package's remat of its scan body), so the
-backward recomputes them instead of keeping T sets of activations. The
-bank is rebuilt out of place at each write. Everything the loop branches
-on (the frame index, the write schedule and so the bank's fill and its
-evictions, the curriculum flag, the step) is a host integer, and the
-bank's count stays on the device, so the loop never reads back from the
-card.
+backward recomputes them instead of keeping T sets of activations; so
+does each reverse decode. The bank is rebuilt out of place at each write.
+Everything the loop branches on (the frame index, the write schedule and
+so the bank's fill, its evictions and the reverse decodes, the curriculum
+flag, the step) is a host integer, and the bank's count stays on the
+device, so the loop never reads back from the card.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from torch.utils.checkpoint import checkpoint
 from rmem_tpu_torch.config import Config
 from rmem_tpu_torch.engine.inference import check_id_grid
 from rmem_tpu_torch.memory import bank_appended, evict_if_full, init_bank
+from rmem_tpu_torch.memory.bank import bank_compact
+from rmem_tpu_torch.memory.eviction import evict_if_full_gru
 from rmem_tpu_torch.ops.layers import map_to_seq
 from rmem_tpu_torch.ops.losses import segmentation_loss
 from rmem_tpu_torch.ops.masks import (map_id_label, mask_unused_ids,
@@ -49,15 +57,13 @@ from rmem_tpu_torch.utils.metric import pytorch_iou_batched
 
 
 def check_supported(cfg: Config) -> None:
-    """The JAX step's branches that the port does not take. The ConvGRU
-    memory acts only where the JAX step acts on it, on the AOT path
-    (`gru_memory_active`); DeAOT trains with the flag ignored, as there."""
-    if cfg.reverse_infer:
-        raise NotImplementedError("reverse_infer training is not ported")
-    if cfg.gru_memory_active:
-        raise NotImplementedError("gru_memory training is not ported")
+    """The settings the training step takes. The ConvGRU memory acts only
+    where the JAX step acts on it, on the AOT path (`gru_memory_active`);
+    DeAOT trains with the flag ignored, as there."""
     if cfg.train_remat not in ("full", "dots", "none"):
         raise ValueError(f"train_remat {cfg.train_remat!r}")
+    if cfg.train_opt not in ("adamw", "sgd"):
+        raise ValueError(f"train_opt {cfg.train_opt!r}")
 
 
 def aux_weight(step: int, cfg: Config) -> float:
@@ -137,32 +143,71 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
         return decode4(inter, xs), mems
 
     remat = cfg.train_remat != "none" and t > 2
-    logits_seq, preds = [], []
+    run = ((lambda fn, *a: checkpoint(fn, *a, use_reentrant=False))
+           if remat else (lambda fn, *a: fn(*a)))
+
+    gru = cfg.gru_memory_active
+    hid_k = hid_v = None
+    if gru:
+        hid_k = torch.zeros((lk.shape[0], b, eh, ew, lk.shape[-1]),
+                            dtype=lk.dtype, device=lk.device)
+        hid_v = torch.zeros((lv.shape[0], b, eh, ew, lv.shape[-1]),
+                            dtype=lv.dtype, device=lv.device)
+
+    def compress(k, v, hk, hv):
+        return model.lstt.compress_evicted(k, v, hk, hv, (eh, ew))
+
+    def reverse_logits(bank_k, bank_v, count, short_k, short_v):
+        """Frame 0 decoded from the bank without its first slot."""
+        return propagate(feat0, bank_k, bank_v, count, short_k, short_v,
+                         *xs0)[0]
+
+    logits_seq, preds, reverse = [], [], []
     last_mem = 0
+    # frame 1's short-term memory, detached: set before any write, which
+    # comes at frame 1 at the earliest
+    first_short = None
     for i in range(1, t):
         xs, feat = frame(i)
         args = (feat, bank.k, bank.v, bank.count, short_k, short_v, *xs)
-        logits4, mems = (checkpoint(propagate, *args, use_reentrant=False)
-                         if remat else propagate(*args))
+        logits4, mems = run(propagate, *args)
         with torch.no_grad():
             pred = torch.argmax(resize_bilinear(logits4, hw_in, align),
                                 dim=-1).to(torch.int32)
         lk, lv, short_k, short_v = model.write_memories(
             mems, id_embed(pred if use_prev_pred else labels[:, i]))
-        if not cfg.no_long_memory and \
-                i - last_mem >= cfg.train_long_term_mem_gap:
+        if i == 1:
+            first_short = (short_k.detach(), short_v.detach())
+        write = (not cfg.no_long_memory
+                 and i - last_mem >= cfg.train_long_term_mem_gap)
+        if write:
             slots += 1
-            bank = evict_if_full(bank_appended(bank, lk, lv),
-                                 cfg.former_mem_len, cfg.latter_mem_len,
-                                 slots)
+            bank = bank_appended(bank, lk, lv)
+            if gru:
+                bank, hid_k, hid_v = evict_if_full_gru(
+                    bank, cfg.former_mem_len, cfg.latter_mem_len, compress,
+                    hid_k, hid_v, slots)
+            else:
+                bank = evict_if_full(bank, cfg.former_mem_len,
+                                     cfg.latter_mem_len, slots)
             slots = min(slots, cfg.former_mem_len + cfg.latter_mem_len)
             last_mem = i
+        if write and cfg.reverse_infer:
+            rb = bank_compact(bank, 0)
+            reverse.append((i - 1, run(reverse_logits, rb.k, rb.v, rb.count,
+                                       *first_short)))
         logits_seq.append(logits4)
         preds.append(pred)
 
     label_seq = labels[:, 1:].transpose(0, 1)                # [T-1, B, H, W]
     losses = frame_losses(torch.cat(logits_seq),
                           label_seq.reshape(-1, *hw_in)).reshape(t - 1, b)
+    if reverse:
+        rlosses = frame_losses(torch.cat([r for _, r in reverse]),
+                               labels[:, 0].repeat(len(reverse), 1, 1))
+        at = torch.tensor([j for j, _ in reverse], device=losses.device)
+        losses = losses.index_add(
+            0, at, cfg.reverse_loss * rlosses.reshape(len(reverse), b))
     ious = torch.stack([pytorch_iou_batched(p, lab, obj_nums, max_obj)
                         for p, lab in zip(preds, label_seq)])
     aux_w = aux_weight(step, cfg)

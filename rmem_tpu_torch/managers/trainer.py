@@ -1,31 +1,36 @@
-"""Trainer: build the model, then take training steps on seeded synthetic
-clips, log, save and resume.
+"""Trainer: build the model, then take training steps on the clips of
+cfg.datasets, log, save and resume.
 
 Counterpart of `rmem_tpu/managers/trainer.py` on one card (or on the CPU
-when asked): the weights of cfg.pretrain_model (a reference .pth, a JAX
+when asked): the clips of cfg.datasets under data_root (else cfg.dir_data)
+by data/train_datasets.py's loader (num_workers min(data_workers, 4):
+prepared a batch ahead on a thread), or the device batches of a given
+iterator, the weights of cfg.pretrain_model (a reference .pth, a JAX
 msgpack params tree or this package's own file) when cfg.pretrain is set,
 the id shuffle drawn on the host from np.random.RandomState(
 train_start_step + 7), one step per batch, the log line every
 train_log_step steps, and the checkpoint stream: every train_save_step
-steps the state (with the host and device RNGs) goes to
+steps the state (with the host RNG) goes to
 dir_result/ckpt/save_step_<N>.pt and the EMA weights to
 dir_result/ema_ckpt/ema_step_<N>.pt, each stream pruned to its newest
 train_max_keep_ckpt files; with cfg.train_auto_resume a new Trainer starts
-from the newest readable save. The batches are the synthetic clips of
-data/synthetic.py.
+from the newest readable save. Every train_tblog_step steps (0: never) the
+batch's first clip's last frame, its labels and the prediction go to
+dir_result/img_logs as PNGs.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
 from rmem_tpu_torch.config import Config
-from rmem_tpu_torch.data.synthetic import gen_blob_batch
+from rmem_tpu_torch.data.train_datasets import (build_train_dataset,
+                                                make_batch_loader)
 from rmem_tpu_torch.engine.inference import resolve_device
 from rmem_tpu_torch.engine.train_state import TrainState, apply_gradients
 from rmem_tpu_torch.engine.training import check_supported, train_forward
@@ -35,6 +40,7 @@ from rmem_tpu_torch.ops.masks import host_id_shuffle_matrix
 from rmem_tpu_torch.utils.checkpoint import (load_file,
                                              load_latest_checkpoint,
                                              save_checkpoint)
+from rmem_tpu_torch.utils.image import _save_mask, encode_png_rgb
 from rmem_tpu_torch.utils.metric import AverageMeter
 
 
@@ -62,12 +68,16 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 class Trainer:
     """One model on one device. `params`: a state dict to start from (for
-    example utils.params_from_jax of a JAX tree); else init_params(seed),
-    then cfg.pretrain_model's weights when cfg.pretrain is set."""
+    example utils.params_from_jax of a JAX tree); else init_params(seed)
+    (`seed` sets the initial weights and nothing else), then cfg.pretrain_model's weights when cfg.pretrain is set. `batches`:
+    an iterator of device batches (dicts of imgs, labels, obj_nums) to
+    train on instead of cfg.datasets' clips under data_root, whose loader
+    is built at the first batch."""
 
-    def __init__(self, cfg: Config,
+    def __init__(self, cfg: Config, data_root: Optional[str] = None,
                  device: Union[None, str, torch.device] = None,
-                 seed: int = 0, params: Optional[dict] = None, log=print):
+                 seed: int = 0, params: Optional[dict] = None, log=print,
+                 batches: Optional[Iterator[Dict[str, torch.Tensor]]] = None):
         check_supported(cfg)
         if cfg.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
@@ -81,23 +91,28 @@ class Trainer:
                 load_model_params(model, cfg.pretrain_model, log=log)
         else:
             model.load_state_dict(params, strict=True)
-        self.state = TrainState.create(model.to(self.device))
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.state = TrainState.create(model.to(self.device), cfg.train_opt)
+        self.data_root = data_root
+        self.batches = batches
         self.rng = np.random.RandomState(cfg.train_start_step + 7)
         self.loss_meters: list = []
         self.iou_meters: list = []
         self.ckpt_dir = os.path.join(cfg.dir_result, "ckpt")
         self.ema_dir = os.path.join(cfg.dir_result, "ema_ckpt")
-        if cfg.train_auto_resume:
+        if cfg.train_auto_resume and os.path.isdir(self.ckpt_dir):
             path = self.load(self.ckpt_dir)
             if path:
                 log(f"auto-resumed from {path} (step {self.state.step})")
 
     def next_batch(self):
-        """A synthetic clip batch and its id shuffle, on the device."""
+        """The next clip batch and its id shuffle, on the device."""
         cfg = self.cfg
-        batch = gen_blob_batch(self.gen, cfg.train_batch_size,
-                               cfg.data_seq_len, tuple(cfg.data_randomcrop))
+        if self.batches is None:
+            self.batches = make_batch_loader(
+                build_train_dataset(cfg, self.data_root),
+                cfg.train_batch_size, max_obj=cfg.model_max_obj_num,
+                num_workers=min(cfg.data_workers, 4), device=self.device)
+        batch = next(self.batches)
         shuffle = torch.from_numpy(host_id_shuffle_matrix(
             self.rng, cfg.model_max_obj_num + 1, cfg.train_batch_size))
         if self.device.type == "cuda":   # no wait for the queued work
@@ -129,9 +144,34 @@ class Trainer:
                          f"{float(metrics['iou']) * 100:.1f} gnorm "
                          f"{float(metrics['grad_norm']):.2f} {dt:.2f}s/it "
                          f"ETA {eta_h:.1f}h")
+            if cfg.train_tblog_step and step % cfg.train_tblog_step == 0:
+                self._dump_images(batch, metrics["pred_label_last"], step)
             if step % cfg.train_save_step == 0:
                 self.save(step)
         return {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+
+    def close(self) -> None:
+        """Stop the loader's prefetch thread, if it has one."""
+        close = getattr(self.batches, "close", None)
+        if close is not None:
+            close()
+
+    def _dump_images(self, batch, pred_label_last, step: int) -> None:
+        """The batch's first clip's last frame (min-max scaled to 0..255),
+        its labels (255 as 0) and the prediction, as
+        dir_result/img_logs/<step>_{img,gt,pred}.png."""
+        out = os.path.join(self.cfg.dir_result, "img_logs")
+        os.makedirs(out, exist_ok=True)
+        img = batch["imgs"][0, -1].float().cpu().numpy()
+        gt = batch["labels"][0, -1].cpu().numpy().astype(np.uint8)
+        pred = pred_label_last[0].cpu().numpy().astype(np.uint8)
+        lo, hi = float(img.min()), float(img.max())
+        u8 = ((img - lo) / max(hi - lo, 1e-6) * 255).astype(np.uint8)
+        with open(os.path.join(out, f"{step:08d}_img.png"), "wb") as f:
+            f.write(encode_png_rgb(u8))
+        _save_mask(np.where(gt == 255, 0, gt),
+                   os.path.join(out, f"{step:08d}_gt.png"))
+        _save_mask(pred, os.path.join(out, f"{step:08d}_pred.png"))
 
     def frame_meter_summary(self) -> Dict[str, list]:
         """Running means per frame position of the loss and the IoU (in
@@ -151,14 +191,13 @@ class Trainer:
             meter.update(v * 100.0)
 
     def _state_file(self) -> dict:
-        """The state and both RNGs, as tensors and numbers only (so that
+        """The state and the host RNG, as tensors and numbers only (so that
         torch.load reads it with weights_only)."""
         kind, keys, pos, has_gauss, gauss = self.rng.get_state()
         return {"state": self.state.state_dict(),
                 "rng": {"kind": kind,
                         "keys": torch.from_numpy(keys.astype(np.int64)),
-                        "pos": pos, "has_gauss": has_gauss, "gauss": gauss},
-                "gen": self.gen.get_state()}
+                        "pos": pos, "has_gauss": has_gauss, "gauss": gauss}}
 
     def _restore(self, d: dict) -> None:
         self.state.load_state_dict(d["state"])
@@ -166,7 +205,6 @@ class Trainer:
         self.rng.set_state((r["kind"],
                             r["keys"].cpu().numpy().astype(np.uint32),
                             r["pos"], r["has_gauss"], r["gauss"]))
-        self.gen.set_state(d["gen"].cpu())
 
     def save(self, step: Optional[int] = None) -> None:
         """The checkpoint stream at `step` (the state's own by default):

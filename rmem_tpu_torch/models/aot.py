@@ -50,16 +50,14 @@ class AOT(nn.Module):
 
     def _build_lstt(self) -> nn.Module:
         cfg = self.cfg
-        if cfg.gru_memory:
-            raise NotImplementedError("the ConvGRU memory (gru_memory) is "
-                                      "not ported")
         return LSTT(num_layers=cfg.model_lstt_num,
                     d_model=cfg.model_encoder_embedding_dim,
                     self_heads=cfg.model_self_heads,
                     att_heads=cfg.model_att_heads,
                     linear_q=cfg.model_linear_q,
                     droppath=cfg.train_lstt_droppath,
-                    intermediate_norm=cfg.model_decoder_intermediate_lstt)
+                    intermediate_norm=cfg.model_decoder_intermediate_lstt,
+                    gru_memory=cfg.gru_memory_active)
 
     def _decoder_indim(self) -> int:
         cfg = self.cfg

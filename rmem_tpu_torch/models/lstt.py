@@ -24,7 +24,9 @@ the reference frame and later frames share one path. Module and parameter
 names follow the flax tree (`lstt.block0.linear_Q.weight`), so
 utils/checkpoint.params_from_jax maps one onto the other by its fixed rule.
 
-The ConvGRU memory (`gru_memory`) is not ported.
+With `gru_memory` each block holds RMem's two ConvGRU cells (`memory_gru_k`
+with a 2 x 2 kernel, `memory_gru_v` with 1 x 1), which `compress_evicted`
+runs on an evicted slot's keys and values (models/conv_gru.py).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from rmem_tpu_torch.kernels import bank_attention as bank_kernel
+from rmem_tpu_torch.models.conv_gru import ConvGRUCellOutput
 from rmem_tpu_torch.ops.attention import multihead_attention, slot_pe_bias
 from rmem_tpu_torch.ops.layers import GNActDWConv2d, LayerNorm, drop_path
 
@@ -62,9 +65,12 @@ class LSTTBlock(nn.Module):
 
     def __init__(self, d_model: int, self_heads: int, att_heads: int,
                  dim_feedforward: int, linear_q: bool = False,
-                 droppath: float = 0.1):
+                 droppath: float = 0.1, gru_memory: bool = False):
         super().__init__()
         d = d_model
+        if gru_memory:
+            self.memory_gru_k = ConvGRUCellOutput(d, d, kernel=2)
+            self.memory_gru_v = ConvGRUCellOutput(d, d, kernel=1)
         self.att_heads = att_heads
         self.linear_q = linear_q
         self.droppath = droppath
@@ -149,6 +155,17 @@ class LSTTBlock(nn.Module):
         return (self.linear_V(curr_v + id_emb),
                 self.linear_VMem(short_v + id_emb))
 
+    def compress_slot(self, k_slot, v_slot, hid_k, hid_v,
+                      size_2d: Tuple[int, int]):
+        """An evicted slot's keys and values [B, HW, C] through the GRU
+        cells with their hidden states [B, H, W, C]. Returns (out_k, out_v
+        [B, HW, C], new hid_k, new hid_v)."""
+        b, hw, c = k_slot.shape
+        grid = (b, *size_2d, c)
+        nhk, ok = self.memory_gru_k(k_slot.reshape(grid), hid_k)
+        nhv, ov = self.memory_gru_v(v_slot.reshape(grid), hid_v)
+        return ok.reshape(b, hw, c), ov.reshape(b, hw, c), nhk, nhv
+
 
 class LSTT(nn.Module):
     """A stack of LSTTBlocks and the decoder's LayerNorms."""
@@ -156,7 +173,8 @@ class LSTT(nn.Module):
     def __init__(self, num_layers: int, d_model: int, self_heads: int = 8,
                  att_heads: int = 8, dim_feedforward: int = 1024,
                  linear_q: bool = False, droppath: float = 0.1,
-                 intermediate_norm: bool = True, final_norm: bool = True):
+                 intermediate_norm: bool = True, final_norm: bool = True,
+                 gru_memory: bool = False):
         super().__init__()
         self.num_layers = num_layers
         self.intermediate_norm = intermediate_norm
@@ -164,7 +182,8 @@ class LSTT(nn.Module):
         for i in range(num_layers):
             setattr(self, f"block{i}",
                     LSTTBlock(d_model, self_heads, att_heads,
-                              dim_feedforward, linear_q, droppath))
+                              dim_feedforward, linear_q, droppath,
+                              gru_memory))
         self.num_norms = ((num_layers - 1 if intermediate_norm else 0)
                           + int(final_norm))
         for i in range(self.num_norms):
@@ -221,3 +240,13 @@ class LSTT(nn.Module):
                  for i in range(self.num_layers)]
         return (torch.stack([p[0] for p in pairs]),
                 torch.stack([p[1] for p in pairs]))
+
+    def compress_evicted(self, k_slots, v_slots, hid_k, hid_v,
+                         size_2d: Tuple[int, int]):
+        """Each layer's evicted slot [L, B, HW, C] through its GRU cells,
+        hidden states [L, B, H, W, C]. Returns (out_k, out_v, hid_k, hid_v),
+        each stacked over the layers."""
+        outs = [self.block(i).compress_slot(k_slots[i], v_slots[i], hid_k[i],
+                                            hid_v[i], size_2d)
+                for i in range(self.num_layers)]
+        return tuple(torch.stack([o[j] for o in outs]) for j in range(4))

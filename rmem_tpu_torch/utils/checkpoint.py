@@ -579,8 +579,9 @@ def _convert_lstt_block(sd, out, i: int):
     out[f + ("activation", "conv", "kernel")] = _conv(
         sd[f"{t}.activation.conv.weight"])
     # GRU_MEMORY compressed-eviction cells: memory_grus[0] compresses the K
-    # plane (kernel 2x2), memory_grus[1] the V plane (kernel 1x1). The port
-    # has no GRU memory (ROADMAP Queue 1.5), so they come back as `extra`
+    # plane (kernel 2x2), memory_grus[1] the V plane (kernel 1x1); a model
+    # built with gru_memory takes them (models/conv_gru.py), any other
+    # reports them as `extra`
     for gi, gname in ((0, "memory_gru_k"), (1, "memory_gru_v")):
         tg = f"{t}.memory_grus.{gi}"
         if f"{tg}.conv_gru_cell.conv_gates.weight" not in sd:

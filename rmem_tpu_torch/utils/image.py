@@ -2,7 +2,7 @@
 numpy + zlib, the background mask writer and the overlay.
 
 Counterpart of `rmem_tpu/utils/image.py`, without PIL and without a
-compiler: `encode_png_pal8` writes the format of the JAX package's native
+compiler: `encode_png_rgb` writes 8-bit RGB; `encode_png_pal8` writes the format of the JAX package's native
 encoder (`rmem_tpu/native/rmem_native.cpp:encode_png_pal8`: 8-bit palette,
 a 256-colour PLTE, every row unfiltered, zlib level 6), and `read_png`
 reads the PNGs annotation tools write: palette and grey at 1, 2, 4 or 8
@@ -155,6 +155,18 @@ def read_png(path: str) -> np.ndarray:
     """A PNG file's pixels (see decode_png)."""
     with open(path, "rb") as f:
         return decode_png(f.read())[0]
+
+
+def encode_png_rgb(img: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] RGB -> PNG bytes (8-bit RGB, rows unfiltered)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 3 * w + 1), np.uint8)
+    rows[:, 1:] = img.reshape(h, 3 * w)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
 
 
 def _save_mask(mask: np.ndarray, path: str,

@@ -73,7 +73,8 @@ LOSS_RTOL = 1e-5
 GRAD_ATOL = 1e-8
 PARAM_ATOL = 1e-6
 # every stage both packages have, by name: the port has no others
-STAGES = ("default", "pre_vost", "pre_vost_2", "pre_vost_25q", "test")
+STAGES = ("default", "pre_ytb_dav", "ytb", "pre_ytb", "pre_dav", "pre_vost",
+          "pre_vost_2", "pre_vost_25q", "test")
 MODELS = ("r50_deaotl", "r50_aotl", "tiny_deaotl", "tiny_aotl")
 
 
@@ -124,25 +125,32 @@ def test_stage_presets_match_jax(nmg):
                     stage, model, f.name)
 
 
-def test_train_cli_defaults_to_pre_vost_2():
+def test_train_cli_defaults_to_pre_vost_2(tmp_path):
     """`python -m rmem_tpu_torch.tools.train` with no --stage trains
-    rmem_tpu's default stage, pre_vost_2: clips of 17 frames."""
+    rmem_tpu's default stage, pre_vost_2: clips of 17 frames, from the
+    datasets under --data_root (the run's files under a temporary
+    dir_root)."""
     built = []
 
     class Recorder:
-        def __init__(self, cfg, device=None, seed=0):
-            built.append(cfg)
+        def __init__(self, cfg, data_root=None, device=None, seed=0):
+            built.append((cfg, data_root))
 
         def train(self, max_steps=None):
             return {}
 
+        def close(self):
+            pass
+
     with mock.patch.object(port_trainer, "Trainer", Recorder):
-        train_cli.main(["--device", "cpu", "--max_steps", "1"])
-    (cfg,) = built
-    assert cfg.data_seq_len == 17
+        train_cli.main(["--device", "cpu", "--max_steps", "1",
+                        "--data_root", "datasets_here",
+                        "--opt", f"dir_root={tmp_path}"])
+    ((cfg, data_root),) = built
+    assert cfg.data_seq_len == 17 and data_root == "datasets_here"
     ref = jget_config("pre_vost_2", model="r50_deaotl")
     for f in dataclasses.fields(cfg):
-        if f.name != "compute_dtype":         # f32 on the CPU
+        if f.name not in ("compute_dtype", "dir_root"):   # f32 on the CPU
             assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
 
 

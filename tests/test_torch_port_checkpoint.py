@@ -32,6 +32,7 @@ from rmem_tpu.models import build_vos_model as jbuild
 from rmem_tpu.models import init_params as jinit
 from rmem_tpu.utils import checkpoint as jckpt
 from rmem_tpu_torch.config import get_config
+from rmem_tpu_torch.data.synthetic import blob_batches
 from rmem_tpu_torch.managers import trainer as trainer_mod
 from rmem_tpu_torch.managers.trainer import Trainer
 from rmem_tpu_torch.models import build_vos_model, load_model_params
@@ -55,8 +56,8 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
-def _jax_init(model):
-    cfg = jget_config("pre_vost", model=model)
+def _jax_init(model, **over):
+    cfg = jget_config("pre_vost", model=model, **over)
     return cfg, jinit(jbuild(cfg.model_vos, cfg), jax.random.PRNGKey(0), HW)
 
 
@@ -67,7 +68,8 @@ def deaotl():
 
 @pytest.fixture(scope="module")
 def aotl():
-    return _jax_init("r50_aotl")
+    """R50-AOTL with RMem's ConvGRU memory: its tree holds the GRU cells."""
+    return _jax_init("r50_aotl", gru_memory=True)
 
 
 def _flat(tree, prefix=()):
@@ -79,20 +81,28 @@ def _flat(tree, prefix=()):
 
 
 def _reference_sd(cfg, jparams, drop=(), gru=False):
-    """The reference's layout of jparams' names and shapes, seeded values."""
-    sd = _fabricate_torch_sd(dict(_flat(jax.device_get(jparams))),
-                             cfg.model_vos)
+    """The reference's layout of jparams' names and shapes, seeded values;
+    with `gru`, each layer's two GRU memory cells under the reference's
+    names (memory_grus.0 the K plane's 2 x 2, memory_grus.1 the V plane's
+    1 x 1)."""
+    flat = {k: v for k, v in _flat(jax.device_get(jparams))
+            if not any(p.startswith("memory_gru") for p in k)}
+    sd = _fabricate_torch_sd(flat, cfg.model_vos)
     sd["patch_wise_id_bank.weight"] = sd["patch_wise_id_bank.weight"][:, :11]
     sd[DEAD_KEY] = np.ones((4, 4), np.float32)
-    if gru:      # AOT's GRU memory cells: no module of either model reads them
-        g = "LSTT.layers.0.memory_grus.0"
-        for name, shape in (("conv_gru_cell.conv_gates.weight", (8, 8, 2, 2)),
-                            ("conv_gru_cell.conv_gates.bias", (8,)),
-                            ("conv_gru_cell.conv_can.weight", (4, 8, 2, 2)),
-                            ("conv_gru_cell.conv_can.bias", (4,)),
-                            ("output_conv.weight", (4, 4, 1, 1)),
-                            ("output_conv.bias", (4,))):
-            sd[f"{g}.{name}"] = np.full(shape, 0.5, np.float32)
+    rng = np.random.RandomState(2)
+    d = cfg.model_encoder_embedding_dim
+    for i in range(cfg.model_lstt_num if gru else 0):
+        for g, k in ((0, 2), (1, 1)):
+            t = f"LSTT.layers.{i}.memory_grus.{g}"
+            for name, shape in (
+                    ("conv_gru_cell.conv_gates.weight", (2 * d, 2 * d, k, k)),
+                    ("conv_gru_cell.conv_gates.bias", (2 * d,)),
+                    ("conv_gru_cell.conv_can.weight", (d, 2 * d, k, k)),
+                    ("conv_gru_cell.conv_can.bias", (d,)),
+                    ("output_conv.weight", (d, d, 1, 1)),
+                    ("output_conv.bias", (d,))):
+                sd[f"{t}.{name}"] = rng.randn(*shape).astype(np.float32)
     for key in drop:
         del sd[key]
     return sd
@@ -115,7 +125,7 @@ def _both(cfg, jparams, path):
                                    cfg.id_channels, report=jrep)
     model = build_vos_model(cfg.model_vos, get_config(
         "pre_vost", model=("r50_aotl" if cfg.model_vos == "aot"
-                           else "r50_deaotl")))
+                           else "r50_deaotl"), gru_memory=cfg.gru_memory))
     rep, lines = {}, []
     load_model_params(model, path, report=rep, log=lines.append)
     return (jtree, jskipped, jextra, jrep), (model, rep, lines)
@@ -134,8 +144,15 @@ def test_pth_loads_as_jax_loads_it(which, request, tmp_path):
     for name, t in got.items():
         assert torch.equal(t, ref[name]), name
     assert rep["skipped"] == jskipped == []
-    assert sorted(rep["extra"]) == sorted(jextra)
-    assert bool(rep["extra"]) == (which == "aotl")     # the GRU cells
+    # the GRU cells load into the GRU model on both sides: nothing extra
+    assert rep["extra"] == jextra == []
+    gru = [n for n in got if "memory_gru" in n]
+    assert len(gru) == (3 * 2 * 6 if which == "aotl" else 0)
+    if gru:
+        assert torch.equal(got["lstt.block1.memory_gru_k.cell.conv_can."
+                                "weight"], torch.from_numpy(sd[
+                                    "LSTT.layers.1.memory_grus.0."
+                                    "conv_gru_cell.conv_can.weight"]))
     assert rep["dead_keys"] == jrep["dead_keys"] == [DEAD_KEY]
     assert rep["unexpected_keys"] == jrep["unexpected_keys"] == []
     bank = got["patch_wise_id_bank.weight"]               # OIHW, 12 in
@@ -181,9 +198,9 @@ def _assert_trees_equal(got, ref, where=()):
 
 
 def test_msgpack_reads_jax_params(deaotl, aotl, tmp_path):
-    """Both models' init trees as the JAX package saves them: the port's
-    reader gives flax's own restore, and load_model_params the weights of
-    params_from_jax."""
+    """Both models' init trees as the JAX package saves them (R50-AOTL's
+    with the GRU memory's cells): the port's reader gives flax's own
+    restore, and load_model_params the weights of params_from_jax."""
     for name, (cfg, jparams) in (("r50_deaotl", deaotl),
                                  ("r50_aotl", aotl)):
         path = str(tmp_path / f"{name}.msgpack")
@@ -191,8 +208,8 @@ def test_msgpack_reads_jax_params(deaotl, aotl, tmp_path):
         data = Path(path).read_bytes()
         _assert_trees_equal(ckpt.msgpack_restore(data),
                             flax.serialization.msgpack_restore(data))
-        model = build_vos_model(cfg.model_vos, get_config("pre_vost",
-                                                          model=name))
+        model = build_vos_model(cfg.model_vos, get_config(
+            "pre_vost", model=name, gru_memory=cfg.gru_memory))
         load_model_params(model, path, log=lambda s: None)
         ref = params_from_jax(jax.device_get(jparams))
         for key, t in model.state_dict().items():
@@ -374,11 +391,13 @@ def _assert_states_equal(a, b):
 def test_trainer_stream_and_auto_resume(tmp_path):
     """3 steps saving every step and keeping 2: steps 2 and 3 in each
     stream; a new trainer with auto-resume starts at step 3 with the saved
-    state, RNGs included (its next batch is the first trainer's); with
+    state, the host RNG included (its next id shuffle is the first
+    trainer's); with
     step 3's save truncated it resumes from step 2 and says so; the EMA
     stream loads through load_model_params."""
     cfg = _tiny_cfg(tmp_path)
-    first = Trainer(cfg, device="cpu", seed=3, log=lambda s: None)
+    first = Trainer(cfg, device="cpu", seed=3, log=lambda s: None,
+                    batches=blob_batches(cfg, 5))
     first.train(max_steps=3)
     ckpt_dir, ema_dir = first.ckpt_dir, first.ema_dir
     assert ckpt_dir.startswith(str(tmp_path))
@@ -390,7 +409,6 @@ def test_trainer_stream_and_auto_resume(tmp_path):
                       seed=9, log=lines.append)
     _assert_states_equal(resumed, first)
     assert resumed.rng.randint(1 << 30) == first.rng.randint(1 << 30)
-    assert torch.equal(resumed.gen.get_state(), first.gen.get_state())
     assert lines[-1].startswith("auto-resumed from ") and "(step 3)" in \
         lines[-1]
     model = build_vos_model("deaot", cfg)
@@ -431,7 +449,7 @@ def test_trainer_pretrains_from_a_jax_msgpack(tmp_path):
         assert torch.equal(trainer.state.ema[name], ref[name]), name
 
 
-def test_train_cli_pretrained_path(monkeypatch):
+def test_train_cli_pretrained_path(monkeypatch, tmp_path):
     """--pretrained_path sets pretrain_model, as the JAX CLI's does;
     --resume loads the save or stream directory it names and stops when it
     holds none; --save saves the stream after the run."""
@@ -452,15 +470,19 @@ def test_train_cli_pretrained_path(monkeypatch):
         def save(self, step=None):
             calls.append(("save", step))
 
+        def close(self):
+            pass
+
     monkeypatch.setattr(trainer_mod, "Trainer", Recorder)
+    out = ["--opt", f"dir_root={tmp_path}"]      # the run's config and logs
     train_cli.main(["--device", "cpu", "--max_steps", "1",
-                    "--pretrained_path", "R50_DeAOTL.pth"])
+                    "--pretrained_path", "R50_DeAOTL.pth", *out])
     assert (built[0].pretrain_model, built[0].pretrain) == (
         "R50_DeAOTL.pth", True)
     assert calls == [("train", 1)]
     train_cli.main(["--device", "cpu", "--max_steps", "2", "--resume",
-                    "results/ckpt", "--save"])
+                    "results/ckpt", "--save", *out])
     assert calls[1:] == [("load", "results/ckpt"), ("train", 2),
                          ("save", None)]
     with pytest.raises(SystemExit, match="no readable save in empty"):
-        train_cli.main(["--device", "cpu", "--resume", "empty"])
+        train_cli.main(["--device", "cpu", "--resume", "empty", *out])

@@ -12,6 +12,7 @@ trainer's save and resume, each against JAX where JAX has it."""
 
 import math
 import os
+from itertools import islice
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,7 @@ from rmem_tpu.ops import schedule as jschedule
 from rmem_tpu.utils.metric import pytorch_iou_batched as jiou
 from rmem_tpu_torch import memory
 from rmem_tpu_torch.config import get_config
-from rmem_tpu_torch.data.synthetic import gen_blob_batch
+from rmem_tpu_torch.data.synthetic import blob_batches, gen_blob_batch
 from rmem_tpu_torch.engine.train_state import TrainState
 from rmem_tpu_torch.managers.trainer import Trainer, train_step
 from rmem_tpu_torch.models import build_vos_model
@@ -313,21 +314,26 @@ def test_synthetic_clips_are_seeded():
 
 def test_trainer_saves_and_resumes(tmp_path):
     """Two steps straight equal one step, save, load into a new trainer,
-    one step: the same loss, parameters and EMA. Logs every step."""
+    one step: the same loss, parameters and EMA. Each step takes the next
+    clip of one seeded blob stream (the resumed trainer the stream's
+    second). Logs every step."""
     cfg = get_config("test", model="tiny_deaotl", compute_dtype="float32",
                      train_batch_size=1, data_randomcrop=(65, 65),
                      train_log_step=1, dir_root=str(tmp_path))
     lines = []
-    straight = Trainer(cfg, device="cpu", seed=3, log=lines.append)
+    straight = Trainer(cfg, device="cpu", seed=3, log=lines.append,
+                       batches=blob_batches(cfg, 5))
     m2 = straight.train(max_steps=2)
-    first = Trainer(cfg, device="cpu", seed=3, log=lambda s: None)
-    first.train(max_steps=1)
+    first = Trainer(cfg, device="cpu", seed=3, log=lambda s: None,
+                    batches=blob_batches(cfg, 5))
+    m1 = first.train(max_steps=1)
     first.save()
-    resumed = Trainer(cfg, device="cpu", seed=9, log=lambda s: None)
+    resumed = Trainer(cfg, device="cpu", seed=9, log=lambda s: None,
+                      batches=islice(blob_batches(cfg, 5), 1, None))
     assert resumed.load(first.ckpt_dir) == os.path.join(first.ckpt_dir,
                                                          "save_step_1.pt")
     assert resumed.state.step == 1
-    assert resumed.train(max_steps=1)["loss"] == m2["loss"]
+    assert resumed.train(max_steps=1)["loss"] == m2["loss"] != m1["loss"]
     for (name, p), q in zip(straight.state.model.named_parameters(),
                             resumed.state.model.parameters()):
         assert torch.equal(p, q), name
@@ -339,18 +345,28 @@ def test_trainer_saves_and_resumes(tmp_path):
 
 
 def test_unported_training_branches_raise():
-    """reverse_infer and the GRU memory are not ported: the trainer refuses
-    each instead of skipping it. The GRU memory acts only on the AOT path
-    (`gru_memory_active`), so its case is tiny_aotl's. The var loss is
-    ported (tests/test_torch_port_encoder_train.py): the trainer takes it."""
+    """reverse_infer and the GRU memory are ported (their parity tests are
+    tests/test_torch_port_gru.py): the trainer takes them, and the var
+    loss. What the port does not take still raises instead of being
+    skipped: another optimizer than adamw and sgd, another remat policy,
+    and the static-image dataset."""
     for model, over in (("tiny_deaotl", dict(reverse_infer=True)),
-                        ("tiny_aotl", dict(gru_memory=True))):
+                        ("tiny_aotl", dict(gru_memory=True)),
+                        ("tiny_deaotl", dict(var_loss_weight=0.01))):
         cfg = get_config("test", model=model, compute_dtype="float32",
                          **over)
-        with pytest.raises(NotImplementedError):
-            Trainer(cfg, device="cpu")
-    Trainer(get_config("test", model="tiny_deaotl", compute_dtype="float32",
-                       var_loss_weight=0.01), device="cpu")
+        Trainer(cfg, device="cpu")
+    for over, err in ((dict(train_opt="lamb"), ValueError),
+                      (dict(train_remat="offload"), ValueError)):
+        with pytest.raises(err):
+            Trainer(get_config("test", model="tiny_deaotl",
+                               compute_dtype="float32", **over),
+                    device="cpu")
+    trainer = Trainer(get_config("test", model="tiny_deaotl",
+                                 compute_dtype="float32",
+                                 datasets=("static",)), device="cpu")
+    with pytest.raises(NotImplementedError, match="static"):
+        trainer.next_batch()
 
 
 def test_deaot_trains_with_gru_memory_ignored():
@@ -363,7 +379,8 @@ def test_deaot_trains_with_gru_memory_ignored():
                          train_batch_size=1, data_randomcrop=(65, 65),
                          gru_memory=flag)
         assert cfg.gru_memory_active is False
-        trainer = Trainer(cfg, device="cpu", seed=3, log=lambda s: None)
+        trainer = Trainer(cfg, device="cpu", seed=3, log=lambda s: None,
+                          batches=blob_batches(cfg, 5))
         runs.append((trainer.train(max_steps=1), trainer.state.model))
     (m0, model0), (m1, model1) = runs
     assert m0 == m1
