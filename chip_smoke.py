@@ -283,6 +283,31 @@ non-zero exit code:
    every frame decoded on the card, the config, logs/ and img_logs/
    written).
 
+28. the static-image stage `pre`: a Static tree of 24 images at 480x640
+   with 1-10 objects written on the card (nvJPEG's encoder, palette PNG
+   masks); the stage's loader on the card against its CPU route on the
+   same files (labels and obj_nums equal, frames >= 45 dB PSNR) and its
+   ms a clip at the stage's batch; then `python -m
+   rmem_tpu_torch.tools.train --stage pre --data_root <tree> --opt
+   pretrain=false` for 2 steps of R50-DeAOTL at the stage's 16 clips of
+   5 at 465x465 in a process of its own: s/step, peak GiB and exact
+   launches a step (K1' and K4 27, K2 and K5's backward 15, K7 1).
+29. processes: the training CLI with --mesh 1 (nccl) against the plain
+   CLI, one step at batch 2, every state tensor bit for bit (both
+   --deterministic); with --mesh 2 (two ranks on the one card over gloo)
+   against one process, 2 SGD steps at global batch 4 in f32 compute
+   (the last loss to 1e-4 relative, every weight to 1e-5); the evaluator's
+   CLI as two ranks (gloo) over 2 short sequences against one process
+   (the same masks, each sequence on one rank, the all-reduced stats).
+   All seven processes run at once.
+30. export: R50-DeAOTL's bf16 serving step at 481x849 through
+   tools/export.py's build_exported, saved, loaded and run for 30 frames
+   after the reference beside the eager engine (labels equal on >= 0.999
+   of pixels, the bank count equal, launches a frame K1 3, K4 3 and K6 1
+   in both, through the rmem:: custom ops in the exported program); each
+   route's frames/s; the host's issue time of K1's, K4's and K6's calls
+   direct and through their custom ops, in turns.
+
 Phase 2 also holds K1h on Swin-B's 30 x 53 grid (1590 tokens; and keys
 padded 70 past them).
 
@@ -4079,17 +4104,17 @@ with open(report, "w") as f:
 """
 
 
-def eval_video(dev, seed: int, frames: int, objects: int):
+def eval_video(dev, seed: int, frames: int, objects: int, hw=None):
     """Seeded frames as parity/make_dataset.py draws them, on the card: a
     smooth background (low-resolution noise, cubic-upsampled 8x) with
     `objects` moving blobs; the blobs' masks (above 0.55, later blobs on
     top) are the annotations. Returns (uint8 [T, H, W, 3] frames on the
-    card, uint8 [T, H, W] labels on the host)."""
+    card, uint8 [T, H, W] labels on the host), at hw (default EVAL_HW)."""
     import numpy as np
     import torch
 
     from rmem_tpu_torch.ops.resize import resize_cubic
-    h, w = EVAL_HW
+    h, w = hw or EVAL_HW
     rng = np.random.RandomState(seed)
     start = rng.uniform(0.15, 0.85, (objects, 2))
     speed = rng.uniform(-0.004, 0.004, (objects, 2))
@@ -5146,7 +5171,7 @@ HELD_PHASE["r50_aotl_gru_rev"] = "phase 27, held"
 # on train_step, the colour kernel's in all (the loader's thread decodes
 # while steps run)
 TRAIN_CHILD = r"""
-import importlib, json, runpy, sys
+import importlib, json, runpy, sys, time
 import torch
 from rmem_tpu_torch.kernels import jpeg_color as kj
 from rmem_tpu_torch.managers import trainer as tm
@@ -5160,9 +5185,16 @@ for fn in wrappers + [kj.ycc_to_rgb]:
 step, per_step = tm.train_step, []
 
 
+step_s = []
+
+
 def counted(*a, **kw):
     before = [fn.launches for fn in wrappers]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     out = step(*a, **kw)
+    torch.cuda.synchronize()
+    step_s.append(time.perf_counter() - t0)
     per_step.append([fn.launches - b for fn, b in zip(wrappers, before)])
     return out
 
@@ -5170,8 +5202,9 @@ def counted(*a, **kw):
 tm.train_step = counted
 runpy.run_module("rmem_tpu_torch.tools.train", run_name="__main__")
 with open(report, "w") as f:
-    json.dump({"per_step": per_step, "ycc_to_rgb": kj.ycc_to_rgb.launches},
-              f)
+    json.dump({"per_step": per_step, "ycc_to_rgb": kj.ycc_to_rgb.launches,
+               "step_s": step_s,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, f)
 """
 
 
@@ -5225,24 +5258,29 @@ def loader_phase(dev, data_root: Path, cfg) -> dict:
     return dict(psnr_db=db, clip_ms=ms, obj_nums=card["obj_nums"].tolist())
 
 
-def run_train_cli(data_root: Path, out: Path, report: Path):
-    """The training CLI through TRAIN_CHILD in a process of its own;
-    returns (report, seconds)."""
+def run_train_cli(data_root: Path, out: Path, report: Path,
+                  stage: str = "pre_vost_2", steps: int = TREE_STEPS,
+                  batch=TRAIN_B, extra=("train_tblog_step=1",),
+                  phase: str = "phase 27"):
+    """The training CLI through TRAIN_CHILD in a process of its own (at
+    the stage's own batch where `batch` is None); returns (report,
+    seconds)."""
     cmd = [sys.executable, "-c", TRAIN_CHILD, str(report),
-           json.dumps(TRAIN_KERNELS), "--stage", "pre_vost_2",
-           "--data_root", str(data_root), "--max_steps", str(TREE_STEPS),
-           "--batch_size", str(TRAIN_B), "--opt", f"dir_root={out}",
-           "train_tblog_step=1", "train_log_step=1"]
+           json.dumps(TRAIN_KERNELS), "--stage", stage,
+           "--data_root", str(data_root), "--max_steps", str(steps),
+           *(["--batch_size", str(batch)] if batch else []),
+           "--opt", f"dir_root={out}", "train_log_step=1", *extra]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                        timeout=900)
     secs = time.perf_counter() - t0
-    print(f"phase 27: the training CLI exited {r.returncode} after "
+    print(f"{phase}: the training CLI exited {r.returncode} after "
           f"{secs:.1f} s; its output:\n"
           + "\n".join("  | " + ln for ln in r.stdout.splitlines()[-12:]))
     if r.returncode != 0:
         print(r.stderr[-6000:], file=sys.stderr)
-    check(r.returncode == 0, f"the training CLI exited {r.returncode}")
+    check(r.returncode == 0, f"{phase}: the training CLI exited "
+          f"{r.returncode}")
     return json.loads(report.read_text()), secs
 
 
@@ -5305,6 +5343,441 @@ def tree_train_phase(dev, card: str) -> dict:
         out["cli"] = dict(per_step=report["per_step"][0], seconds=secs,
                           decoded=report["ycc_to_rgb"])
     torch.cuda.empty_cache()
+    return out
+
+
+# phase 28: the static-image stage `pre` on a Static tree written on the
+# card: STATIC_IMAGES JPEG images at STATIC_HW with 1-10 blob objects each
+STATIC_IMAGES = 24
+STATIC_HW = (480, 640)
+STATIC_SEED = 11            # the loaders' seed
+STATIC_LOADER_B = 4         # clips held between the card and the CPU route
+STATIC_PSNR_DB = 45.0       # the card's clips against the CPU route's
+PRE_STEPS = 2
+# the stage's clips of 5: K1' and K4 over 5 frames and the 4 checkpointed
+# ones in each of the 3 GPM layers, their backwards over 5, K7 once over
+# the batch's frames
+_PRE_T = 5
+PRE_LAUNCHES = dict(TRAIN_LAUNCHES["r50_deaotl"],
+                    bank_attention_lse=3 * (2 * _PRE_T - 1),
+                    bank_attention_bwd_split=3 * _PRE_T,
+                    local_attention=3 * (2 * _PRE_T - 1),
+                    local_attention_bwd=3 * _PRE_T)
+# phase 29: the multi-process runs on the Static tree
+MESH_B = 4                  # the global batch of the two-rank run
+MESH_STEPS = 2
+MESH_PARAM_ATOL = 1e-5      # two ranks against one process, every weight
+MESH_LOSS_RTOL = 1e-4
+# f32 compute and SGD, whose update is linear in the gradient (Adam's
+# first steps are sign-like: a near-zero gradient's rounding would move
+# its weight by up to twice the learning rate)
+MESH_OPTS = ("compute_dtype=float32", "train_opt=sgd")
+MESH_EVAL_SEQS = (("seq0", 10, 3), ("seq1", 8, 2))
+# phase 30: the exported serving step
+EXPORT_FRAMES = 30
+EXPORT_AGREE = 0.999        # the share of label pixels equal to eager's
+HOST_TIMED_CALLS = 200      # host issue time: calls a turn
+
+
+def static_tree(dev, root: Path) -> float:
+    """Phase 28's tree under root/Static: STATIC_IMAGES JPEG images
+    (nvJPEG's encoder) at STATIC_HW, image i with 1 + i % 10 blob objects
+    (eval_video's generator), and palette PNG masks. Returns the encode ms
+    an image."""
+    from rmem_tpu_torch.data.jpeg import encode_jpeg
+    from rmem_tpu_torch.utils.image import encode_png_pal8, label_colormap
+    img_dir = root / "Static" / "JPEGImages"
+    ann_dir = root / "Static" / "Annotations"
+    img_dir.mkdir(parents=True)
+    ann_dir.mkdir(parents=True)
+    enc_s = 0.0
+    for i in range(STATIC_IMAGES):
+        imgs, labels = eval_video(dev, 100 + i, 1, 1 + i % 10, STATIC_HW)
+        t0 = time.perf_counter()
+        data = encode_jpeg(imgs[0])
+        enc_s += time.perf_counter() - t0
+        (img_dir / f"img{i:03d}.jpg").write_bytes(data)
+        (ann_dir / f"img{i:03d}.png").write_bytes(
+            encode_png_pal8(labels[0], label_colormap()))
+    return 1e3 * enc_s / STATIC_IMAGES
+
+
+def static_loader_check(dev, root: Path, cfg) -> dict:
+    """The stage's loader on the card against its CPU route on the same
+    files and seed (STATIC_LOADER_B clips): labels and obj_nums equal,
+    frames at least STATIC_PSNR_DB apart; then the card's ms a clip over
+    one batch of the stage's own size."""
+    import torch
+
+    from rmem_tpu_torch.data.train_datasets import (InlineBatchLoader,
+                                                    build_train_dataset)
+    from rmem_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    ds = build_train_dataset(cfg, str(root))
+    card, host = (next(InlineBatchLoader(ds, STATIC_LOADER_B, STATIC_SEED,
+                                         cfg.model_max_obj_num, device=d))
+                  for d in (dev, "cpu"))
+    mean = torch.as_tensor(IMAGENET_MEAN * 255.0)
+    std = torch.as_tensor(IMAGENET_STD * 255.0)
+    level = lambda x: x.float().cpu() * std + mean
+    db = psnr(level(card["imgs"]), level(host["imgs"]))
+    same = all(torch.equal(card[k].cpu(), host[k]) for k in ("labels",
+                                                             "obj_nums"))
+    loader = InlineBatchLoader(ds, cfg.train_batch_size, STATIC_SEED,
+                               cfg.model_max_obj_num, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = next(loader)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / cfg.train_batch_size
+    print(f"phase 28: the static loader's {STATIC_LOADER_B} clips of "
+          f"{cfg.data_seq_len} at {cfg.data_randomcrop}: labels and "
+          f"obj_nums {'equal' if same else 'DIFFER'} on the card and the "
+          f"CPU (obj_nums {card['obj_nums'].tolist()}), frames {db:.2f} dB "
+          f"apart; a batch of {cfg.train_batch_size} clips in "
+          f"{ms:.2f} ms a clip on the card (imgs "
+          f"{tuple(batch['imgs'].shape)})")
+    check(same, "phase 28: the card's labels or obj_nums differ from the "
+          "CPU route's")
+    check(db >= STATIC_PSNR_DB, f"phase 28: loader PSNR {db:.2f} dB")
+    return dict(psnr_db=db, clip_ms=ms, obj_nums=card["obj_nums"].tolist())
+
+
+def pre_phase(dev, card: str, tmp: Path) -> dict:
+    """Phase 28 (see the module docstring). Returns what it measured."""
+    from rmem_tpu_torch.config import get_config
+    out = {}
+    t0 = time.perf_counter()
+    enc_ms = static_tree(dev, tmp)
+    print(f"phase 28: a Static tree of {STATIC_IMAGES} images at "
+          f"{STATIC_HW[0]}x{STATIC_HW[1]} written in "
+          f"{time.perf_counter() - t0:.1f} s ({enc_ms:.2f} ms a JPEG)")
+    cfg = get_config("pre", model="r50_deaotl", pretrain=False)
+    check((cfg.datasets, cfg.data_seq_len) == (("static",), _PRE_T),
+          f"the stage pre: {cfg.datasets}, clips of {cfg.data_seq_len}")
+    out["loader"] = static_loader_check(dev, tmp, cfg)
+    report, secs = run_train_cli(
+        tmp, tmp / "results_pre", tmp / "pre_report.json", stage="pre",
+        steps=PRE_STEPS, batch=None, extra=("pretrain=false",),
+        phase="phase 28")
+    expected = [PRE_LAUNCHES[fn] for _, fn in TRAIN_KERNELS]
+    timed = report["step_s"][1:] or report["step_s"]
+    print(f"phase 28: {PRE_STEPS} steps of R50-DeAOTL, stage pre, "
+          f"{cfg.train_batch_size} clips of {cfg.data_seq_len} at "
+          f"{cfg.data_randomcrop}: {statistics.median(timed):.3f} s/step "
+          f"after the first (each: "
+          + ", ".join(f"{t:.3f}" for t in report["step_s"])
+          + f"), peak {report['peak_gib']:.2f} GiB; launches a step "
+          f"{report['per_step']} (K1', K2, K4, K5's backward, K6/K7 "
+          f"first: expected {expected}); {report['ycc_to_rgb']} images "
+          f"decoded on the card; on {card}")
+    check(report["per_step"] == [expected] * PRE_STEPS,
+          f"phase 28 launches {report['per_step']}")
+    check(report["ycc_to_rgb"] >= PRE_STEPS * cfg.train_batch_size,
+          f"phase 28 decoded {report['ycc_to_rgb']} images")
+    out.update(step_s=report["step_s"], peak_gib=report["peak_gib"],
+               per_step=report["per_step"][0], cli_s=secs)
+    return out
+
+
+def _train_cmd(data_root: Path, out: Path, steps: int, batch: int, *extra,
+               opts=()):
+    return [sys.executable, "-m", "rmem_tpu_torch.tools.train", "--stage",
+            "pre", "--data_root", str(data_root), "--max_steps", str(steps),
+            "--batch_size", str(batch), "--save", "--deterministic", *extra,
+            "--opt", "pretrain=false", f"dir_root={out}", "train_log_step=1",
+            *opts]
+
+
+def _saved_stream(out: Path, step: int) -> dict:
+    import torch
+    (run,) = list(out.iterdir())
+    return torch.load(run / "pre" / "ckpt" / f"save_step_{step}.pt",
+                      map_location="cpu", weights_only=True)["state"]
+
+
+def _final_loss(out: Path) -> float:
+    """The last step's loss as the run's log prints it (the final
+    metrics, full precision)."""
+    import ast
+    (run,) = list(out.iterdir())
+    (log,) = list((run / "pre" / "logs").iterdir())
+    line = [ln for ln in log.read_text().splitlines()
+            if ln.startswith("final metrics:")][-1]
+    return float(ast.literal_eval(line.split(":", 1)[1].strip())["loss"])
+
+
+def mesh_phase(dev, card: str, tmp: Path) -> dict:
+    """Phase 29 (see the module docstring): the training CLI as one rank
+    and as two, and the evaluator's CLI as two ranks, each against one
+    process, all started at once on the one card. Returns what it
+    measured."""
+    import hashlib
+    import socket
+
+    import torch
+    runs = {
+        "plain": _train_cmd(tmp, tmp / "m_plain", 1, 2),
+        "mesh1": _train_cmd(tmp, tmp / "m_mesh1", 1, 2, "--mesh", "1"),
+        "one_f32": _train_cmd(tmp, tmp / "m_one", MESH_STEPS, MESH_B,
+                              opts=MESH_OPTS),
+        "two_f32": _train_cmd(tmp, tmp / "m_two", MESH_STEPS, MESH_B,
+                              "--mesh", "2", opts=MESH_OPTS),
+    }
+    vroot = tmp / "veval" / "VOST"
+    eval_tree(dev, vroot, MESH_EVAL_SEQS)
+    pool = sum(f for _, f, _ in MESH_EVAL_SEQS) * EVAL_HW[0] * EVAL_HW[1] * 3
+
+    def eval_cmd(report: str, masks: str):
+        return [sys.executable, "-c", EVAL_CHILD, str(tmp / f"{report}.json"),
+                str(pool), "--stage", "pre_vost_2", "--model", "r50_deaotl",
+                "--dataset", "vost", "--data_root", str(vroot.parent),
+                "--ckpt_path", "test", "--output_root", str(tmp / masks),
+                "--exp_name", "chip_smoke",
+                "--opt", f"dir_root={tmp / 'eval_results'}"]
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    procs = {}
+    t0 = time.perf_counter()
+    with ExitStack() as stack:
+        stack.callback(lambda: [(p.kill(), p.wait()) for p, _ in
+                                procs.values() if p.poll() is None])
+        for name, cmd in runs.items():
+            procs[name] = (subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), cmd)
+        procs["eval_one"] = (subprocess.Popen(
+            eval_cmd("eval_one", "eval_one"), cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            None)
+        for r in range(2):
+            procs[f"eval_rank{r}"] = (subprocess.Popen(
+                eval_cmd(f"eval_rank{r}", "eval_two"),
+                cwd=ROOT, env=dict(env, RANK=str(r), WORLD_SIZE="2",
+                                   MASTER_ADDR="localhost",
+                                   MASTER_PORT=str(port)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), None)
+        outs = {}
+        for name, (p, _) in procs.items():
+            outs[name] = p.communicate(timeout=900)[0]
+            if p.returncode != 0:
+                print(f"phase 29: {name} exited {p.returncode}:\n"
+                      + outs[name][-6000:], file=sys.stderr)
+            check(p.returncode == 0, f"phase 29: {name} exited "
+                  f"{p.returncode}")
+    secs = time.perf_counter() - t0
+    out = {"seconds": secs}
+    # one rank over nccl against the plain run: bit for bit
+    a, b = _saved_stream(tmp / "m_plain", 1), _saved_stream(tmp / "m_mesh1",
+                                                             1)
+    diff = [k + "/" + n for k in ("params", "mu", "nu", "ema")
+            for n in a[k] if not torch.equal(a[k][n], b[k][n])]
+    print(f"phase 29: tools/train.py --mesh 1 (nccl) against the plain "
+          f"Trainer, one step at batch 2 (--deterministic): "
+          f"{len(diff)} of {4 * len(a['params'])} state tensors differ "
+          f"{diff[:5]}")
+    check(not diff, f"phase 29: --mesh 1 differs from the plain step in "
+          f"{diff[:5]}")
+    out["mesh1_bitwise"] = not diff
+    # two ranks over gloo against one process at the same global batch
+    one = _saved_stream(tmp / "m_one", MESH_STEPS)
+    two = _saved_stream(tmp / "m_two", MESH_STEPS)
+    pdiff = max((one["params"][n] - two["params"][n]).abs().max().item()
+                for n in one["params"])
+    l1, l2 = _final_loss(tmp / "m_one"), _final_loss(tmp / "m_two")
+    logs = {k: [ln for ln in outs[k].splitlines() if ln.startswith("step ")]
+            for k in ("one_f32", "two_f32")}
+    print(f"phase 29: two ranks over gloo on the one card (2 clips each) "
+          f"against one process, {MESH_STEPS} SGD steps of R50-DeAOTL, "
+          f"stage pre, global batch {MESH_B}, f32 compute: the last loss "
+          f"{l2!r} "
+          f"against {l1!r}, the largest weight difference {pdiff:.3e} "
+          f"(held to {MESH_PARAM_ATOL:g}; the loss to {MESH_LOSS_RTOL:g} "
+          f"relative); the logs {logs}")
+    check(abs(l1 - l2) <= MESH_LOSS_RTOL * abs(l1),
+          f"phase 29: two-rank loss {l2} against {l1}")
+    check(pdiff <= MESH_PARAM_ATOL, f"phase 29: two-rank weights differ "
+          f"by {pdiff:.3e}")
+    out.update(two_rank_loss=l2, one_loss=l1, weight_diff=pdiff)
+    # two-rank evaluation against one process: the same masks, the stats
+    # summed
+    def pngs(root: Path) -> dict:
+        return {str(p.relative_to(root)): hashlib.sha256(
+            p.read_bytes()).hexdigest() for p in root.rglob("*.png")}
+    one_masks, two_masks = pngs(tmp / "eval_one"), pngs(tmp / "eval_two")
+    reps = [json.loads((tmp / f"eval_rank{r}.json").read_text())
+            for r in range(2)]
+    total = sum(f - 1 for _, f, _ in MESH_EVAL_SEQS)
+    seqs = [sorted(r["stats"]["per_seq_fps"]) for r in reps]
+    print(f"phase 29: tools/eval.py as two ranks (gloo) over "
+          f"{len(MESH_EVAL_SEQS)} sequences: rank sequences {seqs}, "
+          f"{len(two_masks)} masks ({len(one_masks)} from one process), "
+          f"{'equal' if one_masks == two_masks else 'DIFFERENT'}; global "
+          f"frames {[r['stats'].get('global_frames') for r in reps]} "
+          f"(expected {total}), global seqs "
+          f"{[r['stats'].get('global_seqs') for r in reps]}, "
+          f"{secs:.1f} s for the phase's processes; on {card}")
+    check(one_masks == two_masks and len(one_masks) == total
+          + len(MESH_EVAL_SEQS), "phase 29: two-rank masks differ from one "
+          "process's")
+    check(all(r["stats"].get("global_frames") == total
+              and r["stats"].get("global_seqs") == len(MESH_EVAL_SEQS)
+              for r in reps), "phase 29: the all-reduced stats")
+    check(sorted(seqs[0] + seqs[1]) == sorted(n for n, *_ in
+                                              MESH_EVAL_SEQS)
+          and not set(seqs[0]) & set(seqs[1]), f"phase 29: ranks' "
+          f"sequences {seqs}")
+    out["eval_masks_equal"] = True
+    return out
+
+
+def issue_us(fn, calls: int = HOST_TIMED_CALLS) -> float:
+    """The host's time to issue one call of fn, in microseconds (no wait
+    on the card inside the loop)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / calls
+
+
+def export_phase(dev, card: str, tmp: Path) -> dict:
+    """Phase 30 (see the module docstring). Returns what it measured."""
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import local_attention as kl
+    from rmem_tpu_torch.kernels import ops as kops
+    from rmem_tpu_torch.kernels import stem as ks
+    from rmem_tpu_torch.tools.export import build_exported
+
+    engine, cfg = build_engine(dev, "r50_deaotl")
+    t0 = time.perf_counter()
+    exported, _, _ = build_exported(cfg, _SEEDED["r50_deaotl"], IN_HW,
+                                    device=dev)
+    export_s = time.perf_counter() - t0
+    path = tmp / "step.pt2"
+    torch.export.save(exported, str(path))
+    step = torch.export.load(str(path)).module()
+    ops = sorted({str(n.target) for n in exported.graph.nodes
+                  if str(n.target).startswith("rmem.")})
+    print(f"phase 30: R50-DeAOTL's bf16 step at {IN_HW[0]}x{IN_HW[1]} "
+          f"exported in {export_s:.1f} s, saved ({path.stat().st_size / 2**20:.1f}"
+          f" MB) and loaded; its custom ops {ops}")
+    check({"rmem.bank_attention_infer.default", "rmem.local_attention.default",
+           "rmem.stem.default"} <= set(ops), f"phase 30: ops {ops}")
+    img0, mask, g = reference_inputs(dev)
+    imgs = torch.rand((EXPORT_FRAMES, 1, *IN_HW, 3), generator=g, device=dev)
+    gap = served_gap(cfg, EXPORT_FRAMES + 1)
+    eager, _ = engine.add_reference(img0, mask, [NUM_OBJECTS], gap=gap)
+    sched, _ = engine.add_reference(img0, mask, [NUM_OBJECTS], gap=gap)
+    tensors = engine.state_tensors(sched)
+    flags = {b: torch.tensor(b, device=dev) for b in (False, True)}
+    wrappers = (kb.bank_attention_infer, kl.local_attention, ks.stem)
+    runs = {}
+    for name in ("eager", "exported"):
+        for fn in wrappers:
+            fn.launches = 0
+        labels = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for t in range(EXPORT_FRAMES):
+                if name == "eager":
+                    eager, lab = engine.step(eager, imgs[t], IN_HW)
+                else:
+                    *tensors, lab = step(*tensors, imgs[t],
+                                         flags[engine.write_due(sched)])
+                labels.append(lab)
+        torch.cuda.synchronize()
+        runs[name] = dict(fps=EXPORT_FRAMES / (time.perf_counter() - t0),
+                          launches={fn.__name__: fn.launches
+                                    for fn in wrappers},
+                          labels=torch.stack(labels))
+    share = (runs["eager"]["labels"] == runs["exported"]["labels"]
+             ).float().mean().item()
+    want = {"bank_attention_infer": 3 * EXPORT_FRAMES,
+            "local_attention": 3 * EXPORT_FRAMES, "stem": EXPORT_FRAMES}
+    count_x, count_e = int(tensors[2]), int(eager.bank.count)
+    print(f"phase 30: {EXPORT_FRAMES} frames after the reference: the "
+          f"exported program {runs['exported']['fps']:.3f} frames/s, the "
+          f"eager engine {runs['eager']['fps']:.3f} (first frames "
+          f"included); launches {runs['exported']['launches']} (eager "
+          f"{runs['eager']['launches']}); labels equal on {share:.6f} of "
+          f"pixels; bank count {count_x} (eager {count_e}); on {card}")
+    for name in runs:
+        check(runs[name]["launches"] == want, f"phase 30: {name} launches "
+              f"{runs[name]['launches']}, expected {want}")
+    check(share >= EXPORT_AGREE and count_x == count_e,
+          f"phase 30: labels equal on {share}, counts {count_x}, {count_e}")
+    # the dispatcher's cost: each kernel's call as the engine makes it,
+    # issued directly and through its custom op, in turns
+    calls = {}
+    spies = [mock.patch.object(mod, name, _capture(calls, name, getattr(
+        mod, name))) for mod, name in ((kb, "bank_attention_infer"),
+                                       (kl, "local_attention"),
+                                       (ks, "stem"))]
+    for s in spies:
+        s.start()
+    with torch.no_grad():
+        engine.step(eager, imgs[0], IN_HW)
+    for s in spies:
+        s.stop()
+    issue = {}
+    for name, (a, kw) in calls.items():
+        direct = lambda: getattr(kb if "bank" in name else kl
+                                 if "local" in name else ks, name)(*a, **kw)
+        op = getattr(kops, name)
+        via_op = lambda: op(*a, **kw)
+        turns = [issue_us(direct), issue_us(via_op), issue_us(via_op),
+                 issue_us(direct)]
+        issue[name] = dict(direct_us=[turns[0], turns[3]],
+                           op_us=[turns[1], turns[2]])
+    print("phase 30: host issue time a call, direct ctypes wrapper against "
+          "the rmem:: custom op (turns direct, op, op, direct; "
+          f"{HOST_TIMED_CALLS} calls a turn): "
+          + "; ".join(f"{n} {v['direct_us'][0]:.1f}, {v['op_us'][0]:.1f}, "
+                      f"{v['op_us'][1]:.1f}, {v['direct_us'][1]:.1f} us"
+                      for n, v in issue.items()) + f"; on {card}")
+    del engine, exported, step
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, fps={k: v["fps"] for k, v in
+                                        runs.items()},
+                launches=runs["exported"]["launches"], label_share=share,
+                issue_us=issue)
+
+
+def _capture(calls: dict, name: str, fn):
+    """A stand-in for a wrapper that keeps its first call's arguments."""
+    def call(*a, **kw):
+        calls.setdefault(name, (a, kw))
+        return fn(*a, **kw)
+    call.launches = 0
+    return call
+
+
+def last_phases(dev, card: str) -> dict:
+    """Phases 28, 29 and 30 in one temporary directory."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        out["pre"] = pre_phase(dev, card, tmp)
+        print(f"phase 28: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["mesh"] = mesh_phase(dev, card, tmp)
+        print(f"phase 29: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["export"] = export_phase(dev, card, tmp)
+        print(f"phase 30: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -6026,6 +6499,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tree_train = tree_train_phase(dev, card)
     print(f"phase 27: {time.perf_counter() - t0:.1f} s")
+    last = last_phases(dev, card)
     # the launches of phases 23-25 beside each kernel's main-path count
     mh = entries["bank_attention_mh"]
     mh["phase23_launches"] = aotl["launches"]["bank_attention_infer_mh"]
@@ -6056,6 +6530,12 @@ def main() -> int:
     # phase 26's launches beside each serving kernel's main-path count
     mh["phase26_launches"] = gru_served["launches"]["bank_attention_infer_mh"]
     entries["stem"]["phase26_launches"] = gru_served["launches"]["stem"]
+    # phase 30's: the exported step's custom ops, K1, K4 and K6
+    for key, fn_name in (("bank_attention", "bank_attention_infer"),
+                         ("local_attention", "local_attention"),
+                         ("stem", "stem")):
+        entries[key]["phase30_launches"] = last["export"]["launches"][
+            fn_name]
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -6117,6 +6597,8 @@ def main() -> int:
                       "aotl": aotl, "presets": presets,
                       "encoder_train": encoder_train,
                       "gru_served": gru_served, "tree_train": tree_train,
+                      "pre": last["pre"], "mesh": last["mesh"],
+                      "export": last["export"],
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

@@ -196,6 +196,12 @@ class Config:
     # stay f32); "float32" everywhere on the CPU tests
     compute_dtype: str = "bfloat16"
 
+    # ---- processes (parallel/mesh.py): one process a card, the sizes of
+    # the mesh's axes (-1 takes the processes left); "data" splits the
+    # batch, "model" the GPM self-attention (parallel/tp.py) ----
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+
     # ---- directories ----
     dir_root: str = "./results"
     dir_data: str = "./datasets"
@@ -304,10 +310,12 @@ MODEL_PRESETS: Dict[str, Dict[str, Any]] = {
 }
 
 # the stage presets' fields that the port reads: every preset of the JAX
-# package but `pre`, the static-image pretraining, whose dataset is not
-# ported yet
+# package
 STAGE_PRESETS: Dict[str, Dict[str, Any]] = {
     "default": {},
+    # static-image pretraining: one image jittered into a clip of 5
+    "pre": dict(datasets=("static",), data_seq_len=5,
+                train_total_steps=100_000),
     # YouTube-VOS and DAVIS 2017 together, clips of 5
     "pre_ytb_dav": dict(datasets=("youtubevos", "davis2017"),
                         data_seq_len=5),

@@ -1,9 +1,11 @@
 """Training clips from dataset trees: the VOST, DAVIS, YouTube-VOS and
-VISOR samplers, the constant `test` clips, and their batch loaders.
+VISOR samplers, the static-image clips, the constant `test` clips, and
+their batch loaders.
 
 Counterpart of `rmem_tpu/data/train_datasets.py` (VOSTrainDataset,
-_dynamic_merge, SyntheticTrainDataset, build_train_dataset,
-ConcatClipDataset and make_batch_loader's loaders). A clip is drawn as
+StaticTrainDataset, _dynamic_merge, SyntheticTrainDataset,
+build_train_dataset, ConcatClipDataset and make_batch_loader's
+loaders). A video clip is drawn as
 there: a sequence, a reference frame kept only if it has foreground and
 at most ignore_thresh of it ignored (5 tries), random gaps to the next
 frames reflected at the sequence's end, an optional reversal, then
@@ -205,6 +207,87 @@ def dynamic_merge(imgs1: torch.Tensor, labels1: Sequence[np.ndarray],
     return torch.where(mask[..., None], imgs2, imgs1), out, n1 + n2
 
 
+class StaticTrainDataset:
+    """Static-image pretraining: one image jittered into a clip of
+    seq_len frames (data/image_transforms.py). Frame 0 is the image,
+    flipped with p 0.5; each later frame independently flips with p 0.3,
+    then ColorJitter(.1, .1, .1, .03), then RandomAffine(20 degrees,
+    translate 0.1, scale 0.9-1.1, shear 10, bicubic, fill (124, 116,
+    104)); every frame then takes its own RandomResizedCrop(crop_hw, scale
+    0.8-1), and compact_relabel numbers the objects by frame 0's (shuffled)
+    list, at most max_obj_n. A clip with no object, or with probability
+    merge_prob, has a second clip's objects drawn over it
+    (dynamic_merge). Frames are read by read_frame on the device and
+    masks by read_png on the host."""
+
+    def __init__(self, image_root: str, label_root: str, names: List[str],
+                 seq_len: int = 5, crop_hw=(465, 465), max_obj_n: int = 10,
+                 merge_prob: float = 0.2, dynamic_merge: bool = True,
+                 ignore_in_merge: bool = False):
+        from rmem_tpu_torch.data import image_transforms as it
+        self.image_root = image_root
+        self.label_root = label_root
+        self.names = names
+        self.seq_len = seq_len
+        self.crop_hw = tuple(crop_hw)
+        self.max_obj_n = max_obj_n
+        self.merge_prob = merge_prob
+        self.dynamic_merge = dynamic_merge
+        self.ignore_in_merge = ignore_in_merge
+        self.jitter = it.ColorJitter(0.1, 0.1, 0.1, 0.03)
+        self.affine = it.RandomAffine(degrees=20, translate=(0.1, 0.1),
+                                      scale=(0.9, 1.1), shear=10,
+                                      fillcolor=(124, 116, 104))
+        self.resized_crop = it.RandomResizedCrop(self.crop_hw,
+                                                 scale=(0.8, 1.0))
+
+    def __len__(self):
+        return len(self.names)
+
+    def _clip(self, rng, device: torch.device):
+        """(uint8 frames [T, h, w, 3] on device, int32 labels, object
+        count) of one image."""
+        from rmem_tpu_torch.data import image_transforms as it
+        name = self.names[rng.randint(0, len(self.names))]
+        img0 = read_frame(os.path.join(self.image_root, name), device)
+        mask0 = read_png(os.path.join(
+            self.label_root, os.path.splitext(name)[0] + ".png"))
+        if mask0.ndim != 2:
+            raise ValueError(f"{name}: the mask must be a palette or grey "
+                             "PNG")
+        mask0 = mask0.astype(np.uint8)
+        if rng.rand() < 0.5:
+            img0, mask0 = it.hflip(img0), it.hflip(mask0)
+        imgs, labels, obj_list = [], [], None
+        for i in range(self.seq_len):
+            img, mask = img0, mask0
+            if i > 0:
+                if rng.rand() < 0.3:
+                    img, mask = it.hflip(img), it.hflip(mask)
+                img = self.jitter(rng, img)
+                img, mask = self.affine(rng, img, mask)
+            img, mask = self.resized_crop(rng, img, mask)
+            lab, obj_list = it.compact_relabel(mask, obj_list, rng,
+                                               self.max_obj_n)
+            imgs.append(img)
+            labels.append(lab)
+        return torch.stack(imgs), labels, len(obj_list)
+
+    def sample_clip(self, rng: np.random.RandomState, device: Device):
+        """(normalised f32 frames [T, h, w, 3] on device, int32 labels [T,
+        h, w] on the host, object count)."""
+        device = torch.device(device)
+        imgs, labels, obj_num = self._clip(rng, device)
+        if self.dynamic_merge and (obj_num == 0
+                                   or rng.rand() < self.merge_prob):
+            imgs2, labels2, obj2 = self._clip(rng, device)
+            imgs, labels, obj_num = dynamic_merge(
+                imgs, labels, obj_num, imgs2, labels2, obj2,
+                self.ignore_in_merge)
+        return (normalize_pixels(imgs), np.stack(labels).astype(np.int32),
+                obj_num)
+
+
 class ConcatClipDataset:
     """Each clip from one of the datasets, chosen with probability
     proportional to its length."""
@@ -239,9 +322,9 @@ def build_train_dataset(cfg, data_root: Optional[str] = None
       sequence of Annotations;
     - visor: VISOR/JPEGImages, VISOR/Annotations, VISOR/ImageSets/
       train.txt;
-    - test: constant synthetic clips.
-
-    The static-image pretraining set (`static`) is not ported."""
+    - static: Static/JPEGImages and Static/Annotations/<stem>.png, every
+      image, sorted by name (StaticTrainDataset);
+    - test: constant synthetic clips."""
     root = data_root or cfg.dir_data
     scale = dict(short_edge=cfg.data_short_edge_len,
                  min_scale=cfg.data_min_scale_factor,
@@ -290,8 +373,15 @@ def build_train_dataset(cfg, data_root: Optional[str] = None
                 ignore_thresh=cfg.data_visor_ignore_thresh,
                 ignore_in_merge=cfg.ignore_in_merge, **scale))
         elif name == "static":
-            raise NotImplementedError("the static-image pretraining dataset "
-                                      "(stage `pre`) is not ported")
+            base = os.path.join(root, "Static")
+            datasets.append(StaticTrainDataset(
+                os.path.join(base, "JPEGImages"),
+                os.path.join(base, "Annotations"),
+                sorted(os.listdir(os.path.join(base, "JPEGImages"))),
+                seq_len=cfg.data_seq_len, crop_hw=cfg.data_randomcrop,
+                max_obj_n=cfg.model_max_obj_num,
+                merge_prob=cfg.data_dynamic_merge_prob,
+                ignore_in_merge=cfg.ignore_in_merge))
         else:
             raise NotImplementedError(f"train dataset {name!r}")
     return ConcatClipDataset(datasets)

@@ -244,6 +244,10 @@ class InferenceEngine:
     @torch.inference_mode()
     def propagate(self, state: EngineState, img
                   ) -> Tuple[EngineState, torch.Tensor]:
+        return self._propagate(state, img)
+
+    def _propagate(self, state: EngineState, img
+                   ) -> Tuple[EngineState, torch.Tensor]:
         img = self._to_dev(img, torch.float32)
         xs, feat, size_2d = self._encode(img, state.short_k.shape[1])
         bank = state.bank
@@ -268,29 +272,51 @@ class InferenceEngine:
     def update_memory(self, state: EngineState, label) -> EngineState:
         """label [B, H, W] int at the model's input size ([G, H, W] per
         group)."""
+        return self._update_memory(state, label)
+
+    def _update_memory(self, state: EngineState, label,
+                       write_flag: Optional[torch.Tensor] = None
+                       ) -> EngineState:
+        """update_memory; a bool device scalar `write_flag` decides the
+        long-term write in place of the host's schedule (which it then
+        leaves as it is)."""
         cfg = self.cfg
         id_emb = self._id_emb(self._to_dev(label))
         lk, lv, sk, sv = self.model.write_memories(state.mems, id_emb)
         state.short_k, state.short_v = sk, sv
         if cfg.no_long_memory:
             return state
+        if write_flag is not None:
+            self._write_long(state, lk, lv, write_flag)
+            return state
         do_long = state.frame_step - state.last_mem_step >= state.gap
         if cfg.gru_memory_active and not do_long:
             return state
-        b, hw = lk.shape[1], lk.shape[2]
-        up = resize_bilinear(state.logits4x, self._enc_hw(state),
-                             cfg.model_align_corners)
-        fg = 1.0 - torch.softmax(up.float(), dim=-1)[..., 0].reshape(b, hw)
         if cfg.gru_memory_active:
-            self._write_gru(state, lk, lv, fg)
+            self._write_gru(state, lk, lv, self._fg_prob(state, lk))
         else:
-            update_bank_inplace(state.bank, lk, lv, self._write_flag[do_long],
-                                cfg.former_mem_len, cfg.latter_mem_len,
-                                state.record, fg)
+            self._write_long(state, lk, lv, self._write_flag[do_long])
         if do_long:
             state.last_mem_step = state.frame_step
             state.long_writes += 1
         return state
+
+    def _fg_prob(self, state: EngineState, lk) -> torch.Tensor:
+        """[B, HW] foreground probability of the last logits on the 16x
+        grid: the eviction score's weight."""
+        b, hw = lk.shape[1], lk.shape[2]
+        up = resize_bilinear(state.logits4x, self._enc_hw(state),
+                             self.cfg.model_align_corners)
+        return 1.0 - torch.softmax(up.float(), dim=-1)[..., 0].reshape(b, hw)
+
+    def _write_long(self, state: EngineState, lk, lv,
+                    write_flag: torch.Tensor) -> None:
+        """The in-place route's long-term write, decided on the device by
+        the bool scalar write_flag (a frame that stores nothing writes the
+        spare slot)."""
+        update_bank_inplace(state.bank, lk, lv, write_flag,
+                            self.cfg.former_mem_len, self.cfg.latter_mem_len,
+                            state.record, self._fg_prob(state, lk))
 
     def _write_gru(self, state: EngineState, lk, lv, fg) -> None:
         """The ConvGRU memory's write: append in temporal order, then,
@@ -321,12 +347,12 @@ class InferenceEngine:
                                         self.cfg.model_max_obj_num)
         return torch.argmax(merged, dim=-1).to(torch.int32)
 
-    def write_label(self, state: EngineState, label_full: torch.Tensor,
-                    in_hw: Tuple[int, int], flip: bool = False
-                    ) -> EngineState:
-        """update_memory with a merged label [H, W] at the output size:
-        flipped for a flipped aug, nearest-resized to the input size, split
-        into the state's id groups."""
+    def _input_label(self, state: EngineState, label_full: torch.Tensor,
+                     in_hw: Tuple[int, int], flip: bool = False
+                     ) -> torch.Tensor:
+        """A merged label [H, W] at the output size as update_memory takes
+        it: flipped for a flipped aug, nearest-resized to the input size,
+        split into the state's id groups."""
         if flip:
             label_full = label_full.flip(1)
         label_in = resize_nearest(label_full[None, ..., None], in_hw)[..., 0]
@@ -334,7 +360,15 @@ class InferenceEngine:
         if groups > 1:
             label_in = separate_mask(label_in, groups,
                                      self.cfg.model_max_obj_num)
-        return self.update_memory(state, label_in)
+        return label_in
+
+    def write_label(self, state: EngineState, label_full: torch.Tensor,
+                    in_hw: Tuple[int, int], flip: bool = False
+                    ) -> EngineState:
+        """update_memory with a merged label [H, W] at the output size
+        (`_input_label`)."""
+        return self.update_memory(
+            state, self._input_label(state, label_full, in_hw, flip))
 
     def aug_label(self, logits4s: Sequence[torch.Tensor],
                   out_hw: Tuple[int, int],
@@ -364,6 +398,60 @@ class InferenceEngine:
         label_full = self._merged_label(logits4, out_hw)
         return self.write_label(state, label_full,
                                 tuple(img.shape[1:3])), label_full
+
+    # -- the step as a function of tensors, for torch.export ------------
+    STATE_FIELDS = ("bank_k", "bank_v", "bank_count", "bank_score",
+                    "bank_scored", "bank_times", "bank_order", "short_k",
+                    "short_v", "record", "logits4x", "obj_nums")
+
+    @staticmethod
+    def state_tensors(state: EngineState) -> Tuple[torch.Tensor, ...]:
+        """The tensors of a state in STATE_FIELDS' order."""
+        b = state.bank
+        return (b.k, b.v, b.count, b.score, b.scored, b.times, b.order,
+                state.short_k, state.short_v, state.record, state.logits4x,
+                state.obj_nums)
+
+    def functional_step(self, tensors: Sequence[torch.Tensor], img,
+                        write_flag: torch.Tensor, out_hw: Tuple[int, int]
+                        ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+        """`step` as a function: (the state's tensors, img [1, H, W, 3],
+        the long-term write flag as a bool device scalar) -> (the new
+        state's tensors, label [H, W] int32). It copies the state first,
+        so no output aliases an input. The write schedule is the caller's:
+        the flag is what `update_memory` would decide on the host. Not
+        under inference_mode, so that torch.export can trace it (under
+        no_grad). The ConvGRU memory, whose write branches on the host,
+        and no_long_memory are not taken."""
+        cfg = self.cfg
+        if cfg.gru_memory_active or cfg.no_long_memory:
+            raise NotImplementedError(
+                "the functional step takes the in-place bank only: not the "
+                "ConvGRU memory (gru_memory) or no_long_memory")
+        t = [x.clone() for x in tensors]
+        state = EngineState(
+            bank=MemoryBank(*t[:7]), short_k=t[7], short_v=t[8], mems={},
+            record=t[9], logits4x=t[10], obj_nums=t[11], frame_step=0,
+            last_mem_step=0, gap=1)
+        img = self._to_dev(img, torch.float32)
+        state, logits4 = self._propagate(state, img)
+        label = self._merged_label(logits4, out_hw)
+        self._update_memory(state,
+                            self._input_label(state, label,
+                                              tuple(img.shape[1:3])),
+                            write_flag)
+        return self.state_tensors(state), label
+
+    def write_due(self, state: EngineState) -> bool:
+        """Whether the next step writes the long-term bank, by the host's
+        schedule (the flag `functional_step` takes); advances the schedule
+        as `step` would."""
+        state.frame_step += 1
+        due = state.frame_step - state.last_mem_step >= state.gap
+        if due:
+            state.last_mem_step = state.frame_step
+            state.long_writes += 1
+        return due
 
     def scan_steps(self, state: EngineState, imgs, out_hw: Tuple[int, int]
                    ) -> Tuple[EngineState, torch.Tensor]:

@@ -124,6 +124,23 @@ def group_lrs(step: int, cfg: Config) -> Dict[str, float]:
             "base": base}
 
 
+def _norm_sq(model: nn.Module, params, grads) -> torch.Tensor:
+    """The squared global norm of the gradients. Where the model is split
+    across a "model" axis (parallel/tp.py: model.tp_split) the split
+    parameters' squares are summed over the axis, so that every rank
+    clips by the whole model's norm."""
+    split = getattr(model, "tp_split", None)
+    if split is None:
+        return sum(g.float().pow(2).sum() for g in grads)
+    parts = [g.float().pow(2).sum() for (n, _), g in zip(params, grads)
+             if n in split.index]
+    local = torch.stack(parts).sum()
+    torch.distributed.all_reduce(local, group=split.group)
+    return local + sum(g.float().pow(2).sum()
+                       for (n, _), g in zip(params, grads)
+                       if n not in split.index)
+
+
 @torch.no_grad()
 def apply_gradients(state: TrainState, cfg: Config) -> torch.Tensor:
     """One optimizer step from the parameters' .grad, then the EMA; the
@@ -132,7 +149,7 @@ def apply_gradients(state: TrainState, cfg: Config) -> torch.Tensor:
     params = [(n, p) for n, p in state.model.named_parameters()]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for _, p in params]
-    gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    gnorm = torch.sqrt(_norm_sq(state.model, params, grads))
     keep = gnorm < cfg.train_clip_grad_norm
     lrs = group_lrs(state.step, cfg)
     f = np.float32

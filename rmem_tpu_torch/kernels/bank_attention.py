@@ -567,7 +567,13 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
     q/k/v, all contiguous, at a head shape `infer_route` takes: one or two
     heads of 128 with dv a multiple of 256 a head, or two with dv 128,
     launch K1 (counted here), 8 heads of 32 go to `bank_attention_infer_mh`
-    (K1ʰ, counted there)."""
+    (K1ʰ, counted there). While a graph is traced, the call is the custom
+    op rmem::bank_attention_infer (kernels/ops.py)."""
+    if torch.compiler.is_compiling():
+        from rmem_tpu_torch.kernels import ops  # noqa: F401 (registers)
+        return torch.ops.rmem.bank_attention_infer(
+            q, bank_k, bank_v, count, num_heads, float(scale), true_lk,
+            qbias)
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
                                     scale, true_lk, qbias)
@@ -603,7 +609,12 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
     the card: bf16 q/k/v, all contiguous, at a head shape `infer_route`
     takes: K1's template walking SLOTS_PER_BLOCK slots a block, or at 8
     heads of 32 (K3ʰ) K1ʰ's kernel with no bias and every key valid, both
-    counted here."""
+    counted here. While a graph is traced, the call is the custom op
+    rmem::bank_attention_qminor (kernels/ops.py)."""
+    if torch.compiler.is_compiling():
+        from rmem_tpu_torch.kernels import ops  # noqa: F401 (registers)
+        return torch.ops.rmem.bank_attention_qminor(
+            q, bank_k, bank_v, count, num_heads, float(scale))
     if not q.is_cuda:
         return bank_attention_qminor_plain(q, bank_k, bank_v, count,
                                            num_heads, scale)
@@ -1386,9 +1397,11 @@ def bank_attention_train(q: torch.Tensor, bank_k: torch.Tensor,
     bank_k [S, B, Lk, h*dh], bank_v [S, B, Lk, h*dv], count the valid slots
     (int32 on q's device). Returns (out [B, Lq, h*dv], rec [B, Lq, S], the
     head-mean slot mass). On the card the inputs are taken in bf16 (the
-    kernels' type, as autocast takes a matmul's) and the head shape picks
-    the kernels (`train_route`: K1'/K2 at one or two heads of 128, K1'ʰ/K2ʰ
-    at 8 heads of 32, any other shape raises); on the CPU it is autograd
+    kernels' type, as autocast takes a matmul's), the output given back in
+    q's dtype where no autocast runs (f32 compute), and the head shape
+    picks the
+    kernels (`train_route`: K1'/K2 at one or two heads of 128, K1'ʰ/K2ʰ at
+    8 heads of 32, any other shape raises); on the CPU it is autograd
     through the plain version."""
     if not q.is_cuda:
         return bank_attention_plain(q, bank_k, bank_v, count, num_heads,
@@ -1399,5 +1412,9 @@ def bank_attention_train(q: torch.Tensor, bank_k: torch.Tensor,
     ins = (q.to(bf).contiguous(), bank_k.to(bf).contiguous(),
            bank_v.to(bf).contiguous(), count, scale)
     if route == "heads":
-        return _BankAttentionMH.apply(*ins)
-    return _BankAttention.apply(*ins, num_heads)
+        out, rec = _BankAttentionMH.apply(*ins)
+    else:
+        out, rec = _BankAttention.apply(*ins, num_heads)
+    if not torch.is_autocast_enabled(q.device.type):
+        out = out.to(q.dtype)
+    return out, rec

@@ -67,7 +67,11 @@ def gated_dwconv(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
                  size_2d: Tuple[int, int]) -> torch.Tensor:
     """x, gate [B, H*W, C]; weight [C, 1, 5, 5]; size_2d (H, W). On the
     card: bf16, contiguous, 16-byte aligned, C a multiple of the channels a
-    block takes (32)."""
+    block takes (32). While a graph is traced, the call is the custom op
+    rmem::gated_dwconv (kernels/ops.py)."""
+    if torch.compiler.is_compiling():
+        from rmem_tpu_torch.kernels import ops  # noqa: F401 (registers)
+        return torch.ops.rmem.gated_dwconv(x, gate, weight, list(size_2d))
     if not x.is_cuda:
         return gated_dwconv_plain(x, gate, weight, size_2d)
     b, hw, c = x.shape

@@ -90,7 +90,13 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k [B, HW, h*dh]; v [B, HW, h*dv]; rel_emb [B, HW, h*(2m+1)^2] made
     from the unscaled q. Returns [B, HW, h*dv]. On the card: bf16, one or
     two heads of 128, a 15 x 15 window (max_dis 7), dv a multiple of SLICE
-    a head, all contiguous."""
+    a head, all contiguous. While a graph is traced, the call is the custom
+    op rmem::local_attention (kernels/ops.py)."""
+    if torch.compiler.is_compiling():
+        from rmem_tpu_torch.kernels import ops  # noqa: F401 (registers)
+        return torch.ops.rmem.local_attention(
+            q, k, v, rel_emb, list(size_2d), num_heads, max_dis,
+            float(scale))
     if not q.is_cuda:
         return local_attention_plain(q, k, v, rel_emb, size_2d, num_heads,
                                      max_dis, scale)
@@ -365,11 +371,15 @@ def local_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                               max_dis: int, scale: float) -> torch.Tensor:
     """Differentiable `local_attention`. On the card the inputs are taken in
     bf16, the kernels' type, at one or two heads of 128 (the forward raises
-    on any other shape)."""
+    on any other shape), and the output is given back in q's dtype where no
+    autocast runs (f32 compute)."""
     if not q.is_cuda:
         return local_attention_plain(q, k, v, rel_emb, size_2d, num_heads,
                                      max_dis, scale)
     bf = torch.bfloat16
-    return _LocalAttention.apply(
+    out = _LocalAttention.apply(
         q.to(bf).contiguous(), k.to(bf).contiguous(), v.to(bf).contiguous(),
         rel_emb.to(bf).contiguous(), size_2d, num_heads, max_dis, scale)
+    if not torch.is_autocast_enabled(q.device.type):
+        out = out.to(q.dtype)
+    return out

@@ -105,7 +105,11 @@ def stem(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
     """x [B, H, W, 3] (f32 on the card); weight [64, 3, 7, 7]; scale, bias
     [64]. Returns [B, ph, pw, 64] in the weight's dtype (bf16 on the card);
     with `save`, `stem_saved_plain`'s three tensors from the kernel's
-    training instantiation."""
+    training instantiation. While a graph is traced, the call (without
+    `save`) is the custom op rmem::stem (kernels/ops.py)."""
+    if not save and torch.compiler.is_compiling():
+        from rmem_tpu_torch.kernels import ops  # noqa: F401 (registers)
+        return torch.ops.rmem.stem(x, weight, scale, bias)
     if not x.is_cuda:
         return (stem_saved_plain if save else stem_plain)(x, weight, scale,
                                                           bias)
@@ -166,9 +170,13 @@ def stem_trainable(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """Differentiable `stem`. On the card the weight, scale and bias are
     taken in bf16, the kernel's type (their gradients flow back to the f32
-    parameters through the cast)."""
+    parameters through the cast), and the output is given back in f32
+    where no autocast runs (f32 compute)."""
     if not x.is_cuda:
         return stem_plain(x, weight, scale, bias)
     bf = torch.bfloat16
-    return _Stem.apply(x.float().contiguous(), weight.to(bf).contiguous(),
-                       scale.to(bf).contiguous(), bias.to(bf).contiguous())
+    out = _Stem.apply(x.float().contiguous(), weight.to(bf).contiguous(),
+                      scale.to(bf).contiguous(), bias.to(bf).contiguous())
+    if not torch.is_autocast_enabled(x.device.type):
+        out = out.float()
+    return out

@@ -17,6 +17,16 @@ train_max_keep_ckpt files; with cfg.train_auto_resume a new Trainer starts
 from the newest readable save. Every train_tblog_step steps (0: never) the
 batch's first clip's last frame, its labels and the prediction go to
 dir_result/img_logs as PNGs.
+
+With an initialised process group (parallel.maybe_initialize_distributed;
+tools/train.py --mesh N starts one), the Trainer is one rank of
+cfg.mesh_shape over cfg.mesh_axes: every rank draws the same global
+batch of train_batch_size clips and id shuffle from the same seeds and
+steps on its rows of them, the gradients averaged over the "data" axis
+before the optimizer (parallel/mesh.py) and the metrics before logging;
+with a "model" axis the GPM self-attention is split across it
+(parallel/tp.py). Rank 0 alone logs and writes checkpoints and image
+logs; every rank reads the auto-resume save.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from rmem_tpu_torch.engine.training import check_supported, train_forward
 from rmem_tpu_torch.models import (build_vos_model, init_params,
                                    load_model_params)
 from rmem_tpu_torch.ops.masks import host_id_shuffle_matrix
+from rmem_tpu_torch.parallel.eval_sharding import rank
 from rmem_tpu_torch.utils.checkpoint import (load_file,
                                              load_latest_checkpoint,
                                              save_checkpoint)
@@ -45,11 +56,12 @@ from rmem_tpu_torch.utils.metric import AverageMeter
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               shuffle: Optional[torch.Tensor],
-               cfg: Config) -> Dict[str, torch.Tensor]:
+               shuffle: Optional[torch.Tensor], cfg: Config,
+               reduce_grads=None) -> Dict[str, torch.Tensor]:
     """One step: the clip loss and its gradients (bf16 autocast on the
-    parameters' f32 when cfg.compute_dtype is bfloat16), then the
-    optimizer and the EMA. Returns the metrics, on the device."""
+    parameters' f32 when cfg.compute_dtype is bfloat16), `reduce_grads`
+    (model) where given (the data-parallel average), then the optimizer
+    and the EMA. Returns the metrics, on the device."""
     model = state.model.train()
     for p in model.parameters():
         p.grad = None
@@ -62,8 +74,16 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             model, batch["imgs"], batch["labels"], batch["obj_nums"],
             state.step, shuffle, use_prev, cfg)
     loss.backward()
+    if reduce_grads is not None:
+        reduce_grads(model)
     metrics["grad_norm"] = apply_gradients(state, cfg)
     return metrics
+
+
+def _module_train_step(*args, **kwargs):
+    """This module's train_step as it is at call time (a stand-in set on
+    the module after the Trainer is built takes effect)."""
+    return train_step(*args, **kwargs)
 
 
 class Trainer:
@@ -82,7 +102,9 @@ class Trainer:
         if cfg.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         self.cfg = cfg
-        self.log = log
+        self.rank0 = rank() == 0
+        self.log = log if self.rank0 else (lambda *a, **k: None)
+        log = self.log
         self.device = resolve_device(device)
         model = build_vos_model(cfg.model_vos, cfg)
         if params is None:
@@ -91,6 +113,20 @@ class Trainer:
                 load_model_params(model, cfg.pretrain_model, log=log)
         else:
             model.load_state_dict(params, strict=True)
+        self.mesh = None
+        self.step_fn = _module_train_step
+        if torch.distributed.is_initialized():
+            from rmem_tpu_torch.parallel.mesh import (
+                make_mesh, make_parallel_train_step)
+            self.mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+            if "model" in cfg.mesh_axes:
+                from rmem_tpu_torch.parallel.tp import split_model
+                split_model(model, self.mesh)
+            self.step_fn = make_parallel_train_step(_module_train_step,
+                                                    self.mesh)
+        elif int(np.prod(cfg.mesh_shape)) != 1:
+            raise ValueError(f"mesh_shape {cfg.mesh_shape} needs one process "
+                             "a rank (tools/train.py --mesh N)")
         self.state = TrainState.create(model.to(self.device), cfg.train_opt)
         self.data_root = data_root
         self.batches = batches
@@ -130,7 +166,7 @@ class Trainer:
         t_last, logged = time.perf_counter(), self.state.step
         while self.state.step < stop:
             batch, shuffle = self.next_batch()
-            metrics = train_step(self.state, batch, shuffle, cfg)
+            metrics = self.step_fn(self.state, batch, shuffle, cfg)
             step = self.state.step
             if step % cfg.train_log_step == 0 or step == stop:
                 self._update_meters(metrics)
@@ -144,7 +180,8 @@ class Trainer:
                          f"{float(metrics['iou']) * 100:.1f} gnorm "
                          f"{float(metrics['grad_norm']):.2f} {dt:.2f}s/it "
                          f"ETA {eta_h:.1f}h")
-            if cfg.train_tblog_step and step % cfg.train_tblog_step == 0:
+            if (cfg.train_tblog_step and step % cfg.train_tblog_step == 0
+                    and self.rank0):
                 self._dump_images(batch, metrics["pred_label_last"], step)
             if step % cfg.train_save_step == 0:
                 self.save(step)
@@ -190,17 +227,32 @@ class Trainer:
         for meter, v in zip(self.iou_meters, ipf):
             meter.update(v * 100.0)
 
+    def _whole(self, tensors: Dict[str, torch.Tensor],
+                part: bool = False) -> Dict[str, torch.Tensor]:
+        """Parameter-shaped tensors whole (or, with `part`, this rank's
+        parts of whole ones) where the model is split across a "model"
+        axis (parallel/tp.py; gathering is collective); else as given."""
+        split = getattr(self.state.model, "tp_split", None)
+        if split is None:
+            return tensors
+        fn = split.shard if part else split.gather
+        return {n: fn(n, t) for n, t in tensors.items()}
+
     def _state_file(self) -> dict:
         """The state and the host RNG, as tensors and numbers only (so that
-        torch.load reads it with weights_only)."""
+        torch.load reads it with weights_only); split tensors whole."""
         kind, keys, pos, has_gauss, gauss = self.rng.get_state()
-        return {"state": self.state.state_dict(),
+        state = {k: self._whole(v) if isinstance(v, dict) else v
+                 for k, v in self.state.state_dict().items()}
+        return {"state": state,
                 "rng": {"kind": kind,
                         "keys": torch.from_numpy(keys.astype(np.int64)),
                         "pos": pos, "has_gauss": has_gauss, "gauss": gauss}}
 
     def _restore(self, d: dict) -> None:
-        self.state.load_state_dict(d["state"])
+        self.state.load_state_dict(
+            {k: self._whole(v, part=True) if isinstance(v, dict) else v
+             for k, v in d["state"].items()})
         r = d["rng"]
         self.rng.set_state((r["kind"],
                             r["keys"].cpu().numpy().astype(np.uint32),
@@ -209,12 +261,15 @@ class Trainer:
     def save(self, step: Optional[int] = None) -> None:
         """The checkpoint stream at `step` (the state's own by default):
         the state under dir_result/ckpt and the EMA weights under
-        dir_result/ema_ckpt, each pruned to train_max_keep_ckpt files."""
+        dir_result/ema_ckpt, each pruned to train_max_keep_ckpt files; on
+        rank 0 only."""
         step = self.state.step if step is None else step
         keep = self.cfg.train_max_keep_ckpt
-        save_checkpoint(self._state_file(), self.ckpt_dir, step, keep,
-                        log=self.log)
-        save_checkpoint({"state": {"ema": self.state.ema, "step": step}},
+        state, ema = self._state_file(), self._whole(self.state.ema)
+        if not self.rank0:
+            return
+        save_checkpoint(state, self.ckpt_dir, step, keep, log=self.log)
+        save_checkpoint({"state": {"ema": ema, "step": step}},
                         self.ema_dir, step, keep, prefix="ema_step_",
                         log=self.log)
         self.log(f"saved checkpoint at step {step}")

@@ -51,11 +51,13 @@ class FPNSegmentationHead(nn.Module):
         # logits in f32, as the JAX head computes them: in full f32 on the
         # card whatever the caller's cuDNN flag (TF32, PyTorch's default
         # for cuDNN, rounds the inputs to 10 bits of mantissa, and the
-        # served masks would then depend on the flag)
+        # served masks would then depend on the flag), and outside the
+        # trainer's bf16 autocast
         tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
-            return F.conv2d(x.float(), self.conv_out.weight.float(),
-                            self.conv_out.bias.float())
+            with torch.autocast(x.device.type, enabled=False):
+                return F.conv2d(x.float(), self.conv_out.weight.float(),
+                                self.conv_out.bias.float())
         finally:
             torch.backends.cudnn.allow_tf32 = tf32

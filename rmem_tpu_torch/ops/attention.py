@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from rmem_tpu_torch.ops.cache import device_cache
+
 NEG_INF = -1e30
 
 
@@ -106,7 +108,7 @@ def _local_offset_map(h: int, w: int, max_dis: int) -> np.ndarray:
     return np.where(inside, off, win * win).astype(np.int64)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(16)
 def _local_offset_map_on(h: int, w: int, max_dis: int,
                          device: torch.device) -> torch.Tensor:
     # a normal tensor, also when first asked for under inference mode, so

@@ -8,6 +8,8 @@ import math
 import numpy as np
 import torch
 
+from rmem_tpu_torch.ops.cache import device_cache
+
 
 @functools.lru_cache(maxsize=64)
 def _sine_pe_np(h: int, w: int, num_pos_feats: int, temperature: float,
@@ -40,7 +42,7 @@ def sine_position_embedding(h: int, w: int, channels: int,
     return torch.from_numpy(pe.reshape(1, h * w, channels)).to(device)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(16)
 def sine_position_embedding_on(h: int, w: int, channels: int,
                                device: torch.device,
                                dtype: torch.dtype) -> torch.Tensor:

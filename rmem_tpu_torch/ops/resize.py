@@ -19,6 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from rmem_tpu_torch.ops.cache import device_cache
+
 
 @functools.lru_cache(maxsize=256)
 def _lerp_idx_np(n_out: int, n_in: int, align_corners: bool):
@@ -59,7 +61,7 @@ def _exact_lerp_coords_np(n_out: int, n_in: int, align_corners: bool):
     return lo, hi, np.float32(1.0) - w, w
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(256)
 def _lerp_coords_on(n_out: int, n_in: int, align_corners: bool,
                     device: torch.device):
     """The coordinates as tensors on `device`, copied there once (as normal
@@ -141,7 +143,7 @@ def _nearest_idx_np(n_out: int, n_in: int) -> np.ndarray:
     return np.clip(idx.astype(np.int64), 0, n_in - 1)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(64)
 def _nearest_idx_on(H: int, h: int, W: int, w: int, device: torch.device):
     with torch.inference_mode(False):     # normal tensors, as above
         return (torch.from_numpy(_nearest_idx_np(H, h)).to(device),
@@ -178,7 +180,7 @@ def _cubic_idx_np(n_out: int, n_in: int):
     return idx, wts
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(64)
 def _cubic_idx_on(n_out: int, n_in: int, device: torch.device):
     """The tap indices [4, n_out] and weights [4, n_out], copied to
     `device` once."""

@@ -1,11 +1,14 @@
-"""Evaluation over several processes: which sequences each takes, and the
-sum of their scalar stats.
+"""Evaluation over several processes: starting their process group, which
+sequences each takes, and the sum of their scalar stats.
 
-Counterpart of `rmem_tpu/parallel/eval_sharding.py`. The partition helpers
-are plain Python and give every process the same answer;
-`allreduce_stats` sums over `torch.distributed`'s default process group
-when one is initialised, and is the identity otherwise. Without a group
-the process is rank 0 of 1.
+Counterpart of `rmem_tpu/parallel/eval_sharding.py`.
+`maybe_initialize_distributed` starts `torch.distributed`'s default
+group from explicit arguments or the launcher's environment (RANK,
+WORLD_SIZE, MASTER_ADDR, MASTER_PORT, as torchrun sets them) and does
+nothing when neither names one. The partition helpers are plain Python
+and give every process the same answer; `allreduce_stats` sums over the
+default group when one is initialised, and is the identity otherwise.
+Without a group the process is rank 0 of 1.
 """
 
 from __future__ import annotations
@@ -15,6 +18,50 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+
+def maybe_initialize_distributed(init_method: Optional[str] = None,
+                                 world_size: Optional[int] = None,
+                                 rank: Optional[int] = None,
+                                 backend: Optional[str] = None,
+                                 device: Optional[str] = None,
+                                 timeout_s: float = 600.0) -> bool:
+    """Start the default process group and return True, or return False
+    when nothing names one (no init_method and no MASTER_ADDR in the
+    environment). init_method is a URL (tcp://host:port); world_size and
+    rank default to WORLD_SIZE and RANK. The backend is nccl when the
+    process runs on the card (`device` cuda, or None with a card present)
+    and each of the host's ranks (LOCAL_WORLD_SIZE, else the world) has a
+    card of its own, else gloo (nccl refuses two ranks on one card). On
+    the card the process takes the card LOCAL_RANK (else its rank) modulo
+    the cards present. An initialised group is left as it is."""
+    if dist.is_initialized():
+        return True
+    env = os.environ
+    if init_method is None and "MASTER_ADDR" in env:
+        init_method = (f"tcp://{env['MASTER_ADDR']}:"
+                       f"{env.get('MASTER_PORT', '29500')}")
+    if world_size is None and "WORLD_SIZE" in env:
+        world_size = int(env["WORLD_SIZE"])
+    if rank is None and "RANK" in env:
+        rank = int(env["RANK"])
+    if init_method is None or world_size is None:
+        return False
+    rank = 0 if rank is None else rank
+    on_card = (torch.cuda.is_available() if device is None
+               else torch.device(device).type == "cuda")
+    if on_card:
+        local = int(env.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    if backend is None:
+        local = int(env.get("LOCAL_WORLD_SIZE", world_size))
+        backend = ("nccl" if on_card and local <= torch.cuda.device_count()
+                   else "gloo")
+    import datetime
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return True
 
 
 def rank() -> int:

@@ -12,6 +12,15 @@ flags applied on top. It runs on the card unless --device cpu is given; on
 the CPU the activations default to f32 (--opt compute_dtype=bfloat16
 overrides). --profile DIR writes a torch.profiler trace of the run
 (`trace.json`, CPU and CUDA activity) into DIR.
+
+Launched as N ranks (torchrun, or any launcher that sets RANK,
+WORLD_SIZE, MASTER_ADDR and MASTER_PORT), each rank joins the process
+group (parallel.maybe_initialize_distributed: nccl where each rank has
+a card of its own, else gloo), evaluates its share of the sequences (longest first to the
+least-loaded rank; with --claim_dir, a directory every rank sees, the
+shortest tenth of the frames is claimed at run time by whichever rank is
+free) into the common output root, and prints the stats summed over the
+ranks (`global_*`).
 """
 
 from __future__ import annotations
@@ -56,12 +65,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "into DIR")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
+    p.add_argument("--claim_dir", default=None,
+                   help="with several ranks: a shared directory through "
+                        "which the shortest sequences are claimed at run "
+                        "time")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
+    from rmem_tpu_torch.parallel import maybe_initialize_distributed
+    distributed = maybe_initialize_distributed(device=args.device)
+    try:
+        _evaluate(args)
+    finally:
+        if distributed:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _evaluate(args) -> None:
     from rmem_tpu_torch.config import Config, get_config
     from rmem_tpu_torch.tools.train import _parse_opts
     test_over = dict(
@@ -94,7 +118,8 @@ def main(argv=None):
         trace_cm = contextlib.nullcontext()
     with trace_cm as prof:
         stats = ev.evaluate(max_seqs=args.max_seqs,
-                            max_frames=args.max_frames)
+                            max_frames=args.max_frames,
+                            claim_dir=args.claim_dir)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")

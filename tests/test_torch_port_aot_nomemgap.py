@@ -73,8 +73,8 @@ LOSS_RTOL = 1e-5
 GRAD_ATOL = 1e-8
 PARAM_ATOL = 1e-6
 # every stage both packages have, by name: the port has no others
-STAGES = ("default", "pre_ytb_dav", "ytb", "pre_ytb", "pre_dav", "pre_vost",
-          "pre_vost_2", "pre_vost_25q", "test")
+STAGES = ("default", "pre", "pre_ytb_dav", "ytb", "pre_ytb", "pre_dav",
+          "pre_vost", "pre_vost_2", "pre_vost_25q", "test")
 MODELS = ("r50_deaotl", "r50_aotl", "tiny_deaotl", "tiny_aotl")
 
 
@@ -148,7 +148,8 @@ def test_train_cli_defaults_to_pre_vost_2(tmp_path):
                         "--opt", f"dir_root={tmp_path}"])
     ((cfg, data_root),) = built
     assert cfg.data_seq_len == 17 and data_root == "datasets_here"
-    ref = jget_config("pre_vost_2", model="r50_deaotl")
+    # both CLIs name the run's experiment "rmem" by default
+    ref = jget_config("pre_vost_2", "rmem", model="r50_deaotl")
     for f in dataclasses.fields(cfg):
         if f.name not in ("compute_dtype", "dir_root"):   # f32 on the CPU
             assert getattr(cfg, f.name) == getattr(ref, f.name), f.name

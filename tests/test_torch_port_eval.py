@@ -549,8 +549,8 @@ def test_config_eval_fields_match_jax(tmp_path):
 
 def test_cli_defaults_match_jax_and_cpu_run_writes_pngs(tmp_path):
     """Every flag of the JAX CLI with its default (the port adds
-    --device); then a CPU run of the synthetic dataset writes a PNG for
-    each of its frames."""
+    --device, and --claim_dir for runs as several ranks); then a CPU run of the synthetic dataset writes a PNG for each
+    of its frames."""
     parsers = []
 
     def capture(self, args=None, namespace=None):
@@ -563,7 +563,8 @@ def test_cli_defaults_match_jax_and_cpu_run_writes_pngs(tmp_path):
     ref = {a.dest: (a.default, a.nargs, a.type) for a in parsers[0]._actions}
     got = {a.dest: (a.default, a.nargs, a.type)
            for a in eval_cli.build_parser()._actions}
-    assert got.pop("device") == (None, None, None)
+    for dest in ("device", "claim_dir"):
+        assert got.pop(dest) == (None, None, None)
     assert got == ref
     out = tmp_path / "out"
     eval_cli.main(["--dataset", "test", "--device", "cpu", "--max_frames",

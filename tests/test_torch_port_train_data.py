@@ -174,7 +174,8 @@ def test_merge_and_crop_padding_match_jax(case, tmp_path):
 def test_synthetic_test_stage_and_presets_match_jax():
     """The `test` stage's constant clips as the JAX loader gives them, and
     every stage preset's datasets as the JAX presets name them (`pre`, the
-    static-image stage, is not ported; building its dataset raises)."""
+    static-image stage, included: its clips are held in
+    test_torch_port_image_transforms.py)."""
     jcfg = jget_config("test", model="tiny_aotl", train_batch_size=2)
     cfg = get_config("test", model="tiny_aotl", train_batch_size=2)
     jb = next(jdata.InlineBatchLoader(jdata.build_train_dataset(jcfg), 2))
@@ -184,11 +185,9 @@ def test_synthetic_test_stage_and_presets_match_jax():
         np.testing.assert_array_equal(pb[key].numpy(), jb[key])
     from rmem_tpu.config import STAGE_PRESETS as JSTAGES
     from rmem_tpu_torch.config import STAGE_PRESETS
-    assert set(JSTAGES) - set(STAGE_PRESETS) == {"pre"}
+    assert set(JSTAGES) == set(STAGE_PRESETS)
     for stage in STAGE_PRESETS:
         assert get_config(stage).datasets == jget_config(stage).datasets
-    with pytest.raises(NotImplementedError, match="static"):
-        pdata.build_train_dataset(cfg.replace(datasets=("static",)))
 
 
 def test_prefetch_loader_gives_the_inline_batches(tmp_path):

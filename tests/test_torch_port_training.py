@@ -347,9 +347,10 @@ def test_trainer_saves_and_resumes(tmp_path):
 def test_unported_training_branches_raise():
     """reverse_infer and the GRU memory are ported (their parity tests are
     tests/test_torch_port_gru.py): the trainer takes them, and the var
-    loss. What the port does not take still raises instead of being
-    skipped: another optimizer than adamw and sgd, another remat policy,
-    and the static-image dataset."""
+    loss; so is the static-image dataset (its parity tests are
+    tests/test_torch_port_image_transforms.py). What the port does not
+    take still raises instead of being skipped: another optimizer than
+    adamw and sgd, another remat policy."""
     for model, over in (("tiny_deaotl", dict(reverse_infer=True)),
                         ("tiny_aotl", dict(gru_memory=True)),
                         ("tiny_deaotl", dict(var_loss_weight=0.01))):
@@ -362,11 +363,6 @@ def test_unported_training_branches_raise():
             Trainer(get_config("test", model="tiny_deaotl",
                                compute_dtype="float32", **over),
                     device="cpu")
-    trainer = Trainer(get_config("test", model="tiny_deaotl",
-                                 compute_dtype="float32",
-                                 datasets=("static",)), device="cpu")
-    with pytest.raises(NotImplementedError, match="static"):
-        trainer.next_batch()
 
 
 def test_deaot_trains_with_gru_memory_ignored():
