@@ -259,9 +259,12 @@ non-zero exit code:
 25. training: AOT-L on MobileNetV2 for 6 of phase 11's steps (K1'h 87 and
    K2h 45 a step, no K7), s/step and peak memory, its kernel step held
    against the plain step as phase 12; then 2 steps each of DeAOT-T (K1'
-   and K4 29, K2 and K5's backward 15), AOT-L on ResNet-101 (K7 1) and on
+   and K4 29, K2 and K5's backward 15), AOT-L on ResNet-101 (K7 1), on
    the top-down ResNet-50, whose var_loss must be finite, above 0 and in
-   the loss at weight 0.01.
+   the loss at weight 0.01, on MobileNetV3, on ResNeSt-101 and on Swin-B
+   (at 464x464: at 465 Swin's VALID patch embed misses the id bank's
+   grid by a row and a column), each with K1'h 87 and K2h 45 a step,
+   finite losses, changed parameters, s/step and peak memory.
 26. R50-AOTL + RMem with the ConvGRU memory (`get_config("pre_vost",
    model="r50_aotl", gru_memory=True)`) on phase 9's traffic: exact
    launches a frame (K1h 3, K6 1; K1, K3, K4, K8 never), frames/s beside
@@ -307,6 +310,33 @@ non-zero exit code:
    in both, through the rmem:: custom ops in the exported program); each
    route's frames/s; the host's issue time of K1's, K4's and K6's calls
    direct and through their custom ops, in turns.
+31. every serving family through torch.export (build_exported at
+   481x849 in, 480x854 out, bf16, seeded weights; saved and loaded):
+   R50-AOTL, R50-AOTL with the ConvGRU memory, R50-AOTL and R50-DeAOTL
+   with no_memory_gap, R50-DeAOTL on the opt-in route (K3 and K8, one id
+   group, one aug) and R50-DeAOTL with no_long_memory. Each program is
+   handed the eager engine's state once its bank is full (40 frames at a
+   write every 5, 8 at every frame; no_long_memory from the reference),
+   then 30 frames run through the eager engine and through the program
+   from that state: the family's rmem:: ops (and with the GRU memory one
+   cond) in the graph, launches a frame exact in both (R50-AOTL and the
+   GRU memory K1h 3, K6 1; R50-AOTL with no_memory_gap K1x2v128 3, K6 1;
+   R50-DeAOTL with no_memory_gap K1x2 3, K4x2 3, K6 1; the opt-in route
+   K3 3, K8 9, K4 3, K6 1; no_long_memory K1 3, K4 3, K6 1; each launch
+   of K1's template at the family's head shape), labels equal on >= 0.999
+   of pixels, the bank count and the evictions equal, with the GRU memory
+   at least 5 rounds and the hidden states after each within 2e-2 of
+   eager's max; frames/s of both.
+32. tensor parallel: `python -m rmem_tpu_torch.tools.train --mesh 1 2
+   --opt "mesh_axes=('data','model')"` on phase 28's Static tree, its two
+   ranks on the one card over gloo, for R50-DeAOTL (the GPM's gated
+   self-attention split: 27 split parameters) and R50-AOTL (the
+   self-attention's output projection: 3), each against one unsplit
+   process, 2 SGD steps at batch 2 in f32 compute: the last loss within
+   1e-4 relative, every gathered weight within 1e-5, each rank's launches
+   a step equal to the unsplit step's (stage pre's clips of 5: K1' and K4
+   27, K2 and K5's backward 15, K7 1; K1'h 27, K2h 15, K7 1); the four
+   processes at once. Prints s/step and peak GiB of each.
 
 Phase 2 also holds K1h on Swin-B's 30 x 53 grid (1590 tokens; and keys
 padded 70 past them).
@@ -3538,7 +3568,8 @@ TRAIN_LAUNCHES["r50_aotl_nmg"] = dict(TRAIN_LAUNCHES["r50_deaotl"],
 _AOT_TRAIN = dict(TRAIN_LAUNCHES["r50_aotl"], stem=0)
 TRAIN_LAUNCHES.update({
     "aotl": _AOT_TRAIN, "r101_aotl": dict(_AOT_TRAIN, stem=1),
-    "r50_topdown_aotl": _AOT_TRAIN,
+    "r50_topdown_aotl": _AOT_TRAIN, "aotl_v3": _AOT_TRAIN,
+    "rs101_aotl": _AOT_TRAIN, "swinb_aotl": _AOT_TRAIN,
     "deaott": dict(TRAIN_LAUNCHES["r50_deaotl"], stem=0,
                    bank_attention_lse=_FWD // 3,
                    bank_attention_bwd_split=_BWD // 3,
@@ -3552,7 +3583,14 @@ TRAIN_PHASE = {"r50_deaotl": ("phase 5", "R50-DeAOTL"),
                "deaott": ("phase 25", "DeAOT-T on MobileNetV2"),
                "r101_aotl": ("phase 25", "AOT-L on ResNet-101"),
                "r50_topdown_aotl": ("phase 25",
-                                    "AOT-L on the top-down ResNet-50")}
+                                    "AOT-L on the top-down ResNet-50"),
+               "aotl_v3": ("phase 25", "AOT-L on MobileNetV3"),
+               "rs101_aotl": ("phase 25", "AOT-L on ResNeSt-101"),
+               "swinb_aotl": ("phase 25", "AOT-L on Swin-B")}
+# a trained model's crop where it is not TRAIN_HW: Swin's VALID patch embed
+# meets the id bank's grid at a side that is a multiple of 16 (465 is one
+# past), as phase 24 serves it at 480 x 848
+TRAIN_CROP = {"swinb_aotl": (464, 464)}
 # phase 25's other models take two steps each
 ENCODER_TRAIN_STEPS = 2
 # the held kernel step against the all-plain step of each trained model
@@ -3656,7 +3694,8 @@ def train_config(model: str = "r50_deaotl", steps: int = TRAIN_STEPS):
     # steps (train_save_step 500)
     return get_config("pre_vost", **SERVED[model], train_batch_size=TRAIN_B,
                       train_total_steps=max(2, 2 * steps - 4),
-                      train_auto_resume=False)
+                      train_auto_resume=False,
+                      data_randomcrop=TRAIN_CROP.get(model, TRAIN_HW))
 
 
 def fifo_evictions(cfg) -> int:
@@ -3702,8 +3741,9 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl",
 
     phase, name = TRAIN_PHASE[model]
     cfg = train_config(model, steps)
+    crop = tuple(cfg.data_randomcrop)
     check(cfg.data_seq_len == TRAIN_T
-          and tuple(cfg.data_randomcrop) == TRAIN_HW, "pre_vost's shapes")
+          and crop == TRAIN_CROP.get(model, TRAIN_HW), "pre_vost's shapes")
     check(not cfg.no_memory_gap or (
         cfg.model_att_heads, cfg.train_long_term_mem_gap) == (2, 1),
         f"{phase}: {cfg.model_att_heads} heads, a write every "
@@ -3780,7 +3820,8 @@ def train_phase(dev, card: str, profile: bool, model: str = "r50_deaotl",
     check(moved > 0, "the parameters did not change")
     check(seq_start < steps, "the curriculum did not start")
     timed = times[1:]     # the first step includes cuDNN's autotuning
-    print(f"{phase}: {steps} steps of {name} ({model}) pre_vost at 465x465, T "
+    print(f"{phase}: {steps} steps of {name} ({model}) pre_vost at "
+          f"{crop[0]}x{crop[1]}, T "
           f"{TRAIN_T}, B {TRAIN_B} (the reference's 16 over 4 GPUs), "
           f"{cfg.model_att_heads} heads, a long-term write every "
           f"{cfg.train_long_term_mem_gap} frames, {evictions[0]} FIFO "
@@ -5005,13 +5046,15 @@ def encoder_train_phase(dev, card: str, profile: bool) -> dict:
     traffic: K1'h 87 and K2h 45 a step, no K7) and its kernel step held
     against the plain step; then ENCODER_TRAIN_STEPS steps each of DeAOT-T
     (K1' and K4 29, K2 and K5's backward 15), AOT-L on ResNet-101 (K7 1 a
-    step) and on the top-down ResNet-50 (the var loss finite, above 0, in
-    the loss at weight 0.01). Returns the numbers."""
+    step), on the top-down ResNet-50 (the var loss finite, above 0, in the
+    loss at weight 0.01), on MobileNetV3, on ResNeSt-101 and on Swin-B (at
+    TRAIN_CROP's 464x464). Returns the numbers."""
     counts, times, peak = train_phase(dev, card, profile, model="aotl")
     out = {"aotl": dict(launches=counts, step_s=times,
                         step_s_median=statistics.median(times[1:]),
                         peak_gib=peak, held=held_train_step(dev, "aotl"))}
-    for model in ("deaott", "r101_aotl", "r50_topdown_aotl"):
+    for model in ("deaott", "r101_aotl", "r50_topdown_aotl", "aotl_v3",
+                  "rs101_aotl", "swinb_aotl"):
         counts, times, peak = train_phase(dev, card, False, model=model,
                                           steps=ENCODER_TRAIN_STEPS)
         out[model] = dict(launches=counts, step_s=times, peak_gib=peak)
@@ -5173,6 +5216,7 @@ HELD_PHASE["r50_aotl_gru_rev"] = "phase 27, held"
 TRAIN_CHILD = r"""
 import importlib, json, runpy, sys, time
 import torch
+import torch.multiprocessing as mp
 from rmem_tpu_torch.kernels import jpeg_color as kj
 from rmem_tpu_torch.managers import trainer as tm
 
@@ -5182,29 +5226,46 @@ wrappers = [getattr(importlib.import_module("rmem_tpu_torch.kernels." + m),
                     f) for m, f in names]
 for fn in wrappers + [kj.ycc_to_rgb]:
     fn.launches = 0
-step, per_step = tm.train_step, []
+step, per_step, step_s, split = tm.train_step, [], [], []
 
 
-step_s = []
-
-
-def counted(*a, **kw):
+def counted(state, *a, **kw):
+    if not split:       # the tensor-parallel split's parameters, if any
+        tp = getattr(state.model, "tp_split", None)
+        split.append(0 if tp is None else len(tp.index))
     before = [fn.launches for fn in wrappers]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = step(*a, **kw)
+    out = step(state, *a, **kw)
     torch.cuda.synchronize()
     step_s.append(time.perf_counter() - t0)
     per_step.append([fn.launches - b for fn, b in zip(wrappers, before)])
     return out
 
 
+def dump(path):
+    with open(path, "w") as f:
+        json.dump({"per_step": per_step, "ycc_to_rgb": kj.ycc_to_rgb.launches,
+                   "step_s": step_s, "split": split[0] if split else None,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, f)
+
+
+def forked(fn, args=(), nprocs=1, join=True, **kw):
+    # --mesh's ranks forked, not spawned, so that each keeps this spy (the
+    # parent has not touched the card); each writes report.<rank>
+    def ranked(rank, *a):
+        try:
+            fn(rank, *a)
+        finally:
+            dump(f"{report}.{rank}")
+    return mp.start_processes(ranked, args, nprocs, join,
+                              start_method="fork")
+
+
 tm.train_step = counted
+mp.spawn = forked
 runpy.run_module("rmem_tpu_torch.tools.train", run_name="__main__")
-with open(report, "w") as f:
-    json.dump({"per_step": per_step, "ycc_to_rgb": kj.ycc_to_rgb.launches,
-               "step_s": step_s,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, f)
+dump(report)
 """
 
 
@@ -5763,21 +5824,319 @@ def _capture(calls: dict, name: str, fn):
     return call
 
 
+# phase 31: every serving family through torch.export at phase 30's sizes,
+# 481x849 in and 480x854 out. Each exported step is handed the eager
+# engine's state once its bank is full, so its writes evict (with the GRU
+# memory each write is a round); the opt-in route runs with
+# RMEM_BANK_QMINOR set while its engines are built
+SERVED["r50_deaotl_optin"] = dict(model="r50_deaotl", use_pallas_dwconv=True)
+SERVED["r50_deaotl_nolong"] = dict(model="r50_deaotl", no_long_memory=True)
+_BANK, _LOCAL, _STEM = ("rmem.bank_attention_infer.default",
+                        "rmem.local_attention.default", "rmem.stem.default")
+# each family: the rmem:: ops its graph must hold, and each wrapper's
+# launches a frame (the others' 0)
+EXPORT_FAMILIES = {
+    "r50_aotl": ({_BANK, _STEM}, dict(bank_attention_infer_mh=3, stem=1)),
+    "r50_aotl_gru": ({_BANK, _STEM},
+                     dict(bank_attention_infer_mh=3, stem=1)),
+    "r50_aotl_nmg": ({_BANK, _STEM}, dict(bank_attention_infer=3, stem=1)),
+    "r50_deaotl_nmg": ({_BANK, _LOCAL, _STEM},
+                       dict(bank_attention_infer=3, local_attention=3,
+                            stem=1)),
+    "r50_deaotl_optin": ({"rmem.bank_attention_qminor.default",
+                          "rmem.gated_dwconv.default", _LOCAL, _STEM},
+                         dict(bank_attention_qminor=3, gated_dwconv=9,
+                              local_attention=3, stem=1)),
+    "r50_deaotl_nolong": ({_BANK, _LOCAL, _STEM},
+                          dict(bank_attention_infer=3, local_attention=3,
+                               stem=1)),
+}
+# K3 at one head runs K1's template too
+SERVED_SHAPES.update({"r50_deaotl_nolong": (1, 128, 1024),
+                      "r50_deaotl_optin": (1, 128, 1024)})
+# the kernels line's entries that phase 31 reaches: the counter and the
+# families whose launches are that entry's kernel at its head shape
+PHASE31_ENTRIES = {
+    "bank_attention": ("bank_attention_infer", ("r50_deaotl_nolong",)),
+    "bank_attention_h2": ("bank_attention_infer", ("r50_deaotl_nmg",)),
+    "bank_attention_h2v128": ("bank_attention_infer", ("r50_aotl_nmg",)),
+    "bank_attention_mh": ("bank_attention_infer_mh",
+                          ("r50_aotl", "r50_aotl_gru")),
+    "bank_attention_qminor": ("bank_attention_qminor", ("r50_deaotl_optin",)),
+    "local_attention": ("local_attention",
+                        ("r50_deaotl_optin", "r50_deaotl_nolong")),
+    "local_attention_h2": ("local_attention", ("r50_deaotl_nmg",)),
+    "gated_dwconv": ("gated_dwconv", ("r50_deaotl_optin",)),
+    "stem": ("stem", tuple(EXPORT_FAMILIES)),
+}
+GRU_EXPORT_ROUNDS = 5       # GRU rounds held in 30 frames at a gap of 5
+HID_TOL = 2e-2              # max |exported - eager| / max |eager|, hidden
+
+
+def export_family(dev, model: str, card: str, tmp: Path) -> dict:
+    """Phase 31 for one family: build_exported, saved and loaded; the eager
+    engine over the reference and the frames that fill its bank; then
+    EXPORT_FRAMES frames from that state through the eager engine and
+    through the loaded program, launches counted from 0 in each. Returns
+    what it measured."""
+    import dataclasses
+
+    import torch
+
+    from rmem_tpu_torch.kernels import bank_attention as kb
+    from rmem_tpu_torch.kernels import dwconv as kd
+    from rmem_tpu_torch.kernels import local_attention as kl
+    from rmem_tpu_torch.kernels import stem as ks
+    from rmem_tpu_torch.tools.export import build_exported
+
+    want_ops, per_frame = EXPORT_FAMILIES[model]
+    optin = model == "r50_deaotl_optin"
+    with mock.patch.dict(os.environ,
+                         {"RMEM_BANK_QMINOR": "1"} if optin else {}):
+        engine, cfg = build_engine(dev, model)
+        t0 = time.perf_counter()
+        exported, _, _ = build_exported(cfg, _SEEDED[model], IN_HW,
+                                        device=dev, out_hw=OUT_HW)
+        export_s = time.perf_counter() - t0
+    check(engine.route == dict(qminor=optin, fused_dw=optin),
+          f"phase 31: {model}'s routes {engine.route}")
+    path = tmp / f"{model}.pt2"
+    torch.export.save(exported, str(path))
+    step = torch.export.load(str(path)).module()
+    ops = {str(n.target) for n in exported.graph.nodes
+           if str(n.target).startswith("rmem.")}
+    conds = sum(str(n.target) == "cond" for n in exported.graph.nodes)
+    check(ops == want_ops and conds == int(cfg.gru_memory_active),
+          f"phase 31: {model}'s graph holds {sorted(ops)} and {conds} "
+          f"cond, expected {sorted(want_ops)}")
+    slots = cfg.former_mem_len + cfg.latter_mem_len
+    img0, mask, g = reference_inputs(dev)
+    gap = served_gap(cfg, 1 + BANK_FULL + EXPORT_FRAMES)
+    prefill = 0 if cfg.no_long_memory else (slots - 1) * gap
+    imgs = torch.rand((prefill + EXPORT_FRAMES, 1, *IN_HW, 3), generator=g,
+                      device=dev)
+    state, _ = engine.add_reference(img0, mask, [NUM_OBJECTS], gap=gap)
+    for t in range(prefill):
+        state, _ = engine.step(state, imgs[t], OUT_HW)
+    start = int(state.bank.count)
+    check(cfg.no_long_memory or start == slots,
+          f"phase 31: {model}'s bank holds {start} slots")
+    sched = dataclasses.replace(state)   # the write schedule, for the flags
+    tensors = [t.clone() for t in engine.state_tensors(state)]
+    fields = engine.state_fields()
+    flags = {b: torch.tensor(b, device=dev) for b in (False, True)}
+    wrappers = (kb.bank_attention_infer, kb.bank_attention_infer_mh,
+                kb.bank_attention_qminor, kl.local_attention, ks.stem,
+                kd.gated_dwconv)
+    shapes, slots_call = [], kb._slots_call
+
+    def spied_slots_call(q, bank_k, bank_v, count, num_heads, *a, **kw):
+        shapes.append((num_heads, q.shape[-1] // num_heads,
+                       bank_v.shape[-1] // num_heads))
+        return slots_call(q, bank_k, bank_v, count, num_heads, *a, **kw)
+
+    runs = {}
+    for name in ("eager", "exported"):
+        for fn in wrappers:
+            fn.launches = 0
+        shapes.clear()
+        labels, hidden = [], []
+        evictions = torch.zeros((), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(kb, "_slots_call", spied_slots_call), \
+                torch.inference_mode():
+            for t in range(prefill, prefill + EXPORT_FRAMES):
+                if name == "eager":
+                    was_full = state.bank.count >= slots
+                    state, lab = engine.step(state, imgs[t], OUT_HW)
+                    wrote = state.last_mem_step == state.frame_step
+                    hid = (state.gru_hid_k, state.gru_hid_v)
+                else:
+                    wrote = engine.write_due(sched)
+                    was_full = tensors[2] >= slots
+                    *tensors, lab = step(*tensors, imgs[t], flags[wrote])
+                    hid = tuple(tensors[fields.index(f)] for f in
+                                engine.GRU_FIELDS if f in fields)
+                if wrote and not cfg.no_long_memory:
+                    evictions += was_full
+                    if cfg.gru_memory_active:
+                        hidden.append(tuple(h.clone() for h in hid))
+                labels.append(lab)
+        torch.cuda.synchronize()
+        fps = EXPORT_FRAMES / (time.perf_counter() - t0)
+        runs[name] = dict(fps=fps, launches={fn.__name__: fn.launches
+                                             for fn in wrappers},
+                          labels=torch.stack(labels), hidden=hidden,
+                          evictions=int(evictions), shapes=set(shapes),
+                          k1_template=len(shapes))
+    eager, exp = runs["eager"], runs["exported"]
+    share = (eager["labels"] == exp["labels"]).float().mean().item()
+    want = {fn.__name__: per_frame.get(fn.__name__, 0) * EXPORT_FRAMES
+            for fn in wrappers}
+    count_x, count_e = int(tensors[2]), int(state.bank.count)
+    hid_err = 0.0
+    for (xk, xv), (ek, ev) in zip(exp["hidden"], eager["hidden"]):
+        for x, e in ((xk, ek), (xv, ev)):
+            hid_err = max(hid_err, ((x.float() - e.float()).abs().max()
+                                    / e.float().abs().max()).item())
+    rounds = len(exp["hidden"])
+    print(f"phase 31: {model} exported in {export_s:.1f} s "
+          f"({path.stat().st_size / 2**20:.1f} MB saved; ops "
+          f"{sorted(ops)}, {conds} cond), handed the eager state after "
+          f"{prefill} frames (bank {start} slots, a write every {gap}); "
+          f"{EXPORT_FRAMES} frames: exported "
+          f"{exp['fps']:.3f} frames/s, eager {eager['fps']:.3f}; launches "
+          f"{exp['launches']} (eager {eager['launches']}); labels equal on "
+          f"{share:.6f} of pixels; bank count {count_x} (eager {count_e}); "
+          f"evictions {exp['evictions']} (eager {eager['evictions']})"
+          + (f"; {rounds} GRU rounds (eager {len(eager['hidden'])}), "
+             f"hidden states within {hid_err:.3e} of max"
+             if cfg.gru_memory_active else "") + f"; on {card}")
+    for name, run in runs.items():
+        check(run["launches"] == want, f"phase 31: {model} {name} launches "
+              f"{run['launches']}, expected {want}")
+        shape = SERVED_SHAPES.get(model)
+        check(run["shapes"] == ({shape} if shape else set())
+              and run["k1_template"] == run["launches"][
+                  "bank_attention_infer"] + run["launches"][
+                  "bank_attention_qminor"],
+              f"phase 31: {model} {name}: K1's template at "
+              f"{sorted(run['shapes'])}")
+    check(share >= EXPORT_AGREE, f"phase 31: {model} labels equal on "
+          f"{share}")
+    check(count_x == count_e and exp["evictions"] == eager["evictions"],
+          f"phase 31: {model} counts {count_x}, {count_e}, evictions "
+          f"{exp['evictions']}, {eager['evictions']}")
+    check(cfg.no_long_memory or eager["evictions"] >= 1,
+          f"phase 31: {model} evicted nothing")
+    if cfg.gru_memory_active:
+        check(rounds == len(eager["hidden"]) == exp["evictions"]
+              >= GRU_EXPORT_ROUNDS and hid_err <= HID_TOL,
+              f"phase 31: {model} {rounds} GRU rounds, hidden states "
+              f"{hid_err:.3e} apart")
+    del engine, exported, step, state, tensors, runs
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, fps_exported=exp["fps"],
+                fps_eager=eager["fps"], launches=exp["launches"],
+                label_share=share, evictions=exp["evictions"],
+                gru_rounds=rounds, hid_rel_err=hid_err, prefill=prefill)
+
+
+def export_families_phase(dev, card: str, tmp: Path) -> dict:
+    """Phase 31 (see the module docstring): each of EXPORT_FAMILIES."""
+    return {m: export_family(dev, m, card, tmp) for m in EXPORT_FAMILIES}
+
+
+# phase 32: the tensor-parallel split (parallel/tp.py) on its first card
+# run: the training CLI with --mesh 1 2 and the ("data", "model") axes, its
+# two ranks on the one card over gloo, against one unsplit process, for
+# R50-DeAOTL (the GPM's gated self-attention split) and R50-AOTL (the
+# self-attention's output projection split); all four processes at once
+TP_B = 2                    # the batch each rank (and the unsplit run) takes
+TP_OPTS = MESH_OPTS + ("mesh_axes=('data','model')",)
+_AOT_PRE = dict(TRAIN_LAUNCHES["r50_aotl"],
+                bank_attention_lse_mh=3 * (2 * _PRE_T - 1),
+                bank_attention_bwd_mh=3 * _PRE_T)
+# each model: the split's parameters (3 layers: the GPM's 4 column-parallel
+# weights and biases and its projection; AOT's projection) and the
+# launches a step at the stage pre's clips of 5, in each rank as unsplit
+TP_MODELS = {"r50_deaotl": (3 * (2 * 4 + 1), PRE_LAUNCHES),
+             "r50_aotl": (3, _AOT_PRE)}
+
+
+def tp_phase(dev, card: str, tmp: Path) -> dict:
+    """Phase 32 (see the module docstring). Returns what it measured."""
+    import torch
+    procs, out = {}, {}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    with ExitStack() as stack:
+        stack.callback(lambda: [(p.kill(), p.wait()) for p in
+                                procs.values() if p.poll() is None])
+        for model in TP_MODELS:
+            for run, mesh in (("tp", ("--mesh", "1", "2")), ("one", ())):
+                key = f"{run}_{model}"
+                cmd = _train_cmd(tmp, tmp / key, MESH_STEPS, TP_B, *mesh,
+                                 "--model", model, opts=TP_OPTS if mesh
+                                 else MESH_OPTS)
+                procs[key] = subprocess.Popen(
+                    [sys.executable, "-c", TRAIN_CHILD,
+                     str(tmp / f"{key}.json"), json.dumps(TRAIN_KERNELS)]
+                    + cmd[3:], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+        logs = {}
+        for key, p in procs.items():
+            logs[key] = p.communicate(timeout=900)[0]
+            if p.returncode != 0:
+                print(f"phase 32: {key} exited {p.returncode}:\n"
+                      + logs[key][-6000:], file=sys.stderr)
+            check(p.returncode == 0, f"phase 32: {key} exited "
+                  f"{p.returncode}")
+    out["seconds"] = time.perf_counter() - t0
+    for model, (n_split, launches) in TP_MODELS.items():
+        one = json.loads((tmp / f"one_{model}.json").read_text())
+        ranks = [json.loads((tmp / f"tp_{model}.json.{r}").read_text())
+                 for r in range(2)]
+        expected = [launches[fn] for _, fn in TRAIN_KERNELS]
+        a = _saved_stream(tmp / f"one_{model}", MESH_STEPS)["params"]
+        b = _saved_stream(tmp / f"tp_{model}", MESH_STEPS)["params"]
+        pdiff = max((a[n] - b[n]).abs().max().item() for n in a)
+        l1 = _final_loss(tmp / f"one_{model}")
+        l2 = _final_loss(tmp / f"tp_{model}")
+        steps = [ln for ln in logs[f"tp_{model}"].splitlines()
+                 if ln.startswith("step ")]
+        print(f"phase 32: {model} split across the (1, 2) mesh's \"model\" "
+              f"axis, two ranks over gloo on the one card ({ranks[0]['split']}"
+              f" and {ranks[1]['split']} split parameters, {n_split} "
+              f"expected), {MESH_STEPS} SGD steps at batch {TP_B}, stage "
+              f"pre, f32 compute, against one unsplit process: the last "
+              f"loss {l2!r} against {l1!r}, the largest gathered weight "
+              f"difference {pdiff:.3e} (held to {MESH_PARAM_ATOL:g}; the "
+              f"loss to {MESH_LOSS_RTOL:g} relative); launches a step, rank "
+              f"0 {ranks[0]['per_step']}, rank 1 {ranks[1]['per_step']}, "
+              f"unsplit {one['per_step']} (expected {expected}); s/step "
+              f"ranks {[r['step_s'] for r in ranks]}, unsplit "
+              f"{one['step_s']}; peak GiB ranks "
+              f"{[round(r['peak_gib'], 2) for r in ranks]}, unsplit "
+              f"{one['peak_gib']:.2f}; the log {steps}; on {card}")
+        check(set(a) == set(b) and all(a[n].shape == b[n].shape for n in a),
+              f"phase 32: {model}'s gathered weights differ in shape")
+        check(all(r["split"] == n_split for r in ranks)
+              and one["split"] == 0, f"phase 32: {model} split "
+              f"{[r['split'] for r in ranks]}, unsplit {one['split']}")
+        check(all(r["per_step"] == [expected] * MESH_STEPS
+                  for r in ranks + [one]),
+              f"phase 32: {model} launches a step")
+        check(abs(l1 - l2) <= MESH_LOSS_RTOL * abs(l1),
+              f"phase 32: {model} split loss {l2} against {l1}")
+        check(pdiff <= MESH_PARAM_ATOL, f"phase 32: {model} split weights "
+              f"differ by {pdiff:.3e}")
+        out[model] = dict(loss=l2, one_loss=l1, weight_diff=pdiff,
+                          split=ranks[0]["split"],
+                          per_step=ranks[0]["per_step"][0],
+                          step_s=[r["step_s"] for r in ranks],
+                          one_step_s=one["step_s"],
+                          peak_gib=[r["peak_gib"] for r in ranks])
+    torch.cuda.empty_cache()
+    return out
+
+
 def last_phases(dev, card: str) -> dict:
-    """Phases 28, 29 and 30 in one temporary directory."""
+    """Phases 28 to 32 in one temporary directory (29 and 32 train on 28's
+    Static tree)."""
     import tempfile
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_") as tmp:
         tmp = Path(tmp)
-        t0 = time.perf_counter()
-        out["pre"] = pre_phase(dev, card, tmp)
-        print(f"phase 28: {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        out["mesh"] = mesh_phase(dev, card, tmp)
-        print(f"phase 29: {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        out["export"] = export_phase(dev, card, tmp)
-        print(f"phase 30: {time.perf_counter() - t0:.1f} s")
+        for n, key, fn in ((28, "pre", pre_phase), (29, "mesh", mesh_phase),
+                           (30, "export", export_phase),
+                           (31, "export_families", export_families_phase),
+                           (32, "tp", tp_phase)):
+            t0 = time.perf_counter()
+            out[key] = fn(dev, card, tmp)
+            print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -6525,6 +6884,10 @@ def main() -> int:
             m: tree_train[m]["launches"][fn_name]
             for m in ("r50_aotl_gru_rev", "r50_deaotl_rev_sgd")
             if tree_train[m]["launches"].get(fn_name)}
+        idx = [fn for _, fn in TRAIN_KERNELS].index(fn_name)
+        e["phase32_launches_a_rank_a_step"] = {
+            m: last["tp"][m]["per_step"][idx] for m in TP_MODELS
+            if last["tp"][m]["per_step"][idx]}
     entries["jpeg_ycc_to_rgb"]["phase27_cli_launches"] = tree_train["cli"][
         "decoded"]
     # phase 26's launches beside each serving kernel's main-path count
@@ -6536,6 +6899,12 @@ def main() -> int:
                          ("stem", "stem")):
         entries[key]["phase30_launches"] = last["export"]["launches"][
             fn_name]
+    # phase 31's: each exported family's kernels through the rmem:: ops;
+    # phase 32's: each rank's training kernels a step under the split
+    for key, (fn_name, models) in PHASE31_ENTRIES.items():
+        entries[key]["phase31_launches"] = {
+            m: last["export_families"][m]["launches"][fn_name]
+            for m in models}
 
     print(json.dumps({"fps_windows": window_fps,
                       "fps_median": statistics.median(window_fps),
@@ -6599,6 +6968,8 @@ def main() -> int:
                       "gru_served": gru_served, "tree_train": tree_train,
                       "pre": last["pre"], "mesh": last["mesh"],
                       "export": last["export"],
+                      "export_families": last["export_families"],
+                      "tp": last["tp"],
                       "card": card, "host": host_line()}))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

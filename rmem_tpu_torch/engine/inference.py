@@ -20,7 +20,10 @@ With RMem's ConvGRU memory (`Config.gru_memory_active`, AOT only) a
 long-term write appends to the bank in temporal order and, once the bank
 is full (which the count of writes tells the host), folds the evicted slot
 into slot 1 through each layer's GRU cells
-(memory/eviction.py:evict_if_full_gru).
+(memory/eviction.py:evict_if_full_gru). The functional step
+(`functional_step`, which tools/export.py traces) has no host schedule:
+it takes the write as a `torch.cond` on the flag and the round from the
+bank's count on the device (evict_if_full_gru_device).
 
 The engine runs on the card unless the caller passes `device="cpu"`; with
 no card and no device given it raises. On the card every kernel of the path
@@ -44,8 +47,9 @@ import torch.nn as nn
 from rmem_tpu_torch.config import Config
 from rmem_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from rmem_tpu_torch.memory import bank_append, init_bank, update_bank_inplace
-from rmem_tpu_torch.memory.eviction import evict_if_full_gru
-from rmem_tpu_torch.memory.bank import MemoryBank
+from rmem_tpu_torch.memory.eviction import (evict_if_full_gru,
+                                            evict_if_full_gru_device)
+from rmem_tpu_torch.memory.bank import MemoryBank, bank_appended
 from rmem_tpu_torch.models.encoders import fold_bn_params
 from rmem_tpu_torch.ops.layers import map_to_seq
 from rmem_tpu_torch.ops.masks import mask_unused_ids
@@ -287,7 +291,9 @@ class InferenceEngine:
         if cfg.no_long_memory:
             return state
         if write_flag is not None:
-            self._write_long(state, lk, lv, write_flag)
+            write = (self._write_gru_flagged if cfg.gru_memory_active
+                     else self._write_long)
+            write(state, lk, lv, write_flag)
             return state
         do_long = state.frame_step - state.last_mem_step >= state.gap
         if cfg.gru_memory_active and not do_long:
@@ -335,6 +341,44 @@ class InferenceEngine:
             # the slots written: the reference's, the earlier writes', this
             state.gru_hid_k, state.gru_hid_v, 2 + state.long_writes,
             state.record, fg)
+
+    def _write_gru_flagged(self, state: EngineState, lk, lv,
+                           write_flag: torch.Tensor) -> None:
+        """The ConvGRU memory's write decided on the device, for a traced
+        step: torch.cond on the bool scalar write_flag between an append
+        followed by evict_if_full_gru_device and no write. The round is a
+        torch.where select inside the branch, as JAX's is, and not a
+        nested cond: it pays the ConvGRU on the writes before the bank is
+        full too (a bank that is full rounds on every write), and keeps
+        the traced program to one higher-order op."""
+        cfg = self.cfg
+        size_2d = self._enc_hw(state)
+
+        def compress(k, v, hid_k, hid_v):
+            return self.model.lstt.compress_evicted(k, v, hid_k, hid_v,
+                                                    size_2d)
+
+        def write(k, v, count, score, scored, times, order, hid_k, hid_v,
+                  lk, lv, record, fg):
+            bank = bank_appended(MemoryBank(k, v, count, score, scored,
+                                            times, order), lk, lv)
+            bank, hid_k, hid_v = evict_if_full_gru_device(
+                bank, cfg.former_mem_len, cfg.latter_mem_len, compress,
+                hid_k, hid_v, record, fg)
+            return (bank.k, bank.v, bank.count, bank.score, bank.scored,
+                    bank.times, bank.order, hid_k, hid_v)
+
+        def keep(*operands):
+            # a branch may not return an input as it is
+            return tuple(x.clone() for x in operands[:9])
+
+        b = state.bank
+        out = torch.cond(write_flag, write, keep, (
+            b.k, b.v, b.count, b.score, b.scored, b.times, b.order,
+            state.gru_hid_k, state.gru_hid_v, lk, lv, state.record,
+            self._fg_prob(state, lk)))
+        state.bank = MemoryBank(*out[:7])
+        state.gru_hid_k, state.gru_hid_v = out[7:]
 
     def _merged_label(self, logits4: torch.Tensor,
                       out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -403,36 +447,54 @@ class InferenceEngine:
     STATE_FIELDS = ("bank_k", "bank_v", "bank_count", "bank_score",
                     "bank_scored", "bank_times", "bank_order", "short_k",
                     "short_v", "record", "logits4x", "obj_nums")
+    GRU_FIELDS = ("gru_hid_k", "gru_hid_v")
 
-    @staticmethod
-    def state_tensors(state: EngineState) -> Tuple[torch.Tensor, ...]:
-        """The tensors of a state in STATE_FIELDS' order."""
+    def state_fields(self) -> Tuple[str, ...]:
+        """The state's tensors for this engine's config, in order:
+        STATE_FIELDS, without the record under no_long_memory (which
+        scores no slot), then GRU_FIELDS with the ConvGRU memory."""
+        names = self.STATE_FIELDS
+        if self.cfg.no_long_memory:
+            names = tuple(n for n in names if n != "record")
+        if self.cfg.gru_memory_active:
+            names += self.GRU_FIELDS
+        return names
+
+    def state_tensors(self, state: EngineState) -> Tuple[torch.Tensor, ...]:
+        """The tensors of a state in state_fields' order."""
         b = state.bank
-        return (b.k, b.v, b.count, b.score, b.scored, b.times, b.order,
-                state.short_k, state.short_v, state.record, state.logits4x,
-                state.obj_nums)
+        have = dict(bank_k=b.k, bank_v=b.v, bank_count=b.count,
+                    bank_score=b.score, bank_scored=b.scored,
+                    bank_times=b.times, bank_order=b.order,
+                    short_k=state.short_k, short_v=state.short_v,
+                    record=state.record, logits4x=state.logits4x,
+                    obj_nums=state.obj_nums, gru_hid_k=state.gru_hid_k,
+                    gru_hid_v=state.gru_hid_v)
+        return tuple(have[n] for n in self.state_fields())
 
     def functional_step(self, tensors: Sequence[torch.Tensor], img,
                         write_flag: torch.Tensor, out_hw: Tuple[int, int]
                         ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
-        """`step` as a function: (the state's tensors, img [1, H, W, 3],
-        the long-term write flag as a bool device scalar) -> (the new
-        state's tensors, label [H, W] int32). It copies the state first,
-        so no output aliases an input. The write schedule is the caller's:
-        the flag is what `update_memory` would decide on the host. Not
-        under inference_mode, so that torch.export can trace it (under
-        no_grad). The ConvGRU memory, whose write branches on the host,
-        and no_long_memory are not taken."""
-        cfg = self.cfg
-        if cfg.gru_memory_active or cfg.no_long_memory:
-            raise NotImplementedError(
-                "the functional step takes the in-place bank only: not the "
-                "ConvGRU memory (gru_memory) or no_long_memory")
-        t = [x.clone() for x in tensors]
+        """`step` as a function: (the state's tensors in state_fields'
+        order, img [1, H, W, 3], the long-term write flag as a bool device
+        scalar) -> (the new state's tensors, label [H, W] int32). It
+        copies the state first, so no output aliases an input. The write
+        schedule is the caller's: the flag is what `update_memory` would
+        decide on the host. With the ConvGRU memory the write is a
+        torch.cond on the flag and the eviction round is decided from the
+        bank's count on the device (`_write_gru_flagged`); with
+        no_long_memory only the short-term memory is written and the flag
+        is not read. Not under inference_mode, so that torch.export can
+        trace it (under no_grad)."""
+        t = dict(zip(self.state_fields(), (x.clone() for x in tensors)))
         state = EngineState(
-            bank=MemoryBank(*t[:7]), short_k=t[7], short_v=t[8], mems={},
-            record=t[9], logits4x=t[10], obj_nums=t[11], frame_step=0,
-            last_mem_step=0, gap=1)
+            bank=MemoryBank(t["bank_k"], t["bank_v"], t["bank_count"],
+                            t["bank_score"], t["bank_scored"],
+                            t["bank_times"], t["bank_order"]),
+            short_k=t["short_k"], short_v=t["short_v"], mems={},
+            record=t.get("record"), logits4x=t["logits4x"],
+            obj_nums=t["obj_nums"], frame_step=0, last_mem_step=0, gap=1,
+            gru_hid_k=t.get("gru_hid_k"), gru_hid_v=t.get("gru_hid_v"))
         img = self._to_dev(img, torch.float32)
         state, logits4 = self._propagate(state, img)
         label = self._merged_label(logits4, out_hw)

@@ -17,8 +17,10 @@ order instead: append, then fold the victim's keys and values into slot 1
 through the GRU cells, then compact. Serving picks the victim by the same
 rule with slot 1 pinned too (`scored_drop_index(gru_memory=True)`),
 training FIFO at `former_len + 1`. Whether a round runs is known on the
-host from the write schedule, so the route branches there and reads
-nothing back; the victim stays a device tensor.
+host from the write schedule, so the eager route branches there and reads
+nothing back; the victim stays a device tensor. The exported step has no
+host schedule: `evict_if_full_gru_device` decides the round from the
+bank's own count and selects, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -84,6 +86,29 @@ def scored_drop_index(bank: MemoryBank, record_mass: torch.Tensor,
             new_times.to(torch.int32))
 
 
+def _gru_round(bank: MemoryBank, former_len: int, compress_fn: Callable,
+               hid_k: torch.Tensor, hid_v: torch.Tensor,
+               record_mass: Optional[torch.Tensor] = None,
+               fg_prob: Optional[torch.Tensor] = None):
+    """One GRU eviction round, whatever the count: (bank, hid_k, hid_v)."""
+    if record_mass is not None:
+        drop, score, scored, times = scored_drop_index(
+            bank, record_mass, fg_prob, gru_memory=True)
+        bank = replace(bank, score=score, scored=scored, times=times)
+    else:
+        drop = torch.full((), former_len + 1, dtype=torch.int32,
+                          device=bank.count.device)
+    i = drop.reshape(1).long()
+    ok, ov, hid_k, hid_v = compress_fn(bank.k.index_select(1, i)[:, 0],
+                                       bank.v.index_select(1, i)[:, 0],
+                                       hid_k, hid_v)
+    one = torch.ones(1, dtype=torch.long, device=i.device)
+    bank = replace(bank,
+                   k=bank.k.index_copy(1, one, ok[:, None].to(bank.k.dtype)),
+                   v=bank.v.index_copy(1, one, ov[:, None].to(bank.v.dtype)))
+    return bank_compact(bank, drop), hid_k, hid_v
+
+
 def evict_if_full_gru(bank: MemoryBank, former_len: int, latter_len: int,
                       compress_fn: Callable, hid_k: torch.Tensor,
                       hid_v: torch.Tensor, count: int,
@@ -101,22 +126,29 @@ def evict_if_full_gru(bank: MemoryBank, former_len: int, latter_len: int,
     hid_v); the hidden states change only on a round."""
     if count <= former_len + latter_len:
         return bank, hid_k, hid_v
-    if record_mass is not None:
-        drop, score, scored, times = scored_drop_index(
-            bank, record_mass, fg_prob, gru_memory=True)
-        bank = replace(bank, score=score, scored=scored, times=times)
-    else:
-        drop = torch.full((), former_len + 1, dtype=torch.int32,
-                          device=bank.count.device)
-    i = drop.reshape(1).long()
-    ok, ov, hid_k, hid_v = compress_fn(bank.k.index_select(1, i)[:, 0],
-                                       bank.v.index_select(1, i)[:, 0],
-                                       hid_k, hid_v)
-    one = torch.ones(1, dtype=torch.long, device=i.device)
-    bank = replace(bank,
-                   k=bank.k.index_copy(1, one, ok[:, None].to(bank.k.dtype)),
-                   v=bank.v.index_copy(1, one, ov[:, None].to(bank.v.dtype)))
-    return bank_compact(bank, drop), hid_k, hid_v
+    return _gru_round(bank, former_len, compress_fn, hid_k, hid_v,
+                      record_mass, fg_prob)
+
+
+def evict_if_full_gru_device(bank: MemoryBank, former_len: int,
+                             latter_len: int, compress_fn: Callable,
+                             hid_k: torch.Tensor, hid_v: torch.Tensor,
+                             record_mass: Optional[torch.Tensor] = None,
+                             fg_prob: Optional[torch.Tensor] = None):
+    """evict_if_full_gru with the decision on the device, for a traced
+    step: the round runs whatever the count, and every output is selected
+    by `bank.count > former + latter` (JAX's `should`), so the ConvGRU is
+    paid on every call. Out of place; no output is an input."""
+    should = bank.count > former_len + latter_len
+    new, new_k, new_v = _gru_round(bank, former_len, compress_fn, hid_k,
+                                   hid_v, record_mass, fg_prob)
+    # the names spelled out: torch.cond's tracer does not read
+    # dataclasses.fields
+    picked = {n: torch.where(should, getattr(new, n), getattr(bank, n))
+              for n in ("k", "v", "count", "score", "scored", "times",
+                        "order")}
+    return (MemoryBank(**picked), torch.where(should, new_k, hid_k),
+            torch.where(should, new_v, hid_v))
 
 
 def update_bank_inplace(bank: MemoryBank, new_k: torch.Tensor,

@@ -200,13 +200,14 @@ class TensorParallelSplit:
         dim, idx = self.index[name]
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
+        # every tensor of a collective on one device (gloo refuses a mix)
+        idx = idx.to(t.device)
         idxs = [torch.empty_like(idx) for _ in range(self.size)]
-        dist.all_gather(idxs, idx.to(t.device), group=self.group)
+        dist.all_gather(idxs, idx, group=self.group)
         shape = list(t.shape)
         shape[dim] = sum(i.numel() for i in idxs)
         whole = t.new_empty(shape)
-        whole.index_copy_(dim, torch.cat(idxs).to(t.device),
-                          torch.cat(parts, dim=dim))
+        whole.index_copy_(dim, torch.cat(idxs), torch.cat(parts, dim=dim))
         return whole
 
     def shard(self, name: str, t: torch.Tensor) -> torch.Tensor:

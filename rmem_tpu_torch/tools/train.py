@@ -91,6 +91,9 @@ def main(argv=None):
     p.add_argument("--deterministic", action="store_true",
                    help="cuDNN's deterministic algorithms in every rank, "
                         "so that a run repeats bit for bit")
+    p.add_argument("--fix_random", action="store_true",
+                   help="seed numpy's global random state with 1, as "
+                        "rmem_tpu's CLI does")
     p.add_argument("--opt", nargs="*", default=[], metavar="KEY=VALUE",
                    help="config overrides, e.g. --opt train_log_step=1")
     args = p.parse_args(argv)
@@ -160,6 +163,9 @@ def _run(args) -> None:
     try:
         if rank0:
             copy_codes(cfg.dir_result)
+        if args.fix_random:
+            import numpy as np
+            np.random.seed(1)
         trainer = Trainer(cfg, data_root=args.data_root, device=device,
                           seed=args.seed)
         try:

@@ -3,7 +3,7 @@ gloo group on the CPU (RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT in
 its environment, as a launcher sets them), or the one-process reference
 without them.
 
-Usage: python _torch_parallel_worker.py MODE OUTDIR
+Usage: python _torch_parallel_worker.py MODE OUTDIR [MODEL]
 
 MODE train: 3 Trainer steps of tiny_deaotl f32 with SGD at global batch
 2 (one clip a rank), the loss of each step and the weights after to
@@ -11,8 +11,9 @@ OUTDIR.
 MODE eval / eval_claim: the Evaluator over the synthetic `test` set
 (max_frames 4), its sequences shared by length (eval_claim: the shortest
 claimed at run time through OUTDIR/claims), the stats to OUTDIR.
-MODE tp: 2 Trainer steps on a (1, 2) ("data", "model") mesh (the GPM
-self-attention split across the two ranks), as train, the weights whole.
+MODE tp: 2 Trainer steps of MODEL (default tiny_deaotl) on a (1, 2)
+("data", "model") mesh (the self-attention split across the two ranks), as
+train, the weights whole.
 """
 
 import itertools
@@ -23,6 +24,7 @@ import sys
 
 def main():
     mode, outdir = sys.argv[1], sys.argv[2]
+    model = sys.argv[3] if len(sys.argv) > 3 else "tiny_deaotl"
     import numpy as np
     import torch
     torch.set_num_threads(1)
@@ -39,7 +41,7 @@ def main():
         if distributed:
             over = (dict(mesh_shape=(1, 2), mesh_axes=("data", "model"))
                     if mode == "tp" else dict(mesh_shape=(-1,)))
-        cfg = get_config("test", model="tiny_deaotl", train_total_steps=100,
+        cfg = get_config("test", model=model, train_total_steps=100,
                          compute_dtype="float32", train_opt="sgd", **over)
         rng = np.random.RandomState(0)
         labels = np.zeros((2, 2, *hw), np.int32)

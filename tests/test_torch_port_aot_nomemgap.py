@@ -125,16 +125,19 @@ def test_stage_presets_match_jax(nmg):
                     stage, model, f.name)
 
 
-def test_train_cli_defaults_to_pre_vost_2(tmp_path):
+@pytest.mark.parametrize("fix_random", [False, True])
+def test_train_cli_defaults_to_pre_vost_2(tmp_path, fix_random):
     """`python -m rmem_tpu_torch.tools.train` with no --stage trains
     rmem_tpu's default stage, pre_vost_2: clips of 17 frames, from the
     datasets under --data_root (the run's files under a temporary
-    dir_root)."""
-    built = []
+    dir_root). With --fix_random, as rmem_tpu's CLI takes it, numpy's
+    global random state is seeded with 1 before the trainer is built."""
+    built, drawn = [], []
 
     class Recorder:
         def __init__(self, cfg, data_root=None, device=None, seed=0):
             built.append((cfg, data_root))
+            drawn.append(np.random.rand())
 
         def train(self, max_steps=None):
             return {}
@@ -142,11 +145,15 @@ def test_train_cli_defaults_to_pre_vost_2(tmp_path):
         def close(self):
             pass
 
+    np.random.seed(12345)
     with mock.patch.object(port_trainer, "Trainer", Recorder):
         train_cli.main(["--device", "cpu", "--max_steps", "1",
                         "--data_root", "datasets_here",
-                        "--opt", f"dir_root={tmp_path}"])
+                        "--opt", f"dir_root={tmp_path}"]
+                       + ["--fix_random"] * fix_random)
     ((cfg, data_root),) = built
+    seeded = np.random.RandomState(1).rand()
+    assert (drawn[0] == seeded) == fix_random
     assert cfg.data_seq_len == 17 and data_root == "datasets_here"
     # both CLIs name the run's experiment "rmem" by default
     ref = jget_config("pre_vost_2", "rmem", model="r50_deaotl")

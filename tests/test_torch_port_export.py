@@ -129,11 +129,3 @@ def test_export_cli_writes_a_loadable_artifact(tmp_path, capsys):
     prog = torch.export.load(out)
     assert len(prog.graph_signature.user_outputs) == len(
         InferenceEngine.STATE_FIELDS) + 1
-
-
-def test_functional_step_refuses_the_gru_memory():
-    """The ConvGRU memory's write branches on the host: not exported."""
-    cfg = get_config("test", model="tiny_aotl", compute_dtype="float32",
-                     gru_memory=True)
-    with pytest.raises(NotImplementedError, match="gru_memory"):
-        port_export.build_exported(cfg, hw=HW, device="cpu")

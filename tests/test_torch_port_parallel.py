@@ -37,9 +37,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run(mode: str, outdir: str, ranks: int):
+def _run(mode: str, outdir: str, ranks: int, *extra: str):
     """The worker as `ranks` processes of one group (0: one process, no
-    group); returns each one's result."""
+    group), `extra` after its mode and directory; returns each one's
+    result."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
                         "LOCAL_RANK")}
@@ -48,7 +49,7 @@ def _run(mode: str, outdir: str, ranks: int):
     port = _free_port()
     group = [dict(RANK=str(r), WORLD_SIZE=str(ranks), MASTER_ADDR="localhost",
                   MASTER_PORT=str(port)) for r in range(ranks)] or [{}]
-    procs = [subprocess.Popen([sys.executable, WORKER, mode, outdir],
+    procs = [subprocess.Popen([sys.executable, WORKER, mode, outdir, *extra],
                               env=dict(env, **g), cwd=ROOT,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -214,16 +215,21 @@ def test_tp_rule_matches_jax_spec_for_param(model):
                    tp.spec_for_param(n) for n in specs["params"])
 
 
-def test_tp_step_matches_one_rank(tmp_path):
-    """2 Trainer steps (SGD) of tiny_deaotl f32 with the GPM self-attention
-    split across the "model" axis of a (1, 2) mesh (each rank its half of
-    the value and gate rows, the matching taps and projection columns)
-    against one unsplit process: the losses, equal on both ranks, to 1e-5;
-    every weight, gathered whole, to 1e-5."""
-    two = _run("tp", str(tmp_path), 2)
-    (one,) = _run("tp", str(tmp_path), 0)
-    # 2 layers x (4 column-parallel weights and biases + the projection)
-    assert [r["split"] for r in two] == [18, 18] and one["split"] == 0
+# each model's split parameters: 2 layers x (4 column-parallel weights and
+# biases + the projection) for DeAOT's GPM, 2 projections for AOT's LSTT
+@pytest.mark.parametrize("model,split", [("tiny_deaotl", 18),
+                                         ("tiny_aotl", 2)])
+def test_tp_step_matches_one_rank(tmp_path, model, split):
+    """2 Trainer steps (SGD) of the model in f32 with the self-attention
+    split across the "model" axis of a (1, 2) mesh (DeAOT: each rank its
+    half of the GPM's value and gate rows, the matching taps and
+    projection columns; AOT: each rank its half of the output
+    projection's input columns) against one unsplit process: the losses,
+    equal on both ranks, to 1e-5; every weight, gathered whole, to
+    1e-5."""
+    two = _run("tp", str(tmp_path), 2, model)
+    (one,) = _run("tp", str(tmp_path), 0, model)
+    assert [r["split"] for r in two] == [split, split] and one["split"] == 0
     assert two[0]["losses"] == two[1]["losses"]
     np.testing.assert_allclose(two[0]["losses"], one["losses"], rtol=RTOL)
     p0, p1, ref = (np.load(os.path.join(str(tmp_path), f"params_{t}.npz"))
