@@ -25,6 +25,12 @@ into slot 1 through each layer's GRU cells
 it takes the write as a `torch.cond` on the flag and the round from the
 bank's count on the device (evict_if_full_gru_device).
 
+While a profiler runs, each layer of a served frame is a span of its own
+(utils/trace.py): `rmem.engine.chunk`, `.prep`, `.frame`, `.propagate`,
+`.aug_label` and `.update_memory`, the model's `rmem.model.encode`,
+`.propagation` and `.decode`, and the long-term write named by its
+outcome, `rmem.memory.write.spare`, `.append` or `.evict`.
+
 The engine runs on the card unless the caller passes `device="cpu"`; with
 no card and no device given it raises. On the card every kernel of the path
 (stem, bank attention, local attention, and with the opt-ins the slot-split
@@ -56,6 +62,7 @@ from rmem_tpu_torch.ops.masks import mask_unused_ids
 from rmem_tpu_torch.ops.resize import (resize_bilinear, resize_cubic,
                                        resize_nearest, upsample_argmax)
 from rmem_tpu_torch.ops.temporal_pe import interpolate_temporal_pe
+from rmem_tpu_torch.utils.trace import span, spanned
 
 
 @dataclass
@@ -176,6 +183,7 @@ class InferenceEngine:
                           label).to(torch.int64)
         return self.model.get_id_emb(lbl)
 
+    @spanned("rmem.model.encode")
     def _encode(self, img: torch.Tensor, groups: int):
         """Encode once and broadcast the features to the id-group batch."""
         xs = self.model.encode_image(img)
@@ -185,6 +193,7 @@ class InferenceEngine:
         b, c, eh, ew = xs[-1].shape
         return xs, map_to_seq(xs[-1]).contiguous(), (eh, ew)
 
+    @spanned("rmem.model.decode")
     def _decode(self, intermediates, xs, obj_nums):
         logits = self.model.decode_id_logits(intermediates, xs)
         return mask_unused_ids(logits, obj_nums)
@@ -250,6 +259,7 @@ class InferenceEngine:
                   ) -> Tuple[EngineState, torch.Tensor]:
         return self._propagate(state, img)
 
+    @spanned("rmem.engine.propagate")
     def _propagate(self, state: EngineState, img
                    ) -> Tuple[EngineState, torch.Tensor]:
         img = self._to_dev(img, torch.float32)
@@ -278,6 +288,7 @@ class InferenceEngine:
         group)."""
         return self._update_memory(state, label)
 
+    @spanned("rmem.engine.update_memory")
     def _update_memory(self, state: EngineState, label,
                        write_flag: Optional[torch.Tensor] = None
                        ) -> EngineState:
@@ -298,14 +309,27 @@ class InferenceEngine:
         do_long = state.frame_step - state.last_mem_step >= state.gap
         if cfg.gru_memory_active and not do_long:
             return state
-        if cfg.gru_memory_active:
-            self._write_gru(state, lk, lv, self._fg_prob(state, lk))
-        else:
-            self._write_long(state, lk, lv, self._write_flag[do_long])
+        with span(self._write_span(state, do_long)):
+            if cfg.gru_memory_active:
+                self._write_gru(state, lk, lv, self._fg_prob(state, lk))
+            else:
+                self._write_long(state, lk, lv, self._write_flag[do_long])
         if do_long:
             state.last_mem_step = state.frame_step
             state.long_writes += 1
         return state
+
+    def _write_span(self, state: EngineState, do_long: bool) -> str:
+        """The long-term write's span, named by its outcome, which the
+        host's schedule tells: `spare` (no write is due: the spare slot
+        takes it), `append` or `evict` (the bank holds the reference and
+        the earlier writes, 1 + long_writes slots, up to former + latter).
+        """
+        if not do_long:
+            return "rmem.memory.write.spare"
+        full = (1 + state.long_writes
+                >= self.cfg.former_mem_len + self.cfg.latter_mem_len)
+        return "rmem.memory.write." + ("evict" if full else "append")
 
     def _fg_prob(self, state: EngineState, lk) -> torch.Tensor:
         """[B, HW] foreground probability of the last logits on the 16x
@@ -380,6 +404,7 @@ class InferenceEngine:
         state.bank = MemoryBank(*out[:7])
         state.gru_hid_k, state.gru_hid_v = out[7:]
 
+    @spanned("rmem.engine.aug_label")
     def _merged_label(self, logits4: torch.Tensor,
                       out_hw: Tuple[int, int]) -> torch.Tensor:
         """The merged label [H, W] int32 of the group logits at out_hw."""
@@ -414,6 +439,7 @@ class InferenceEngine:
         return self.update_memory(
             state, self._input_label(state, label_full, in_hw, flip))
 
+    @spanned("rmem.engine.aug_label")
     def aug_label(self, logits4s: Sequence[torch.Tensor],
                   out_hw: Tuple[int, int],
                   flips: Sequence[bool]) -> torch.Tensor:
@@ -431,6 +457,7 @@ class InferenceEngine:
         return torch.argmax(torch.stack(probs).mean(dim=0),
                             dim=-1).to(torch.int32)
 
+    @spanned("rmem.engine.frame")
     @torch.inference_mode()
     def step(self, state: EngineState, img, out_hw: Tuple[int, int]
              ) -> Tuple[EngineState, torch.Tensor]:
@@ -525,6 +552,7 @@ class InferenceEngine:
             labels.append(label)
         return state, torch.stack(labels)
 
+    @spanned("rmem.engine.frame")
     @torch.inference_mode()
     def step_multi(self, states: Sequence[EngineState], imgs,
                    out_hw: Tuple[int, int], flips: Sequence[bool]
@@ -554,6 +582,7 @@ class InferenceEngine:
         return states, torch.stack(labels)
 
     # -- raw frames, prepared on the device -------------------------------
+    @spanned("rmem.engine.prep")
     @torch.inference_mode()
     def prep(self, raw, in_hw: Tuple[int, int], flip: bool = False
              ) -> torch.Tensor:
@@ -566,6 +595,7 @@ class InferenceEngine:
             x = x.flip(2)
         return x[:, None]
 
+    @spanned("rmem.engine.chunk")
     def scan_steps_raw(self, state: EngineState, raw,
                        in_hw: Tuple[int, int], out_hw: Tuple[int, int],
                        flip: bool = False
@@ -576,6 +606,7 @@ class InferenceEngine:
                                         out_hw)
         return state, labels.to(torch.uint8)
 
+    @spanned("rmem.engine.chunk")
     def scan_steps_multi_raw(self, states: Sequence[EngineState], raw,
                              in_hws: Sequence[Tuple[int, int]],
                              out_hw: Tuple[int, int], flips: Sequence[bool]

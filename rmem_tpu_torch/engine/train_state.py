@@ -23,6 +23,7 @@ import torch.nn as nn
 
 from rmem_tpu_torch.config import Config
 from rmem_tpu_torch.ops.schedule import encoder_lr, make_lr_schedule
+from rmem_tpu_torch.utils.trace import spanned
 
 FROZEN_STAGES = ("conv1", "bn1", "layer1")   # train_encoder_freeze_at 2
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -141,6 +142,7 @@ def _norm_sq(model: nn.Module, params, grads) -> torch.Tensor:
                        if n not in split.index)
 
 
+@spanned("rmem.train.optimizer")
 @torch.no_grad()
 def apply_gradients(state: TrainState, cfg: Config) -> torch.Tensor:
     """One optimizer step from the parameters' .grad, then the EMA; the

@@ -31,7 +31,10 @@ does each reverse decode. The bank is rebuilt out of place at each write.
 Everything the loop branches on (the frame index, the write schedule and
 so the bank's fill, its evictions and the reverse decodes, the curriculum
 flag, the step) is a host integer, and the bank's count stays on the
-device, so the loop never reads back from the card.
+device, so the loop never reads back from the card. The clip loss runs in
+the profiler span `rmem.train.forward`, and inside it the encoder pass,
+each propagation and each decode in theirs (`rmem.model.encode`,
+`.propagation`, `.decode`; under recomputation `*.recompute`).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from rmem_tpu_torch.ops.masks import (map_id_label, mask_unused_ids,
 from rmem_tpu_torch.ops.resize import resize_bilinear
 from rmem_tpu_torch.ops.temporal_pe import interpolate_temporal_pe
 from rmem_tpu_torch.utils.metric import pytorch_iou_batched
+from rmem_tpu_torch.utils.trace import span, spanned
 
 
 def check_supported(cfg: Config) -> None:
@@ -75,6 +79,7 @@ def aux_weight(step: int, cfg: Config) -> float:
                  * max(aux_step - f(step), f(0.0)) / aux_step)
 
 
+@spanned("rmem.train.forward")
 def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
                   obj_nums: torch.Tensor, step: int,
                   shuffle: Optional[torch.Tensor], use_prev_pred: bool,
@@ -89,8 +94,9 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
     align = cfg.model_align_corners
     max_obj = cfg.model_max_obj_num
 
-    xs_flat, var_loss = model.encode_image_aux(
-        imgs.reshape(b * t, *imgs.shape[2:]))
+    with span("rmem.model.encode"):
+        xs_flat, var_loss = model.encode_image_aux(
+            imgs.reshape(b * t, *imgs.shape[2:]))
     xs_bt = [x.reshape(b, t, *x.shape[1:]) for x in xs_flat]
     eh, ew = xs_bt[-1].shape[-2:]
     self_pos = model.get_pos_emb(eh, ew)
@@ -106,10 +112,11 @@ def train_forward(model, imgs: torch.Tensor, labels: torch.Tensor,
         return e.detach() if use_prev_pred else e
 
     def decode4(intermediates, xs):
-        logits4 = model.decode_id_logits(intermediates, xs).float()
-        if shuffle is not None:
-            logits4 = unshuffle_logits(logits4, shuffle)
-        return mask_unused_ids(logits4, obj_nums)
+        with span("rmem.model.decode"):
+            logits4 = model.decode_id_logits(intermediates, xs).float()
+            if shuffle is not None:
+                logits4 = unshuffle_logits(logits4, shuffle)
+            return mask_unused_ids(logits4, obj_nums)
 
     def frame_losses(logits4, label):
         """[N, h, w, C] /4 logits, [N, H, W] labels -> [N] losses."""

@@ -80,6 +80,7 @@ import torch
 
 from rmem_tpu_torch.kernels import build
 from rmem_tpu_torch.ops.attention import bank_attention
+from rmem_tpu_torch.utils.trace import spanned
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -502,6 +503,7 @@ def _mh_parts(s: int, b: int, lq: int, itemsize: int, device,
     return base, base + m_bytes, base + m_bytes + l_bytes
 
 
+@spanned("rmem.kernel.bank_attention_infer_mh")
 def bank_attention_infer_mh(q: torch.Tensor, bank_k: torch.Tensor,
                             bank_v: torch.Tensor, count: torch.Tensor,
                             num_heads: int, scale: float,
@@ -554,6 +556,7 @@ def _mh_call(q, bank_k, bank_v, count, num_heads, scale,
     return out, rec_h.mean(dim=1)
 
 
+@spanned("rmem.kernel.bank_attention_infer")
 def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
                          bank_v: torch.Tensor, count: torch.Tensor,
                          num_heads: int, scale: float,
@@ -599,6 +602,7 @@ def bank_attention_qminor_plain(q: torch.Tensor, bank_k: torch.Tensor,
     return bank_attention_plain(q, bank_k, bank_v, count, num_heads, scale)
 
 
+@spanned("rmem.kernel.bank_attention_qminor")
 def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
                           bank_v: torch.Tensor, count: torch.Tensor,
                           num_heads: int, scale: float
@@ -689,6 +693,7 @@ def bank_attention_lse_plain(q: torch.Tensor, bank_k: torch.Tensor,
     return out, rec, lse
 
 
+@spanned("rmem.kernel.bank_attention_lse")
 def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
                        bank_v: torch.Tensor, count: torch.Tensor,
                        scale: float, num_heads: int = 1
@@ -958,6 +963,7 @@ def _fused_call(stage: str, q, bank_k, bank_v, count, dout, lse2, rterm,
     return dq
 
 
+@spanned("rmem.kernel.bank_attention_bwd_fused", backward=True)
 def bank_attention_bwd_fused(q, bank_k, bank_v, count, dout, lse_h, delta_h,
                              drec, scale):
     """K2×2ᵛ¹²⁸: (dq, dk, dv) at 2 heads of 128 with values 128 a head,
@@ -1083,6 +1089,7 @@ def _split_call(stage: str, q, bank_k, bank_v, count, dout, lse2, rterm,
     return out
 
 
+@spanned("rmem.kernel.bank_attention_bwd_split", backward=True)
 def bank_attention_bwd_split(q, bank_k, bank_v, count, dout, lse_h, delta_h,
                              drec, scale):
     """K2 and K2×2: (dq, dk, dv) at one or two heads of 128 with values a
@@ -1156,6 +1163,7 @@ def _mh_lse_entry():
     return fn
 
 
+@spanned("rmem.kernel.bank_attention_lse_mh")
 def bank_attention_lse_mh(q: torch.Tensor, bank_k: torch.Tensor,
                           bank_v: torch.Tensor, count: torch.Tensor,
                           scale: float
@@ -1291,6 +1299,7 @@ def _mh_bwd_entry():
     return fn
 
 
+@spanned("rmem.kernel.bank_attention_bwd_mh", backward=True)
 def bank_attention_bwd_mh(q, bank_k, bank_v, count, out, rec_h, lse_h, dout,
                           drec, scale):
     """K2ʰ: (dq, dk, dv) at 8 heads of 32 from the forward's inputs, its f32

@@ -17,7 +17,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
+
+from rmem_tpu_torch.utils.trace import spanned
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -57,8 +59,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     names = list(names)
     paths = {n: library_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
-    if not todo:
-        return paths
+    if todo:
+        _compile(todo, paths)
+    return paths
+
+
+@spanned("rmem.kernels.build")
+def _compile(todo: List[str], paths: Dict[str, Path]) -> None:
+    """One nvcc for each of `todo`, all at once, into `paths`."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -78,7 +86,6 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
         os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return paths
 
 
 def load(name: str) -> ctypes.CDLL:

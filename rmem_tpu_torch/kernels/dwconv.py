@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.utils.trace import spanned
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +64,7 @@ def _entry():
     return fn, lib.rmem_gated_dwconv_channels()
 
 
+@spanned("rmem.kernel.gated_dwconv")
 def gated_dwconv(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
                  size_2d: Tuple[int, int]) -> torch.Tensor:
     """x, gate [B, H*W, C]; weight [C, 1, 5, 5]; size_2d (H, W). On the

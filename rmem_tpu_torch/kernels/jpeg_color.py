@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.utils.trace import spanned
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,6 +78,7 @@ def _entry():
     return fn
 
 
+@spanned("rmem.kernel.ycc_to_rgb")
 def ycc_to_rgb(y: torch.Tensor, cb: Optional[torch.Tensor],
                cr: Optional[torch.Tensor], mode: int) -> torch.Tensor:
     """As ycc_to_rgb_plain. On the card the planes may be row-pitched

@@ -28,6 +28,7 @@ import torch
 
 from rmem_tpu_torch.kernels import build
 from rmem_tpu_torch.ops.attention import dense_local_attention
+from rmem_tpu_torch.utils.trace import spanned
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,6 +84,7 @@ def _forward_entry():
     return fn
 
 
+@spanned("rmem.kernel.local_attention")
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rel_emb: torch.Tensor, size_2d: Tuple[int, int],
                     num_heads: int, max_dis: int,
@@ -286,6 +288,7 @@ def local_attention_bwd_stages_plain(q: torch.Tensor, k: torch.Tensor,
     return _tokens(dq), _tokens(dk), _tokens(dv), _tokens(ds)
 
 
+@spanned("rmem.kernel.local_attention_bwd", backward=True)
 def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         rel_emb: torch.Tensor, g: torch.Tensor,
                         size_2d: Tuple[int, int], num_heads: int,

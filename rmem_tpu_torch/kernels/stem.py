@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from rmem_tpu_torch.kernels import build
 from rmem_tpu_torch.ops.layers import max_pool_3x3_s2
+from rmem_tpu_torch.utils.trace import spanned
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,6 +101,7 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"stem: {msg}")
 
 
+@spanned("rmem.kernel.stem")
 def stem(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
          bias: torch.Tensor, save: bool = False):
     """x [B, H, W, 3] (f32 on the card); weight [64, 3, 7, 7]; scale, bias

@@ -33,6 +33,10 @@ writes the memory frame by frame as the reference's evaluator does.
 A video's time is wall-clock from frame 0's arrival to its last label on
 the host; `eval_fps_window` > 0 adds frames/s over every window of that
 many frames. `peak_hbm_gb` is the card's peak allocation over `evaluate`.
+Under a profiler (tools/eval.py --profile) the loop's wait for each
+decoded frame is the span `rmem.eval.decode` and each mask handed to the
+writer `rmem.eval.save` (the profiler records neither the decoding thread
+nor the writers'); the engine's spans lie inside the loop.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from rmem_tpu_torch.parallel.eval_sharding import (allreduce_stats,
                                                    rank, split_bulk_tail,
                                                    world_size)
 from rmem_tpu_torch.utils.image import AsyncMaskWriter
+from rmem_tpu_torch.utils.trace import span, spanned
 
 
 @dataclass
@@ -276,7 +281,8 @@ class Evaluator:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("rmem.eval.decode"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, Exception):
@@ -509,6 +515,7 @@ class Evaluator:
         self._save(np.asarray(frame.label, np.uint8), seq.name, frame.name,
                    ori_h, ori_w, frame.obj_idx)
 
+    @spanned("rmem.eval.save")
     def _save(self, label: np.ndarray, seq_name: str, frame_name: str,
               h: int, w: int, obj_idx) -> None:
         if label.shape != (h, w):

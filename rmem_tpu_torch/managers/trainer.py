@@ -53,15 +53,20 @@ from rmem_tpu_torch.utils.checkpoint import (load_file,
                                              save_checkpoint)
 from rmem_tpu_torch.utils.image import _save_mask, encode_png_rgb
 from rmem_tpu_torch.utils.metric import AverageMeter
+from rmem_tpu_torch.utils.trace import span, spanned
 
 
+@spanned("rmem.train.step")
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                shuffle: Optional[torch.Tensor], cfg: Config,
                reduce_grads=None) -> Dict[str, torch.Tensor]:
     """One step: the clip loss and its gradients (bf16 autocast on the
     parameters' f32 when cfg.compute_dtype is bfloat16), `reduce_grads`
     (model) where given (the data-parallel average), then the optimizer
-    and the EMA. Returns the metrics, on the device."""
+    and the EMA. Returns the metrics, on the device. Each part runs in its
+    profiler span: `rmem.train.forward` (train_forward's own), `.backward`
+    (the recomputed forward inside it named `*.recompute`), `.reduce` and
+    `.optimizer` (apply_gradients')."""
     model = state.model.train()
     for p in model.parameters():
         p.grad = None
@@ -73,9 +78,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         loss, metrics = train_forward(
             model, batch["imgs"], batch["labels"], batch["obj_nums"],
             state.step, shuffle, use_prev, cfg)
-    loss.backward()
+    with span("rmem.train.backward"):
+        loss.backward()
     if reduce_grads is not None:
-        reduce_grads(model)
+        with span("rmem.train.reduce"):
+            reduce_grads(model)
     metrics["grad_norm"] = apply_gradients(state, cfg)
     return metrics
 
@@ -140,6 +147,7 @@ class Trainer:
             if path:
                 log(f"auto-resumed from {path} (step {self.state.step})")
 
+    @spanned("rmem.train.batch")
     def next_batch(self):
         """The next clip batch and its id shuffle, on the device."""
         cfg = self.cfg

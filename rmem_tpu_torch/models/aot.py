@@ -22,6 +22,7 @@ from rmem_tpu_torch.models.encoders import build_encoder
 from rmem_tpu_torch.models.lstt import LSTT
 from rmem_tpu_torch.ops.layers import conv, seq_to_map
 from rmem_tpu_torch.ops.position import sine_position_embedding_on
+from rmem_tpu_torch.utils.trace import spanned
 
 
 class AOT(nn.Module):
@@ -109,6 +110,7 @@ class AOT(nn.Module):
             return None, None
         return self.cur_pos_emb, self.mem_pos_emb
 
+    @spanned("rmem.model.propagation")
     def lstt_forward(self, feat, bank, count, short, id_emb, cur_pe, slot_pe,
                      size_2d: Tuple[int, int], qminor: bool = False,
                      fused_dw: bool = False, self_pos=None, dp_gen=None):

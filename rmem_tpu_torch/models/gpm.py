@@ -5,7 +5,9 @@ Counterpart of `rmem_tpu/models/gpm.py`. Two streams per layer: visual
 (K, V ++ ID_V): long-term attention into the bank (kernel K1) and local
 short-term attention (kernel K4) read the concatenated values jointly and
 the output splits back into the two streams. Each attention is gated
-(output * silu(U)), then a depthwise conv and a projection. The gated
+(output * silu(U)), then a depthwise conv and a projection, in its
+profiler span (`rmem.model.block.long`, `.short`, `.self`;
+utils/trace.py). The gated
 self-attention is plain PyTorch: it has no kernel.
 
 In training mode (`module.train()`) both attentions go through the
@@ -35,6 +37,7 @@ from rmem_tpu_torch.kernels import local_attention as local_kernel
 from rmem_tpu_torch.ops.attention import (interleave_heads,
                                           multihead_attention, slot_pe_bias)
 from rmem_tpu_torch.ops.layers import DWConv2d, GroupNorm, LayerNorm, silu
+from rmem_tpu_torch.utils.trace import span
 
 MAX_LOCAL_DIS = 7  # window 15
 
@@ -158,21 +161,15 @@ class GPMBlock(nn.Module):
             short_k, short_v = curr_k, cat_v
             true_lk = None
 
-        q_t = curr_q + cur_pe if cur_pe is not None else curr_q
-        rel = self.relative_emb_k(curr_q)  # from the unscaled q
-        if self.training:
-            if slot_pe is not None:
+        with span("rmem.model.block.long"):
+            q_t = curr_q + cur_pe if cur_pe is not None else curr_q
+            if slot_pe is not None and (self.training or qminor):
                 bank_k = bank_k + slot_pe.to(bank_k.dtype)[:, None, None, :]
-            agg, record = bank_kernel.bank_attention_train(
-                q_t, bank_k, bank_v, count, scale, num_heads=self.att_heads)
-            agg3 = local_kernel.local_attention_trainable(
-                curr_q, short_k, short_v, rel, size_2d, self.att_heads,
-                MAX_LOCAL_DIS, scale)
-        else:
-            if qminor:
-                if slot_pe is not None:
-                    bank_k = (bank_k
-                              + slot_pe.to(bank_k.dtype)[:, None, None, :])
+            if self.training:
+                agg, record = bank_kernel.bank_attention_train(
+                    q_t, bank_k, bank_v, count, scale,
+                    num_heads=self.att_heads)
+            elif qminor:
                 agg, record = bank_kernel.bank_attention_qminor(
                     q_t, bank_k, bank_v, count, self.att_heads, scale)
             else:
@@ -181,11 +178,15 @@ class GPMBlock(nn.Module):
                 agg, record = bank_kernel.bank_attention_infer(
                     q_t, bank_k, bank_v, count, self.att_heads, scale,
                     true_lk=true_lk, qbias=bias)
-            agg3 = local_kernel.local_attention(
-                curr_q, short_k, short_v, rel, size_2d, self.att_heads,
-                MAX_LOCAL_DIS, scale)
-        cat_tgt2 = self.long_tail(agg, cat_u, size_2d, fused=fused_dw)
-        cat_tgt3 = self.short_tail(agg3, cat_u, size_2d, fused=fused_dw)
+            cat_tgt2 = self.long_tail(agg, cat_u, size_2d, fused=fused_dw)
+
+        with span("rmem.model.block.short"):
+            rel = self.relative_emb_k(curr_q)  # from the unscaled q
+            local = (local_kernel.local_attention_trainable if self.training
+                     else local_kernel.local_attention)
+            agg3 = local(curr_q, short_k, short_v, rel, size_2d,
+                         self.att_heads, MAX_LOCAL_DIS, scale)
+            cat_tgt3 = self.short_tail(agg3, cat_u, size_2d, fused=fused_dw)
 
         tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)
         tgt3, tgt_id3 = cat_tgt3.chunk(2, dim=-1)
@@ -193,11 +194,13 @@ class GPMBlock(nn.Module):
         tgt_id = (tgt_id2 + tgt_id3 if tgt_id is None
                   else tgt_id + tgt_id2 + tgt_id3)
 
-        cat_in = torch.cat([self.norm2(tgt), self.id_norm2(tgt_id)], dim=-1)
-        tgt2, tgt_id2 = self.self_attn(cat_in, size_2d,
-                                       fused_dw=fused_dw).chunk(2, dim=-1)
-        tgt = tgt + tgt2
-        tgt_id = tgt_id + tgt_id2
+        with span("rmem.model.block.self"):
+            cat_in = torch.cat([self.norm2(tgt), self.id_norm2(tgt_id)],
+                               dim=-1)
+            tgt2, tgt_id2 = self.self_attn(cat_in, size_2d,
+                                           fused_dw=fused_dw).chunk(2, dim=-1)
+            tgt = tgt + tgt2
+            tgt_id = tgt_id + tgt_id2
 
         mems = dict(curr_k=curr_k, curr_v=curr_v,
                     curr_id_v=(curr_id_v if curr_id_v is not None

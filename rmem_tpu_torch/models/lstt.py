@@ -4,7 +4,8 @@ Counterpart of `rmem_tpu/models/lstt.py`. Each block runs self-attention
 over the frame (queries and keys carry the sine position embedding), then
 long-term attention into the bank's valid slots with each slot's attention
 mass, then short-term attention to the previous frame's entries, then a
-conv FFN. The self-attention and the short-term attention are plain
+conv FFN, each in its profiler span (`rmem.model.block.self`, `.long`,
+`.short`, `.ffn`; utils/trace.py). The self-attention and the short-term attention are plain
 PyTorch matmul + softmax: the JAX package computes them outside any Pallas
 kernel.
 
@@ -40,6 +41,7 @@ from rmem_tpu_torch.kernels import bank_attention as bank_kernel
 from rmem_tpu_torch.models.conv_gru import ConvGRUCellOutput
 from rmem_tpu_torch.ops.attention import multihead_attention, slot_pe_bias
 from rmem_tpu_torch.ops.layers import GNActDWConv2d, LayerNorm, drop_path
+from rmem_tpu_torch.utils.trace import span
 
 
 class MultiheadAttentionModule(nn.Module):
@@ -100,10 +102,11 @@ class LSTTBlock(nn.Module):
         drop-path generator or None. With `id_emb` (the reference frame)
         the block's memory is its own frame, id-conditioned: one slot, and
         the short-term memory too. Returns (tgt, mems, record [B, HW, S])."""
-        _tgt = self.norm1(tgt)
-        q = k = _tgt + self_pos if self_pos is not None else _tgt
-        tgt = tgt + drop_path(self.self_attn(q, k, _tgt), self.droppath,
-                              dp_gen, self.training)
+        with span("rmem.model.block.self"):
+            _tgt = self.norm1(tgt)
+            q = k = _tgt + self_pos if self_pos is not None else _tgt
+            tgt = tgt + drop_path(self.self_attn(q, k, _tgt), self.droppath,
+                                  dp_gen, self.training)
 
         _tgt = self.norm2(tgt)
         curr_q = curr_k = self.linear_Q(_tgt)
@@ -117,35 +120,40 @@ class LSTTBlock(nn.Module):
         else:
             local_k, local_v = short_k, short_v
 
-        q_t = curr_q + cur_pe if cur_pe is not None else curr_q
-        scale = (q_t.shape[-1] // self.att_heads) ** -0.5
-        if self.training:
-            if slot_pe is not None:
-                bank_k = bank_k + slot_pe.to(bank_k.dtype)[:, None, None, :]
-            tgt2, record = bank_kernel.bank_attention_train(
-                q_t, bank_k, bank_v, count, scale, num_heads=self.att_heads)
-        else:
-            bias = (None if slot_pe is None
-                    else slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
-            tgt2, record = bank_kernel.bank_attention_infer(
-                q_t, bank_k, bank_v, count, self.att_heads, scale,
-                true_lk=true_lk, qbias=bias)
-        tgt2 = self.long_proj(tgt2)
+        with span("rmem.model.block.long"):
+            q_t = curr_q + cur_pe if cur_pe is not None else curr_q
+            scale = (q_t.shape[-1] // self.att_heads) ** -0.5
+            if self.training:
+                if slot_pe is not None:
+                    bank_k = (bank_k
+                              + slot_pe.to(bank_k.dtype)[:, None, None, :])
+                tgt2, record = bank_kernel.bank_attention_train(
+                    q_t, bank_k, bank_v, count, scale,
+                    num_heads=self.att_heads)
+            else:
+                bias = (None if slot_pe is None else
+                        slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
+                tgt2, record = bank_kernel.bank_attention_infer(
+                    q_t, bank_k, bank_v, count, self.att_heads, scale,
+                    true_lk=true_lk, qbias=bias)
+            tgt2 = self.long_proj(tgt2)
 
-        if self.linear_q:
-            sk = torch.cat([local_k, curr_k], dim=1)
-            sv = torch.cat([local_v, curr_v], dim=1)
-        else:
-            sk = self.norm4(local_k + curr_k)
-            sv = self.norm4(local_v + curr_v)
-        tgt3 = self.short_proj(multihead_attention(curr_q, sk, sv,
-                                                   self.att_heads))
+        with span("rmem.model.block.short"):
+            if self.linear_q:
+                sk = torch.cat([local_k, curr_k], dim=1)
+                sv = torch.cat([local_v, curr_v], dim=1)
+            else:
+                sk = self.norm4(local_k + curr_k)
+                sv = self.norm4(local_v + curr_v)
+            tgt3 = self.short_proj(multihead_attention(curr_q, sk, sv,
+                                                       self.att_heads))
         tgt = tgt + tgt2 + tgt3
 
-        _tgt = self.norm3(tgt)
-        tgt = tgt + drop_path(
-            self.linear2(self.activation(self.linear1(_tgt), size_2d)),
-            self.droppath, dp_gen, self.training)
+        with span("rmem.model.block.ffn"):
+            _tgt = self.norm3(tgt)
+            tgt = tgt + drop_path(
+                self.linear2(self.activation(self.linear1(_tgt), size_2d)),
+                self.droppath, dp_gen, self.training)
         mems = dict(curr_k=curr_k, curr_v=curr_v,
                     short_k=self.linear_QMem(tgt3), short_v=tgt3)
         return tgt, mems, record
