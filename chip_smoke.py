@@ -84,7 +84,11 @@ non-zero exit code:
    must have run, and evictions are counted on the device. Frames/s is
    timed over consecutive 30-frame windows with the bank full (three by
    default), each printed with the median, beside the card and the host's
-   CPU and load (the frame is host-bound);
+   CPU and load. From its second frame the engine serves by CUDA-graph
+   replays (rmem_tpu_torch/engine/graphs.py), which add each graph's
+   recorded launches to the counters; the phases that hold each kernel call
+   (4, 10, 14, 18, the holds of 7, 23, 24 and 26) and phase 30's eager
+   engine build theirs with graphs=False;
 4. run the first frames again through the kernel engine, holding every
    kernel call against its plain version on the same inputs, and through
    an engine with every kernel replaced by its plain version, the latter
@@ -2822,7 +2826,9 @@ SERVED_GRID = {"swinb_aotl": SWIN_GRID}
 _SEEDED = {}     # the last model's seeded weights: phases build it 3 times
 
 
-def build_engine(dev, model: str = "r50_deaotl"):
+def build_engine(dev, model: str = "r50_deaotl", graphs=None):
+    """The served model's engine (`graphs` as InferenceEngine takes it: the
+    held phases serve eagerly, so that every kernel call is a call)."""
     from rmem_tpu_torch.config import get_config
     from rmem_tpu_torch.engine import InferenceEngine
     from rmem_tpu_torch.models import build_vos_model, init_params
@@ -2833,7 +2839,7 @@ def build_engine(dev, model: str = "r50_deaotl"):
         _SEEDED[model] = {k: v.clone() for k, v in
                           init_params(net, seed=0).state_dict().items()}
     net.load_state_dict(_SEEDED[model])
-    return InferenceEngine(net, cfg, device=dev), cfg
+    return InferenceEngine(net, cfg, device=dev, graphs=graphs), cfg
 
 
 def evaluator_gap(cfg, num_frames: int) -> int:
@@ -3143,7 +3149,7 @@ def plain_agreement(dev, model: str = "r50_deaotl"):
                 fn = (plain_fn if plain
                       else holding(calls, name, getattr(mod, attr), plain_fn))
                 stack.enter_context(mock.patch.object(mod, attr, fn))
-            engine, cfg = build_engine(dev, model)
+            engine, cfg = build_engine(dev, model, graphs=False)
             gap = served_gap(cfg, AGREE_FRAMES + 1)
             state, logits = engine.add_reference(img0, mask, [NUM_OBJECTS],
                                                  gap=gap)
@@ -3246,7 +3252,7 @@ def nmg_qminor_agreement(dev):
     kb.bank_attention_infer.launches = 0
     with mock.patch.dict(os.environ, {"RMEM_BANK_QMINOR": "1"}), \
             mock.patch.object(kb, "bank_attention_qminor", k3):
-        engine, cfg = build_engine(dev, "r50_deaotl_nmg")
+        engine, cfg = build_engine(dev, "r50_deaotl_nmg", graphs=False)
         check(engine.route["qminor"], f"phase 14 routes {engine.route}")
         state, _ = engine.add_reference(
             img0, mask, [NUM_OBJECTS],
@@ -3293,15 +3299,16 @@ def optin_inputs():
     return raw, mask
 
 
-def optin_engine(dev, cfg):
+def optin_engine(dev, cfg, graphs=None):
     """The engine of phase 7 and its augs, as the evaluator builds them
     from the config: (scale, flip) for each scale and, with test_flip,
-    both flips; each aug's input size by restrict_size."""
+    both flips; each aug's input size by restrict_size. `graphs` as
+    build_engine's."""
     from rmem_tpu_torch.data.transforms import restrict_size
     from rmem_tpu_torch.engine import InferenceEngine
     from rmem_tpu_torch.models import build_vos_model, init_params
     model = init_params(build_vos_model(cfg.model_vos, cfg), seed=0)
-    engine = InferenceEngine(model, cfg, device=dev)
+    engine = InferenceEngine(model, cfg, device=dev, graphs=graphs)
     augs = [(sc, flip) for sc in cfg.test_multiscale
             for flip in ((False, True) if cfg.test_flip else (False,))]
     in_hws = [restrict_size(*RAW_HW, cfg.test_max_size, cfg.test_min_size,
@@ -3470,7 +3477,7 @@ def optin_agreement(dev):
                 for mod, attr, plain_fn in plain_only:
                     stack.enter_context(mock.patch.object(mod, attr,
                                                           plain_fn))
-            engine, augs, in_hws = optin_engine(dev, cfg)
+            engine, augs, in_hws = optin_engine(dev, cfg, graphs=False)
             flips = [f for _, f in augs]
             states = optin_reference(engine, cfg, raw[0], mask, augs, in_hws)
             labels, logits = [], []
@@ -5719,7 +5726,7 @@ def export_phase(dev, card: str, tmp: Path) -> dict:
     from rmem_tpu_torch.kernels import stem as ks
     from rmem_tpu_torch.tools.export import build_exported
 
-    engine, cfg = build_engine(dev, "r50_deaotl")
+    engine, cfg = build_engine(dev, "r50_deaotl", graphs=False)
     t0 = time.perf_counter()
     exported, _, _ = build_exported(cfg, _SEEDED["r50_deaotl"], IN_HW,
                                     device=dev)

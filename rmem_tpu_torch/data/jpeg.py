@@ -148,11 +148,19 @@ class Nvjpeg:
             cr = buf[h * w + ch * cw:].view(ch, cw)
             img.channel[1], img.pitch[1] = cb.data_ptr(), cw
             img.channel[2], img.pitch[2] = cr.data_ptr(), cw
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(device)
+        # the state's buffers serve one decode at a time, on the card too:
+        # where the host runs ahead of a busy card, the last decode's
+        # copies may not have run yet
+        done = getattr(self._local, "done", None)
+        if done is not None:
+            done.synchronize()
         check(self.lib.nvjpegDecode(self.handle, self._state(), data,
                                     len(data), OUTPUT_Y if mode == GREY
                                     else OUTPUT_YUV, ctypes.byref(img),
-                                    stream), "nvjpegDecode")
+                                    stream.cuda_stream), "nvjpegDecode")
+        self._local.done = torch.cuda.Event()
+        self._local.done.record(stream)
         # the host bytes stay referenced until this thread's next decode
         self._local.last = data
         return mode, y, cb, cr

@@ -31,6 +31,19 @@ While a profiler runs, each layer of a served frame is a span of its own
 `.propagation` and `.decode`, and the long-term write named by its
 outcome, `rmem.memory.write.spare`, `.append` or `.evict`.
 
+On the card `step` and `step_multi` serve a set of states by replaying
+CUDA graphs of the frame's pieces once each state has served one frame
+eagerly (engine/graphs.py): the encoder, the propagation stack cut at each
+block's bank attention, which is called eagerly between them, the decoder,
+the label and each aug's memory update, each replayed inside the span that
+names it. The graphs live on the states (`EngineState.graphs`); the engine
+counts them (`graph_captures`, `graph_replays`, and `eager_frames`, the
+frames served without them). `propagate` and `update_memory` on a state
+that has graphs replay them too, so the state's tensors keep their
+addresses. Built with `graphs=False`, the engine serves every frame
+eagerly; with `graphs=True` off the card it runs the same pieces as plain
+calls.
+
 The engine runs on the card unless the caller passes `device="cpu"`; with
 no card and no device given it raises. On the card every kernel of the path
 (stem, bank attention, local attention, and with the opt-ins the slot-split
@@ -44,6 +57,7 @@ engine is built.
 from __future__ import annotations
 
 import os
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -52,6 +66,7 @@ import torch.nn as nn
 
 from rmem_tpu_torch.config import Config
 from rmem_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from rmem_tpu_torch.engine.graphs import AugGraphs, FrameGraphs
 from rmem_tpu_torch.memory import bank_append, init_bank, update_bank_inplace
 from rmem_tpu_torch.memory.eviction import (evict_if_full_gru,
                                             evict_if_full_gru_device)
@@ -82,6 +97,8 @@ class EngineState:
     long_writes: int = 0                  # long-term writes after the ref
     gru_hid_k: Optional[torch.Tensor] = None   # [L, B, H, W, C], GRU only
     gru_hid_v: Optional[torch.Tensor] = None
+    warm: bool = False                    # served a frame by step/step_multi
+    graphs: Optional[AugGraphs] = None    # its pieces, once captured
 
 
 def separate_mask(label: torch.Tensor, num_groups: int,
@@ -146,11 +163,16 @@ class InferenceEngine:
 
     The engine takes over `model`: it moves it to the device and, for a
     bf16 config, folds the encoder's frozen-BN scales into its convs and
-    casts every weight to bf16 (as the JAX engine does with its params)."""
+    casts every weight to bf16 (as the JAX engine does with its params).
+    `graphs` (None: on the card) serves frames through the pieces of
+    engine/graphs.py; False serves every frame eagerly."""
 
     def __init__(self, model: nn.Module, cfg: Config,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 graphs: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+        self.graph_captures = self.graph_replays = self.eager_frames = 0
         self.cfg = cfg
         if cfg.compute_dtype == "bfloat16":
             model.load_state_dict(fold_bn_params(model.state_dict()))
@@ -259,21 +281,27 @@ class InferenceEngine:
                   ) -> Tuple[EngineState, torch.Tensor]:
         return self._propagate(state, img)
 
+    def _temporal_pes(self, bank: MemoryBank):
+        """(cur_pe, slot_pe) of a frame propagated from `bank`: each
+        physical slot takes the PE of its temporal rank."""
+        cur_pe, mem = self.model.temporal_pe()
+        if mem is None:
+            return cur_pe, None
+        slot_pe = interpolate_temporal_pe(mem, bank.count, bank.capacity)
+        return cur_pe, slot_pe.index_select(0, bank.order.long())
+
     @spanned("rmem.engine.propagate")
     def _propagate(self, state: EngineState, img
                    ) -> Tuple[EngineState, torch.Tensor]:
         img = self._to_dev(img, torch.float32)
+        if state.graphs is not None:
+            return state.graphs.propagate(state, img)
         xs, feat, size_2d = self._encode(img, state.short_k.shape[1])
         bank = state.bank
-        cur_pe, mem = self.model.temporal_pe()
-        slot_pe = None
-        if mem is not None:
-            slot_pe = interpolate_temporal_pe(mem, bank.count, bank.capacity)
-            # each physical slot takes the PE of its temporal rank
-            slot_pe = slot_pe.index_select(0, bank.order.long())
         intermediates, mems, record = self.model.lstt_forward(
             feat, (bank.k, bank.v), bank.count,
-            (state.short_k, state.short_v), None, cur_pe, slot_pe, size_2d,
+            (state.short_k, state.short_v), None,
+            *self._temporal_pes(bank), size_2d,
             self_pos=self.model.get_pos_emb(*size_2d), **self.route)
         logits = self._decode(intermediates, xs, state.obj_nums)
         state.frame_step += 1
@@ -296,6 +324,8 @@ class InferenceEngine:
         long-term write in place of the host's schedule (which it then
         leaves as it is)."""
         cfg = self.cfg
+        if state.graphs is not None and write_flag is None:
+            return state.graphs.update_memory(state, self._to_dev(label))
         id_emb = self._id_emb(self._to_dev(label))
         lk, lv, sk, sv = self.model.write_memories(state.mems, id_emb)
         state.short_k, state.short_v = sk, sv
@@ -311,7 +341,8 @@ class InferenceEngine:
             return state
         with span(self._write_span(state, do_long)):
             if cfg.gru_memory_active:
-                self._write_gru(state, lk, lv, self._fg_prob(state, lk))
+                self._write_gru(state, lk, lv, self._fg_prob(
+                    state.logits4x, self._enc_hw(state), lk))
             else:
                 self._write_long(state, lk, lv, self._write_flag[do_long])
         if do_long:
@@ -331,12 +362,12 @@ class InferenceEngine:
                 >= self.cfg.former_mem_len + self.cfg.latter_mem_len)
         return "rmem.memory.write." + ("evict" if full else "append")
 
-    def _fg_prob(self, state: EngineState, lk) -> torch.Tensor:
+    def _fg_prob(self, logits4x: torch.Tensor, grid: Tuple[int, int],
+                 lk) -> torch.Tensor:
         """[B, HW] foreground probability of the last logits on the 16x
         grid: the eviction score's weight."""
         b, hw = lk.shape[1], lk.shape[2]
-        up = resize_bilinear(state.logits4x, self._enc_hw(state),
-                             self.cfg.model_align_corners)
+        up = resize_bilinear(logits4x, grid, self.cfg.model_align_corners)
         return 1.0 - torch.softmax(up.float(), dim=-1)[..., 0].reshape(b, hw)
 
     def _write_long(self, state: EngineState, lk, lv,
@@ -346,7 +377,8 @@ class InferenceEngine:
         spare slot)."""
         update_bank_inplace(state.bank, lk, lv, write_flag,
                             self.cfg.former_mem_len, self.cfg.latter_mem_len,
-                            state.record, self._fg_prob(state, lk))
+                            state.record, self._fg_prob(
+                                state.logits4x, self._enc_hw(state), lk))
 
     def _write_gru(self, state: EngineState, lk, lv, fg) -> None:
         """The ConvGRU memory's write: append in temporal order, then,
@@ -400,14 +432,17 @@ class InferenceEngine:
         out = torch.cond(write_flag, write, keep, (
             b.k, b.v, b.count, b.score, b.scored, b.times, b.order,
             state.gru_hid_k, state.gru_hid_v, lk, lv, state.record,
-            self._fg_prob(state, lk)))
+            self._fg_prob(state.logits4x, self._enc_hw(state), lk)))
         state.bank = MemoryBank(*out[:7])
         state.gru_hid_k, state.gru_hid_v = out[7:]
 
     @spanned("rmem.engine.aug_label")
-    def _merged_label(self, logits4: torch.Tensor,
-                      out_hw: Tuple[int, int]) -> torch.Tensor:
-        """The merged label [H, W] int32 of the group logits at out_hw."""
+    def _merged_label(self, logits4: torch.Tensor, out_hw: Tuple[int, int],
+                      graphs: Optional[FrameGraphs] = None) -> torch.Tensor:
+        """The merged label [H, W] int32 of the group logits at out_hw; by
+        the label graph of `graphs`, the frame's, where given."""
+        if graphs is not None:
+            return graphs.label([logits4])
         if logits4.shape[0] == 1:
             return upsample_argmax(logits4, out_hw,
                                    self.cfg.model_align_corners)
@@ -422,10 +457,14 @@ class InferenceEngine:
         """A merged label [H, W] at the output size as update_memory takes
         it: flipped for a flipped aug, nearest-resized to the input size,
         split into the state's id groups."""
+        return self._label_in(label_full, in_hw, flip, state.short_k.shape[1])
+
+    def _label_in(self, label_full: torch.Tensor, in_hw: Tuple[int, int],
+                  flip: bool, groups: int) -> torch.Tensor:
+        """`_input_label` for a state of `groups` id groups."""
         if flip:
             label_full = label_full.flip(1)
         label_in = resize_nearest(label_full[None, ..., None], in_hw)[..., 0]
-        groups = state.short_k.shape[1]
         if groups > 1:
             label_in = separate_mask(label_in, groups,
                                      self.cfg.model_max_obj_num)
@@ -435,17 +474,24 @@ class InferenceEngine:
                     in_hw: Tuple[int, int], flip: bool = False
                     ) -> EngineState:
         """update_memory with a merged label [H, W] at the output size
-        (`_input_label`)."""
+        (`_input_label`); the frame's own label, where the state's label
+        graph made it, goes in as that graph made it for the state."""
+        g = state.graphs
+        if g is not None and label_full is g.frame.label_full():
+            return self.update_memory(state, g.frame.label_in(g.index))
         return self.update_memory(
             state, self._input_label(state, label_full, in_hw, flip))
 
     @spanned("rmem.engine.aug_label")
     def aug_label(self, logits4s: Sequence[torch.Tensor],
-                  out_hw: Tuple[int, int],
-                  flips: Sequence[bool]) -> torch.Tensor:
+                  out_hw: Tuple[int, int], flips: Sequence[bool],
+                  graphs: Optional[FrameGraphs] = None) -> torch.Tensor:
         """The label [H, W] int32 of one frame's augs: each aug's group
         logits upsampled to out_hw and merged, unflipped, softmaxed; the
-        argmax of the mean."""
+        argmax of the mean. By the label graph of `graphs`, the frame's,
+        where given."""
+        if graphs is not None:
+            return graphs.label(logits4s)
         probs = []
         for logits4, flip in zip(logits4s, flips):
             merged = soft_logit_aggregation(
@@ -465,10 +511,46 @@ class InferenceEngine:
         update_memory with the label nearest-resized back to the input
         size. img [1, H, W, 3]. Returns (state, label [H, W] int32)."""
         img = self._to_dev(img, torch.float32)
-        state, logits4 = self.propagate(state, img)
-        label_full = self._merged_label(logits4, out_hw)
-        return self.write_label(state, label_full,
-                                tuple(img.shape[1:3])), label_full
+        frame, capture = self._frame_graphs([state], [img], out_hw, [False],
+                                            multi=False)
+        with span("rmem.engine.capture") if capture else nullcontext():
+            state, logits4 = self.propagate(state, img)
+            label_full = self._merged_label(logits4, out_hw, graphs=frame)
+            state = self.write_label(state, label_full, tuple(img.shape[1:3]))
+        return state, self._served([state], frame, label_full)
+
+    def _frame_graphs(self, states: Sequence[EngineState], imgs,
+                      out_hw: Tuple[int, int], flips: Sequence[bool],
+                      multi: bool) -> Tuple[Optional[FrameGraphs], bool]:
+        """(the graphs that serve this frame of `states` or None, whether
+        the frame captures them): the states' own graphs where they fit,
+        else new ones once every state has served a frame (engine/
+        graphs.py)."""
+        if not self.graphs or torch.compiler.is_compiling():
+            return None, False
+        own = states[0].graphs
+        if own is not None and own.frame.fits(states, imgs, out_hw, flips,
+                                               multi):
+            return own.frame, False
+        if not all(st.warm for st in states):
+            return None, False
+        frame = FrameGraphs(self, [img.shape[1:3] for img in imgs], out_hw,
+                            flips, multi, states[0].short_k.shape[1])
+        for i, (st, img) in enumerate(zip(states, imgs)):
+            st.graphs = AugGraphs(frame, i, st, img)
+        return frame, True
+
+    def _served(self, states: Sequence[EngineState],
+                frame: Optional[FrameGraphs],
+                label: torch.Tensor) -> torch.Tensor:
+        """The frame's label as step and step_multi return it: a copy of
+        the label graph's output, which the next frame rewrites."""
+        if frame is not None:
+            return label.clone()
+        self.eager_frames += 1
+        for st in states:
+            st.warm = True
+        return label
 
     # -- the step as a function of tensors, for torch.export ------------
     STATE_FIELDS = ("bank_k", "bank_v", "bank_count", "bank_score",
@@ -562,12 +644,17 @@ class InferenceEngine:
         nearest-resized to that aug's input size. states/imgs/flips: one
         per aug. Returns (states, label [H, W] int32)."""
         imgs = [self._to_dev(img, torch.float32) for img in imgs]
-        logits4s = []
-        for st, img in zip(states, imgs):
-            logits4s.append(self.propagate(st, img)[1])
-        label_full = self.aug_label(logits4s, out_hw, flips)
-        return [self.write_label(st, label_full, tuple(img.shape[1:3]), flip)
-                for st, img, flip in zip(states, imgs, flips)], label_full
+        frame, capture = self._frame_graphs(states, imgs, out_hw, flips,
+                                            multi=True)
+        with span("rmem.engine.capture") if capture else nullcontext():
+            logits4s = [self.propagate(st, img)[1]
+                        for st, img in zip(states, imgs)]
+            label_full = self.aug_label(logits4s, out_hw, flips,
+                                        graphs=frame)
+            states = [self.write_label(st, label_full, tuple(img.shape[1:3]),
+                                       flip)
+                      for st, img, flip in zip(states, imgs, flips)]
+        return states, self._served(states, frame, label_full)
 
     def scan_steps_multi(self, states: Sequence[EngineState], imgs,
                          out_hw: Tuple[int, int], flips: Sequence[bool]

@@ -79,6 +79,7 @@ from typing import Optional, Tuple
 import torch
 
 from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.kernels.launches import launched
 from rmem_tpu_torch.ops.attention import bank_attention
 from rmem_tpu_torch.utils.trace import spanned
 
@@ -521,7 +522,7 @@ def bank_attention_infer_mh(q: torch.Tensor, bank_k: torch.Tensor,
                                     scale, true_lk, qbias)
     out = _mh_call(q, bank_k, bank_v, count, num_heads, scale, true_lk,
                    qbias)
-    bank_attention_infer_mh.launches += 1
+    bank_attention_infer_mh.launches += launched(bank_attention_infer_mh)
     return out
 
 
@@ -586,7 +587,7 @@ def bank_attention_infer(q: torch.Tensor, bank_k: torch.Tensor,
                                        scale, true_lk, qbias)
     out = _slots_call(q, bank_k, bank_v, count, num_heads, scale, true_lk,
                       qbias)
-    bank_attention_infer.launches += 1
+    bank_attention_infer.launches += launched(bank_attention_infer)
     return out
 
 
@@ -627,7 +628,7 @@ def bank_attention_qminor(q: torch.Tensor, bank_k: torch.Tensor,
         out = _mh_call(q, bank_k, bank_v, count, num_heads, scale)
     else:
         out = _slots_call(q, bank_k, bank_v, count, num_heads, scale)
-    bank_attention_qminor.launches += 1
+    bank_attention_qminor.launches += launched(bank_attention_qminor)
     return out
 
 
@@ -710,7 +711,7 @@ def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
     s, b, lq, lk, dh, dv = _check_bank(q, bank_k, bank_v, count, num_heads)
     if (num_heads, dh, dv) == NARROW_VALUES:
         out = _lse_v128_call(q, bank_k, bank_v, count, scale)
-        bank_attention_lse.launches += 1
+        bank_attention_lse.launches += launched(bank_attention_lse)
         return out
     _check(s <= 128, f"{s} slots (the merge takes up to 128)")
     fn = _lse_entry()
@@ -726,7 +727,7 @@ def bank_attention_lse(q: torch.Tensor, bank_k: torch.Tensor,
              lse.data_ptr(), b, num_heads, lq, s, lk, dh, dv, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "bank_attention_lse")
-    bank_attention_lse.launches += 1
+    bank_attention_lse.launches += launched(bank_attention_lse)
     return out, rec, lse
 
 
@@ -991,7 +992,7 @@ def bank_attention_bwd_fused(q, bank_k, bank_v, count, dout, lse_h, delta_h,
     args = (q, bank_k, bank_v, count, dout, lse2, rterm, scale)
     dk, dv = _fused_call("dkv", *args)
     dq = _fused_call("dq", *args)
-    bank_attention_bwd_fused.launches += 1
+    bank_attention_bwd_fused.launches += launched(bank_attention_bwd_fused)
     return dq, dk, dv
 
 
@@ -1122,7 +1123,7 @@ def bank_attention_bwd_split(q, bank_k, bank_v, count, dout, lse_h, delta_h,
     dq = _split_call("dq", *args)
     dk = _split_call("dk", *args)
     dv = _split_call("dv", *args)
-    bank_attention_bwd_split.launches += 1
+    bank_attention_bwd_split.launches += launched(bank_attention_bwd_split)
     return dq, dk, dv
 
 
@@ -1188,7 +1189,7 @@ def bank_attention_lse_mh(q: torch.Tensor, bank_k: torch.Tensor,
         *parts, out.data_ptr(), rec_h.data_ptr(), lse_h.data_ptr(), b,
         MH_HEADS, lq, s, lk, float(scale), stream)
     build.check(err, "bank_attention_mh_lse")
-    bank_attention_lse_mh.launches += 1
+    bank_attention_lse_mh.launches += launched(bank_attention_lse_mh)
     return out, rec_h, lse_h
 
 
@@ -1339,7 +1340,7 @@ def bank_attention_bwd_mh(q, bank_k, bank_v, count, out, rec_h, lse_h, dout,
         base + lse2_b, base + lse2_b + rterm_b, dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, MH_HEADS, lq, s, lk, float(scale), stream)
     build.check(err, "bank_attention_mh_bwd")
-    bank_attention_bwd_mh.launches += 1
+    bank_attention_bwd_mh.launches += launched(bank_attention_bwd_mh)
     return dq, dk, dv
 
 

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.kernels.launches import launched
 from rmem_tpu_torch.utils.trace import spanned
 
 _P = ctypes.c_void_p
@@ -94,7 +95,7 @@ def gated_dwconv(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
     err = fn(x.data_ptr(), gate.data_ptr(), weight.data_ptr(), out.data_ptr(),
              b, h, w, c, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "gated_dwconv")
-    gated_dwconv.launches += 1
+    gated_dwconv.launches += launched(gated_dwconv)
     return out
 
 

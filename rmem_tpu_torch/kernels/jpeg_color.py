@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.kernels.launches import launched
 from rmem_tpu_torch.utils.trace import spanned
 
 _P = ctypes.c_void_p
@@ -101,7 +102,7 @@ def ycc_to_rgb(y: torch.Tensor, cb: Optional[torch.Tensor],
                    cb.stride(0), cb.shape[0], cb.shape[1], out.data_ptr(),
                    h, w, mode, torch.cuda.current_stream(y.device).cuda_stream)
     build.check(err, "ycc_to_rgb")
-    ycc_to_rgb.launches += 1
+    ycc_to_rgb.launches += launched(ycc_to_rgb)
     return out
 
 

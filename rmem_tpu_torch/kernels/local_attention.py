@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.kernels.launches import launched
 from rmem_tpu_torch.ops.attention import dense_local_attention
 from rmem_tpu_torch.utils.trace import spanned
 
@@ -129,7 +130,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              out.data_ptr(), b, h2d, w2d, num_heads, dh, dv, max_dis,
              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "local_attention")
-    local_attention.launches += 1
+    local_attention.launches += launched(local_attention)
     return out
 
 
@@ -340,7 +341,7 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              max_dis, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "local_attention_bwd")
-    local_attention_bwd.launches += 1
+    local_attention_bwd.launches += launched(local_attention_bwd)
     return dq, dk, dvv, drel
 
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from rmem_tpu_torch.kernels import build
+from rmem_tpu_torch.kernels.launches import launched
 from rmem_tpu_torch.ops.layers import max_pool_3x3_s2
 from rmem_tpu_torch.utils.trace import spanned
 
@@ -146,7 +147,7 @@ def stem(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
              None if argmax is None else argmax.data_ptr(), b, h, w,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "stem")
-    stem.launches += 1
+    stem.launches += launched(stem)
     return (out, conv, argmax) if save else out
 
 

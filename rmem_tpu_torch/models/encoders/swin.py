@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from rmem_tpu_torch.ops.cache import device_cache
 from rmem_tpu_torch.ops.layers import LayerNorm
 
 
@@ -49,6 +50,24 @@ def _shift_mask(hp: int, wp: int, ws: int, shift: int) -> np.ndarray:
     return (win[:, :, None] != win[:, None, :]).astype(np.float32) * -100.0
 
 
+@device_cache(16)
+def _rel_pos_index_on(ws: int, device: torch.device) -> torch.Tensor:
+    """_rel_pos_index copied to `device` once (a normal tensor, also when
+    first asked for under inference mode, so that autograd may save it
+    later): a frame reads it with no copy from the host, which a CUDA
+    graph could not capture."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_rel_pos_index(ws)).to(device)
+
+
+@device_cache(64)
+def _shift_mask_on(hp: int, wp: int, ws: int, shift: int,
+                   device: torch.device) -> torch.Tensor:
+    """_shift_mask copied to `device` once, as _rel_pos_index_on."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_shift_mask(hp, wp, ws, shift)).to(device)
+
+
 class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int):
         super().__init__()
@@ -67,7 +86,7 @@ class WindowAttention(nn.Module):
         qkv = self.qkv(x).reshape(b, n, 3, heads, dh)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5
-        idx = torch.from_numpy(_rel_pos_index(self.window_size)).to(x.device)
+        idx = _rel_pos_index_on(self.window_size, x.device)
         bias = self.relative_position_bias_table[idx].reshape(n, n, heads)
         logits = logits + bias.permute(2, 0, 1)[None].to(logits.dtype)
         if mask is not None:
@@ -104,8 +123,7 @@ class SwinBlock(nn.Module):
         mask = None
         if shift:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-            mask = torch.from_numpy(_shift_mask(hp, wp, ws, shift)).to(
-                x.device)
+            mask = _shift_mask_on(hp, wp, ws, shift, x.device)
         xw = x.reshape(b, hp // ws, ws, wp // ws, ws, c)
         xw = xw.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
         xw = self.attn(xw, mask)

@@ -6,8 +6,8 @@ Counterpart of `rmem_tpu/models/gpm.py`. Two streams per layer: visual
 short-term attention (kernel K4) read the concatenated values jointly and
 the output splits back into the two streams. Each attention is gated
 (output * silu(U)), then a depthwise conv and a projection, in its
-profiler span (`rmem.model.block.long`, `.short`, `.self`;
-utils/trace.py). The gated
+profiler span (`rmem.model.block.long` around the bank attention's call,
+`.short`, `.self`; utils/trace.py). The gated
 self-attention is plain PyTorch: it has no kernel.
 
 In training mode (`module.train()`) both attentions go through the
@@ -22,6 +22,10 @@ them: bank attention through K3 (`bank_attention_qminor`) with the slot PE
 added to the bank's keys as a slab, and every gated tail whose width is a
 multiple of 128 through the fused gate-multiply + depthwise conv K8
 (`gated_dwconv`).
+
+A block is `pre_bank`, its bank attention (a `BankQuery`) and
+`post_bank`, and the stack's `stages` yields each block's query
+(models/stages.py), as in the LSTT.
 """
 
 from __future__ import annotations
@@ -31,9 +35,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from rmem_tpu_torch.kernels import bank_attention as bank_kernel
 from rmem_tpu_torch.kernels import dwconv as dw_kernel
 from rmem_tpu_torch.kernels import local_attention as local_kernel
+from rmem_tpu_torch.models.stages import BankQuery, Stages, run_stages
 from rmem_tpu_torch.ops.attention import (interleave_heads,
                                           multihead_attention, slot_pe_bias)
 from rmem_tpu_torch.ops.layers import DWConv2d, GroupNorm, LayerNorm, silu
@@ -128,15 +132,15 @@ class GPMBlock(nn.Module):
             return silu(self.linear_ID_V(id_emb))
         return silu(self.linear_ID_V(torch.cat([curr_id_v, id_emb], dim=-1)))
 
-    def forward(self, tgt, tgt_id, bank_k, bank_v, count, short_k, short_v,
-                id_emb, cur_pe, slot_pe, size_2d, true_lk=None,
-                qminor: bool = False, fused_dw: bool = False):
-        """bank_k [S, B, HW, Ck] and bank_v [S, B, HW, Cv] (Cv = V ++ ID_V)
-        with `count` valid slots (int32 tensor); short_k/short_v
-        [B, HW, *]. With `id_emb` (the reference frame) the block attends to
-        its own frame instead: one slot, and the short-term memory is the
-        frame itself. `qminor` and `fused_dw` select the opt-in inference
-        kernels K3 and K8. Returns (tgt, tgt_id, mems, record)."""
+    def pre_bank(self, tgt, tgt_id, bank_k, bank_v, count, short_k,
+                 short_v, id_emb, cur_pe, slot_pe, true_lk=None,
+                 qminor: bool = False):
+        """The block up to its bank attention: the query, keys, values and
+        gates of both streams, and the bank attention's query (the slot
+        temporal PE as the logit bias on the "infer" route, added to the
+        bank's keys in training mode and on K3's route). Arguments as
+        `forward`'s. Returns (BankQuery, carry): the carry is what
+        `post_bank` takes."""
         dk = self.d_att * self.att_heads
         scale = self.d_att ** -0.5
         _tgt = self.norm1(tgt)
@@ -161,24 +165,30 @@ class GPMBlock(nn.Module):
             short_k, short_v = curr_k, cat_v
             true_lk = None
 
-        with span("rmem.model.block.long"):
-            q_t = curr_q + cur_pe if cur_pe is not None else curr_q
-            if slot_pe is not None and (self.training or qminor):
-                bank_k = bank_k + slot_pe.to(bank_k.dtype)[:, None, None, :]
-            if self.training:
-                agg, record = bank_kernel.bank_attention_train(
-                    q_t, bank_k, bank_v, count, scale,
-                    num_heads=self.att_heads)
-            elif qminor:
-                agg, record = bank_kernel.bank_attention_qminor(
-                    q_t, bank_k, bank_v, count, self.att_heads, scale)
-            else:
-                bias = (None if slot_pe is None else
-                        slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
-                agg, record = bank_kernel.bank_attention_infer(
-                    q_t, bank_k, bank_v, count, self.att_heads, scale,
-                    true_lk=true_lk, qbias=bias)
-            cat_tgt2 = self.long_tail(agg, cat_u, size_2d, fused=fused_dw)
+        q_t = curr_q + cur_pe if cur_pe is not None else curr_q
+        if slot_pe is not None and (self.training or qminor):
+            bank_k = bank_k + slot_pe.to(bank_k.dtype)[:, None, None, :]
+        if self.training or qminor:
+            query = BankQuery("train" if self.training else "qminor",
+                              q_t, bank_k, bank_v, count, self.att_heads,
+                              scale)
+        else:
+            bias = (None if slot_pe is None else
+                    slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
+            query = BankQuery("infer", q_t, bank_k, bank_v, count,
+                              self.att_heads, scale, true_lk, bias)
+        return query, (tgt, tgt_id, curr_q, curr_k, curr_v, curr_id_v, cat_u,
+                       short_k, short_v)
+
+    def post_bank(self, carry, agg, size_2d, fused_dw: bool = False):
+        """The block after its bank attention, from `pre_bank`'s carry and
+        the attention's output [B, HW, Cv]: the long-term gated tail, the
+        local short-term attention and its tail, the gated
+        self-attention. Returns (tgt, tgt_id, mems)."""
+        (tgt, tgt_id, curr_q, curr_k, curr_v, curr_id_v, cat_u, short_k,
+         short_v) = carry
+        scale = self.d_att ** -0.5
+        cat_tgt2 = self.long_tail(agg, cat_u, size_2d, fused=fused_dw)
 
         with span("rmem.model.block.short"):
             rel = self.relative_emb_k(curr_q)  # from the unscaled q
@@ -205,6 +215,23 @@ class GPMBlock(nn.Module):
         mems = dict(curr_k=curr_k, curr_v=curr_v,
                     curr_id_v=(curr_id_v if curr_id_v is not None
                                else torch.zeros_like(tgt_id)))
+        return tgt, tgt_id, mems
+
+    def forward(self, tgt, tgt_id, bank_k, bank_v, count, short_k, short_v,
+                id_emb, cur_pe, slot_pe, size_2d, true_lk=None,
+                qminor: bool = False, fused_dw: bool = False):
+        """bank_k [S, B, HW, Ck] and bank_v [S, B, HW, Cv] (Cv = V ++ ID_V)
+        with `count` valid slots (int32 tensor); short_k/short_v
+        [B, HW, *]. With `id_emb` (the reference frame) the block attends to
+        its own frame instead: one slot, and the short-term memory is the
+        frame itself. `qminor` and `fused_dw` select the opt-in inference
+        kernels K3 and K8. Returns (tgt, tgt_id, mems, record): `pre_bank`,
+        the bank attention, `post_bank`."""
+        query, carry = self.pre_bank(tgt, tgt_id, bank_k, bank_v, count,
+                                     short_k, short_v, id_emb, cur_pe,
+                                     slot_pe, true_lk, qminor)
+        agg, record = query.attend()
+        tgt, tgt_id, mems = self.post_bank(carry, agg, size_2d, fused_dw)
         return tgt, tgt_id, mems, record
 
 
@@ -229,16 +256,14 @@ class GPM(nn.Module):
     def block(self, i: int) -> GPMBlock:
         return getattr(self, f"block{i}")
 
-    def forward(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                count, short, id_emb, cur_pe, slot_pe,
-                size_2d: Tuple[int, int], qminor: bool = False,
-                fused_dw: bool = False, self_pos=None, dp_gen=None):
-        """bank: (k [L,S,B,HW,Ck], v [L,S,B,HW,Cv]) or None for the
-        reference frame; short: (k [L,B,HW,Ck], v [L,B,HW,Cv]) or None;
-        `qminor` and `fused_dw` go to every block; `self_pos` is unused, as
-        in the JAX package's GPM; a drop-path generator `dp_gen` raises
-        (the GPM's drop-path is not ported; the training step passes none).
-        Returns (intermediates [L x (B,HW,2C)], mems, layer-0 record)."""
+    def stages(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
+               count, short, id_emb, cur_pe, slot_pe,
+               size_2d: Tuple[int, int], qminor: bool = False,
+               fused_dw: bool = False, self_pos=None, dp_gen=None) -> Stages:
+        """`forward` as a generator (models/stages.py): each block's
+        `pre_bank`, then its BankQuery yielded and the call's (out,
+        record) taken back (the record is read from the first block
+        only), then its `post_bank`; returns forward's result."""
         if dp_gen is not None:
             raise NotImplementedError("the GPM's drop-path is not ported")
         out, out_id = tgt, None
@@ -247,15 +272,19 @@ class GPM(nn.Module):
         record0 = None
         true_lk = size_2d[0] * size_2d[1]
         for i in range(self.num_layers):
-            out, out_id, mems, rec = self.block(i)(
+            block = self.block(i)
+            query, carry = block.pre_bank(
                 out, out_id,
                 bank[0][i] if bank is not None else None,
                 bank[1][i] if bank is not None else None, count,
                 short[0][i] if short is not None else None,
                 short[1][i] if short is not None else None,
-                id_emb, cur_pe, slot_pe, size_2d,
+                id_emb, cur_pe, slot_pe,
                 true_lk=true_lk if bank is not None else None,
-                qminor=qminor, fused_dw=fused_dw)
+                qminor=qminor)
+            agg, rec = yield query
+            out, out_id, mems = block.post_bank(carry, agg, size_2d,
+                                                fused_dw=fused_dw)
             if i == 0:
                 record0 = rec
             intermediates.append(torch.cat([out, out_id], dim=-1))
@@ -271,6 +300,21 @@ class GPM(nn.Module):
         mems = {k: torch.stack([m[k] for m in mems_list])
                 for k in mems_list[0]}
         return intermediates, mems, record0
+
+    def forward(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                count, short, id_emb, cur_pe, slot_pe,
+                size_2d: Tuple[int, int], qminor: bool = False,
+                fused_dw: bool = False, self_pos=None, dp_gen=None):
+        """bank: (k [L,S,B,HW,Ck], v [L,S,B,HW,Cv]) or None for the
+        reference frame; short: (k [L,B,HW,Ck], v [L,B,HW,Cv]) or None;
+        `qminor` and `fused_dw` go to every block; `self_pos` is unused, as
+        in the JAX package's GPM; a drop-path generator `dp_gen` raises
+        (the GPM's drop-path is not ported; the training step passes none).
+        Returns (intermediates [L x (B,HW,2C)], mems, layer-0 record)."""
+        return run_stages(self.stages(
+            tgt, bank, count, short, id_emb, cur_pe, slot_pe, size_2d,
+            qminor=qminor, fused_dw=fused_dw, self_pos=self_pos,
+            dp_gen=dp_gen))
 
     def project_memories(self, mems: Dict[str, torch.Tensor], id_emb):
         """(long V, ID_V) to store: the id embedding fused into each layer's

@@ -4,8 +4,9 @@ Counterpart of `rmem_tpu/models/lstt.py`. Each block runs self-attention
 over the frame (queries and keys carry the sine position embedding), then
 long-term attention into the bank's valid slots with each slot's attention
 mass, then short-term attention to the previous frame's entries, then a
-conv FFN, each in its profiler span (`rmem.model.block.self`, `.long`,
-`.short`, `.ffn`; utils/trace.py). The self-attention and the short-term attention are plain
+conv FFN, each in its profiler span (`rmem.model.block.self`, `.long`
+around the bank attention's call, `.short`, `.ffn`; utils/trace.py). The
+self-attention and the short-term attention are plain
 PyTorch matmul + softmax: the JAX package computes them outside any Pallas
 kernel.
 
@@ -18,6 +19,11 @@ for its VJP kernel, and the call is the differentiable
 `torch.Generator`, each block applies drop-path after its self-attention
 and its FFN in training mode; the training step passes none, as the JAX
 step passes no dp_rng.
+
+A block is `pre_bank`, its bank attention (a `BankQuery`) and
+`post_bank`, and the stack's `stages` yields each block's query
+(models/stages.py), so that the serving engine can run the code between
+two bank attentions as one CUDA graph.
 
 The forward returns the raw current keys and values; `project_memories`
 applies the id-conditioned re-projections when the engine writes them, so
@@ -37,8 +43,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from rmem_tpu_torch.kernels import bank_attention as bank_kernel
 from rmem_tpu_torch.models.conv_gru import ConvGRUCellOutput
+from rmem_tpu_torch.models.stages import BankQuery, Stages, run_stages
 from rmem_tpu_torch.ops.attention import multihead_attention, slot_pe_bias
 from rmem_tpu_torch.ops.layers import GNActDWConv2d, LayerNorm, drop_path
 from rmem_tpu_torch.utils.trace import span
@@ -92,16 +98,14 @@ class LSTTBlock(nn.Module):
         self.activation = GNActDWConv2d(dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d)
 
-    def forward(self, tgt, bank_k, bank_v, count, short_k, short_v, id_emb,
-                self_pos, cur_pe, slot_pe, size_2d, true_lk=None,
-                dp_gen: Optional[torch.Generator] = None):
-        """tgt [B, HW, C]; bank_k, bank_v [S, B, Lk, C] with `count` valid
-        slots (int32 tensor) and keys >= true_lk masked (in eval mode; the
-        training bank holds no padding); short_k, short_v [B, HW, C];
-        self_pos [1, HW, C] or None; slot_pe [S, C] or None; dp_gen the
-        drop-path generator or None. With `id_emb` (the reference frame)
-        the block's memory is its own frame, id-conditioned: one slot, and
-        the short-term memory too. Returns (tgt, mems, record [B, HW, S])."""
+    def pre_bank(self, tgt, bank_k, bank_v, count, short_k, short_v,
+                 id_emb, self_pos, cur_pe, slot_pe, true_lk=None,
+                 dp_gen: Optional[torch.Generator] = None):
+        """The block up to its bank attention: self-attention, the query
+        and the current keys and values, and the bank attention's query
+        (with the slot temporal PE as its logit bias in eval mode, added to
+        the bank's keys in training mode). Arguments as `forward`'s.
+        Returns (BankQuery, carry): the carry is what `post_bank` takes."""
         with span("rmem.model.block.self"):
             _tgt = self.norm1(tgt)
             q = k = _tgt + self_pos if self_pos is not None else _tgt
@@ -120,23 +124,27 @@ class LSTTBlock(nn.Module):
         else:
             local_k, local_v = short_k, short_v
 
-        with span("rmem.model.block.long"):
-            q_t = curr_q + cur_pe if cur_pe is not None else curr_q
-            scale = (q_t.shape[-1] // self.att_heads) ** -0.5
-            if self.training:
-                if slot_pe is not None:
-                    bank_k = (bank_k
-                              + slot_pe.to(bank_k.dtype)[:, None, None, :])
-                tgt2, record = bank_kernel.bank_attention_train(
-                    q_t, bank_k, bank_v, count, scale,
-                    num_heads=self.att_heads)
-            else:
-                bias = (None if slot_pe is None else
-                        slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
-                tgt2, record = bank_kernel.bank_attention_infer(
-                    q_t, bank_k, bank_v, count, self.att_heads, scale,
-                    true_lk=true_lk, qbias=bias)
-            tgt2 = self.long_proj(tgt2)
+        q_t = curr_q + cur_pe if cur_pe is not None else curr_q
+        scale = (q_t.shape[-1] // self.att_heads) ** -0.5
+        if self.training:
+            if slot_pe is not None:
+                bank_k = bank_k + slot_pe.to(bank_k.dtype)[:, None, None, :]
+            query = BankQuery("train", q_t, bank_k, bank_v, count,
+                              self.att_heads, scale)
+        else:
+            bias = (None if slot_pe is None else
+                    slot_pe_bias(q_t, slot_pe, self.att_heads, scale))
+            query = BankQuery("infer", q_t, bank_k, bank_v, count,
+                              self.att_heads, scale, true_lk, bias)
+        return query, (tgt, curr_q, curr_k, curr_v, local_k, local_v)
+
+    def post_bank(self, carry, attended, size_2d,
+                  dp_gen: Optional[torch.Generator] = None):
+        """The block after its bank attention, from `pre_bank`'s carry and
+        the attention's output [B, HW, C]: the long-term projection,
+        short-term attention, the FFN. Returns (tgt, mems)."""
+        tgt, curr_q, curr_k, curr_v, local_k, local_v = carry
+        tgt2 = self.long_proj(attended)
 
         with span("rmem.model.block.short"):
             if self.linear_q:
@@ -156,6 +164,24 @@ class LSTTBlock(nn.Module):
                 self.droppath, dp_gen, self.training)
         mems = dict(curr_k=curr_k, curr_v=curr_v,
                     short_k=self.linear_QMem(tgt3), short_v=tgt3)
+        return tgt, mems
+
+    def forward(self, tgt, bank_k, bank_v, count, short_k, short_v, id_emb,
+                self_pos, cur_pe, slot_pe, size_2d, true_lk=None,
+                dp_gen: Optional[torch.Generator] = None):
+        """tgt [B, HW, C]; bank_k, bank_v [S, B, Lk, C] with `count` valid
+        slots (int32 tensor) and keys >= true_lk masked (in eval mode; the
+        training bank holds no padding); short_k, short_v [B, HW, C];
+        self_pos [1, HW, C] or None; slot_pe [S, C] or None; dp_gen the
+        drop-path generator or None. With `id_emb` (the reference frame)
+        the block's memory is its own frame, id-conditioned: one slot, and
+        the short-term memory too. Returns (tgt, mems, record [B, HW, S]):
+        `pre_bank`, the bank attention, `post_bank`."""
+        query, carry = self.pre_bank(tgt, bank_k, bank_v, count, short_k,
+                                     short_v, id_emb, self_pos, cur_pe,
+                                     slot_pe, true_lk, dp_gen)
+        attended, record = query.attend()
+        tgt, mems = self.post_bank(carry, attended, size_2d, dp_gen)
         return tgt, mems, record
 
     def project_memories(self, curr_v, short_v, id_emb):
@@ -200,32 +226,33 @@ class LSTT(nn.Module):
     def block(self, i: int) -> LSTTBlock:
         return getattr(self, f"block{i}")
 
-    def forward(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                count, short, id_emb, cur_pe, slot_pe,
-                size_2d: Tuple[int, int], qminor: bool = False,
-                fused_dw: bool = False, self_pos=None,
-                dp_gen: Optional[torch.Generator] = None):
-        """bank: (k [L,S,B,HW,C], v [L,S,B,HW,C]) or None for the reference
-        frame; short: (k [L,B,HW,C], v) or None; dp_gen the drop-path
-        generator or None. The opt-in routes `qminor` and `fused_dw` do
-        not apply: the JAX engine sends AOT through neither, and the LSTT
-        has no gated tail. Returns (intermediates [L x (B,HW,C)], mems
-        stacked [L, ...], layer-0 record)."""
+    def stages(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
+               count, short, id_emb, cur_pe, slot_pe,
+               size_2d: Tuple[int, int], qminor: bool = False,
+               fused_dw: bool = False, self_pos=None,
+               dp_gen: Optional[torch.Generator] = None) -> Stages:
+        """`forward` as a generator (models/stages.py): each block's
+        `pre_bank`, then its BankQuery yielded and the call's (out,
+        record) taken back (the record is read from the first block
+        only), then its `post_bank`; returns forward's result."""
         out = tgt
         intermediates: List[torch.Tensor] = []
         mems_list: List[Dict[str, torch.Tensor]] = []
         record0 = None
         true_lk = size_2d[0] * size_2d[1]
         for i in range(self.num_layers):
-            out, mems, rec = self.block(i)(
+            block = self.block(i)
+            query, carry = block.pre_bank(
                 out,
                 bank[0][i] if bank is not None else None,
                 bank[1][i] if bank is not None else None, count,
                 short[0][i] if short is not None else None,
                 short[1][i] if short is not None else None,
-                id_emb, self_pos, cur_pe, slot_pe, size_2d,
+                id_emb, self_pos, cur_pe, slot_pe,
                 true_lk=true_lk if bank is not None else None,
                 dp_gen=dp_gen)
+            attended, rec = yield query
+            out, mems = block.post_bank(carry, attended, size_2d, dp_gen)
             if i == 0:
                 record0 = rec
             intermediates.append(out)
@@ -240,6 +267,22 @@ class LSTT(nn.Module):
         mems = {k: torch.stack([m[k] for m in mems_list])
                 for k in mems_list[0]}
         return intermediates, mems, record0
+
+    def forward(self, tgt, bank: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                count, short, id_emb, cur_pe, slot_pe,
+                size_2d: Tuple[int, int], qminor: bool = False,
+                fused_dw: bool = False, self_pos=None,
+                dp_gen: Optional[torch.Generator] = None):
+        """bank: (k [L,S,B,HW,C], v [L,S,B,HW,C]) or None for the reference
+        frame; short: (k [L,B,HW,C], v) or None; dp_gen the drop-path
+        generator or None. The opt-in routes `qminor` and `fused_dw` do
+        not apply: the JAX engine sends AOT through neither, and the LSTT
+        has no gated tail. Returns (intermediates [L x (B,HW,C)], mems
+        stacked [L, ...], layer-0 record)."""
+        return run_stages(self.stages(
+            tgt, bank, count, short, id_emb, cur_pe, slot_pe, size_2d,
+            qminor=qminor, fused_dw=fused_dw, self_pos=self_pos,
+            dp_gen=dp_gen))
 
     def project_memories(self, mems: Dict[str, torch.Tensor], id_emb):
         """Per layer (long_v, short_v) to store, each stacked [L, B, HW, C]."""
